@@ -1,0 +1,74 @@
+"""Carry a simulator's "weights" across: the model arrays, the motor bank and
+the PD block constants, given as plain numpy dictionaries.
+
+A caller dumps the fields of a `jiminy_tpu` RobotModel / MotorBank /
+PDController to numpy (this package imports nothing of jiminy_tpu) and
+builds the port's objects from them, so both packages compute with
+identical constants.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from jiminy_torch.engine.hardware import MOTOR_ARRAY_FIELDS, MotorBank
+from jiminy_torch.models.model import ARRAY_FIELDS, META_FIELDS, RobotModel
+from jiminy_torch.ops.cdyn import PDComponents
+
+MOTOR_META_FIELDS = ("names", "joint_indices", "v_indices", "q_indices")
+
+
+def _meta(value):
+    if isinstance(value, (list, tuple, np.ndarray)):
+        return tuple(value.tolist() if isinstance(value, np.ndarray) else value)
+    return value
+
+
+def model_from_arrays(arrays: dict, device=None, dtype=None) -> RobotModel:
+    """RobotModel from `{field: value}` with every field of `ARRAY_FIELDS`
+    and `META_FIELDS`. With `device`, the arrays are also placed there in
+    `dtype` (float32 by default)."""
+    missing = [f for f in META_FIELDS + ARRAY_FIELDS if f not in arrays]
+    if missing:
+        raise KeyError(f"model arrays lack {missing}")
+    kw = {f: _meta(arrays[f]) for f in META_FIELDS}
+    for f in ("nq", "nv", "njoints"):
+        kw[f] = int(kw[f])
+    kw["name"] = str(kw["name"])
+    kw.update({f: np.array(arrays[f], dtype=np.float64) for f in ARRAY_FIELDS})
+    model = RobotModel(**kw)
+    if device is not None:
+        for f in ARRAY_FIELDS:
+            model.tensor(f, device, dtype or torch.float32)
+    return model
+
+
+def motor_bank_from_arrays(arrays: dict) -> MotorBank:
+    """MotorBank from `{field: value}` (`MOTOR_META_FIELDS` + the arrays)."""
+    kw = {f: _meta(arrays[f]) for f in MOTOR_META_FIELDS}
+    kw.update({f: np.array(arrays[f], dtype=np.float64) for f in MOTOR_ARRAY_FIELDS})
+    return MotorBank(**kw)
+
+
+def pd_components_from_arrays(arrays: dict) -> PDComponents:
+    """The PD block's in-kernel form from its constants: `kp`, `kd` (nm,),
+    `state_min`, `state_max` (3, nm), `effort_limit` (nm,), `dt`, and the
+    encoder read-out `reduction`, `q_indices`, `v_indices`, `joint_side`."""
+    nm = len(np.atleast_1d(arrays["effort_limit"]))
+
+    def floats(x):
+        return tuple(float(v) for v in np.broadcast_to(np.asarray(x, np.float64), (nm,)))
+
+    return PDComponents(
+        dt=float(arrays["dt"]),
+        kp=floats(arrays["kp"]),
+        kd=floats(arrays["kd"]),
+        smin=tuple(floats(row) for row in np.asarray(arrays["state_min"])),
+        smax=tuple(floats(row) for row in np.asarray(arrays["state_max"])),
+        eff=floats(arrays["effort_limit"]),
+        red=floats(arrays["reduction"]),
+        q_indices=tuple(int(i) for i in arrays["q_indices"]),
+        v_indices=tuple(int(i) for i in arrays["v_indices"]),
+        joint_side=tuple(bool(b) for b in arrays["joint_side"]),
+    )
