@@ -30,6 +30,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    TorchFunctionMode) with the model's structural zeros folded away; the
    generic formulation's count, zeros included, is printed beside it.
 
+6. Constrained path (anymal-pid in constraint contact mode, ground contacts
+   and joint bounds through the PGS solver, as bench.py builds it with
+   BENCH_CONTACT=constraint), float32 on the card: batched reset at B=131072
+   (the plain constrained solve, timed), 25 steps with zero actions through
+   cdyn_rollout_cm (launch counts set to 0 before, read after), then the
+   per-period path through cdyn_period_cm; physics checks on the final
+   state (all finite, none terminated, the feet carry the robot's weight
+   within 5 %, joints within their limits, multipliers inside their boxes
+   and friction cones).
+7. The constrained kernels at B=131072: float32 on the main path's states,
+   timed against the plain version at the full tick and substep counts;
+   float64 on the main path's states and float64 and float32 on states with
+   active rows (`constrained_inputs`), at 2 ticks x 2 substeps (a plain
+   constrained step is millions of eager launches), per column as in phase
+   3; and witnesses that the check fails for a zeroed multiplier column and
+   for a solver stopped after one sweep. Ops are counted on the plain
+   version per scalar element at B=1 on a main-path state, those with an
+   exactly-zero operand (structural or inactive-row zeros) folded away.
+
 The last two lines are the `{"kernels": [...]}` record and the device line.
 """
 
@@ -50,6 +69,10 @@ TOL = {"float64": (1e-9, 1e-9), "float32": (2e-3, 1e-2)}
 ERR_NAME = {"float64": "column max rel err", "float32": "column q90 err / rms"}
 F64_CHAOS_SHARE = 0.01
 GOLDEN_ATOL = 1e-9
+N_STEPS_CM = 25  # constrained main path (about 2 s per step at B_MAIN on an H100)
+CM_TICKS, CM_SUBSTEPS = 2, 2  # cut of the constrained kernel-vs-plain checks
+CM_WEIGHT_TOL = 0.05  # feet carry m g within this share at rest
+CM_JOINT_SLACK = 1e-2  # [rad] beyond a joint limit
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -590,6 +613,389 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2):
     return records
 
 
+# --------------------------------------------------------------------------- #
+# Constrained path (PGS): cdyn_period_cm and cdyn_rollout_cm
+# --------------------------------------------------------------------------- #
+
+
+def count_elem_ops(fn, fold_zeros):
+    """Scalar operations per env of `fn` run at B=1: each elementwise torch
+    call counts one per output element, a sum n - 1 per output; with
+    `fold_zeros`, additions, multiplications and divisions with an operand
+    element exactly 0 (or a factor exactly 1) are not counted."""
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    arith = {"add", "radd", "sub", "rsub", "mul", "rmul", "div", "truediv", "rtruediv"}
+
+    def elems(x, shape, pred):
+        if isinstance(x, torch.Tensor):
+            return pred(x).expand(shape)
+        return torch.full(shape, bool(pred(torch.tensor(float(x)))))
+
+    class Counter(TorchFunctionMode):
+        n = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "")
+            out = func(*args, **(kwargs or {}))
+            if not isinstance(out, torch.Tensor):
+                return out
+            if name == "sum":
+                terms = args[0].count_nonzero() if fold_zeros else args[0].numel()
+                Counter.n += max(int(terms) - out.numel(), 0)
+                return out
+            if name not in _COUNTED:
+                return out
+            key = name.strip("_")
+            if fold_zeros and key in arith:
+                a, b = args[0], args[1]
+                if key in ("rsub", "rtruediv"):
+                    a, b = b, a
+                shape = out.shape
+                live = elems(a, shape, lambda x: x != 0)
+                if key in ("mul", "rmul"):
+                    live = live & elems(b, shape, lambda x: x != 0)
+                    live = live & elems(a, shape, lambda x: x != 1) & elems(b, shape, lambda x: x != 1)
+                elif key in ("add", "radd", "sub"):
+                    live = live & elems(b, shape, lambda x: x != 0)
+                else:  # division: zero numerator or unit denominator
+                    live = live & elems(b, shape, lambda x: x != 1)
+                Counter.n += int(live.sum())
+                return out
+            Counter.n += out.numel()
+            return out
+
+    with torch.no_grad(), Counter():
+        fn()
+    return Counter.n
+
+
+def _cm_make(device, dtype):
+    from jiminy_torch.envs import make
+    from jiminy_torch.testing import constraint_mode_options
+
+    options = make("anymal-pid", device=device, dtype=dtype).engine.options
+    return make("anymal-pid", device=device, dtype=dtype, options=constraint_mode_options(options))
+
+
+def _cm_solver_row(sim, dtype):
+    import torch
+
+    return torch.cat([sim.lam, sim.contact_active.to(dtype), sim.bound_active.to(dtype)], dim=-1)
+
+
+def phase_constrained_main_path(device, smi):
+    import torch
+
+    from jiminy_torch.ops import cdyn
+
+    env = _cm_make(device, torch.float32)
+    eng = env.engine
+    action = torch.zeros(env.action_size, device=device)
+    st, _ = env.reset(batch_size=B_MAIN)  # warm-up, outside the counted run
+    st, *_ = env.step(st, action)
+    torch.cuda.synchronize()
+
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, _ = env.reset(batch_size=B_MAIN)
+    torch.cuda.synchronize()
+    reset_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[cm-main] batched reset B={B_MAIN}: {reset_ms:.1f} ms (host clock; the plain "
+        f"constrained solve, torch ops on the card) on {smi}")
+    t0 = time.perf_counter()
+    for _ in range(N_STEPS_CM):
+        st, obs, reward, term, trunc, _ = env.step(st, action)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    log(f"[cm-main] anymal-pid constraint mode float32 B={B_MAIN}, reset + {N_STEPS_CM} steps: "
+        f"launches {launches}")
+    check(launches["cdyn_rollout_cm"] == N_STEPS_CM and sum(launches.values()) == N_STEPS_CM,
+          "cdyn_rollout_cm did not run once per step (and nothing else)")
+    sim = st.sim
+    for name, x in (("q", sim.q), ("v", sim.v), ("reward", reward), ("lam", sim.lam),
+                    ("contact_forces", sim.contact_forces)):
+        check(bool(torch.isfinite(x).all()), f"non-finite {name} on the constrained main path")
+    fell = float(term.float().mean())
+    check(fell == 0.0, "standing ANYmal terminated in constraint mode under zero actions")
+    steps_per_s = B_MAIN * N_STEPS_CM / elapsed
+    log(f"[cm-main] env-steps/s {steps_per_s:.1f} ({elapsed:.4f} s for {N_STEPS_CM} steps, host "
+        f"clock) on {smi}")
+    physics_checks(env, sim)
+
+    env.use_fused_rollout = False
+    st2, _ = env.reset(batch_size=B_MAIN)
+    st2, *_ = env.step(st2, action)
+    torch.cuda.synchronize()
+    cdyn.reset_launch_counts()
+    n_pp = 2
+    t0 = time.perf_counter()
+    for _ in range(n_pp):
+        st2, *_ = env.step(st2, action)
+    torch.cuda.synchronize()
+    elapsed_pp = time.perf_counter() - t0
+    period_launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    n_periods = n_pp * env.env.n_ctrl_per_step
+    log(f"[cm-main] per-period path, {n_pp} steps: launches {period_launches}")
+    check(period_launches["cdyn_period_cm"] == n_periods
+          and sum(period_launches.values()) == n_periods,
+          "cdyn_period_cm did not run once per controller period (and nothing else)")
+    check(bool(torch.isfinite(st2.sim.q).all()), "non-finite q on the constrained per-period path")
+    pp_steps_per_s = B_MAIN * n_pp / elapsed_pp
+    log(f"[cm-main] per-period env-steps/s {pp_steps_per_s:.1f} on {smi}")
+    env.use_fused_rollout = True
+    return env, launches, period_launches, steps_per_s, pp_steps_per_s, reset_ms, st, st2
+
+
+def physics_checks(env, sim):
+    """Checks a zeroed or wrong solver fails, on the final state of the
+    constrained main path (the robot at rest on its four feet)."""
+    import numpy as np
+    import torch
+
+    eng = env.engine
+    cset, model = eng.cset, env.robot.model
+    nb, mu = cset.n_bounds, eng.options.contacts.friction
+    weight = float(np.sum(model.mass)) * -eng.options.world.gravity[2]
+    fz = sim.contact_forces[..., 2].sum(-1).double()
+    worst = float(((fz - weight).abs() / weight).max())
+    log(f"[cm-physics] sum of normal forces / (m g = {weight:.3f} N): worst env off by {worst:.3e} "
+        f"(tol {CM_WEIGHT_TOL:g})")
+    check(worst < CM_WEIGHT_TOL, "the feet do not carry the robot's weight")
+    qi = [model.idx_q[j] for j in cset.bound_joint_indices]
+    q = sim.q[:, qi].double()
+    lo = torch.as_tensor(model.position_limit_lower[qi], device=q.device)
+    hi = torch.as_tensor(model.position_limit_upper[qi], device=q.device)
+    over = float(torch.clamp(torch.maximum(lo - q, q - hi), min=0.0).max())
+    log(f"[cm-physics] joints past their limits by at most {over:.3e} rad (slack {CM_JOINT_SLACK:g})")
+    check(over <= CM_JOINT_SLACK, "a joint is past its limit")
+    lam = sim.lam.double()
+    lam_b, lam_n = lam[:, :nb], lam[:, nb + 2::4]
+    lam_t = torch.hypot(lam[:, nb::4], lam[:, nb + 1::4])
+    cone = float((lam_t - mu * lam_n * (1 + 1e-5)).max())
+    log(f"[cm-physics] min bound multiplier {float(lam_b.min()):.3e}, min normal multiplier "
+        f"{float(lam_n.min()):.3e}, max ||lam_t|| - mu lam_n (1 + 1e-5) {cone:.3e}")
+    check(float(lam_b.min()) >= 0.0 and float(lam_n.min()) >= 0.0, "negative boxed multiplier")
+    check(cone <= 0.0, "a tangential multiplier is outside the friction cone")
+
+
+def constrained_op_counts(env_cpu, st, fold_zeros):
+    """Ops per env of one constrained period (5 substeps) and one env step
+    (8 ticks), counted on the plain version at B=1 on env 0 of the main
+    path's final state: period = 5 substeps + the final solve; step = 8 x
+    (controller + 5 substeps) + 7 end-of-tick solves + the final solve."""
+    import torch
+
+    eng = env_cpu.engine
+    sim = st.sim
+    q = sim.q[:1].double().cpu()
+    v = sim.v[:1].double().cpu()
+    qc, vc = [q[..., i] for i in range(q.shape[-1])], [v[..., i] for i in range(v.shape[-1])]
+    cc = torch.cat([sim.command[:1].double().cpu(), _cm_solver_row(sim, torch.float64)[:1].cpu()], -1)
+    ccl = [cc[..., i] for i in range(cc.shape[-1])]
+    run = eng._get_period_run("rk4")
+    ctrl = env_cpu.block.component_controller(env_cpu.env)
+    rrun = eng._get_rollout_run("count", ctrl, env_cpu.env.n_ctrl_per_step)
+    block = st.blocks[env_cpu.block.name][:1].reshape(1, -1).double().cpu()
+    bc = torch.cat([block, _cm_solver_row(sim, torch.float64)[:1].cpu()], -1)
+    bcl = [bc[..., i] for i in range(bc.shape[-1])]
+    acl = [torch.zeros(1, dtype=torch.float64)] * env_cpu.action_size
+
+    def count(fn):
+        return count_elem_ops(fn, fold_zeros)
+
+    sub = count(lambda: run.substep(qc, vc, ccl))
+    fin = count(lambda: run.final_outputs(qc, vc, ccl))
+    ctl = count(lambda: rrun.controller_fn(qc, vc, bcl, acl))
+    post = count(lambda: rrun.post_tick_fn(qc, vc, ccl, bcl))
+    n_sub, n_ticks = run.n_substeps, rrun.n_ticks
+    return {
+        "cdyn_period_cm": n_sub * sub + fin,
+        "cdyn_rollout_cm": n_ticks * (ctl + n_sub * sub) + (n_ticks - 1) * post + fin,
+        "one constrained solve (final outputs)": fin,
+    }
+
+
+def phase_constrained_records(env, launches, period_launches, smi, st, st2):
+    """The two constrained kernels at B = B_MAIN, records for the kernels line."""
+    import dataclasses
+    import math
+
+    import torch
+
+    from jiminy_torch.engine import solver
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.testing import column_errors, column_quantile_errors, constrained_inputs
+
+    device = env.device
+    env64 = _cm_make(device, torch.float64)
+    engines = {torch.float32: env.engine, torch.float64: env64.engine}
+    nm = env.robot.nmotors
+    block = env.block.name
+    ctrl = env.env._component_controllers[block]
+    n_ticks = env.env.n_ctrl_per_step
+
+    env_cpu = _cm_make("cpu", torch.float64)
+    ops = constrained_op_counts(env_cpu, st, fold_zeros=True)
+    ops_generic = constrained_op_counts(env_cpu, st, fold_zeros=False)
+    log(f"[cm-ops] plain-version scalar ops per env at the main path's state, zero operands "
+        f"folded away: {ops}")
+    log(f"[cm-ops] the same, every element op: {ops_generic}")
+
+    def run_of(name, eng, opts=None):
+        if name == "cdyn_period_cm":
+            run = eng._get_period_run("rk4")
+            if opts is not None:
+                run = solver.ConstrainedPeriodIntegrator(run.cd, run.tau_c, run.cset, opts, run.dt,
+                                                         run.n_substeps, run.integrator,
+                                                         run.n_cmd, run.imu_frames)
+            return run
+        run = eng._get_rollout_run(block, ctrl, n_ticks)
+        if opts is not None:
+            run = solver.ConstrainedRolloutIntegrator(run.cd, run.tau_c, run.cset, opts, run.dt,
+                                                      run.n_substeps, run.n_ticks, ctrl,
+                                                      run.integrator, run.imu_frames)
+        return run
+
+    def reduced(name):
+        if name == "cdyn_period_cm":
+            return dict(n_substeps=CM_SUBSTEPS)
+        return dict(n_ticks=CM_TICKS, n_substeps=CM_SUBSTEPS)
+
+    # Main path states, float32 as stepped
+    main_inputs = {
+        "cdyn_period_cm": (st2.sim.q, st2.sim.v,
+                           torch.cat([st2.sim.command, _cm_solver_row(st2.sim, torch.float32)], -1)),
+        "cdyn_rollout_cm": (st.sim.q, st.sim.v, torch.zeros((B_MAIN, nm), device=device),
+                            torch.cat([st.blocks[block].reshape(B_MAIN, -1),
+                                       _cm_solver_row(st.sim, torch.float32)], -1)),
+    }
+    # States with active rows, the same values at both dtypes
+    qa, va, cmda, sola = constrained_inputs(env64, B_MAIN, seed=0)
+    blk = torch.zeros((B_MAIN, 3 * nm), dtype=torch.float64, device=device)
+    blk[:, :nm] = qa[:, 7:]
+    active = {"cdyn_period_cm": (qa, va, torch.cat([cmda, sola], -1)),
+              "cdyn_rollout_cm": (qa, va, cmda * 2.5, torch.cat([blk, sola], -1))}
+    nq, nv = env.robot.nq, env.robot.nv
+    cset = env.engine.cset
+    n_solver = cset.total_rows + cset.n_contacts + cset.n_bounds
+    n_extra = nv + 10 * cset.n_contacts + 6 * len(env.engine._imu_frames) + n_solver
+    n_cc, n_carry = nm + n_solver, 3 * nm + n_solver
+    io_per_env = {
+        "cdyn_period_cm": 2 * nq + 2 * nv + n_cc + n_extra,
+        "cdyn_rollout_cm": 2 * nq + 2 * nv + nm + n_carry + n_extra + n_cc + n_carry,
+    }
+    lam_cols = slice(n_extra - n_solver, n_extra - n_solver + cset.total_rows)
+    n_launch = {"cdyn_period_cm": period_launches["cdyn_period_cm"],
+                "cdyn_rollout_cm": launches["cdyn_rollout_cm"]}
+    n_time = {"cdyn_period_cm": 5, "cdyn_rollout_cm": 3}
+    tol64, tol32 = TOL["float64"][1], TOL["float32"][1]
+    records = []
+    for name in ("cdyn_period_cm", "cdyn_rollout_cm"):
+        # float32, main path states, full tick and substep counts: timing
+        run32 = run_of(name, engines[torch.float32])
+        xs = main_inputs[name]
+        ms = _time_cuda(lambda: run32.kernel(*xs), n_time[name])
+        outs = run32.kernel(*xs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = run32.plain(*xs)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        e_abs = abs_err(outs, refs)
+        del outs, refs
+
+        # float64, main path states, reduced counts: every column, every env
+        run64 = run_of(name, engines[torch.float64])
+        xs64 = tuple(x.double() for x in xs)
+        outs, refs = run64.kernel(*xs64, **reduced(name)), run64.plain(*xs64, **reduced(name))
+        torch.cuda.synchronize()
+        e64_main, at64_main = output_error(outs, refs, "float64")
+        log(f"[cm-check] {name} float64 B={B_MAIN} ({reduced(name)}), main path states: column "
+            f"max rel err {e64_main:.3e} at {at64_main} (tol {tol64:g})")
+        check(all(bool(torch.isfinite(o).all()) for o in outs) and e64_main < tol64,
+              f"{name} float64 disagrees on the main path's states: {e64_main}")
+        del outs, refs
+
+        # float64, active rows, reduced counts; the one-ulp and the solver witnesses
+        xs = active[name]
+        outs, refs = run64.kernel(*xs, **reduced(name)), run64.plain(*xs, **reduced(name))
+        torch.cuda.synchronize()
+        e64, at64 = output_error(outs, refs, "float64")
+        share = share_beyond(outs, refs, tol64)
+        nudged = (torch.nextafter(xs[0], torch.full_like(xs[0], math.inf)),) + xs[1:]
+        share_n = share_beyond(run64.kernel(*nudged, **reduced(name)), outs, tol64)
+        zeroed = outs[2].clone()
+        zeroed[:, lam_cols] = 0.0
+        e_zero = float(column_errors(zeroed, refs[2]).max())
+        one_sweep = run_of(name, engines[torch.float64],
+                           dataclasses.replace(run64.opts, iter_max=1))
+        outs1 = one_sweep.kernel(*xs, **reduced(name))
+        e_sweep, at_sweep = output_error(outs1, refs, "float64")
+        log(f"[cm-check] {name} float64 B={B_MAIN} ({reduced(name)}), active rows: column max rel "
+            f"err {e64:.3e} at {at64}, share of envs beyond {tol64:g}: {share:.3e} (allowed "
+            f"{F64_CHAOS_SHARE:g}); with q moved one ulp the kernel moves {share_n:.3e} of envs "
+            f"as far; witnesses: lambda columns zeroed {e_zero:.3e}, one PGS sweep {e_sweep:.3e} "
+            f"at {at_sweep}")
+        check(all(bool(torch.isfinite(o).all()) for o in outs), f"{name}: non-finite output")
+        check(share <= F64_CHAOS_SHARE, f"{name} float64 disagrees on active rows: share {share}")
+        check(e_zero > tol64 and e_sweep > tol64, f"{name}: the float64 check misses a wrong solver")
+        del outs, refs, outs1
+
+        # float32, active rows, reduced counts: q90 per column; the witnesses again
+        run32 = run_of(name, engines[torch.float32])
+        xs32 = tuple(x.float() for x in xs)
+        outs, refs = run32.kernel(*xs32, **reduced(name)), run32.plain(*xs32, **reduced(name))
+        torch.cuda.synchronize()
+        e32, at32 = output_error(outs, refs, "float32")
+        zeroed = outs[2].clone()
+        zeroed[:, lam_cols] = 0.0
+        e32_zero = float(column_quantile_errors(zeroed, refs[2]).max())
+        one_sweep = run_of(name, engines[torch.float32],
+                           dataclasses.replace(run32.opts, iter_max=1))
+        e32_sweep, _ = output_error(one_sweep.kernel(*xs32, **reduced(name)), refs, "float32")
+        log(f"[cm-check] {name} float32 B={B_MAIN} ({reduced(name)}), active rows: column q90 "
+            f"err / rms {e32:.3e} at {at32} (tol {tol32:g}); witnesses: lambda columns zeroed "
+            f"{e32_zero:.3e}, one PGS sweep {e32_sweep:.3e}")
+        check(e32 < tol32, f"{name} float32 disagrees on active rows: {e32}")
+        check(e32_zero > tol32 and e32_sweep > tol32, f"{name}: the float32 check misses a wrong solver")
+        del outs, refs
+
+        t_ops = ops[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
+        t_ops_generic = ops_generic[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
+        t_bytes = io_per_env[name] * 4 * B_MAIN / PEAK_BYTES * 1e3
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": "jiminy_torch/csrc/pgs.cuh",
+            "replaces": cdyn.KERNELS[name].replaces.split()[0],
+            "launches": n_launch[name],
+            "max_abs_err": e_abs,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+            "ops_per_env": ops[name],
+            "ops_per_env_generic": ops_generic[name],
+            "bound_ms_generic": max(t_ops_generic, t_bytes),
+            "bytes_per_env": io_per_env[name] * 4,
+            "f64_err_main": e64_main,
+            "f64_err_active": e64,
+            "f64_share_active": share,
+            "f64_share_one_ulp": share_n,
+            "f32_q90_err_active": e32,
+        }
+        log(f"[kernel] {name} B={B_MAIN} float32: {ms:.3f} ms (CUDA events), plain {plain_ms:.1f} ms "
+            f"(host clock), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; every element op "
+            f"{rec['bound_ms_generic']:.4f} ms); |kernel-plain| on the main path's states "
+            f"{e_abs:.3e} on {smi}")
+        records.append(rec)
+    return records
+
+
 def main():
     import torch
 
@@ -608,7 +1014,13 @@ def main():
     phase_kernels_vs_plain(device)
     env, fused_launches, period_launches, steps_per_s, st, st2 = phase_main_path(device, smi)
     records = phase_kernel_records(env, fused_launches, period_launches, smi, st, st2)
-    log(f"[done] {time.perf_counter() - t_start:.1f} s; anymal-pid env-steps/s {steps_per_s:.1f} on {smi}")
+    del env, st, st2
+    cm = phase_constrained_main_path(device, smi)
+    cm_env, cm_launches, cm_period_launches, cm_steps_per_s, _, cm_reset_ms, cm_st, cm_st2 = cm
+    records += phase_constrained_records(cm_env, cm_launches, cm_period_launches, smi, cm_st,
+                                         cm_st2)
+    log(f"[done] {time.perf_counter() - t_start:.1f} s; anymal-pid env-steps/s {steps_per_s:.1f}, "
+        f"constraint mode {cm_steps_per_s:.1f} (reset {cm_reset_ms:.1f} ms) on {smi}")
     log(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

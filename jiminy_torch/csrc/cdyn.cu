@@ -6,6 +6,9 @@
 //   cdyn_rollout <- _pallas_rollout_fn (one env step: controller ticks x
 //                                       substeps + extras)
 //
+// and, from pgs.cuh, the constrained (PGS) bodies of the last two:
+// cdyn_period_cm and cdyn_rollout_cm.
+//
 // They compute what the Pallas kernels compute, not their block structure.
 // One thread integrates one environment: the whole state of an env step
 // stays in the thread, and the I/O is read and written once in
@@ -924,6 +927,12 @@ __global__ void cdyn_rollout_kernel(const int* ci, const T* cf, const int* pi, c
   for (int i = 0; i < n_carry; ++i) eo[(size_t)(n_std + n_cmd + i) * B + b] = bc[i];
 }
 
+}  // namespace cdyn
+
+#include "pgs.cuh"
+
+namespace cdyn {
+
 constexpr int kThreads = 128;
 
 inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
@@ -965,6 +974,35 @@ int launch_rollout(const void* ci, const void* cf, const void* pi, const void* p
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_period_cm(const void* ci, const void* cf, const void* si, const void* sf, const void* q,
+                     const void* v, const void* cc, void* qo, void* vo, void* eo, int B, int n_cmd,
+                     int n_substeps, int integrator, void* stream) {
+  cudaGetLastError();
+  cdyn_period_cm_kernel<T><<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const int*>(si),
+      static_cast<const T*>(sf), static_cast<const T*>(q), static_cast<const T*>(v),
+      static_cast<const T*>(cc), static_cast<T*>(qo), static_cast<T*>(vo), static_cast<T*>(eo), B,
+      n_cmd, n_substeps, integrator);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_rollout_cm(const void* ci, const void* cf, const void* si, const void* sf,
+                      const void* pi, const void* pf, int controller, const void* q, const void* v,
+                      const void* action, const void* carry, void* qo, void* vo, void* eo, int B,
+                      int n_action, int n_block, int n_cmd, int n_ticks, int n_substeps,
+                      int integrator, void* stream) {
+  cudaGetLastError();
+  cdyn_rollout_cm_kernel<T><<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const int*>(si),
+      static_cast<const T*>(sf), static_cast<const int*>(pi), static_cast<const T*>(pf), controller,
+      static_cast<const T*>(q), static_cast<const T*>(v), static_cast<const T*>(action),
+      static_cast<const T*>(carry), static_cast<T*>(qo), static_cast<T*>(vo), static_cast<T*>(eo),
+      B, n_action, n_block, n_cmd, n_ticks, n_substeps, integrator);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace cdyn
 
 // --------------------------------------------------------------------------
@@ -976,7 +1014,8 @@ extern "C" {
 int cdyn_caps(int* out, int n) {
   const int caps[] = {cdyn::NJ_MAX,  cdyn::NQ_MAX,   cdyn::NV_MAX,   cdyn::NC_MAX,
                       cdyn::NI_MAX,  cdyn::NM_MAX,   cdyn::NB_MAX,   cdyn::NCMD_MAX,
-                      cdyn::NACT_MAX, cdyn::NCARRY_MAX};
+                      cdyn::NACT_MAX, cdyn::NCARRY_MAX, cdyn::NROW_MAX, cdyn::NB_MAX,
+                      cdyn::NC_MAX};
   const int count = static_cast<int>(sizeof(caps) / sizeof(caps[0]));
   for (int i = 0; i < count && i < n; ++i) out[i] = caps[i];
   return count;
@@ -1005,6 +1044,22 @@ const char* cdyn_error_string(int code) {
     return cdyn::launch_rollout<T>(ci, cf, pi, pf, controller, q, v, action, carry, qo, vo, eo,  \
                                    B, n_action, n_carry, n_cmd, n_ticks, n_substeps, integrator, \
                                    stream);                                                      \
+  }                                                                                              \
+  int cdyn_period_cm_##SUFFIX(const void* ci, const void* cf, const void* si, const void* sf,    \
+                              const void* q, const void* v, const void* cc, void* qo, void* vo,  \
+                              void* eo, int B, int n_cmd, int n_substeps, int integrator,        \
+                              void* stream) {                                                    \
+    return cdyn::launch_period_cm<T>(ci, cf, si, sf, q, v, cc, qo, vo, eo, B, n_cmd, n_substeps, \
+                                     integrator, stream);                                        \
+  }                                                                                              \
+  int cdyn_rollout_cm_##SUFFIX(const void* ci, const void* cf, const void* si, const void* sf,   \
+                               const void* pi, const void* pf, int controller, const void* q,    \
+                               const void* v, const void* action, const void* carry, void* qo,   \
+                               void* vo, void* eo, int B, int n_action, int n_block, int n_cmd,  \
+                               int n_ticks, int n_substeps, int integrator, void* stream) {      \
+    return cdyn::launch_rollout_cm<T>(ci, cf, si, sf, pi, pf, controller, q, v, action, carry,  \
+                                      qo, vo, eo, B, n_action, n_block, n_cmd, n_ticks,          \
+                                      n_substeps, integrator, stream);                           \
   }
 
 CDYN_ENTRIES(f32, float)

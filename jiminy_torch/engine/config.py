@@ -1,7 +1,8 @@
 """Engine options (port of `jiminy_tpu.engine.config`): the fields the
-spring-damper fixed-step path reads, under the JAX package's names. The
-engine raises `NotImplementedError` for the values whose code paths are not
-ported yet (constraint contacts and bounds, DOPRI, terrain).
+fixed-step spring-damper and constrained (PGS) paths read, under the JAX
+package's names and with its defaults. The engine raises
+`NotImplementedError` for the values whose code paths are not ported yet
+(DOPRI, terrain).
 """
 
 from __future__ import annotations
@@ -28,8 +29,10 @@ class ContactOptions:
     stiffness: float = 1.0e6
     damping: float = 2.0e3
     friction: float = 1.0
-    transition_eps: float = 1.0e-3  # [m] blending depth
+    torsion: float = 0.0
+    transition_eps: float = 1.0e-3  # [m] blending depth / constraint hysteresis
     transition_velocity: float = 1.0e-2  # [m/s] tangential regularization speed
+    stabilization_freq: float = 20.0  # [Hz] Baumgarte frequency (constraint mode)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +45,11 @@ class WorldOptions:
 class StepperOptions:
     integrator: IntegratorType = IntegratorType.RUNGE_KUTTA_4
     dt_max: float = 0.02  # fixed-step substep: ceil(period / dt_max) per period
+    # PGS constraint solver: fixed sweep count, diagonal regularization, and
+    # multipliers + active sets chained through every solver stage
+    pgs_iter_max: int = 16
+    pgs_regularization: float = 1.0e-3
+    pgs_stage_warm_start: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,7 +60,7 @@ class EngineOptions:
     controller_update_period: float = 1.0e-3
     sensor_update_period: float = 1.0e-3
     # "penalty" = stable spring-damper bounds with inertia-scaled gains,
-    # "none" = unconstrained, "constraint" = PGS (not ported yet).
+    # "none" = unconstrained, "constraint" = PGS rows.
     joint_bounds_mode: str = "constraint"
     joint_bounds_freq: float = 20.0  # [Hz] penalty natural frequency
     # The port always runs the component-dynamics core; False asks for the

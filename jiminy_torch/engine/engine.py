@@ -1,12 +1,15 @@
-"""The simulation engine, spring-damper path (port of
-`jiminy_tpu.engine.engine`).
+"""The simulation engine (port of `jiminy_tpu.engine.engine`): the
+spring-damper path and the constrained (PGS) path of joint bounds and
+ground contacts (`ContactModel.CONSTRAINT`, `joint_bounds_mode="constraint"`).
 
 - `Engine.reset(q0, v0)` builds the initial state; its dynamics evaluation
-  goes through `cdyn_accel` on the card.
+  goes through `cdyn_accel` on the card (spring-damper) or the plain
+  constrained solve (constrained; plain torch on the card, as jiminy_tpu
+  runs it in XLA outside its kernels).
 - `Engine.step(state, command)` advances one controller period with a
-  zero-order-held command through `cdyn_period`.
+  zero-order-held command through `cdyn_period` or `cdyn_period_cm`.
 - `Engine.step_rollout_fused(...)` advances a whole env step, the controller
-  re-evaluated at every period, through `cdyn_rollout`.
+  re-evaluated at every period, through `cdyn_rollout` or `cdyn_rollout_cm`.
 
 Unlike jiminy_tpu, which runs its component core only off the CPU, the port
 always runs the component core: the plain versions on the CPU, the kernels on
@@ -24,7 +27,9 @@ import numpy as np
 import torch
 
 from jiminy_torch.devices import resolve_device, resolve_dtype
+from jiminy_torch.engine import solver
 from jiminy_torch.engine.config import ContactModel, EngineOptions, IntegratorType
+from jiminy_torch.engine.constraints import build_constraint_set
 from jiminy_torch.engine.hardware import ImuSensorGroup
 from jiminy_torch.engine.robot import Robot
 from jiminy_torch.engine.state import SimState, StepperState
@@ -46,10 +51,6 @@ def _refuse_unported(robot: Robot, opts: EngineOptions) -> None:
             "use_fast_dynamics=False asks for the generic dynamics path, which is "
             "not ported yet (ROADMAP.md queue 1 item 2, generic ops)"
         )
-    if opts.contacts.model == ContactModel.CONSTRAINT:
-        raise NotImplementedError(
-            "constraint contact mode is not ported yet (ROADMAP.md queue 1 item 9)"
-        )
     if opts.world.ground_profile is not None:
         raise NotImplementedError(
             "ground profiles (terrain) are not ported yet (ROADMAP.md queue 1 item 13 "
@@ -59,22 +60,7 @@ def _refuse_unported(robot: Robot, opts: EngineOptions) -> None:
         raise NotImplementedError(
             "adaptive DOPRI is not ported yet (ROADMAP.md queue 1 item 11)"
         )
-    if opts.joint_bounds_mode == "constraint":
-        model = robot.model
-        bounded = any(
-            jt.JointType(model.joint_types[j]) in (jt.JointType.REVOLUTE, jt.JointType.PRISMATIC)
-            and (
-                np.isfinite(model.position_limit_lower[model.idx_q[j]])
-                or np.isfinite(model.position_limit_upper[model.idx_q[j]])
-            )
-            for j in range(model.njoints)
-        )
-        if bounded:
-            raise NotImplementedError(
-                "joint bounds through the PGS solver (joint_bounds_mode='constraint') "
-                "are not ported yet (ROADMAP.md queue 1 item 9); use 'penalty'"
-            )
-    elif opts.joint_bounds_mode not in ("penalty", "none"):
+    if opts.joint_bounds_mode not in ("constraint", "penalty", "none"):
         raise ValueError(f"unknown joint_bounds_mode {opts.joint_bounds_mode!r}")
     for name, g in robot.sensors.groups():
         if not g.is_clean():
@@ -120,14 +106,42 @@ class Engine:
         self._bound_gains = (
             self._build_penalty_bound_gains() if opts.joint_bounds_mode == "penalty" else {}
         )
-        self._cdyn = cdyn.ComponentDynamics(
-            robot.model,
-            tuple(float(g) for g in opts.world.gravity),
-            contact_opts=opts.contacts,
-            contact_frames=robot.contact_frame_indices,
-            contact_radii=robot.contact_radii,
-            bound_gains=self._bound_gains,
+        # In constraint contact mode the contacts, and with "constraint"
+        # bounds the joint bounds, are PGS rows; with no rows, the
+        # spring-damper core.
+        self.constraint_mode = opts.contacts.model == ContactModel.CONSTRAINT
+        self.cset = build_constraint_set(
+            robot,
+            include_contacts=self.constraint_mode,
+            include_bounds=opts.joint_bounds_mode == "constraint",
         )
+        gravity = tuple(float(g) for g in opts.world.gravity)
+        self._cdyn = self._cdyn_cm = None
+        if self.cset.total_rows:
+            if not self.constraint_mode and robot.contact_frame_indices:
+                raise NotImplementedError(
+                    "joint bounds through the PGS solver beside spring-damper contacts "
+                    "are not ported yet (ROADMAP.md queue 1 item 9); use 'penalty', or "
+                    "constraint contacts"
+                )
+            # Component CRBA/NLE for the PGS path; penalty bounds are not
+            # applied beside PGS rows (as in jiminy_tpu)
+            self._cdyn_cm = cdyn.ComponentDynamics(robot.model, gravity)
+            self._solver_opts = solver.solver_options(opts)
+        elif self.constraint_mode:
+            raise NotImplementedError(
+                "constraint contact mode with no constraint rows runs the generic "
+                "dynamics path, which is not ported yet (ROADMAP.md queue 1 item 2)"
+            )
+        else:
+            self._cdyn = cdyn.ComponentDynamics(
+                robot.model,
+                gravity,
+                contact_opts=opts.contacts,
+                contact_frames=robot.contact_frame_indices,
+                contact_radii=robot.contact_radii,
+                bound_gains=self._bound_gains,
+            )
         self._tau_c = self._build_tau_c()
         self._period_runs = {}
 
@@ -174,21 +188,34 @@ class Engine:
         return motors.compute_efforts(command, v)
 
     # ------------------------------------------------------------------ #
-    def _get_period_run(self, kind: str) -> cdyn.PeriodIntegrator:
+    def _get_period_run(self, kind: str):
         run = self._period_runs.get(kind)
         if run is None:
-            run = self._cdyn.make_period_integrator(
-                self._tau_c,
-                self.tick_period / self.n_substeps,
-                self.n_substeps,
-                integrator=kind,
-                imu_frames=self._imu_frames,
-            )
+            dt = self.tick_period / self.n_substeps
+            if self._cdyn_cm is not None:
+                run = solver.ConstrainedPeriodIntegrator(
+                    self._cdyn_cm, self._tau_c, self.cset, self._solver_opts, dt,
+                    self.n_substeps, kind, self.robot.nmotors, self._imu_frames,
+                )
+            else:
+                run = self._cdyn.make_period_integrator(
+                    self._tau_c, dt, self.n_substeps, integrator=kind,
+                    imu_frames=self._imu_frames,
+                )
             self._period_runs[kind] = run
         return run
 
-    def _unpack_period_extras(self, extras, command, v):
-        """Split `[a | f_world | w_local | depth | imu]` into (a, aux)."""
+    def _solver_widths(self):
+        """(N, nc, nb): the multiplier and active-set widths of the
+        constrained path's extras and carry (zero on the spring path)."""
+        if self._cdyn_cm is None:
+            return 0, 0, 0
+        return self.cset.total_rows, self.cset.n_contacts, self.cset.n_bounds
+
+    def _unpack_period_extras(self, extras, command, v, n_lam: int = 0, n_cact: int = 0,
+                              n_bact: int = 0):
+        """Split `[a | f_world | w_local | depth | imu | lam | cact | bact]`
+        into (a, aux)."""
         robot = self.robot
         nv = robot.nv
         nc = len(robot.contact_frame_indices)
@@ -207,17 +234,26 @@ class Engine:
             raws[name] = extras[..., off : off + 6 * k].reshape(batch + (k, 6))
             off += 6 * k
         u_motor, _ = self._compute_efforts(command, v)
-        return a, {
+        aux = {
             "u_motor": u_motor,
             "contact_f_world": fw,
             "contact_w_local": wl,
             "contact_depth": depth,
             "sensor_raws": raws,
         }
+        if n_lam:
+            aux["lam"] = extras[..., off : off + n_lam]
+            aux["contact_active"] = extras[..., off + n_lam : off + n_lam + n_cact] > 0.5
+            aux["bound_active"] = extras[..., off + n_lam + n_cact : off + n_lam + n_cact + n_bact] > 0.5
+        return a, aux
 
     def _final_eval(self, q, v, command):
-        """(a, aux) at a state: `cdyn_accel` then the plain aux outputs."""
+        """(a, aux) at a state: `cdyn_accel` then the plain aux outputs, or
+        on the constrained path the plain constrained solve from a cold
+        start (no warm start, no active set), as at jiminy_tpu's reset."""
         u_motor, u = self._compute_efforts(command, v)
+        if self._cdyn_cm is not None:
+            return self._constrained_eval(q, v, u, u_motor)
         a = self._cdyn.accel(q, v, u)
         auxc = self._cdyn.aux_outputs(q, v, a, imu_frames=self._imu_frames)
         imu_raw = auxc.pop("imu_raw")
@@ -227,6 +263,47 @@ class Engine:
             raws[name] = imu_raw[..., off : off + len(frames), :]
             off += len(frames)
         return a, {"u_motor": u_motor, "sensor_raws": raws, **auxc}
+
+    def _constrained_eval(self, q, v, u, u_motor):
+        """The constrained dynamics at one state, plain torch on any device
+        (jiminy_tpu's `dynamics_full` in constraint mode): acceleration,
+        contact forces from the multipliers, and the solver carry."""
+        cd, cset, o = self._cdyn_cm, self.cset, self._solver_opts
+        model = self.robot.model
+        batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1])
+        damping = np.asarray(model.damping, np.float64)
+        if np.any(damping != 0.0):
+            u = u - torch.as_tensor(damping, dtype=self.dtype, device=self.device) * v
+        qc = [q[..., i] for i in range(model.nq)]
+        vc = [v[..., i] for i in range(model.nv)]
+        no = self._zeros(batch, torch.bool)
+        qdd, lam, basis, depth, cact, bact = solver.constrained_accel_full_components(
+            cd, cset, qc, vc, [u[..., i] for i in range(model.nv)], o.kp, o.kd,
+            o.transition_eps, o.friction, o.torsion, o.regularization, o.iter_max,
+            [no] * cset.n_contacts, [no] * cset.n_bounds,
+            [self._zeros(batch)] * cset.total_rows,
+        )
+        fw, wl = solver.contact_outputs(cd, cset, qc, lam, basis)
+
+        def rows(comps, width):
+            if not comps:
+                return self._zeros(batch + (0, width))
+            return torch.stack([cdyn._stack(r, batch, q) for r in comps], dim=-2)
+
+        def masks(comps):
+            if not comps:
+                return self._zeros(batch + (0,), torch.bool)
+            return torch.stack([x.expand(batch) for x in comps], dim=-1)
+
+        return cdyn._stack(qdd, batch, q), {
+            "u_motor": u_motor,
+            "contact_f_world": rows(fw, 3),
+            "contact_w_local": rows(wl, 6),
+            "contact_depth": cdyn._stack(depth, batch, q),
+            "lam": torch.movedim(lam, 0, -1),
+            "contact_active": masks(cact),
+            "bound_active": masks(bact),
+        }
 
     def _tick_time(self, tick):
         return tick.to(self.dtype) * self.tick_period
@@ -260,6 +337,13 @@ class Engine:
             measurements={},
             tick=self._zeros(batch, torch.int32),
         )
+        if self._cdyn_cm is not None:
+            st = st.replace(
+                contact_active=aux["contact_active"],
+                bound_active=aux["bound_active"],
+                lam=aux["lam"],
+                distance_ref=self._zeros(batch + (0,)),
+            )
         return self._update_sensors(st, a0, aux)
 
     def _update_sensors(self, state: SimState, a, aux) -> SimState:
@@ -285,10 +369,24 @@ class Engine:
                 )
         return state.replace(measurements=meas)
 
+    def _with_solver_carry(self, state: SimState, aux) -> SimState:
+        """The state with the solver carry of `aux` (constrained path)."""
+        if "lam" not in aux:
+            return state
+        return state.replace(contact_active=aux["contact_active"],
+                             bound_active=aux["bound_active"], lam=aux["lam"])
+
     def _integrate_period(self, state: SimState, command):
         kind = _FIXED_STEP[self.options.stepper.integrator]
-        q, v, extras = self._get_period_run(kind)(state.q, state.v, command)
-        a, aux = self._unpack_period_extras(extras, command, v)
+        cc = command
+        if self._cdyn_cm is not None:
+            # Warm-start multipliers and active sets ride the command row
+            batch = state.q.shape[:-1]
+            cc = torch.cat([command.expand(batch + command.shape[-1:]), state.lam,
+                            state.contact_active.to(self.dtype),
+                            state.bound_active.to(self.dtype)], dim=-1)
+        q, v, extras = self._get_period_run(kind)(state.q, state.v, cc)
+        a, aux = self._unpack_period_extras(extras, command, v, *self._solver_widths())
         stepper = state.stepper.replace(iterations=state.stepper.iterations + self.n_substeps)
         return state.replace(q=integ.normalize(self.robot.model, q), v=v), a, aux, stepper
 
@@ -297,22 +395,26 @@ class Engine:
     def supports_fused_rollout(self) -> bool:
         """True when `step_rollout_fused` can replace per-period `step` calls:
         one sensor tick per controller period (fixed-step integration and
-        clean sensors are all this port accepts)."""
+        clean sensors are all this port accepts), on the spring-damper core
+        or the constrained one."""
         return self.n_sensor_periods == 1
 
     def _get_rollout_run(self, cache_key: str, controller, n_periods: int):
         key = ("rollout", cache_key, n_periods)
         run = self._period_runs.get(key)
         if run is None:
-            run = self._cdyn.make_rollout_integrator(
-                self._tau_c,
-                self.tick_period / self.n_substeps,
-                self.n_substeps,
-                n_periods,
-                controller,
-                integrator=_FIXED_STEP[self.options.stepper.integrator],
-                imu_frames=self._imu_frames,
-            )
+            kind = _FIXED_STEP[self.options.stepper.integrator]
+            dt = self.tick_period / self.n_substeps
+            if self._cdyn_cm is not None:
+                run = solver.ConstrainedRolloutIntegrator(
+                    self._cdyn_cm, self._tau_c, self.cset, self._solver_opts, dt,
+                    self.n_substeps, n_periods, controller, kind, self._imu_frames,
+                )
+            else:
+                run = self._cdyn.make_rollout_integrator(
+                    self._tau_c, dt, self.n_substeps, n_periods, controller,
+                    integrator=kind, imu_frames=self._imu_frames,
+                )
             self._period_runs[key] = run
         return run
 
@@ -320,16 +422,25 @@ class Engine:
                            n_periods: int, cache_key: str):
         """Advance `n_periods` controller periods with `controller` (a
         component controller: `cdyn.PDComponents` or `cdyn.ZOHPassThrough`)
-        re-evaluated in the kernel at every period. Returns (state', carry')."""
+        re-evaluated in the kernel at every period. Returns (state', carry').
+        On the constrained path the solver carry (multipliers, active sets)
+        rides behind the controller's carry and is refreshed at every tick."""
         robot = self.robot
         nm, nv = robot.nmotors, robot.nv
         action = torch.as_tensor(action, dtype=self.dtype, device=self.device)
+        n_lam, n_cact, n_bact = widths = self._solver_widths()
+        carry_ext = carry
+        if self._cdyn_cm is not None:
+            carry_ext = torch.cat([carry, state.lam, state.contact_active.to(self.dtype),
+                                   state.bound_active.to(self.dtype)], dim=-1)
         run = self._get_rollout_run(cache_key, controller, n_periods)
-        q, v, extras = run(state.q, state.v, action, carry)
-        n_std = self._cdyn.n_extra(self._imu_frames)
+        q, v, extras = run(state.q, state.v, action, carry_ext)
+        n_std = (nv + 10 * len(robot.contact_frame_indices) + 6 * len(self._imu_frames)
+                 + n_lam + n_cact + n_bact)
+        n_ccrow = extras.shape[-1] - n_std - carry_ext.shape[-1]
         command = extras[..., n_std : n_std + nm]
-        carry_new = extras[..., n_std + nm : n_std + nm + carry.shape[-1]]
-        a, aux = self._unpack_period_extras(extras[..., :n_std], command, v)
+        carry_new = extras[..., n_std + n_ccrow : n_std + n_ccrow + carry.shape[-1]]
+        a, aux = self._unpack_period_extras(extras[..., :n_std], command, v, *widths)
         tick_new = state.tick + n_periods
         st = state.replace(
             t=self._tick_time(tick_new),
@@ -344,7 +455,7 @@ class Engine:
             ),
             tick=tick_new,
         )
-        return self._update_sensors(st, a, aux), carry_new
+        return self._update_sensors(self._with_solver_carry(st, aux), a, aux), carry_new
 
     def step(self, state: SimState, command=None) -> SimState:
         """Advance one controller period with a zero-order-held motor command."""
@@ -361,5 +472,6 @@ class Engine:
                 contact_forces=aux["contact_f_world"],
                 tick=tick,
             )
+            st2 = self._with_solver_carry(st2, aux)
             state = self._update_sensors(st2, a, aux).replace(a=a)
         return state

@@ -2,14 +2,15 @@
 
 A dataclass of tensors with explicit leading batch dimensions: an unbatched
 state has q of shape (nq,), a batch of B environments stepped in lock-step
-has q of shape (B, nq) and t of shape (B,). The spring-damper path carries no
-constraint-solver state, no sensor delay lines and no random key.
+has q of shape (B, nq) and t of shape (B,). The constrained (PGS) path
+carries its solver state: the warm-start multipliers and the active-set
+hysteresis masks. Sensor delay lines and a random key are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -35,6 +36,11 @@ class SimState:
     stepper: StepperState
     measurements: Dict[str, torch.Tensor]  # sensor group -> (..., n, ndata)
     tick: torch.Tensor  # (...,) int32 controller-period counter
+    # Constrained-path carry (zero-width on the spring-damper path):
+    contact_active: Optional[torch.Tensor] = None  # (..., nc) bool hysteresis state
+    bound_active: Optional[torch.Tensor] = None  # (..., nb) bool
+    lam: Optional[torch.Tensor] = None  # (..., N) warm-start PGS multipliers
+    distance_ref: Optional[torch.Tensor] = None  # (..., nd) loop-closure lengths
 
     def replace(self, **kw) -> "SimState":
         return dataclasses.replace(self, **kw)

@@ -223,6 +223,20 @@ def _transform_sym6(ia6, rot, pos):
     return out
 
 
+def _force_transform_col(rot, pos, n, f):
+    """Force (ang n, lin f) from a child joint frame to its parent's."""
+    f_a = m_mv(rot, f)
+    n_a = v_add(m_mv(rot, n), v_cross(pos, f_a))
+    return n_a, f_a
+
+
+def _motion_axis(c, j):
+    """(angular, linear) motion subspace of a 1-dof joint, constant triples."""
+    if c.types[j] == jt.JointType.REVOLUTE:
+        return c.axis[j], (0.0, 0.0, 0.0)
+    return (0.0, 0.0, 0.0), c.axis[j]
+
+
 def _clip(x, lo, hi):
     """jnp.clip semantics, min(max(x, lo), hi), for tensor or float bounds."""
     return torch.clamp(torch.clamp(x, min=lo), max=hi)
@@ -718,6 +732,209 @@ class ComponentDynamics:
                 out[qi] = qc[qi] + dvc[vi]
         return out
 
+    # ---------------- CRBA + RNEA (nle): the constrained path ----------------
+    def mass_matrix_components(self, qc, xs=None):
+        """CRBA with armature: nv x nv nested list of tensors (Python 0.0
+        where two dofs share no ancestor line)."""
+        c = self.c
+        nv = self.model.nv
+        if xs is None:
+            xs = self._joint_x(qc)
+        ic = [[list(row) for row in c.ia0[i]] for i in range(c.nj)]
+        m_out = [[0.0] * nv for _ in range(nv)]
+
+        def vel_perm(k):  # free-joint vel index -> motion index
+            return (k + 3) % 6
+
+        def ancestor_fill(i, vi_row, n_c, f_c):
+            """Transport one force column up the tree, filling M[vi_row, :]."""
+            j = i
+            while c.parents[j] >= 0:
+                rot_j, pos_j = xs[j]
+                n_c, f_c = _force_transform_col(rot_j, pos_j, n_c, f_c)
+                j = c.parents[j]
+                vj = c.idx_v[j]
+                if c.types[j] == jt.JointType.FREE:
+                    full = [*n_c, *f_c]
+                    for k in range(6):
+                        val = full[vel_perm(k)]
+                        m_out[vi_row][vj + k] = val
+                        m_out[vj + k][vi_row] = val
+                else:
+                    axj_a, axj_l = _motion_axis(c, j)
+                    val = sum(axj_a[k] * n_c[k] for k in range(3)) + sum(
+                        axj_l[k] * f_c[k] for k in range(3)
+                    )
+                    m_out[vi_row][vj] = val
+                    m_out[vj][vi_row] = val
+
+        for i in reversed(range(c.nj)):
+            vi = c.idx_v[i]
+            if c.types[i] == jt.JointType.FREE:
+                # Diagonal block = permuted composite inertia + armature
+                for r in range(6):
+                    for col in range(6):
+                        m_out[vi + r][vi + col] = ic[i][vel_perm(r)][vel_perm(col)]
+                    m_out[vi + r][vi + r] = m_out[vi + r][vi + r] + c.armature[vi + r]
+                continue  # the free root has no ancestors
+            ax_a, ax_l = _motion_axis(c, i)
+            fa, fl = sym6_mv(ic[i], list(ax_a), list(ax_l))
+            m_out[vi][vi] = (
+                sum(ax_a[k] * fa[k] for k in range(3))
+                + sum(ax_l[k] * fl[k] for k in range(3))
+                + c.armature[vi]
+            )
+            ancestor_fill(i, vi, fa, fl)
+            p = c.parents[i]
+            if p >= 0:  # composite inertia into the parent
+                rot_i, pos_i = xs[i]
+                ia_p = _transform_sym6(ic[i], rot_i, pos_i)
+                for r in range(6):
+                    for col in range(6):
+                        ic[p][r][col] = ic[p][r][col] + ia_p[r][col]
+        return m_out
+
+    def nle_components(self, qc, vc, xs=None):
+        """Nonlinear effects (gravity + Coriolis/centrifugal) as nv
+        components: RNEA with zero joint acceleration."""
+        c = self.c
+        g = self.gravity
+        if xs is None:
+            xs = self._joint_x(qc)
+        vel = [None] * c.nj
+        acc = [None] * c.nj
+        f = [None] * c.nj
+        svec = [None] * c.nj
+        a0 = ([0.0, 0.0, 0.0], [-g[0], -g[1], -g[2]])
+        for i in range(c.nj):
+            rot_i, pos_i = xs[i]
+            p = c.parents[i]
+            w_p, v_p = vel[p] if p >= 0 else (v3(), v3())
+            a_p = acc[p] if p >= 0 else a0
+            w_in = m_tv(rot_i, w_p)
+            v_in = m_tv(rot_i, v_sub(v_p, v_cross(pos_i, w_p)))
+            aw_in = m_tv(rot_i, a_p[0])
+            al_in = m_tv(rot_i, v_sub(a_p[1], v_cross(pos_i, a_p[0])))
+            vi = c.idx_v[i]
+            if c.types[i] == jt.JointType.FREE:
+                vj_lin = [vc[vi], vc[vi + 1], vc[vi + 2]]
+                vj_ang = [vc[vi + 3], vc[vi + 4], vc[vi + 5]]
+            elif c.types[i] == jt.JointType.REVOLUTE:
+                vj_ang, vj_lin = v_scale(c.axis[i], vc[vi]), v3()
+            else:
+                vj_ang, vj_lin = v3(), v_scale(c.axis[i], vc[vi])
+            if c.types[i] != jt.JointType.FREE:
+                svec[i] = _motion_axis(c, i)
+            w_i = v_add(w_in, vj_ang)
+            v_i = v_add(v_in, vj_lin)
+            vel[i] = (w_i, v_i)
+            b_ang = v_cross(w_i, vj_ang)
+            b_lin = v_add(v_cross(w_i, vj_lin), v_cross(v_i, vj_ang))
+            acc[i] = (v_add(aw_in, b_ang), v_add(al_in, b_lin))
+
+        tau = [0.0] * self.model.nv
+        for i in reversed(range(c.nj)):
+            ia = c.ia0[i]
+            a_a, a_l = acc[i]
+            w_i, v_i = vel[i]
+            ia_a, ia_l = sym6_mv(ia, a_a, a_l)
+            iv_a, iv_l = sym6_mv(ia, w_i, v_i)
+            f_a = v_add(ia_a, v_add(v_cross(w_i, iv_a), v_cross(v_i, iv_l)))
+            f_l = v_add(ia_l, v_cross(w_i, iv_l))
+            if f[i] is not None:
+                f_a = v_add(f_a, f[i][0])
+                f_l = v_add(f_l, f[i][1])
+            vi = c.idx_v[i]
+            if c.types[i] == jt.JointType.FREE:
+                full = [*f_a, *f_l]
+                for k in range(6):
+                    tau[vi + k] = full[(k + 3) % 6]
+            else:
+                ax_a, ax_l = svec[i]
+                tau[vi] = sum(ax_a[k] * f_a[k] for k in range(3)) + sum(
+                    ax_l[k] * f_l[k] for k in range(3)
+                )
+            p = c.parents[i]
+            if p >= 0:
+                rot_i, pos_i = xs[i]
+                n_p, f_p = _force_transform_col(rot_i, pos_i, f_a, f_l)
+                if f[p] is None:
+                    f[p] = (n_p, f_p)
+                else:
+                    f[p] = (v_add(f[p][0], n_p), v_add(f[p][1], f_p))
+        return tau
+
+    # ---------------- constraint kinematics ----------------
+    def _vel_bias_components(self, xs, vc):
+        """Per-joint LOCAL velocity and velocity-bias acceleration (FK with
+        zero joint acceleration, no gravity)."""
+        c = self.c
+        vel = [None] * c.nj
+        acc = [None] * c.nj
+        for i in range(c.nj):
+            rot_i, pos_i = xs[i]
+            p = c.parents[i]
+            w_p, v_p = vel[p] if p >= 0 else (v3(), v3())
+            a_p = acc[p] if p >= 0 else (v3(), v3())
+            w_in = m_tv(rot_i, w_p)
+            v_in = m_tv(rot_i, v_sub(v_p, v_cross(pos_i, w_p)))
+            aw_in = m_tv(rot_i, a_p[0])
+            al_in = m_tv(rot_i, v_sub(a_p[1], v_cross(pos_i, a_p[0])))
+            vi = c.idx_v[i]
+            if c.types[i] == jt.JointType.FREE:
+                vj_lin = [vc[vi], vc[vi + 1], vc[vi + 2]]
+                vj_ang = [vc[vi + 3], vc[vi + 4], vc[vi + 5]]
+            elif c.types[i] == jt.JointType.REVOLUTE:
+                vj_ang, vj_lin = v_scale(c.axis[i], vc[vi]), v3()
+            else:
+                vj_ang, vj_lin = v3(), v_scale(c.axis[i], vc[vi])
+            w_i = v_add(w_in, vj_ang)
+            v_i = v_add(v_in, vj_lin)
+            vel[i] = (w_i, v_i)
+            b_ang = v_cross(w_i, vj_ang)
+            b_lin = v_add(v_cross(w_i, vj_lin), v_cross(v_i, vj_ang))
+            acc[i] = (v_add(aw_in, b_ang), v_add(al_in, b_lin))
+        return vel, acc
+
+    def _ancestors(self, joint):
+        out = []
+        j = joint
+        while j >= 0:
+            out.append(j)
+            j = self.c.parents[j]
+        return out[::-1]
+
+    def _point_jacobian_cols(self, world, joint, pf):
+        """World-aligned LINEAR Jacobian columns {vdof: V3} of the point `pf`
+        (world V3 components) attached to `joint`'s subtree."""
+        return self._frame_jacobian_cols(world, joint, pf)[1]
+
+    def _frame_jacobian_cols(self, world, joint, pf):
+        """World-aligned frame Jacobian columns at the point `pf`:
+        `(ang_cols, lin_cols)`, each a {vdof: V3} dict over the dofs of the
+        joint's ancestors (the support dofs of a contact row)."""
+        c = self.c
+        ang, lin = {}, {}
+        for j in self._ancestors(joint):
+            rw, pw = world[j]
+            vi = c.idx_v[j]
+            if c.types[j] == jt.JointType.FREE:
+                for k in range(3):  # translational dofs
+                    lin[vi + k] = [rw[0][k], rw[1][k], rw[2][k]]
+                    ang[vi + k] = v3()
+                for k in range(3):  # rotational dofs
+                    axis_w = [rw[0][k], rw[1][k], rw[2][k]]
+                    ang[vi + 3 + k] = axis_w
+                    lin[vi + 3 + k] = v_cross(axis_w, v_sub(pf, pw))
+            elif c.types[j] == jt.JointType.REVOLUTE:
+                axis_w = m_mv(rw, c.axis[j])
+                ang[vi] = axis_w
+                lin[vi] = v_cross(axis_w, v_sub(pf, pw))
+            else:  # PRISMATIC
+                ang[vi] = v3()
+                lin[vi] = m_mv(rw, c.axis[j])
+        return ang, lin
+
     # ---------------- fused multi-substep integration ----------------
     def _build_final_outputs(self, tau_c_fn, imu_frames):
         """End-of-period solved accel and aux outputs as one component list:
@@ -1202,6 +1419,13 @@ KERNELS = {
     "cdyn_accel": Kernel("cdyn_accel", "jiminy_tpu/ops/cdyn.py:1215 _pallas_accel_fn"),
     "cdyn_period": Kernel("cdyn_period", "jiminy_tpu/ops/cdyn.py:1262 _pallas_period_fn"),
     "cdyn_rollout": Kernel("cdyn_rollout", "jiminy_tpu/ops/cdyn.py:1509 _pallas_rollout_fn"),
+    # The constrained (PGS) bodies of the last two (jiminy_torch/engine/solver.py)
+    "cdyn_period_cm": Kernel(
+        "cdyn_period_cm", "jiminy_tpu/ops/cdyn.py:1262 _pallas_period_fn (constrained body)"
+    ),
+    "cdyn_rollout_cm": Kernel(
+        "cdyn_rollout_cm", "jiminy_tpu/ops/cdyn.py:1509 _pallas_rollout_fn (constrained body)"
+    ),
 }
 
 

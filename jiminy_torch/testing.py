@@ -3,13 +3,19 @@
 `perturbed_states` draws (q, v, tau) around an env's nominal pose from a numpy
 seed: the base lowered so that some feet penetrate the ground, random joint
 offsets with some joints pushed past their bounds, a tilted base, random
-velocities and torques. `column_errors` and `column_quantile_errors` hold a
-kernel's outputs against its plain version column by column. The card tests
-and `chip_smoke.py` use them.
+velocities and torques. `constrained_inputs` draws the same kind of states
+for the constrained (PGS) path, with every foot 0-3 cm into the ground and
+the solver channels (warm-start multipliers, active sets) that ride the
+command row and the carry. `column_errors` and `column_quantile_errors`
+hold a kernel's outputs against its plain version column by column. The
+card tests and `chip_smoke.py` use them. `constraint_mode_options` turns an
+env's engine options into constraint contact mode, as `bench.py` does with
+`BENCH_CONTACT=constraint`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -41,6 +47,48 @@ def perturbed_states(env, batch: int, seed: int, device=None, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
     return t(q), t(v), t(tau)
+
+
+def constraint_mode_options(options):
+    """The options with ground contacts and joint bounds as PGS rows."""
+    from jiminy_torch.engine.config import ContactModel
+
+    return options.replace(
+        contacts=dataclasses.replace(options.contacts, model=ContactModel.CONSTRAINT),
+        joint_bounds_mode="constraint",
+    )
+
+
+def constrained_inputs(env, batch: int, seed: int, device=None, dtype=None):
+    """(q, v, cmd, solver) for the constrained kernels: feet 0-3 cm into the
+    ground, joint offsets with a quarter of the envs past a joint bound,
+    random velocities and motor commands, and the solver channels `[lam (N)
+    | contact active (nc) | bound active (nb)]`: multipliers from 0 to 50
+    in half the envs (0 in the others) and random 0/1 masks."""
+    device = env.device if device is None else device
+    dtype = env.dtype if dtype is None else dtype
+    eng = env.engine
+    cset = eng.cset
+    model = env.robot.model
+    rng = np.random.default_rng(seed)
+    q = np.tile(np.asarray(env.nominal_q.cpu(), np.float64), (batch, 1))
+    q[:, 2] -= rng.uniform(0.001, 0.031, size=batch)
+    q[:, 7:] += rng.normal(size=(batch, model.nq - 7)) * 0.05
+    bounds = [model.idx_q[j] for j in cset.bound_joint_indices]
+    n_past = batch // 4
+    if bounds:
+        qi = np.asarray(bounds)[rng.integers(0, len(bounds), size=n_past)]
+        hi = np.asarray(model.position_limit_upper)[qi]
+        q[np.arange(n_past), qi] = np.where(np.isfinite(hi), hi + 0.05, q[np.arange(n_past), qi])
+    v = rng.normal(size=(batch, model.nv)) * 0.3
+    cmd = rng.normal(size=(batch, env.robot.nmotors)) * 20.0
+    lam = rng.uniform(0.0, 50.0, size=(batch, cset.total_rows)) * (rng.uniform(size=(batch, 1)) < 0.5)
+    masks = (rng.uniform(size=(batch, cset.n_contacts + cset.n_bounds)) < 0.5).astype(np.float64)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    return t(q), t(v), t(cmd), t(np.concatenate([lam, masks], axis=1))
 
 
 def _columns(x: torch.Tensor) -> torch.Tensor:

@@ -14,15 +14,21 @@ import torch
 
 import jiminy_torch
 from jiminy_torch.engine.config import (
-    ContactModel,
-    ContactOptions,
     EngineOptions,
     IntegratorType,
     StepperOptions,
+    WorldOptions,
 )
+from jiminy_torch.engine import solver
 from jiminy_torch.envs import make
 from jiminy_torch.ops import cdyn, kernels
-from jiminy_torch.testing import column_errors, column_quantile_errors, perturbed_states
+from jiminy_torch.testing import (
+    column_errors,
+    column_quantile_errors,
+    constrained_inputs,
+    constraint_mode_options,
+    perturbed_states,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -36,6 +42,7 @@ def _port_modules():
 def test_port_imports_neither_jax_nor_jiminy_tpu():
     mods = _port_modules()
     assert "jiminy_torch.ops.cdyn" in mods and "jiminy_torch.envs.anymal" in mods
+    assert "jiminy_torch.engine.solver" in mods and "jiminy_torch.engine.constraints" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -101,7 +108,7 @@ def test_unported_options_raise_not_implemented(env):
         EngineOptions(use_fast_dynamics=False, **base),
         EngineOptions(stepper=stepper, **base),
         EngineOptions(joint_bounds_mode="constraint"),
-        EngineOptions(contacts=ContactOptions(model=ContactModel.CONSTRAINT), **base),
+        EngineOptions(world=WorldOptions(ground_profile=lambda xy: (0.0, (0.0, 0.0, 1.0))), **base),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             type(env.env.engine)(robot, opts, device="cpu")
@@ -147,8 +154,10 @@ def test_kernel_build_is_sm90a_without_fast_math():
     assert not any("fast" in f for f in kernels.NVCC_FLAGS)
     assert kernels.SOURCE.exists() and all(h.exists() for h in kernels.HEADERS)
     src = kernels.SOURCE.read_text()
-    for entry in ("cdyn_accel_", "cdyn_period_", "cdyn_rollout_"):
+    for entry in ("cdyn_accel_", "cdyn_period_", "cdyn_rollout_", "cdyn_period_cm_",
+                  "cdyn_rollout_cm_"):
         assert f"int {entry}##SUFFIX" in src
+    assert set(kernels._SIGNATURES) == set(cdyn.KERNELS)
 
 
 def test_pack_cache_holds_the_transmission_it_was_built_for(env):
@@ -192,3 +201,74 @@ def test_column_quantile_errors_pass_rare_outlier_envs():
     out[7, 2] = -out[7, 2]  # one env of 2000 flipped
     assert float(column_quantile_errors(out, ref, 0.9).max()) < 1e-5
     assert float(column_errors(out, ref)[2]) > 1e-2
+
+
+@pytest.fixture(scope="module")
+def cm_env(env):
+    return make("anymal-pid", device="cpu", dtype=torch.float64,
+                options=constraint_mode_options(env.engine.options))
+
+
+def test_constrained_wrappers_raise_instead_of_falling_back(cm_env):
+    eng = cm_env.engine
+    q, v, cmd, sol = constrained_inputs(cm_env, 2, seed=0)
+    cc = torch.cat([cmd, sol], dim=-1)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        eng._get_period_run("rk4").kernel(q, v, cc)
+    run = eng._get_rollout_run("zoh-test", cdyn.ZOHPassThrough(12), 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        run.kernel(q, v, cmd, sol)
+    with pytest.raises(ValueError, match="no kernel and no plain version"):
+        eng._get_period_run("rk4")(q.to("meta"), v.to("meta"), cc.to("meta"))
+    assert all(k.launches == 0 for k in cdyn.KERNELS.values())
+
+
+def test_unported_constraint_rows_and_terrain_raise_not_implemented(cm_env):
+    """Distance-loop and rolling rows (ROADMAP item 10), sphere contacts and
+    terrain (item 13) are refused, on every path that would assemble them."""
+    eng = cm_env.engine
+    cd, opts = eng._cdyn_cm, eng._solver_opts
+    for cset in (
+        dataclasses.replace(eng.cset, distance_pairs=((89, 123),)),
+        dataclasses.replace(eng.cset, sphere_specs=((89, 0.02),)),
+        dataclasses.replace(eng.cset, wheel_specs=((89, 0.02, (0.0, 1.0, 0.0)),)),
+    ):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
+            solver.ConstrainedPeriodIntegrator(cd, eng._tau_c, cset, opts, 1e-3, 1, "rk4", 12, ())
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
+            solver.pack_constraints(cd, cset, opts, "cpu", torch.float64)
+    spheres = dataclasses.replace(eng.cset, contact_radii=(0.02,) * 4)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
+        solver.constraint_system_components(cd, spheres, *([None] * 6), 1.0, 1.0, 1e-3, [], [])
+    terrain = cm_env.engine.options.replace(
+        world=WorldOptions(ground_profile=lambda xy: (0.0, (0.0, 0.0, 1.0)))
+    )
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 13"):
+        type(eng)(cm_env.robot, terrain, device="cpu")
+
+
+def test_packed_constraint_constants_match_model(cm_env):
+    eng = cm_env.engine
+    model, cset, o = cm_env.robot.model, eng.cset, eng._solver_opts
+    packed = solver.pack_constraints(eng._cdyn_cm, cset, o, "cpu", torch.float64)
+    si, sf = packed.si.numpy(), packed.sf.numpy()
+    assert list(si[:5]) == [28, 12, 4, o.iter_max, 1]
+    bounds = si[solver.SI_HEADER:solver.SI_HEADER + 2 * 12].reshape(12, 2)
+    assert tuple(bounds[:, 0]) == tuple(model.idx_q[j] for j in cset.bound_joint_indices)
+    assert tuple(bounds[:, 1]) == tuple(model.idx_v[j] for j in cset.bound_joint_indices)
+    assert tuple(si[solver.SI_HEADER + 24:]) == tuple(
+        model.frame_parents[f] for f in cset.contact_frame_indices
+    )
+    np.testing.assert_array_equal(sf[:7], [o.kp, o.kd, o.friction, o.torsion, o.regularization,
+                                           1e-11, o.transition_eps])
+    relax = sf[solver.SF_HEADER:solver.SF_HEADER + o.iter_max]
+    assert list(relax) == [solver._relaxation(it, o.iter_max) for it in range(o.iter_max)]
+    assert relax[0] == 1.0 and relax[-1] == 0.01
+    off = solver.SF_HEADER + o.iter_max
+    lim = sf[off:off + 4 * 12].reshape(12, 4)
+    qi = bounds[:, 0]
+    np.testing.assert_array_equal(lim[:, 0], model.position_limit_lower[qi])
+    np.testing.assert_array_equal(lim[:, 1], model.position_limit_upper[qi])
+    np.testing.assert_array_equal(lim[:, 2], model.position_limit_lower[qi] + o.transition_eps)
+    frames = sf[off + 48:].reshape(4, 12)
+    np.testing.assert_array_equal(frames[:, :3], model.fplacement_pos[list(cset.contact_frame_indices)])

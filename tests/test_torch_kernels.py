@@ -1,5 +1,7 @@
 """Card-only tests: each cdyn CUDA kernel held against its plain PyTorch
-version on the card, at a small batch, for the ANYmal constants.
+version on the card, at a small batch, for the ANYmal constants (the
+constrained kernels for `anymal-pid` in constraint contact mode, on states
+with active contact and bound rows).
 
 Marked `cuda`; they skip where no CUDA device is present (the check runs in a
 fixture, never at import). On a machine with a card, run them with:
@@ -27,7 +29,13 @@ import torch
 
 from jiminy_torch.envs import make
 from jiminy_torch.ops import cdyn
-from jiminy_torch.testing import column_errors, column_quantile_errors, perturbed_states
+from jiminy_torch.testing import (
+    column_errors,
+    column_quantile_errors,
+    constrained_inputs,
+    constraint_mode_options,
+    perturbed_states,
+)
 
 TOL = {torch.float64: (1e-9, 1e-9), torch.float32: (2e-3, 1e-2)}
 
@@ -54,7 +62,8 @@ def test_kernel_library_builds(cuda_device):
 
     lib = kernels.load()
     assert lib.caps["nj"] >= 13
-    for name in ("cdyn_accel", "cdyn_period", "cdyn_rollout"):
+    for name in ("cdyn_accel", "cdyn_period", "cdyn_rollout", "cdyn_period_cm",
+                 "cdyn_rollout_cm"):
         assert name in lib.build.ptxas_log
 
 
@@ -123,4 +132,66 @@ def test_wrappers_route_cuda_tensors_to_kernels(cuda_device):
     torch.cuda.synchronize()
     assert cdyn.KERNELS["cdyn_accel"].launches == 1
     assert cdyn.KERNELS["cdyn_rollout"].launches == 1
+    assert torch.isfinite(st.sim.q).all()
+
+
+def _cm_env(device, dtype):
+    env = _env(device, dtype)
+    return make("anymal-pid", device=device, dtype=dtype,
+                options=constraint_mode_options(env.engine.options))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_constrained_period_kernel_matches_plain(cuda_device, dtype):
+    env = _cm_env(cuda_device, dtype)
+    run = env.engine._get_period_run("rk4")
+    q, v, cmd, sol = constrained_inputs(env, 64, seed=3)
+    cc = torch.cat([cmd, sol], dim=-1)
+    outs = run.kernel(q, v, cc, n_substeps=2)
+    refs = run.plain(q, v, cc, n_substeps=2)
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert torch.isfinite(out).all()
+        assert _error(out, ref, dtype) < TOL[dtype][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("controller", ["pd", "zoh"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_constrained_rollout_kernel_matches_plain(cuda_device, dtype, controller):
+    env = _cm_env(cuda_device, dtype)
+    nm = env.robot.nmotors
+    q, v, cmd, sol = constrained_inputs(env, 64, seed=4)
+    if controller == "pd":
+        ctrl = env.block.component_controller(env.env)
+        block = torch.zeros((64, 3 * nm), dtype=dtype, device=cuda_device)
+        block[:, :nm] = q[:, 7:]
+        action = cmd * 2.5
+    else:
+        ctrl = cdyn.ZOHPassThrough(nm)
+        block = torch.zeros((64, 0), dtype=dtype, device=cuda_device)
+        action = cmd
+    carry = torch.cat([block, sol], dim=-1)
+    run = env.engine._get_rollout_run("test-" + controller, ctrl, 8)
+    outs = run.kernel(q, v, action, carry, n_ticks=2, n_substeps=1)
+    refs = run.plain(q, v, action, carry, n_ticks=2, n_substeps=1)
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert torch.isfinite(out).all()
+        assert _error(out, ref, dtype) < TOL[dtype][1]
+
+
+@pytest.mark.cuda
+def test_constrained_wrappers_route_cuda_tensors_to_kernels(cuda_device):
+    env = _cm_env(cuda_device, torch.float64)
+    cdyn.reset_launch_counts()
+    st, _ = env.reset(batch_size=3)
+    st, *_ = env.step(st, torch.zeros(12, dtype=torch.float64, device=cuda_device))
+    env.use_fused_rollout = False
+    st, *_ = env.step(st, torch.zeros(12, dtype=torch.float64, device=cuda_device))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    assert launches == {"cdyn_accel": 0, "cdyn_period": 0, "cdyn_rollout": 0,
+                        "cdyn_period_cm": 8, "cdyn_rollout_cm": 1}
     assert torch.isfinite(st.sim.q).all()
