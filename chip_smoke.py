@@ -40,14 +40,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    within 5 %, joints within their limits, multipliers inside their boxes
    and friction cones).
 7. The constrained kernels at B=131072: float32 on the main path's states,
-   timed against the plain version at the full tick and substep counts;
-   float64 on the main path's states and float64 and float32 on states with
-   active rows (`constrained_inputs`), at 2 ticks x 2 substeps (a plain
-   constrained step is millions of eager launches), per column as in phase
-   3; and witnesses that the check fails for a zeroed multiplier column and
-   for a solver stopped after one sweep. Ops are counted on the plain
-   version per scalar element at B=1 on a main-path state, those with an
-   exactly-zero operand (structural or inactive-row zeros) folded away.
+   timed against the plain version at the full tick and substep counts; float64 on the main path's
+   states and float64 and float32 on states with active rows
+   (`constrained_inputs`), with every row and with no row active, and at a
+   batch one env short (the last block part-filled), at 2 ticks x 2
+   substeps (a plain constrained step is millions of eager launches), per
+   column as in phase 3; and witnesses that the check fails for a zeroed
+   multiplier column and for a solver stopped after one sweep. Ops are
+   counted on the plain version per scalar element at B=1 on a main-path
+   state, those with an exactly-zero operand (structural or inactive-row
+   zeros) folded away.
 
 The last two lines are the `{"kernels": [...]}` record and the device line.
 """
@@ -69,7 +71,7 @@ TOL = {"float64": (1e-9, 1e-9), "float32": (2e-3, 1e-2)}
 ERR_NAME = {"float64": "column max rel err", "float32": "column q90 err / rms"}
 F64_CHAOS_SHARE = 0.01
 GOLDEN_ATOL = 1e-9
-N_STEPS_CM = 25  # constrained main path (about 2 s per step at B_MAIN on an H100)
+N_STEPS_CM = 25  # constrained main path
 CM_TICKS, CM_SUBSTEPS = 2, 2  # cut of the constrained kernel-vs-plain checks
 CM_WEIGHT_TOL = 0.05  # feet carry m g within this share at rest
 CM_JOINT_SLACK = 1e-2  # [rad] beyond a joint limit
@@ -872,12 +874,17 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2):
                             torch.cat([st.blocks[block].reshape(B_MAIN, -1),
                                        _cm_solver_row(st.sim, torch.float32)], -1)),
     }
-    # States with active rows, the same values at both dtypes
-    qa, va, cmda, sola = constrained_inputs(env64, B_MAIN, seed=0)
-    blk = torch.zeros((B_MAIN, 3 * nm), dtype=torch.float64, device=device)
-    blk[:, :nm] = qa[:, 7:]
-    active = {"cdyn_period_cm": (qa, va, torch.cat([cmda, sola], -1)),
-              "cdyn_rollout_cm": (qa, va, cmda * 2.5, torch.cat([blk, sola], -1))}
+    # States with active rows (and with every row, or no row, active at the
+    # first solve), the same values at both dtypes
+    def inputs_of(rows):
+        qa, va, cmda, sola = constrained_inputs(env64, B_MAIN, seed=0, rows=rows)
+        blk = torch.zeros((B_MAIN, 3 * nm), dtype=torch.float64, device=device)
+        blk[:, :nm] = qa[:, 7:]
+        return {"cdyn_period_cm": (qa, va, torch.cat([cmda, sola], -1)),
+                "cdyn_rollout_cm": (qa, va, cmda * 2.5, torch.cat([blk, sola], -1))}
+
+    active = inputs_of("mixed")
+    extremes = {rows: inputs_of(rows) for rows in ("all", "none")}
     nq, nv = env.robot.nq, env.robot.nv
     cset = env.engine.cset
     n_solver = cset.total_rows + cset.n_contacts + cset.n_bounds
@@ -890,6 +897,9 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2):
     lam_cols = slice(n_extra - n_solver, n_extra - n_solver + cset.total_rows)
     n_launch = {"cdyn_period_cm": period_launches["cdyn_period_cm"],
                 "cdyn_rollout_cm": launches["cdyn_rollout_cm"]}
+    run32 = run_of("cdyn_rollout_cm", engines[torch.float32])
+    packed = run32.cd.pack(run32.tau_c, run32.dt, run32.imu_frames, device, torch.float32)
+    smem_per_env = solver.cm_smem_per_env(packed, run32.pack(device, torch.float32), torch.float32)
     n_time = {"cdyn_period_cm": 5, "cdyn_rollout_cm": 3}
     tol64, tol32 = TOL["float64"][1], TOL["float32"][1]
     records = []
@@ -934,6 +944,10 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2):
                            dataclasses.replace(run64.opts, iter_max=1))
         outs1 = one_sweep.kernel(*xs, **reduced(name))
         e_sweep, at_sweep = output_error(outs1, refs, "float64")
+        b_rag = B_MAIN - 1  # the last block of envs part-filled
+        outs_rag = run64.kernel(*(x[:b_rag] for x in xs), **reduced(name))
+        share_rag = share_beyond(outs_rag, tuple(r[:b_rag] for r in refs), tol64)
+        del outs_rag
         log(f"[cm-check] {name} float64 B={B_MAIN} ({reduced(name)}), active rows: column max rel "
             f"err {e64:.3e} at {at64}, share of envs beyond {tol64:g}: {share:.3e} (allowed "
             f"{F64_CHAOS_SHARE:g}); with q moved one ulp the kernel moves {share_n:.3e} of envs "
@@ -942,6 +956,9 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2):
         check(all(bool(torch.isfinite(o).all()) for o in outs), f"{name}: non-finite output")
         check(share <= F64_CHAOS_SHARE, f"{name} float64 disagrees on active rows: share {share}")
         check(e_zero > tol64 and e_sweep > tol64, f"{name}: the float64 check misses a wrong solver")
+        log(f"[cm-check] {name} float64 B={b_rag} (ragged), active rows: share of envs beyond "
+            f"{tol64:g}: {share_rag:.3e}")
+        check(share_rag <= F64_CHAOS_SHARE, f"{name} float64 disagrees at B={b_rag}: {share_rag}")
         del outs, refs, outs1
 
         # float32, active rows, reduced counts: q90 per column; the witnesses again
@@ -962,6 +979,34 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2):
         check(e32 < tol32, f"{name} float32 disagrees on active rows: {e32}")
         check(e32_zero > tol32 and e32_sweep > tol32, f"{name}: the float32 check misses a wrong solver")
         del outs, refs
+
+        # Every row active, no row active; a batch that leaves the last block part-filled
+        extreme_errs = {}
+        for rows, batch in extremes.items():
+            xs = batch[name]
+            outs, refs = run64.kernel(*xs, **reduced(name)), run64.plain(*xs, **reduced(name))
+            torch.cuda.synchronize()
+            e64x, at64x = output_error(outs, refs, "float64")
+            share_x = share_beyond(outs, refs, tol64)
+            lam_x = refs[2][:, lam_cols]
+            n_act = float((lam_x != 0).double().sum(-1).mean())
+            check(all(bool(torch.isfinite(o).all()) for o in outs), f"{name}: non-finite output")
+            check(share_x <= F64_CHAOS_SHARE, f"{name} float64 disagrees ({rows} rows active): "
+                  f"share {share_x}")
+            if rows == "none":
+                check(bool((outs[2][:, lam_cols] == 0).all()), f"{name}: a multiplier with no row active")
+            del outs, refs
+            xs32 = tuple(x.float() for x in xs)
+            outs, refs = run32.kernel(*xs32, **reduced(name)), run32.plain(*xs32, **reduced(name))
+            torch.cuda.synchronize()
+            e32x, at32x = output_error(outs, refs, "float32")
+            check(e32x < tol32, f"{name} float32 disagrees ({rows} rows active): {e32x}")
+            del outs, refs
+            log(f"[cm-check] {name} B={B_MAIN} ({reduced(name)}), {rows} rows active at the first "
+                f"solve ({n_act:.2f} nonzero multipliers per env at the end): float64 column max "
+                f"rel err {e64x:.3e} at {at64x}, share beyond {tol64:g} {share_x:.3e}; float32 "
+                f"q90 {e32x:.3e} at {at32x}")
+            extreme_errs[rows] = (e64x, share_x, e32x)
 
         t_ops = ops[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
         t_ops_generic = ops_generic[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
@@ -987,6 +1032,11 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2):
             "f64_share_active": share,
             "f64_share_one_ulp": share_n,
             "f32_q90_err_active": e32,
+            "f64_err_all_active": extreme_errs["all"][0],
+            "f64_err_none_active": extreme_errs["none"][0],
+            "f32_q90_err_all_active": extreme_errs["all"][2],
+            "f64_share_ragged": share_rag,
+            "smem_per_env": smem_per_env,
         }
         log(f"[kernel] {name} B={B_MAIN} float32: {ms:.3f} ms (CUDA events), plain {plain_ms:.1f} ms "
             f"(host clock), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; every element op "

@@ -7,7 +7,8 @@
 //                                       substeps + extras)
 //
 // and, from pgs.cuh, the constrained (PGS) bodies of the last two:
-// cdyn_period_cm and cdyn_rollout_cm.
+// cdyn_period_cm and cdyn_rollout_cm (a group of lanes per env there; the
+// notes below are those of the three spring-damper kernels).
 //
 // They compute what the Pallas kernels compute, not their block structure.
 // One thread integrates one environment: the whole state of an env step
@@ -974,12 +975,24 @@ int launch_rollout(const void* ci, const void* cf, const void* pi, const void* p
   return static_cast<int>(cudaGetLastError());
 }
 
+// The constrained kernels: CM_LANES lanes per env, CM_ENVS envs per block,
+// `smem_per_env` bytes of dynamic shared memory per env
+// (`cdyn_cm_smem_bytes`); a block's share past the card's limit fails here.
+template <typename K>
+int prepare_cm(K kernel, int smem_per_env) {
+  cudaGetLastError();
+  return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               smem_per_env * CM_ENVS));
+}
+
 template <typename T>
 int launch_period_cm(const void* ci, const void* cf, const void* si, const void* sf, const void* q,
                      const void* v, const void* cc, void* qo, void* vo, void* eo, int B, int n_cmd,
-                     int n_substeps, int integrator, void* stream) {
-  cudaGetLastError();
-  cdyn_period_cm_kernel<T><<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                     int n_substeps, int integrator, int smem_per_env, void* stream) {
+  const int rc = prepare_cm(cdyn_period_cm_kernel<T>, smem_per_env);
+  if (rc != 0) return rc;
+  cdyn_period_cm_kernel<T><<<(B + CM_ENVS - 1) / CM_ENVS, CM_LANES * CM_ENVS,
+                             (size_t)smem_per_env * CM_ENVS, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const int*>(si),
       static_cast<const T*>(sf), static_cast<const T*>(q), static_cast<const T*>(v),
       static_cast<const T*>(cc), static_cast<T*>(qo), static_cast<T*>(vo), static_cast<T*>(eo), B,
@@ -992,9 +1005,11 @@ int launch_rollout_cm(const void* ci, const void* cf, const void* si, const void
                       const void* pi, const void* pf, int controller, const void* q, const void* v,
                       const void* action, const void* carry, void* qo, void* vo, void* eo, int B,
                       int n_action, int n_block, int n_cmd, int n_ticks, int n_substeps,
-                      int integrator, void* stream) {
-  cudaGetLastError();
-  cdyn_rollout_cm_kernel<T><<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                      int integrator, int smem_per_env, void* stream) {
+  const int rc = prepare_cm(cdyn_rollout_cm_kernel<T>, smem_per_env);
+  if (rc != 0) return rc;
+  cdyn_rollout_cm_kernel<T><<<(B + CM_ENVS - 1) / CM_ENVS, CM_LANES * CM_ENVS,
+                              (size_t)smem_per_env * CM_ENVS, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const int*>(si),
       static_cast<const T*>(sf), static_cast<const int*>(pi), static_cast<const T*>(pf), controller,
       static_cast<const T*>(q), static_cast<const T*>(v), static_cast<const T*>(action),
@@ -1014,12 +1029,32 @@ extern "C" {
 int cdyn_caps(int* out, int n) {
   const int caps[] = {cdyn::NJ_MAX,  cdyn::NQ_MAX,   cdyn::NV_MAX,   cdyn::NC_MAX,
                       cdyn::NI_MAX,  cdyn::NM_MAX,   cdyn::NB_MAX,   cdyn::NCMD_MAX,
-                      cdyn::NACT_MAX, cdyn::NCARRY_MAX, cdyn::NROW_MAX, cdyn::NB_MAX,
-                      cdyn::NC_MAX};
+                      cdyn::NACT_MAX, cdyn::NCARRY_MAX};
   const int count = static_cast<int>(sizeof(caps) / sizeof(caps[0]));
   for (int i = 0; i < count && i < n; ++i) out[i] = caps[i];
   return count;
 }
+
+// Bytes of dynamic shared memory one env of the constrained kernels takes
+// (its slice and the padding to the next one) for a model of nj joints, nq
+// and nv coordinates, n rows (nc contacts, nb bounds) and supports of up to
+// ns dofs, at elt bytes a float; -1 past the rows the kernels take.
+int cdyn_cm_smem_bytes(int nj, int nq, int nv, int n, int nc, int nb, int ns, int elt) {
+  if (n > cdyn::CM_ROWS_MAX) return -1;
+  return cdyn::cm_env_stride(cdyn::CmLayout(nj, nq, nv, n, nc, nb, ns, elt).bytes, elt);
+}
+
+#ifdef CDYN_CM_PROFILE
+// The phase cycles of the constrained solves since the last call (`out`
+// holds cdyn::CM_PHASES values), then zeroed.
+int cdyn_cm_phase_cycles(unsigned long long* out) {
+  const size_t bytes = sizeof(unsigned long long) * cdyn::CM_PHASES;
+  cudaError_t e = cudaMemcpyFromSymbol(out, cdyn::cm_phase_cycles, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned long long zero[cdyn::CM_PHASES] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(cdyn::cm_phase_cycles, zero, bytes));
+}
+#endif
 
 const char* cdyn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -1048,18 +1083,19 @@ const char* cdyn_error_string(int code) {
   int cdyn_period_cm_##SUFFIX(const void* ci, const void* cf, const void* si, const void* sf,    \
                               const void* q, const void* v, const void* cc, void* qo, void* vo,  \
                               void* eo, int B, int n_cmd, int n_substeps, int integrator,        \
-                              void* stream) {                                                    \
+                              int smem_per_env, void* stream) {                                  \
     return cdyn::launch_period_cm<T>(ci, cf, si, sf, q, v, cc, qo, vo, eo, B, n_cmd, n_substeps, \
-                                     integrator, stream);                                        \
+                                     integrator, smem_per_env, stream);                          \
   }                                                                                              \
   int cdyn_rollout_cm_##SUFFIX(const void* ci, const void* cf, const void* si, const void* sf,   \
                                const void* pi, const void* pf, int controller, const void* q,    \
                                const void* v, const void* action, const void* carry, void* qo,   \
                                void* vo, void* eo, int B, int n_action, int n_block, int n_cmd,  \
-                               int n_ticks, int n_substeps, int integrator, void* stream) {      \
+                               int n_ticks, int n_substeps, int integrator, int smem_per_env,    \
+                               void* stream) {                                                   \
     return cdyn::launch_rollout_cm<T>(ci, cf, si, sf, pi, pf, controller, q, v, action, carry,  \
                                       qo, vo, eo, B, n_action, n_block, n_cmd, n_ticks,          \
-                                      n_substeps, integrator, stream);                           \
+                                      n_substeps, integrator, smem_per_env, stream);             \
   }
 
 CDYN_ENTRIES(f32, float)

@@ -1,51 +1,92 @@
 // Constrained (PGS) bodies of the period and rollout kernels: the CUDA
 // counterparts of jiminy_tpu/engine/solver.py's component path
-// (`constrained_accel_full_components`, `make_constrained_period_integrator`,
-// `make_constrained_rollout_integrator`), run inside
+// (`constrained_accel_full_components`, `_pgs_sweep_components`,
+// `make_constrained_period_integrator`, `make_constrained_rollout_integrator`),
+// run inside
 //
 //   cdyn_period_cm  <- _pallas_period_fn  with the constrained body
 //   cdyn_rollout_cm <- _pallas_rollout_fn with the constrained body
 //
-// One thread per environment, as in cdyn.cu, whose device functions
-// (joint_x, world_placements, fk_vel_acc, integrate, tau_c, pd_controller,
-// transform_sym6, sym6_mv) this header reuses; it is included by cdyn.cu
-// after them. One constrained solve: component CRBA and RNEA, an LDL^T
-// factor of the mass matrix, the joint-bound and ground-contact rows with
-// their Baumgarte drifts and active-set hysteresis, the Delassus matrix
-// A = J M^-1 J^T with its diagonal regularization, and a fixed number of
-// boxed/cone Gauss-Seidel sweeps warm-started from the carried multipliers.
-// Every sum runs in the order of the plain version (jiminy_torch/engine/
-// solver.py) and of jiminy_tpu; the structural zeros that jiminy_tpu prunes
-// at trace time are multiplied here (exact for finite operands). The dense
-// per-thread arrays (J, M^-1 J^T, A, M) live in local memory.
+// What bounds them on an H100: operations. An env step of the ANYmal is 168
+// constrained solves, 6.08 M scalar operations per env with the zero operands
+// folded away (a period 0.76 M), against about a thousand bytes of I/O per
+// env. One solve: component CRBA and RNEA, an LDL^T factor of the mass
+// matrix, the joint-bound and ground-contact rows with their Baumgarte drifts
+// and active-set hysteresis, the Delassus matrix A = J M^-1 J^T with its
+// diagonal regularization, and a fixed number of boxed/cone Gauss-Seidel
+// sweeps warm-started from the carried multipliers.
+//
+// Design. A group of CM_LANES = 8 lanes (aligned in its warp) steps one env,
+// CM_ENVS = 4 envs to a block (PERF.md times the alternatives); a group
+// past the end of the batch leaves whole. The solve's working set lives in
+// dynamic shared memory, one slice per env sized from the model's joints,
+// dofs, rows and supports at launch (`CmLayout`, about 8 KB at float32 for
+// the ANYmal, so 28 envs fit on an SM): J over each row's support dofs and
+// M^-1 J^T over the active rows, A's upper triangle, the LDL^T factor of M,
+// the per-joint arrays of the tree passes (whose arrays share space by
+// lifetime, and with M^-1 J^T and A, alive only after them) and the three
+// solver states. Only the integrator's vectors stay in the leading lane's
+// stack. Inside a solve:
+//  - the tree passes (placements, the bias kinematics, RNEA, CRBA) run
+//    depth after depth of the tree, a joint per lane, each joint's
+//    arithmetic that of the serial passes; lanes build the rows a bound or
+//    contact each;
+//  - only the active rows are built and solved, listed in the order the
+//    sweeps visit them (bounds, normals, torsion, tangent pairs); the
+//    inactive rows' multipliers are written as 0. This is exact: in the
+//    dense system an inactive row has J = 0, drift = 0 and a zero warm
+//    start, so the projections keep its multiplier at 0 in every sweep and
+//    it adds exact zeros to every other row;
+//  - sums over dofs run over a row's support (`CModel::csup`, `bsup`: a contact's
+//    ancestor dofs, a bound's one dof), in ascending dof order as in the
+//    plain version (dropping exact zeros from a sum is exact);
+//  - lanes share the LDL^T factor by rows, the right-hand sides of M^-1 J^T,
+//    the entries of A and b, and the accelerations. The sweeps keep the
+//    residual y = b - A x in registers, each lane the rows congruent to it
+//    mod CM_LANES: a row update takes its y from its lane (one shuffle) and
+//    every lane subtracts the update times A's column from its rows, so the
+//    chain of a Gauss-Seidel step is a shuffle, a division and an FMA. Every
+//    lane keeps its own copy of the multipliers up to date: no barrier.
+// Group barriers are __syncwarp on the group's mask only, so groups of one
+// warp with different active counts never wait on each other. Float64 runs
+// agree with the plain version to rounding (the residual is updated rather
+// than recomputed, and sums run in another order than the plain version's);
+// float32 also by FMA contraction.
 #pragma once
 
 namespace cdyn {
 
-constexpr int NROW_MAX = 40;  // constraint rows: bounds + 4 per contact
-// Int buffer `si`: header [N nb nc iter_max stage_warm_start ...], then per
-// bound (q index, v index), per contact (parent joint).
+// Int buffer `si`: header [N nb nc iter_max stage_warm_start support_width
+// ...], then per bound (q index, v index), per contact (parent joint,
+// support size, offset of its support dofs in `si`), then the support dof
+// lists (ascending); support_width is the largest support size (1 for a
+// bound).
 // Float buffer `sf`: header [kp kd friction torsion regularization
 // min_regularizer transition_eps ...], the relaxation weight of every sweep,
 // then per bound (lo hi lo+eps hi-eps), per contact fpos(3) frot(9).
-constexpr int SI_HEADER = 8, SF_HEADER = 8, SI_BOUND = 2, SI_CONTACT = 1, SF_BOUND = 4,
+constexpr int SI_HEADER = 8, SF_HEADER = 8, SI_BOUND = 2, SI_CONTACT = 3, SF_BOUND = 4,
               SF_CONTACT = 12;
 
 template <typename T>
 struct CModel {
   const int* __restrict__ si;
   const T* __restrict__ sf;
-  int n, nb, nc, iter_max, stage_warm;
+  int n, nb, nc, iter_max, stage_warm, ns;
   int fb, fc;  // float offsets: bounds, contacts
 
   __device__ CModel(const int* si_, const T* sf_) : si(si_), sf(sf_) {
-    n = si[0]; nb = si[1]; nc = si[2]; iter_max = si[3]; stage_warm = si[4];
+    n = si[0]; nb = si[1]; nc = si[2]; iter_max = si[3]; stage_warm = si[4]; ns = si[5];
     fb = SF_HEADER + iter_max;
     fc = fb + SF_BOUND * nb;
   }
   __device__ int bq(int b) const { return si[SI_HEADER + SI_BOUND * b]; }
   __device__ int bv(int b) const { return si[SI_HEADER + SI_BOUND * b + 1]; }
-  __device__ int cparent(int k) const { return si[SI_HEADER + SI_BOUND * nb + SI_CONTACT * k]; }
+  __device__ const int* cinfo(int k) const { return si + SI_HEADER + SI_BOUND * nb + SI_CONTACT * k; }
+  __device__ int cparent(int k) const { return cinfo(k)[0]; }
+  // support dofs of a row: offset in `si` and count (a bound: its v index)
+  __device__ int bsup(int b) const { return SI_HEADER + SI_BOUND * b + 1; }
+  __device__ int csup(int k) const { return cinfo(k)[2]; }
+  __device__ int csup_n(int k) const { return cinfo(k)[1]; }
   __device__ T kp() const { return sf[0]; }
   __device__ T kd() const { return sf[1]; }
   __device__ T friction() const { return sf[2]; }
@@ -58,6 +99,250 @@ struct CModel {
   __device__ const T* cfpos(int k) const { return sf + fc + SF_CONTACT * k; }
   __device__ const T* cfrot(int k) const { return cfpos(k) + 3; }
 };
+
+// --------------------------------------------------------------------------
+// Lane groups and the per-env shared-memory slice
+// --------------------------------------------------------------------------
+
+// Lanes per env and envs per block; a build may set others (-DCDYN_CM_LANES,
+// -DCDYN_CM_ENVS: 4, 8, 16 or 32 lanes) to time them.
+#ifndef CDYN_CM_LANES
+#define CDYN_CM_LANES 8
+#endif
+#ifndef CDYN_CM_ENVS
+#define CDYN_CM_ENVS 4
+#endif
+constexpr int CM_LANES = CDYN_CM_LANES, CM_ENVS = CDYN_CM_ENVS;
+constexpr int CM_ROWS_MAX = 40;  // rows of one model
+constexpr int CM_SLOTS = (CM_ROWS_MAX + CM_LANES - 1) / CM_LANES;  // residual rows per lane
+static_assert(CM_LANES == 4 || CM_LANES == 8 || CM_LANES == 16 || CM_LANES == 32,
+              "CM_LANES: a power of two from 4 to 32");
+static_assert(CM_LANES * CM_ENVS <= 1024, "CM_LANES * CM_ENVS threads a block");
+
+// The CM_LANES lanes of one env, aligned in their warp.
+struct Lanes {
+  int lane;
+  unsigned mask;
+  __device__ Lanes() : lane(threadIdx.x & (CM_LANES - 1)) {
+    mask = (CM_LANES == 32) ? 0xffffffffu
+                            : (((1u << CM_LANES) - 1u) << ((threadIdx.x & 31) & ~(CM_LANES - 1)));
+  }
+  __device__ bool leader() const { return lane == 0; }
+  __device__ void sync() const { __syncwarp(mask); }
+};
+
+// Position of entry (r, c), r <= c, of the packed upper triangle of an
+// na x na symmetric matrix, row by row.
+__device__ __forceinline__ int upper_at(int na, int r, int c) {
+  return r * (2 * na - r + 1) / 2 + (c - r);
+}
+
+// Byte offsets of one env's slice of dynamic shared memory, from the model's
+// joints, dofs, rows, contacts, bounds and support width (the same on host
+// and device).
+struct CmLayout {
+  int tree, wmat, amat, jmat, mmat, dinv, d, tau, tc, qs, vs, qdd, drift, b, x, depth, lam;
+  int rows, pos, soff, scnt, cnt, clist, jorder, lstart, masks, bytes;
+
+  __host__ __device__ CmLayout(int nj, int nq, int nv, int n, int nc, int nb, int ns, int elt) {
+    int off = 0;
+    auto take = [&](int count, int size) {
+      const int at = off;
+      off += (count * size + 15) / 16 * 16;
+      return at;
+    };
+    // The tree passes' per-joint arrays, 72 values a joint: R P VELg ACCg
+    // throughout, RW PW VEL ACC up to the rows, then IC F FT in their place
+    // (`Work`). Their space is M^-1 J^T's and A's (upper triangle) after them.
+    const int tree_n = 72 * nj, wa_n = n * nv + n * (n + 1) / 2;
+    tree = take(tree_n > wa_n ? tree_n : wa_n, elt);
+    wmat = tree;
+    amat = tree + n * nv * elt;
+    jmat = take(n * ns, elt);
+    mmat = take(nv * nv, elt);
+    dinv = take(nv, elt);
+    d = take(nv, elt);
+    tau = take(nv, elt);
+    tc = take(nv, elt);
+    qs = take(nq, elt);
+    vs = take(nv, elt);
+    qdd = take(nv, elt);
+    drift = take(n, elt);
+    b = take(n, elt);
+    x = take(n, elt);
+    depth = take(nc, elt);
+    lam = take(3 * n, elt);
+    rows = take(n, 4);
+    pos = take(n, 4);
+    soff = take(n, 4);
+    scnt = take(n, 4);
+    cnt = take(4, 4);
+    clist = take(nc, 4);
+    jorder = take(nj, 4);
+    lstart = take(nj + 1, 4);
+    masks = take(3 * (nc + nb), 1);
+    bytes = off;
+  }
+};
+
+// Bytes between two envs' slices: the slice padded so that the groups of one
+// warp start CM_LANES element widths apart in the 32 four-byte banks of
+// shared memory. Then the same offset in each group's slice (lane 0's serial
+// code) and consecutive offsets across a group's lanes fall in distinct banks.
+__host__ __device__ inline int cm_env_stride(int bytes, int elt) {
+  const int words = bytes / 4;  // a multiple of 4
+  const int want = (CM_LANES * elt / 4) % 32;
+  return 4 * (words + (want - words % 32 + 32) % 32);
+}
+
+// Solver state of one env: the warm-start multipliers and active sets
+template <typename T>
+struct SolverState {
+  T* lam;
+  unsigned char* cact;
+  unsigned char* bact;
+};
+
+// Solver states of a slice: the carry's, the command row's, the stages'
+constexpr int ST_CARRY = 0, ST_CC = 1, ST_TMP = 2;
+
+// Views of one env's slice.
+template <typename T>
+struct Work {
+  T (*R)[9];
+  T (*P)[3];
+  T (*RW)[9];
+  T (*PW)[3];
+  T (*VEL)[6];
+  T (*ACC)[6];
+  T (*IC)[36];
+  T (*F)[6];
+  T (*VELg)[6];
+  T (*ACCg)[6];
+  T (*FT)[6];  // joint forces in their parent's frame (RNEA)
+  T *W, *A, *J, *Mm, *dinv, *d, *tau, *tc, *qs, *vs, *qdd, *drift, *b, *x, *depth;
+  int *rows, *pos, *soff, *scnt, *cnt, *clist;
+  int *jorder, *lstart;  // joints by tree depth; where each depth starts in jorder
+  T* lam;                // the three solver states, one after another
+  unsigned char* masks;
+  int n, nc, nmask;
+
+  __device__ Work(unsigned char* base, const Model<T>& M, const CModel<T>& C) {
+    const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, static_cast<int>(sizeof(T)));
+    T* t = reinterpret_cast<T*>(base + lo.tree);
+    const int nj = M.nj;
+    R = reinterpret_cast<T(*)[9]>(t);
+    P = reinterpret_cast<T(*)[3]>(t + 9 * nj);
+    VELg = reinterpret_cast<T(*)[6]>(t + 12 * nj);
+    ACCg = reinterpret_cast<T(*)[6]>(t + 18 * nj);
+    // the forward pass and the rows' arrays; the backward pass's in their place
+    T* u = t + 24 * nj;
+    RW = reinterpret_cast<T(*)[9]>(u);
+    PW = reinterpret_cast<T(*)[3]>(u + 9 * nj);
+    VEL = reinterpret_cast<T(*)[6]>(u + 12 * nj);
+    ACC = reinterpret_cast<T(*)[6]>(u + 18 * nj);
+    IC = reinterpret_cast<T(*)[36]>(u);
+    F = reinterpret_cast<T(*)[6]>(u + 36 * nj);
+    FT = reinterpret_cast<T(*)[6]>(u + 42 * nj);
+    W = reinterpret_cast<T*>(base + lo.wmat);
+    A = reinterpret_cast<T*>(base + lo.amat);
+    J = reinterpret_cast<T*>(base + lo.jmat);
+    Mm = reinterpret_cast<T*>(base + lo.mmat);
+    dinv = reinterpret_cast<T*>(base + lo.dinv);
+    d = reinterpret_cast<T*>(base + lo.d);
+    tau = reinterpret_cast<T*>(base + lo.tau);
+    tc = reinterpret_cast<T*>(base + lo.tc);
+    qs = reinterpret_cast<T*>(base + lo.qs);
+    vs = reinterpret_cast<T*>(base + lo.vs);
+    qdd = reinterpret_cast<T*>(base + lo.qdd);
+    drift = reinterpret_cast<T*>(base + lo.drift);
+    b = reinterpret_cast<T*>(base + lo.b);
+    x = reinterpret_cast<T*>(base + lo.x);
+    depth = reinterpret_cast<T*>(base + lo.depth);
+    rows = reinterpret_cast<int*>(base + lo.rows);
+    pos = reinterpret_cast<int*>(base + lo.pos);
+    soff = reinterpret_cast<int*>(base + lo.soff);
+    scnt = reinterpret_cast<int*>(base + lo.scnt);
+    cnt = reinterpret_cast<int*>(base + lo.cnt);
+    clist = reinterpret_cast<int*>(base + lo.clist);
+    jorder = reinterpret_cast<int*>(base + lo.jorder);
+    lstart = reinterpret_cast<int*>(base + lo.lstart);
+    lam = reinterpret_cast<T*>(base + lo.lam);
+    masks = base + lo.masks;
+    n = C.n;
+    nc = C.nc;
+    nmask = C.nc + C.nb;
+  }
+  // solver state s (ST_CARRY, ST_CC, ST_TMP)
+  __device__ SolverState<T> state(int s) const {
+    unsigned char* cact = masks + s * nmask;
+    return {lam + s * n, cact, cact + nc};
+  }
+};
+
+// Phase timing of a solve, in a build with -DCDYN_CM_PROFILE only: lane 0 of
+// every group adds the clock64() cycles its group spends in each phase of
+// `constrained_accel` (kinematics, active sets, CRBA | RNEA | rows, LDL^T,
+// M^-1 solves, A and b, sweeps, accelerations) to cm_phase_cycles.
+constexpr int CM_PHASES = 8;
+#ifdef CDYN_CM_PROFILE
+__device__ unsigned long long cm_phase_cycles[CM_PHASES];
+#define CM_PROFILE_START(t) long long t = clock64()
+#define CM_PROFILE_PHASE(L, k, t)                                                   \
+  do {                                                                              \
+    if ((L).leader()) {                                                             \
+      const long long now_ = clock64();                                             \
+      atomicAdd(&cm_phase_cycles[k], static_cast<unsigned long long>(now_ - (t)));  \
+      (t) = now_;                                                                   \
+    }                                                                               \
+  } while (0)
+#else
+#define CM_PROFILE_START(t)
+#define CM_PROFILE_PHASE(L, k, t)
+#endif
+
+__device__ __forceinline__ unsigned char* dynamic_smem() {
+  extern __shared__ __align__(16) unsigned char cm_smem[];
+  return cm_smem;
+}
+
+// This thread's env slice. Each function builds it from the shared-memory
+// symbol rather than taking it by reference: the compiler then sees shared
+// memory behind the pointers, and keeps them and the model's constants in
+// registers (a reference to the stack is reloaded after every store).
+template <typename T>
+__device__ __forceinline__ Work<T> env_work(const Model<T>& M, const CModel<T>& C) {
+  const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, static_cast<int>(sizeof(T)));
+  const int slot = threadIdx.x / CM_LANES;
+  return Work<T>(dynamic_smem() + (size_t)slot * cm_env_stride(lo.bytes, sizeof(T)), M, C);
+}
+
+// c ? a : b, kept a select: a chain of them over a register array would
+// otherwise become an indexed load, which moves the array to local memory.
+__device__ __forceinline__ float select_if(bool c, float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("{.reg .pred p; setp.ne.u32 p, %3, 0; selp.f32 %0, %1, %2, p;}"
+      : "=f"(r) : "f"(a), "f"(b), "r"(static_cast<unsigned>(c)));
+  return r;
+#else
+  return c ? a : b;
+#endif
+}
+__device__ __forceinline__ double select_if(bool c, double a, double b) {
+#ifdef __CUDA_ARCH__
+  double r;
+  asm("{.reg .pred p; setp.ne.u32 p, %3, 0; selp.f64 %0, %1, %2, p;}"
+      : "=d"(r) : "d"(a), "d"(b), "r"(static_cast<unsigned>(c)));
+  return r;
+#else
+  return c ? a : b;
+#endif
+}
+
+// --------------------------------------------------------------------------
+// Pieces of one solve
+// --------------------------------------------------------------------------
 
 // Right-handed basis with column 2 = the unit ground normal n
 // (`_normal_basis_components`): columns c0, c1.
@@ -92,489 +377,756 @@ __device__ __forceinline__ void motion_axis(const Model<T>& M, int j, T* ax_a, T
   for (int k = 0; k < 3; ++k) { ax_a[k] = rev ? ax[k] : T(0); ax_l[k] = rev ? T(0) : ax[k]; }
 }
 
-// CRBA with armature (`mass_matrix_components`), row-major nv x nv with
-// row stride NV_MAX.
+// The tree passes run joint by joint within a depth of the tree and depth
+// after depth, a joint per lane; each joint's arithmetic is that of the
+// serial passes (`_joint_x`, `_world_placements`, `nle_components`,
+// `mass_matrix_components`), and each parent sums its children in the
+// serial passes' order (descending joint index), so the results are the
+// same. `tree_levels` lists the joints by depth once per launch.
 template <typename T>
-__device__ void crba(const Model<T>& M, const T (*R)[9], const T (*P)[3], T* Mm, T (*IC)[36]) {
-  const int nv = M.nv;
-#pragma unroll 1
-  for (int i = 0; i < nv; ++i)
-    for (int j = 0; j < nv; ++j) Mm[NV_MAX * i + j] = T(0);
-#pragma unroll 1
-  for (int i = 0; i < M.nj; ++i)
-    for (int k = 0; k < 36; ++k) IC[i][k] = M.ia0(i)[k];
-#pragma unroll 1
-  for (int i = M.nj - 1; i >= 0; --i) {
-    const int vi = M.iv(i);
-    if (M.type(i) == FREE) {  // permuted composite inertia + armature
-      for (int r = 0; r < 6; ++r)
-        for (int c = 0; c < 6; ++c) Mm[NV_MAX * (vi + r) + vi + c] = IC[i][6 * ((r + 3) % 6) + (c + 3) % 6];
-      for (int r = 0; r < 6; ++r)
-        Mm[NV_MAX * (vi + r) + vi + r] = Mm[NV_MAX * (vi + r) + vi + r] + M.armature(vi + r);
-      continue;
+__device__ void tree_levels(const Model<T>& M, int* jorder, int* lstart, int* nlev) {
+  int k = 0, d = 0;
+  for (;; ++d) {
+    lstart[d] = k;
+    for (int j = 0; j < M.nj; ++j) {
+      int depth = 0;
+      for (int p = M.parent(j); p >= 0; p = M.parent(p)) ++depth;
+      if (depth == d) jorder[k++] = j;
     }
+    if (k == lstart[d]) break;
+  }
+  *nlev = d;
+}
+
+// Spatial velocity and acceleration of joint i with zero joint acceleration
+// (the first pass of `nle_components`): the root's parent accelerates at -g
+// with `gravity`, at 0 without (the velocity-bias kinematics of the rows).
+template <typename T>
+__device__ void vel_acc_joint(const Model<T>& M, int i, const T* R, const T* P, const T* v,
+                              bool gravity, T (*VEL)[6], T (*ACC)[6]) {
+  const int p = M.parent(i);
+  const int t = M.type(i);
+  const int vi = M.iv(i);
+  T w_p[3] = {T(0), T(0), T(0)}, v_p[3] = {T(0), T(0), T(0)};
+  T aa_p[3] = {T(0), T(0), T(0)}, al_p[3] = {T(0), T(0), T(0)};
+  if (gravity)
+    for (int k = 0; k < 3; ++k) al_p[k] = -M.g(k);
+  if (p >= 0)
+    for (int k = 0; k < 3; ++k) {
+      w_p[k] = VEL[p][k]; v_p[k] = VEL[p][3 + k];
+      aa_p[k] = ACC[p][k]; al_p[k] = ACC[p][3 + k];
+    }
+  T w_in[3], v_in[3], aw_in[3], al_in[3], tmp[3];
+  tv3(R, w_p, w_in);
+  cross3(P, w_p, tmp);
+  for (int k = 0; k < 3; ++k) tmp[k] = v_p[k] - tmp[k];
+  tv3(R, tmp, v_in);
+  tv3(R, aa_p, aw_in);
+  cross3(P, aa_p, tmp);
+  for (int k = 0; k < 3; ++k) tmp[k] = al_p[k] - tmp[k];
+  tv3(R, tmp, al_in);
+  T vj_ang[3], vj_lin[3];
+  if (t == FREE) {
+    for (int k = 0; k < 3; ++k) { vj_lin[k] = v[vi + k]; vj_ang[k] = v[vi + 3 + k]; }
+  } else {
+    const T* ax = M.axis(i);
+    const bool rev = (t == REVOLUTE);
+    for (int k = 0; k < 3; ++k) {
+      vj_ang[k] = rev ? ax[k] * v[vi] : T(0);
+      vj_lin[k] = rev ? T(0) : ax[k] * v[vi];
+    }
+  }
+  T* w_i = VEL[i];
+  T* v_i = VEL[i] + 3;
+  for (int k = 0; k < 3; ++k) { w_i[k] = w_in[k] + vj_ang[k]; v_i[k] = v_in[k] + vj_lin[k]; }
+  T b_ang[3], c1[3], c2[3];
+  cross3(w_i, vj_ang, b_ang);
+  cross3(w_i, vj_lin, c1);
+  cross3(v_i, vj_ang, c2);
+  for (int k = 0; k < 3; ++k) {
+    ACC[i][k] = aw_in[k] + b_ang[k];
+    ACC[i][3 + k] = al_in[k] + (c1[k] + c2[k]);
+  }
+}
+
+// The forward pass for joint i: its placement in the parent frame and in
+// the world, the velocity-bias kinematics, and RNEA's recursion (gravity).
+template <typename T>
+__device__ void forward_joint(const Model<T>& M, int i, const T* q, const T* v, Work<T>& w) {
+  const T* tr = M.jrot(i);
+  const T* tp = M.jpos(i);
+  const int qi = M.iq(i);
+  const int t = M.type(i);
+  T* R = w.R[i];
+  T* P = w.P[i];
+  T tmp[3];
+  if (t == FREE) {
+    T rj[9];
+    quat_to_m(q[qi + 3], q[qi + 4], q[qi + 5], q[qi + 6], rj);
+    mm3(tr, rj, R);
+    T pj[3] = {q[qi], q[qi + 1], q[qi + 2]};
+    mv3(tr, pj, tmp);
+    for (int k = 0; k < 3; ++k) P[k] = tmp[k] + tp[k];
+  } else if (t == REVOLUTE) {
+    T rj[9];
+    rodrigues(M.axis(i), M.axprod(i), q[qi], rj);
+    mm3(tr, rj, R);
+    for (int k = 0; k < 3; ++k) P[k] = tp[k];
+  } else {  // PRISMATIC
+    const T* ax = M.axis(i);
+    for (int k = 0; k < 9; ++k) R[k] = tr[k];
+    T disp[3] = {ax[0] * q[qi], ax[1] * q[qi], ax[2] * q[qi]};
+    mv3(tr, disp, tmp);
+    for (int k = 0; k < 3; ++k) P[k] = tmp[k] + tp[k];
+  }
+  const int p = M.parent(i);
+  if (p < 0) {
+    for (int k = 0; k < 9; ++k) w.RW[i][k] = R[k];
+    for (int k = 0; k < 3; ++k) w.PW[i][k] = P[k];
+  } else {
+    mm3(w.RW[p], R, w.RW[i]);
+    mv3(w.RW[p], P, tmp);
+    for (int k = 0; k < 3; ++k) w.PW[i][k] = tmp[k] + w.PW[p][k];
+  }
+  vel_acc_joint(M, i, R, P, v, false, w.VEL, w.ACC);
+  vel_acc_joint(M, i, R, P, v, true, w.VELg, w.ACCg);
+}
+
+// The backward pass for joint i, its children gathered: the CRBA column of
+// its dofs (armature included) with its composite inertia moved into the
+// parent frame in place, and its RNEA force with tau[vi] and the force in
+// the parent frame (FT).
+template <typename T>
+__device__ void backward_joint(const Model<T>& M, int i, Work<T>& w) {
+  const int nv = M.nv;
+  const int vi = M.iv(i);
+  const int p = M.parent(i);
+  T* Mm = w.Mm;
+  T (*IC)[36] = w.IC;
+  if (M.type(i) == FREE) {  // permuted composite inertia + armature
+    for (int r = 0; r < 6; ++r)
+      for (int c = 0; c < 6; ++c) Mm[nv * (vi + r) + vi + c] = IC[i][6 * ((r + 3) % 6) + (c + 3) % 6];
+    for (int r = 0; r < 6; ++r)
+      Mm[nv * (vi + r) + vi + r] = Mm[nv * (vi + r) + vi + r] + M.armature(vi + r);
+  } else {
     T ax_a[3], ax_l[3], fv[6];
     motion_axis(M, i, ax_a, ax_l);
     sym6_mv(IC[i], ax_a, ax_l, fv);
-    Mm[NV_MAX * vi + vi] = (dot3(ax_a, fv) + dot3(ax_l, fv + 3)) + M.armature(vi);
+    Mm[nv * vi + vi] = (dot3(ax_a, fv) + dot3(ax_l, fv + 3)) + M.armature(vi);
     T n_c[3] = {fv[0], fv[1], fv[2]}, f_c[3] = {fv[3], fv[4], fv[5]};
     int j = i;
 #pragma unroll 1
     while (M.parent(j) >= 0) {  // transport the column up the tree
-      force_to_parent(R[j], P[j], n_c, f_c);
+      force_to_parent(w.R[j], w.P[j], n_c, f_c);
       j = M.parent(j);
       const int vj = M.iv(j);
       if (M.type(j) == FREE) {
         const T full[6] = {n_c[0], n_c[1], n_c[2], f_c[0], f_c[1], f_c[2]};
         for (int k = 0; k < 6; ++k) {
-          Mm[NV_MAX * vi + vj + k] = full[(k + 3) % 6];
-          Mm[NV_MAX * (vj + k) + vi] = full[(k + 3) % 6];
+          Mm[nv * vi + vj + k] = full[(k + 3) % 6];
+          Mm[nv * (vj + k) + vi] = full[(k + 3) % 6];
         }
       } else {
         T aj_a[3], aj_l[3];
         motion_axis(M, j, aj_a, aj_l);
         const T val = dot3(aj_a, n_c) + dot3(aj_l, f_c);
-        Mm[NV_MAX * vi + vj] = val;
-        Mm[NV_MAX * vj + vi] = val;
+        Mm[nv * vi + vj] = val;
+        Mm[nv * vj + vi] = val;
       }
     }
-    const int p = M.parent(i);
     if (p >= 0) {
       T ia_p[36];
-      transform_sym6(IC[i], R[i], P[i], ia_p);
-      for (int k = 0; k < 36; ++k) IC[p][k] = IC[p][k] + ia_p[k];
+      transform_sym6(IC[i], w.R[i], w.P[i], ia_p);
+      for (int k = 0; k < 36; ++k) IC[i][k] = ia_p[k];
     }
+  }
+  // RNEA: the joint's force from its motion and its children's forces
+  const T* w_i = w.VELg[i];
+  const T* v_i = w.VELg[i] + 3;
+  T ia_av[6], iv[6], c1[3], c2[3];
+  sym6_mv(M.ia0(i), w.ACCg[i], w.ACCg[i] + 3, ia_av);
+  sym6_mv(M.ia0(i), w_i, v_i, iv);
+  cross3(w_i, iv, c1);
+  cross3(v_i, iv + 3, c2);
+  T f_a[3], f_l[3];
+  for (int k = 0; k < 3; ++k) f_a[k] = ia_av[k] + (c1[k] + c2[k]);
+  cross3(w_i, iv + 3, c1);
+  for (int k = 0; k < 3; ++k) f_l[k] = ia_av[3 + k] + c1[k];
+  bool has_child = false;
+  for (int c = i + 1; c < M.nj; ++c) has_child = has_child || M.parent(c) == i;
+  if (has_child)
+    for (int k = 0; k < 3; ++k) { f_a[k] = f_a[k] + w.F[i][k]; f_l[k] = f_l[k] + w.F[i][3 + k]; }
+  if (M.type(i) == FREE) {
+    const T full[6] = {f_a[0], f_a[1], f_a[2], f_l[0], f_l[1], f_l[2]};
+    for (int k = 0; k < 6; ++k) w.tau[vi + k] = full[(k + 3) % 6];
+  } else {
+    T ax_a[3], ax_l[3];
+    motion_axis(M, i, ax_a, ax_l);
+    w.tau[vi] = dot3(ax_a, f_a) + dot3(ax_l, f_l);
+  }
+  if (p >= 0) {
+    force_to_parent(w.R[i], w.P[i], f_a, f_l);
+    for (int k = 0; k < 3; ++k) { w.FT[i][k] = f_a[k]; w.FT[i][3 + k] = f_l[k]; }
   }
 }
 
-// Nonlinear effects: RNEA with zero joint acceleration (`nle_components`).
+// Parent p sums its children's composite inertias (moved into its frame)
+// and forces, in descending child index as the serial passes do.
 template <typename T>
-__device__ void rnea_nle(const Model<T>& M, const T (*R)[9], const T (*P)[3], const T* v,
-                         T (*VEL)[6], T (*ACC)[6], T (*F)[6], T* tau) {
+__device__ void gather_children(const Model<T>& M, int p, Work<T>& w) {
+  bool has = false;
 #pragma unroll 1
-  for (int i = 0; i < M.nj; ++i) {
-    const int p = M.parent(i);
-    const int t = M.type(i);
-    const int vi = M.iv(i);
-    T w_p[3] = {T(0), T(0), T(0)}, v_p[3] = {T(0), T(0), T(0)};
-    T aa_p[3] = {T(0), T(0), T(0)}, al_p[3] = {-M.g(0), -M.g(1), -M.g(2)};
-    if (p >= 0)
-      for (int k = 0; k < 3; ++k) {
-        w_p[k] = VEL[p][k]; v_p[k] = VEL[p][3 + k];
-        aa_p[k] = ACC[p][k]; al_p[k] = ACC[p][3 + k];
-      }
-    T w_in[3], v_in[3], aw_in[3], al_in[3], tmp[3];
-    tv3(R[i], w_p, w_in);
-    cross3(P[i], w_p, tmp);
-    for (int k = 0; k < 3; ++k) tmp[k] = v_p[k] - tmp[k];
-    tv3(R[i], tmp, v_in);
-    tv3(R[i], aa_p, aw_in);
-    cross3(P[i], aa_p, tmp);
-    for (int k = 0; k < 3; ++k) tmp[k] = al_p[k] - tmp[k];
-    tv3(R[i], tmp, al_in);
-    T vj_ang[3], vj_lin[3];
-    if (t == FREE) {
-      for (int k = 0; k < 3; ++k) { vj_lin[k] = v[vi + k]; vj_ang[k] = v[vi + 3 + k]; }
-    } else {
-      const T* ax = M.axis(i);
-      const bool rev = (t == REVOLUTE);
-      for (int k = 0; k < 3; ++k) {
-        vj_ang[k] = rev ? ax[k] * v[vi] : T(0);
-        vj_lin[k] = rev ? T(0) : ax[k] * v[vi];
-      }
-    }
-    T* w_i = VEL[i];
-    T* v_i = VEL[i] + 3;
-    for (int k = 0; k < 3; ++k) { w_i[k] = w_in[k] + vj_ang[k]; v_i[k] = v_in[k] + vj_lin[k]; }
-    T b_ang[3], c1[3], c2[3];
-    cross3(w_i, vj_ang, b_ang);
-    cross3(w_i, vj_lin, c1);
-    cross3(v_i, vj_ang, c2);
-    for (int k = 0; k < 3; ++k) {
-      ACC[i][k] = aw_in[k] + b_ang[k];
-      ACC[i][3 + k] = al_in[k] + (c1[k] + c2[k]);
-    }
-  }
-  bool has[NJ_MAX];
-#pragma unroll 1
-  for (int i = 0; i < M.nj; ++i) has[i] = false;
-#pragma unroll 1
-  for (int i = M.nj - 1; i >= 0; --i) {
-    const T* w_i = VEL[i];
-    const T* v_i = VEL[i] + 3;
-    T ia_av[6], iv[6], c1[3], c2[3];
-    sym6_mv(M.ia0(i), ACC[i], ACC[i] + 3, ia_av);
-    sym6_mv(M.ia0(i), w_i, v_i, iv);
-    cross3(w_i, iv, c1);
-    cross3(v_i, iv + 3, c2);
-    T f_a[3], f_l[3];
-    for (int k = 0; k < 3; ++k) f_a[k] = ia_av[k] + (c1[k] + c2[k]);
-    cross3(w_i, iv + 3, c1);
-    for (int k = 0; k < 3; ++k) f_l[k] = ia_av[3 + k] + c1[k];
-    if (has[i])
-      for (int k = 0; k < 3; ++k) { f_a[k] = f_a[k] + F[i][k]; f_l[k] = f_l[k] + F[i][3 + k]; }
-    const int vi = M.iv(i);
-    if (M.type(i) == FREE) {
-      const T full[6] = {f_a[0], f_a[1], f_a[2], f_l[0], f_l[1], f_l[2]};
-      for (int k = 0; k < 6; ++k) tau[vi + k] = full[(k + 3) % 6];
-    } else {
-      T ax_a[3], ax_l[3];
-      motion_axis(M, i, ax_a, ax_l);
-      tau[vi] = dot3(ax_a, f_a) + dot3(ax_l, f_l);
-    }
-    const int p = M.parent(i);
-    if (p >= 0) {
-      force_to_parent(R[i], P[i], f_a, f_l);
-      if (has[p]) {
-        for (int k = 0; k < 3; ++k) { F[p][k] = F[p][k] + f_a[k]; F[p][3 + k] = F[p][3 + k] + f_l[k]; }
-      } else {
-        for (int k = 0; k < 3; ++k) { F[p][k] = f_a[k]; F[p][3 + k] = f_l[k]; }
-        has[p] = true;
-      }
-    }
+  for (int c = M.nj - 1; c > p; --c) {
+    if (M.parent(c) != p) continue;
+    if (M.type(c) != FREE)
+      for (int k = 0; k < 36; ++k) w.IC[p][k] = w.IC[p][k] + w.IC[c][k];
+    for (int k = 0; k < 6; ++k) w.F[p][k] = has ? w.F[p][k] + w.FT[c][k] : w.FT[c][k];
+    has = true;
   }
 }
 
-// In-place LDL^T of the nv x nv matrix Mm (`_ldl_factor_components`): L
-// below the diagonal, the inverse pivots in dinv.
+// Solve with the in-place LDL^T factor L (row-major n x n) and the inverse
+// pivots (`_ldl_solve_components`); y[i] = 0 for i < first, which the
+// forward pass skips (exact).
 template <typename T>
-__device__ void ldl_factor(int n, T* Mm, T* dinv) {
-  T d[NV_MAX];
+__device__ void ldl_solve(int n, const T* L, const T* dinv, T* y, int first) {
+  // y[i] accumulates in a register: the same operations in the same order,
+  // with no shared-memory round trip between them
 #pragma unroll 1
-  for (int j = 0; j < n; ++j) {
-    T dj = Mm[NV_MAX * j + j];
-    for (int k = 0; k < j; ++k) dj = dj - Mm[NV_MAX * j + k] * Mm[NV_MAX * j + k] * d[k];
-    d[j] = dj;
-    dinv[j] = T(1) / dj;
-#pragma unroll 1
-    for (int i = j + 1; i < n; ++i) {
-      T s = Mm[NV_MAX * i + j];
-      for (int k = 0; k < j; ++k) s = s - Mm[NV_MAX * i + k] * Mm[NV_MAX * j + k] * d[k];
-      Mm[NV_MAX * i + j] = s * dinv[j];
-    }
+  for (int i = first; i < n; ++i) {
+    T s = y[i];
+#pragma unroll 4
+    for (int k = first; k < i; ++k) s = s - L[n * i + k] * y[k];
+    y[i] = s;
   }
-}
-
-// Solve in place with the factor (`_ldl_solve_components`).
-template <typename T>
-__device__ void ldl_solve(int n, const T* L, const T* dinv, T* y) {
-#pragma unroll 1
-  for (int i = 0; i < n; ++i)
-    for (int k = 0; k < i; ++k) y[i] = y[i] - L[NV_MAX * i + k] * y[k];
 #pragma unroll 1
   for (int i = 0; i < n; ++i) y[i] = y[i] * dinv[i];
 #pragma unroll 1
-  for (int i = n - 1; i >= 0; --i)
-    for (int k = i + 1; k < n; ++k) y[i] = y[i] - L[NV_MAX * k + i] * y[k];
+  for (int i = n - 1; i >= 0; --i) {
+    T s = y[i];
+#pragma unroll 4
+    for (int k = i + 1; k < n; ++k) s = s - L[n * k + i] * y[k];
+    y[i] = s;
+  }
 }
 
-// Joint-bound and ground-contact rows on flat ground
-// (`constraint_system_components`): J (row stride NV_MAX) and drifts, masked
-// by activity, and the new active sets; depth per contact.
+// Hysteresis of bound b (`constraint_system_components`).
 template <typename T>
-__device__ void constraint_rows(const Model<T>& M, const CModel<T>& C, const T* q, const T* v,
-                                const T (*RW)[9], const T (*PW)[3], const T (*VEL)[6],
-                                const T (*ACC)[6], const bool* cact_in, const bool* bact_in,
-                                T* J, T* drift, bool* cact_out, bool* bact_out, T* depth_out) {
-  const int nv = M.nv;
+__device__ __forceinline__ bool bound_active(const CModel<T>& C, int b, const T* q, bool was) {
+  const T* bf = C.boundf(b);  // lo hi lo+eps hi-eps
+  const T qj = q[C.bq(b)];
+  const bool raw = (qj > bf[1]) || (qj < bf[0]);
+  const bool inside = (qj > bf[2]) && (qj < bf[3]);
+  return raw || (was && !inside);
+}
+
+// World contact point of contact k; returns its depth on flat ground.
+template <typename T>
+__device__ __forceinline__ T contact_point(const CModel<T>& C, int k, const T (*RW)[9],
+                                           const T (*PW)[3], T* pc) {
+  const int parent = C.cparent(k);
+  T tmp[3];
+  mv3(RW[parent], C.cfpos(k), tmp);
+  for (int i = 0; i < 3; ++i) pc[i] = tmp[i] + PW[parent][i];
+  return (pc[2] - T(0)) * T(1);  // height 0, unit normal
+}
+
+// The row and drift of active bound b at position p; J holds each row over
+// its support dofs, C.ns entries a row (a bound's one dof).
+template <typename T>
+__device__ void bound_row(const CModel<T>& C, int b, int p, const T* q, const T* v, T* J,
+                          T* drift) {
+  const int vi = C.bv(b);
+  const T* bf = C.boundf(b);
+  const T qj = q[C.bq(b)], vj = v[vi];
+  const T sign = (qj > bf[1]) ? T(-1) : T(1);
+  J[C.ns * p] = sign;
+  const T dq = qj - clip(qj, bf[0], bf[1]);
+  drift[p] = sign * (C.kp() * dq + C.kd() * vj);
+}
+
+// The four rows and drifts of active contact k (tangent c0, tangent c1,
+// normal, torsion) at positions p[0..3], each row over the contact's
+// support dofs.
+template <typename T>
+__device__ void contact_rows(const Model<T>& M, const CModel<T>& C, int k, const int* p,
+                             const T (*RW)[9], const T (*PW)[3], const T (*VEL)[6],
+                             const T (*ACC)[6], const T* depth, T* J, T* drift) {
   const T kp = C.kp(), kd = C.kd();
+  const int parent = C.cparent(k);
+  const int* sd = C.si + C.csup(k);
+  const int ns = C.csup_n(k);
+  const T* fp = C.cfpos(k);
+  const T* rw = RW[parent];
+  T pc[3], tmp[3];
+  contact_point(C, k, RW, PW, pc);
+  const T n[3] = {T(0), T(0), T(1)};
+  T c0[3], c1[3];
+  normal_basis(n, c0, c1);
+  // Jacobian columns over the support dofs (the ancestors' dofs)
 #pragma unroll 1
-  for (int r = 0; r < C.n; ++r)
-    for (int d = 0; d < nv; ++d) J[NV_MAX * r + d] = T(0);
-#pragma unroll 1
-  for (int b = 0; b < C.nb; ++b) {
-    const int qi = C.bq(b), vi = C.bv(b);
-    const T* bf = C.boundf(b);  // lo hi lo+eps hi-eps
-    const T qj = q[qi], vj = v[vi];
-    const bool over = qj > bf[1];
-    const bool raw = over || (qj < bf[0]);
-    const bool inside = (qj > bf[2]) && (qj < bf[3]);
-    const bool act = raw || (bact_in[b] && !inside);
-    bact_out[b] = act;
-    const T sign = over ? T(-1) : T(1);
-    J[NV_MAX * b + vi] = act ? sign : T(0);
-    const T dq = qj - clip(qj, bf[0], bf[1]);
-    drift[b] = act ? sign * (kp * dq + kd * vj) : T(0);
-  }
-#pragma unroll 1
-  for (int k = 0; k < C.nc; ++k) {
-    const int r0 = C.nb + 4 * k;
-    const int parent = C.cparent(k);
-    const T* fp = C.cfpos(k);
-    const T* rw = RW[parent];
-    T pc[3], tmp[3];
-    mv3(rw, fp, tmp);
-    for (int i = 0; i < 3; ++i) pc[i] = tmp[i] + PW[parent][i];
-    const T n[3] = {T(0), T(0), T(1)};  // flat ground: height 0, unit normal
-    const T depth = (pc[2] - T(0)) * n[2];
-    const bool act = (depth < T(0)) || (cact_in[k] && depth <= C.eps());
-    cact_out[k] = act;
-    depth_out[k] = depth;
-    T c0[3], c1[3];
-    normal_basis(n, c0, c1);
-    // Jacobian columns over the support dofs (the ancestors' dofs)
-#pragma unroll 1
-    for (int j = parent; j >= 0; j = M.parent(j)) {
-      const T* rj = RW[j];
-      T lever[3];
-      for (int i = 0; i < 3; ++i) lever[i] = pc[i] - PW[j][i];
-      const int vi = M.iv(j);
-      const int t = M.type(j);
-      const int ndof = (t == FREE) ? 6 : 1;
-      for (int m = 0; m < ndof; ++m) {
-        T ang[3], lin[3];
-        if (t == FREE && m < 3) {  // translational dofs: R e_m
-          for (int i = 0; i < 3; ++i) { lin[i] = rj[3 * i + m]; ang[i] = T(0); }
-        } else if (t == FREE || t == REVOLUTE) {
-          if (t == FREE) {
-            for (int i = 0; i < 3; ++i) ang[i] = rj[3 * i + m - 3];
-          } else {
-            mv3(rj, M.axis(j), ang);
-          }
-          cross3(ang, lever, lin);
-        } else {  // PRISMATIC
-          mv3(rj, M.axis(j), lin);
-          for (int i = 0; i < 3; ++i) ang[i] = T(0);
+  for (int j = parent; j >= 0; j = M.parent(j)) {
+    const T* rj = RW[j];
+    T lever[3];
+    for (int i = 0; i < 3; ++i) lever[i] = pc[i] - PW[j][i];
+    const int vi = M.iv(j);
+    const int t = M.type(j);
+    const int ndof = (t == FREE) ? 6 : 1;
+    for (int m = 0; m < ndof; ++m) {
+      T ang[3], lin[3];
+      if (t == FREE && m < 3) {  // translational dofs: R e_m
+        for (int i = 0; i < 3; ++i) { lin[i] = rj[3 * i + m]; ang[i] = T(0); }
+      } else if (t == FREE || t == REVOLUTE) {
+        if (t == FREE) {
+          for (int i = 0; i < 3; ++i) ang[i] = rj[3 * i + m - 3];
+        } else {
+          mv3(rj, M.axis(j), ang);
         }
-        const int d = vi + m;
-        J[NV_MAX * (r0 + 0) + d] = act ? dot3(c0, lin) : T(0);
-        J[NV_MAX * (r0 + 1) + d] = act ? dot3(c1, lin) : T(0);
-        J[NV_MAX * (r0 + 2) + d] = act ? dot3(n, lin) : T(0);
-        J[NV_MAX * (r0 + 3) + d] = act ? dot3(n, ang) : T(0);
+        cross3(ang, lever, lin);
+      } else {  // PRISMATIC
+        mv3(rj, M.axis(j), lin);
+        for (int i = 0; i < 3; ++i) ang[i] = T(0);
       }
+      const int d = vi + m;
+      int s = 0;  // d's place in the support list
+      while (s < ns - 1 && sd[s] != d) ++s;
+      J[C.ns * p[0] + s] = dot3(c0, lin);
+      J[C.ns * p[1] + s] = dot3(c1, lin);
+      J[C.ns * p[2] + s] = dot3(n, lin);
+      J[C.ns * p[3] + s] = dot3(n, ang);
     }
-    // Frame world velocity and bias acceleration; Baumgarte drifts
-    const T* w_l = VEL[parent];
-    const T* v_l = VEL[parent] + 3;
-    const T* a_a = ACC[parent];
-    const T* a_l = ACC[parent] + 3;
-    T vw_ang[3], vw_lin[3], aw_ang[3], aw_lin[3], t2[3];
-    mv3(rw, w_l, vw_ang);
-    cross3(w_l, fp, tmp);
-    for (int i = 0; i < 3; ++i) t2[i] = v_l[i] + tmp[i];
-    mv3(rw, t2, vw_lin);
-    mv3(rw, a_a, aw_ang);
-    cross3(fp, a_a, tmp);
-    for (int i = 0; i < 3; ++i) t2[i] = a_l[i] - tmp[i];
-    mv3(rw, t2, aw_lin);
-    cross3(vw_ang, vw_lin, tmp);
-    for (int i = 0; i < 3; ++i) aw_lin[i] = aw_lin[i] + tmp[i];
-    T g_lin[3], g_ang[3];
-    for (int i = 0; i < 3; ++i) {
-      g_lin[i] = aw_lin[i] + kp * depth * n[i] + kd * vw_lin[i];
-      g_ang[i] = aw_ang[i] + kd * vw_ang[i];
-    }
-    drift[r0 + 0] = act ? dot3(c0, g_lin) : T(0);
-    drift[r0 + 1] = act ? dot3(c1, g_lin) : T(0);
-    drift[r0 + 2] = act ? dot3(n, g_lin) : T(0);
-    drift[r0 + 3] = act ? dot3(n, g_ang) : T(0);
   }
+  // Frame world velocity and bias acceleration; Baumgarte drifts
+  const T* w_l = VEL[parent];
+  const T* v_l = VEL[parent] + 3;
+  const T* a_a = ACC[parent];
+  const T* a_l = ACC[parent] + 3;
+  T vw_ang[3], vw_lin[3], aw_ang[3], aw_lin[3], t2[3];
+  mv3(rw, w_l, vw_ang);
+  cross3(w_l, fp, tmp);
+  for (int i = 0; i < 3; ++i) t2[i] = v_l[i] + tmp[i];
+  mv3(rw, t2, vw_lin);
+  mv3(rw, a_a, aw_ang);
+  cross3(fp, a_a, tmp);
+  for (int i = 0; i < 3; ++i) t2[i] = a_l[i] - tmp[i];
+  mv3(rw, t2, aw_lin);
+  cross3(vw_ang, vw_lin, tmp);
+  for (int i = 0; i < 3; ++i) aw_lin[i] = aw_lin[i] + tmp[i];
+  T g_lin[3], g_ang[3];
+  for (int i = 0; i < 3; ++i) {
+    g_lin[i] = aw_lin[i] + kp * depth[k] * n[i] + kd * vw_lin[i];
+    g_ang[i] = aw_ang[i] + kd * vw_ang[i];
+  }
+  drift[p[0]] = dot3(c0, g_lin);
+  drift[p[1]] = dot3(c1, g_lin);
+  drift[p[2]] = dot3(n, g_lin);
+  drift[p[3]] = dot3(n, g_ang);
 }
 
-// The boxed/cone Gauss-Seidel sweeps (`_pgs_sweep_components`), x in place.
+// Sum of j[m] * a[sd[m]] over a row's support dofs sd[0..ns) (ascending; j
+// the row over them), in the plain version's order with its exact zeros
+// left out.
 template <typename T>
-__device__ void pgs_sweeps(const CModel<T>& C, const T (*A)[NROW_MAX], const T* b, T* x) {
-  const int n = C.n;
+__device__ __forceinline__ T support_dot(const int* sd, int ns, const T* j, const T* a) {
+  T s = j[0] * a[sd[0]];
+#pragma unroll 4
+  for (int m = 1; m < ns; ++m) s = s + j[m] * a[sd[m]];
+  return s;
+}
+
+// The boxed/cone Gauss-Seidel sweeps (`_pgs_sweep_components`) over the
+// active rows, x in place: positions [0, nba) bounds, [nba, nba + nca)
+// normals, then nca torsion rows, then nca tangent pairs. Lane l keeps the
+// multipliers x and the residual y = b - A x of rows l, l + CM_LANES, ... in
+// registers. A row's update takes its x and y from that lane (shuffles);
+// every lane computes the new multiplier, the lane of the row keeps it, and
+// every lane takes the change times A's column off the y of its rows. The
+// lanes share nothing in memory until x is written back at the end.
+template <typename T>
+__device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nba, int nca,
+                           const T* __restrict__ A, const T* __restrict__ b, T* __restrict__ x) {
   const T friction = C.friction(), torsion = C.torsion();
+  const int p_tor = nba + nca, p_tan = nba + 2 * nca;
+  // Entry (j, i) of A for this lane's row j = lane + CM_LANES m: at ro[m] + i
+  // when j <= i, else at (upper_at(na, i, i) - i) + j.
+  T xr[CM_SLOTS], y[CM_SLOTS];
+  int ro[CM_SLOTS];
+#pragma unroll
+  for (int m = 0; m < CM_SLOTS; ++m) {
+    const int j = L.lane + CM_LANES * m;
+    xr[m] = (j < na) ? x[j] : T(0);
+    y[m] = T(0);
+    ro[m] = upper_at(na, j, j) - j;
+  }
+#pragma unroll 1
+  for (int k = 0; k < na; ++k) {
+    const T xk = x[k];
+    const int dk = upper_at(na, k, k) - k;
+#pragma unroll
+    for (int m = 0; m < CM_SLOTS; ++m) {
+      const int j = L.lane + CM_LANES * m;
+      if (j < na) y[m] = y[m] + A[j <= k ? ro[m] + k : dk + j] * xk;
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < CM_SLOTS; ++m) {
+    const int j = L.lane + CM_LANES * m;
+    y[m] = (j < na) ? b[j] - y[m] : T(0);
+  }
+  L.sync();  // x is read before any lane writes it back
+  // row i's entry of v, from the lane that keeps it
+  auto fetch = [&](const T(&v)[CM_SLOTS], int i) {
+    T mine = v[0];
+#pragma unroll
+    for (int m = 1; m < CM_SLOTS; ++m) mine = select_if(i / CM_LANES == m, v[m], mine);
+    return __shfl_sync(L.mask, mine, i % CM_LANES, CM_LANES);
+  };
+  // x[i] = xn, from xi: the lane of row i keeps it; y -= A[:, i] (xn - xi)
+  auto set = [&](int i, T xi, T xn) {
+    const T dx = xn - xi;
+    const int di = upper_at(na, i, i) - i;
+#pragma unroll
+    for (int m = 0; m < CM_SLOTS; ++m) {
+      const int j = L.lane + CM_LANES * m;
+      if (j == i) xr[m] = xn;
+      if (j < na) y[m] = y[m] - A[j <= i ? ro[m] + i : di + j] * dx;
+    }
+  };
 #pragma unroll 1
   for (int it = 0; it < C.iter_max; ++it) {
     const T w = C.relax(it);
-    auto dot_col = [&](int i) {
-      T s = A[0][i] * x[0];
-      for (int j = 1; j < n; ++j) s = s + A[j][i] * x[j];
-      return s;
-    };
     // bounds, then the contact normals
 #pragma unroll 1
-    for (int r = 0; r < C.nb + C.nc; ++r) {
-      const int i = (r < C.nb) ? r : C.nb + 4 * (r - C.nb) + 2;
-      const T y = b[i] - dot_col(i);
-      x[i] = tmax(x[i] + w * y / A[i][i], T(0));
+    for (int i = 0; i < p_tor; ++i) {
+      const T xi = fetch(xr, i), yi = fetch(y, i), aii = A[upper_at(na, i, i)];
+      set(i, xi, tmax(xi + w * yi / aii, T(0)));
     }
     // level 1: torsional friction |lam_rz| <= torsion * lam_z
 #pragma unroll 1
-    for (int k = 0; k < C.nc; ++k) {
-      const int i = C.nb + 4 * k + 3, iz = C.nb + 4 * k + 2;
-      if (torsion <= T(0)) {
-        x[i] = T(0);
-        continue;
+    for (int m = 0; m < nca; ++m) {
+      const int i = p_tor + m, iz = nba + m;
+      const T xi = fetch(xr, i);
+      T xn = T(0);
+      if (torsion > T(0)) {
+        const T yi = fetch(y, i), thr = torsion * fetch(xr, iz), aii = A[upper_at(na, i, i)];
+        xn = clip(xi + w * yi / aii, -thr, thr);
       }
-      const T y = b[i] - dot_col(i);
-      const T thr = torsion * x[iz];
-      x[i] = clip(x[i] + w * y / A[i][i], -thr, thr);
+      set(i, xi, xn);
     }
     // level 2: tangential friction cone ||lam_xy|| <= mu lam_z
 #pragma unroll 1
-    for (int k = 0; k < C.nc; ++k) {
-      const int i0 = C.nb + 4 * k, i1 = i0 + 1, iz = i0 + 2;
-      if (friction <= T(0)) {
-        x[i0] = T(0);
-        x[i1] = T(0);
-        continue;
+    for (int m = 0; m < nca; ++m) {
+      const int i0 = p_tan + 2 * m, i1 = i0 + 1, iz = nba + m;
+      const T x0_old = fetch(xr, i0), x1_old = fetch(xr, i1);
+      T x0 = T(0), x1 = T(0);
+      if (friction > T(0)) {
+        const T thr = friction * fetch(xr, iz);
+        const T a_max = tmax(A[upper_at(na, i0, i0)], A[upper_at(na, i1, i1)]);
+        const T y0 = fetch(y, i0), y1 = fetch(y, i1);
+        x0 = x0_old + w * y0 / a_max;
+        x1 = x1_old + w * y1 / a_max;
+        const T norm2 = x0 * x0 + x1 * x1;
+        const T scale = (norm2 > thr * thr) ? thr / sqrt(tmax(norm2, T(1e-30))) : T(1);
+        x0 = x0 * scale;
+        x1 = x1 * scale;
       }
-      const T y0 = b[i0] - dot_col(i0);
-      const T y1 = b[i1] - dot_col(i1);
-      const T a_max = tmax(A[i0][i0], A[i1][i1]);
-      const T x0 = x[i0] + w * y0 / a_max;
-      const T x1 = x[i1] + w * y1 / a_max;
-      const T thr = friction * x[iz];
-      const T norm2 = x0 * x0 + x1 * x1;
-      const T scale = (norm2 > thr * thr) ? thr / sqrt(tmax(norm2, T(1e-30))) : T(1);
-      x[i0] = x0 * scale;
-      x[i1] = x1 * scale;
+      set(i0, x0_old, x0);
+      set(i1, x1_old, x1);
     }
   }
+#pragma unroll
+  for (int m = 0; m < CM_SLOTS; ++m) {
+    const int j = L.lane + CM_LANES * m;
+    if (j < na) x[j] = xr[m];
+  }
+  L.sync();
 }
 
 // One constrained forward-dynamics evaluation
-// (`constrained_accel_full_components`): qdd from the motor torques tc, the
-// multipliers and the new active sets from the carried ones. The outputs
-// may alias the inputs (stage-chained warm start). depth_out: nc depths.
+// (`constrained_accel_full_components`) by the group: qdd into w.qdd from
+// the stage inputs w.qs, w.vs and the motor torques w.tc (written by lane 0
+// before the call), the multipliers and the new active sets into solver
+// state `s_out` from the carried ones in `s_in`; they may be the same
+// (stage-chained warm start). Depths into w.depth.
 template <typename T>
-__device__ __noinline__ void constrained_accel(const Model<T>& M, const CModel<T>& C, const T* q,
-                                               const T* v, const T* tc_in, const T* lam_in,
-                                               const bool* cact_in, const bool* bact_in,
-                                               T* lam_out, bool* cact_out, bool* bact_out, T* qdd,
-                                               T* depth_out) {
-  const int nv = M.nv, n = C.n;
-  T R[NJ_MAX][9], P[NJ_MAX][3], RW[NJ_MAX][9], PW[NJ_MAX][3], VEL[NJ_MAX][6], ACC[NJ_MAX][6];
-  joint_x(M, q, R, P);
-  world_placements(M, R, P, RW, PW);
-  T zero[NV_MAX];
+__device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CModel<T>& C_in,
+                                               int s_in, int s_out) {
+  const Lanes L;
+  const Model<T> M = M_in;
+  const CModel<T> C = C_in;
+  Work<T> w = env_work(M, C);
+  const SolverState<T> in = w.state(s_in), out = w.state(s_out);
+  const int nv = M.nv, n = C.n, nb = C.nb, nc = C.nc, G = CM_LANES, lane = L.lane;
+  const T* q = w.qs;
+  const T* v = w.vs;
+  L.sync();  // the stage inputs are written; the last outputs are read
+  CM_PROFILE_START(t_prof);
+  // Kinematics, depth after depth of the tree, a joint per lane
+  const int nlev = w.cnt[3];
 #pragma unroll 1
-  for (int i = 0; i < nv; ++i) zero[i] = T(0);
-  fk_vel_acc(M, R, P, v, zero, VEL, ACC);  // velocity-bias kinematics, no gravity
-
-  T J[NROW_MAX * NV_MAX], drift[NROW_MAX];
-  bool act_row[NROW_MAX];
-  constraint_rows(M, C, q, v, RW, PW, VEL, ACC, cact_in, bact_in, J, drift, cact_out, bact_out,
-                  depth_out);
+  for (int d = 0; d < nlev; ++d) {
 #pragma unroll 1
-  for (int r = 0; r < n; ++r) act_row[r] = (r < C.nb) ? bact_out[r] : cact_out[(r - C.nb) / 4];
-
-  T Mm[NV_MAX * NV_MAX], dinv[NV_MAX], tau_res[NV_MAX];
-  {
-    T IC[NJ_MAX][36];
-    crba(M, R, P, Mm, IC);
+    for (int t = w.lstart[d] + lane; t < w.lstart[d + 1]; t += G) forward_joint(M, w.jorder[t], q, v, w);
+    L.sync();
   }
-  {
-    T F[NJ_MAX][6];
-    rnea_nle(M, R, P, v, VEL, ACC, F, tau_res);  // nle into tau_res
-  }
+  CM_PROFILE_PHASE(L, 0, t_prof);
+  // Active sets and depths, one bound or contact per lane
 #pragma unroll 1
-  for (int i = 0; i < nv; ++i) {
-    const T damp = M.damping(i);
-    const T tc = (damp != T(0)) ? tc_in[i] - damp * v[i] : tc_in[i];
-    tau_res[i] = tc - tau_res[i];
-  }
-  ldl_factor(nv, Mm, dinv);
-  ldl_solve(nv, Mm, dinv, tau_res);
-
-  T W[NROW_MAX * NV_MAX];  // rows of M^-1 J^T
-#pragma unroll 1
-  for (int r = 0; r < n; ++r) {
-    for (int d = 0; d < nv; ++d) W[NV_MAX * r + d] = J[NV_MAX * r + d];
-    ldl_solve(nv, Mm, dinv, W + NV_MAX * r);
-  }
-  T A[NROW_MAX][NROW_MAX], b[NROW_MAX], x[NROW_MAX];
-#pragma unroll 1
-  for (int r = 0; r < n; ++r) {
-    const T* jr = J + NV_MAX * r;
-#pragma unroll 1
-    for (int c = r; c < n; ++c) {
-      const T* wc = W + NV_MAX * c;
-      T s = jr[0] * wc[0];
-      for (int d = 1; d < nv; ++d) s = s + jr[d] * wc[d];
-      A[r][c] = s;
-      A[c][r] = s;
+  for (int t = lane; t < nb + nc; t += G) {
+    if (t < nb) {
+      out.bact[t] = bound_active(C, t, q, in.bact[t] != 0);
+    } else {
+      const int k = t - nb;
+      T pc[3];
+      const T depth = contact_point(C, k, w.RW, w.PW, pc);
+      w.depth[k] = depth;
+      out.cact[k] = (depth < T(0)) || (in.cact[k] && depth <= C.eps());
     }
-    T s = jr[0] * tau_res[0];
-    for (int d = 1; d < nv; ++d) s = s + jr[d] * tau_res[d];
-    b[r] = -drift[r] - s;
-    x[r] = act_row[r] ? lam_in[r] : T(0);
+  }
+  L.sync();
+  // The active rows in sweep order: positions of bounds, normals, torsion,
+  // tangent pairs; their rows, support dofs, and each row's position (-1)
+  if (L.leader()) {
+    for (int r = 0; r < n; ++r) w.pos[r] = -1;
+    int p = 0;
+    auto add = [&](int r, int soff, int scnt) {
+      w.rows[p] = r; w.soff[p] = soff; w.scnt[p] = scnt; w.pos[r] = p; ++p;
+    };
+    for (int b = 0; b < nb; ++b)
+      if (out.bact[b]) add(b, C.bsup(b), 1);
+    const int nba = p;
+    int nca = 0;
+    for (int k = 0; k < nc; ++k)
+      if (out.cact[k]) w.clist[nca++] = k;
+    for (int m = 0; m < nca; ++m) {  // normals
+      const int k = w.clist[m];
+      add(nb + 4 * k + 2, C.csup(k), C.csup_n(k));
+    }
+    for (int m = 0; m < nca; ++m) {  // torsion
+      const int k = w.clist[m];
+      add(nb + 4 * k + 3, C.csup(k), C.csup_n(k));
+    }
+    for (int m = 0; m < nca; ++m) {  // tangent pairs
+      const int k = w.clist[m];
+      add(nb + 4 * k, C.csup(k), C.csup_n(k));
+      add(nb + 4 * k + 1, C.csup(k), C.csup_n(k));
+    }
+    w.cnt[0] = p;
+    w.cnt[1] = nba;
+    w.cnt[2] = nca;
+  }
+  L.sync();
+  const int na = w.cnt[0], nba = w.cnt[1], nca = w.cnt[2];
+  CM_PROFILE_PHASE(L, 1, t_prof);
+  // The active rows, a bound or contact per lane; the mass matrix and the
+  // nonlinear effects, depth after depth from the leaves, a joint per lane
+#pragma unroll 1
+  for (int t = lane; t < nba + nca; t += G) {
+    if (t < nba) {
+      bound_row(C, w.rows[t], t, q, v, w.J, w.drift);
+    } else {
+      const int m = t - nba;
+      const int p[4] = {nba + 2 * nca + 2 * m, nba + 2 * nca + 2 * m + 1, nba + m,
+                        nba + nca + m};
+      contact_rows(M, C, w.clist[m], p, w.RW, w.PW, w.VEL, w.ACC, w.depth, w.J, w.drift);
+    }
+  }
+  L.sync();  // IC, F and FT take the place of RW, PW, VEL and ACC
+#pragma unroll 1
+  for (int k = lane; k < nv * nv; k += G) w.Mm[k] = T(0);
+#pragma unroll 1
+  for (int k = lane; k < 36 * M.nj; k += G) w.IC[k / 36][k % 36] = M.ia0(k / 36)[k % 36];
+  L.sync();
+#pragma unroll 1
+  for (int d = nlev - 1; d >= 0; --d) {
+#pragma unroll 1
+    for (int t = w.lstart[d] + lane; t < w.lstart[d + 1]; t += G) backward_joint(M, w.jorder[t], w);
+    L.sync();
+    if (d == 0) break;
+#pragma unroll 1
+    for (int t = w.lstart[d - 1] + lane; t < w.lstart[d]; t += G) gather_children(M, w.jorder[t], w);
+    L.sync();
+  }
+  CM_PROFILE_PHASE(L, 2, t_prof);
+  // tau - nle, then the LDL^T factor of M by rows (`_ldl_factor_components`)
+#pragma unroll 1
+  for (int i = lane; i < nv; i += G) {
+    const T damp = M.damping(i);
+    const T tc = (damp != T(0)) ? w.tc[i] - damp * v[i] : w.tc[i];
+    w.tau[i] = tc - w.tau[i];
+  }
+  T* Mm = w.Mm;
+#pragma unroll 1
+  for (int j = 0; j < nv; ++j) {
+    T dj = Mm[nv * j + j];
+    for (int k = 0; k < j; ++k) dj = dj - Mm[nv * j + k] * Mm[nv * j + k] * w.d[k];
+    const T inv = T(1) / dj;
+#pragma unroll 1
+    for (int i = j + 1 + lane; i < nv; i += G) {
+      T s = Mm[nv * i + j];
+      for (int k = 0; k < j; ++k) s = s - Mm[nv * i + k] * Mm[nv * j + k] * w.d[k];
+      Mm[nv * i + j] = s * inv;
+    }
+    if (L.leader()) {  // read from the next column on
+      w.d[j] = dj;
+      w.dinv[j] = inv;
+    }
+    L.sync();
+  }
+  CM_PROFILE_PHASE(L, 3, t_prof);
+  // tau_res = M^-1 (tau - nle) and the rows of M^-1 J^T, a right-hand side per lane
+#pragma unroll 1
+  for (int t = lane; t <= na; t += G) {
+    if (t == 0) {
+      ldl_solve(nv, Mm, w.dinv, w.tau, 0);
+    } else {
+      const int p = t - 1;
+      T* y = w.W + nv * p;
+      const T* jr = w.J + C.ns * p;
+      const int* sd = C.si + w.soff[p];
+      for (int dd = 0; dd < nv; ++dd) y[dd] = T(0);
+      for (int m = 0; m < w.scnt[p]; ++m) y[sd[m]] = jr[m];
+      ldl_solve(nv, Mm, w.dinv, y, sd[0]);
+    }
+  }
+  L.sync();
+  CM_PROFILE_PHASE(L, 4, t_prof);
+  // A's upper triangle over the active rows (the smaller row index's J
+  // against the other's M^-1 J^T, as the plain version fills its upper
+  // triangle), b, warm start
+#pragma unroll 1
+  for (int p = lane; p < na; p += G) {
+    const int* sp = C.si + w.soff[p];
+    const T* jp = w.J + C.ns * p;
+#pragma unroll 1
+    for (int c = p; c < na; ++c) {
+      T s;
+      if (w.rows[p] <= w.rows[c]) {
+        s = support_dot(sp, w.scnt[p], jp, w.W + nv * c);
+      } else {
+        s = support_dot(C.si + w.soff[c], w.scnt[c], w.J + C.ns * c, w.W + nv * p);
+      }
+      if (c == p) s = s + tmax(s * C.reg(), C.min_reg());
+      w.A[upper_at(na, p, c)] = s;
+    }
+    w.b[p] = -w.drift[p] - support_dot(sp, w.scnt[p], jp, w.tau);
+    w.x[p] = in.lam[w.rows[p]];
+  }
+  L.sync();
+  CM_PROFILE_PHASE(L, 5, t_prof);
+  pgs_sweeps(L, C, na, nba, nca, w.A, w.b, w.x);
+  CM_PROFILE_PHASE(L, 6, t_prof);
+  // qdd = tau_res + sum over the active rows, in row order, of lam_r (M^-1 J^T)_r
+#pragma unroll 1
+  for (int k = lane; k < nv; k += G) {
+    T s = T(0);
+    bool first = true;
+    for (int r = 0; r < n; ++r) {
+      const int p = w.pos[r];
+      if (p < 0) continue;
+      const T t = w.x[p] * w.W[nv * p + k];
+      s = first ? t : s + t;
+      first = false;
+    }
+    w.qdd[k] = w.tau[k] + s;
   }
 #pragma unroll 1
-  for (int r = 0; r < n; ++r) A[r][r] = A[r][r] + tmax(A[r][r] * C.reg(), C.min_reg());
-  pgs_sweeps(C, A, b, x);
-#pragma unroll 1
-  for (int k = 0; k < nv; ++k) {
-    T s = x[0] * W[k];
-    for (int r = 1; r < n; ++r) s = s + x[r] * W[NV_MAX * r + k];
-    qdd[k] = tau_res[k] + s;
+  for (int r = lane; r < n; r += G) out.lam[r] = (w.pos[r] >= 0) ? w.x[w.pos[r]] : T(0);
+  L.sync();
+  CM_PROFILE_PHASE(L, 7, t_prof);
+}
+
+// One stage: lane 0 publishes (q, v) and the motor torques, the group
+// solves, lane 0 reads the accelerations into qdd.
+template <typename T>
+__device__ __forceinline__ void solve(const Lanes& L, const Model<T>& M, const CModel<T>& C,
+                                      const Work<T>& w, const T* q, const T* v, const T* cmd,
+                                      int s_in, int s_out, T* qdd) {
+  if (L.leader()) {
+    for (int i = 0; i < M.nq; ++i) w.qs[i] = q[i];
+    for (int i = 0; i < M.nv; ++i) w.vs[i] = v[i];
+    tau_c(M, v, cmd, w.tc);
   }
-#pragma unroll 1
-  for (int r = 0; r < n; ++r) lam_out[r] = x[r];
+  constrained_accel(M, C, s_in, s_out);
+  if (L.leader())
+    for (int i = 0; i < M.nv; ++i) qdd[i] = w.qdd[i];
 }
 
-// Solver state of one env: the warm-start multipliers and active sets
+// One substep (`_ConstrainedCore.substep`), q and v (lane 0's) updated in
+// place, the solver state `s` too when stages are chained (else the stage
+// outputs go to ST_TMP).
 template <typename T>
-struct SolverState {
-  T lam[NROW_MAX];
-  bool cact[NC_MAX];
-  bool bact[NB_MAX];
-};
-
-template <typename T>
-__device__ __forceinline__ void solve(const Model<T>& M, const CModel<T>& C, const T* q,
-                                      const T* v, const T* cmd, const SolverState<T>& in,
-                                      SolverState<T>& out, T* qdd, T* depth) {
-  T tc[NV_MAX];
-  tau_c(M, v, cmd, tc);
-  constrained_accel(M, C, q, v, tc, in.lam, in.cact, in.bact, out.lam, out.cact, out.bact, qdd,
-                    depth);
-}
-
-// One substep (`_ConstrainedCore.substep`), q, v and (with stage chaining)
-// the solver state updated in place.
-template <typename T>
-__device__ __noinline__ void substep_cm(const Model<T>& M, const CModel<T>& C, T* q, T* v,
-                                        const T* cmd, SolverState<T>& s, int integrator) {
-  T k1[NV_MAX], dq[NV_MAX], qt[NQ_MAX], depth[NC_MAX];
-  SolverState<T> unchained;  // the stage outputs when stages are not chained
-  SolverState<T>& out = C.stage_warm ? s : unchained;
+__device__ __noinline__ void substep_cm(const Model<T>& M_in, const CModel<T>& C_in, T* q, T* v,
+                                        const T* cmd, int s, int integrator) {
+  const Lanes L;
+  const Model<T> M = M_in;
+  const CModel<T> C = C_in;
+  const Work<T> w = env_work(M, C);
+  T k1[NV_MAX], dq[NV_MAX], qt[NQ_MAX];
+  const int out = C.stage_warm ? s : ST_TMP;
   const int nv = M.nv;
+  const bool lead = L.leader();
   const T dt = M.dt(), hdt = M.half_dt();
-  solve(M, C, q, v, cmd, s, out, k1, depth);
+  solve(L, M, C, w, q, v, cmd, s, out, k1);
   if (integrator == EULER) {
-    for (int k = 0; k < nv; ++k) dq[k] = dt * v[k];
-    integrate(M, q, dq, qt);
-    for (int k = 0; k < M.nq; ++k) q[k] = qt[k];
-    for (int k = 0; k < nv; ++k) v[k] = v[k] + dt * k1[k];
+    if (lead) {
+      for (int k = 0; k < nv; ++k) dq[k] = dt * v[k];
+      integrate(M, q, dq, qt);
+      for (int k = 0; k < M.nq; ++k) q[k] = qt[k];
+      for (int k = 0; k < nv; ++k) v[k] = v[k] + dt * k1[k];
+    }
     return;
   }
   T k2[NV_MAX], k3[NV_MAX], k4[NV_MAX], v2[NV_MAX], v3[NV_MAX], v4[NV_MAX];
-  for (int k = 0; k < nv; ++k) dq[k] = hdt * v[k];
-  integrate(M, q, dq, qt);
-  for (int k = 0; k < nv; ++k) v2[k] = v[k] + hdt * k1[k];
-  solve(M, C, qt, v2, cmd, s, out, k2, depth);
-  for (int k = 0; k < nv; ++k) dq[k] = hdt * v2[k];
-  integrate(M, q, dq, qt);
-  for (int k = 0; k < nv; ++k) v3[k] = v[k] + hdt * k2[k];
-  solve(M, C, qt, v3, cmd, s, out, k3, depth);
-  for (int k = 0; k < nv; ++k) dq[k] = dt * v3[k];
-  integrate(M, q, dq, qt);
-  for (int k = 0; k < nv; ++k) v4[k] = v[k] + dt * k3[k];
-  solve(M, C, qt, v4, cmd, s, out, k4, depth);
-  const T dt6 = M.dt6();
-  for (int k = 0; k < nv; ++k) dq[k] = dt6 * (v[k] + T(2) * v2[k] + T(2) * v3[k] + v4[k]);
-  integrate(M, q, dq, qt);
-  for (int k = 0; k < M.nq; ++k) q[k] = qt[k];
-  for (int k = 0; k < nv; ++k) v[k] = v[k] + dt6 * (k1[k] + T(2) * k2[k] + T(2) * k3[k] + k4[k]);
+  if (lead) {
+    for (int k = 0; k < nv; ++k) dq[k] = hdt * v[k];
+    integrate(M, q, dq, qt);
+    for (int k = 0; k < nv; ++k) v2[k] = v[k] + hdt * k1[k];
+  }
+  solve(L, M, C, w, qt, v2, cmd, s, out, k2);
+  if (lead) {
+    for (int k = 0; k < nv; ++k) dq[k] = hdt * v2[k];
+    integrate(M, q, dq, qt);
+    for (int k = 0; k < nv; ++k) v3[k] = v[k] + hdt * k2[k];
+  }
+  solve(L, M, C, w, qt, v3, cmd, s, out, k3);
+  if (lead) {
+    for (int k = 0; k < nv; ++k) dq[k] = dt * v3[k];
+    integrate(M, q, dq, qt);
+    for (int k = 0; k < nv; ++k) v4[k] = v[k] + dt * k3[k];
+  }
+  solve(L, M, C, w, qt, v4, cmd, s, out, k4);
+  if (lead) {
+    const T dt6 = M.dt6();
+    for (int k = 0; k < nv; ++k) dq[k] = dt6 * (v[k] + T(2) * v2[k] + T(2) * v3[k] + v4[k]);
+    integrate(M, q, dq, qt);
+    for (int k = 0; k < M.nq; ++k) q[k] = qt[k];
+    for (int k = 0; k < nv; ++k) v[k] = v[k] + dt6 * (k1[k] + T(2) * k2[k] + T(2) * k3[k] + k4[k]);
+  }
 }
 
 // End-of-period outputs `[a | f_world | w_local | depth | imu | lam | cact |
-// bact]` (`_ConstrainedCore.final_outputs`), rows of the (n_extra, B) array.
+// bact]` (`_ConstrainedCore.final_outputs`), rows of the (n_extra, B) array,
+// written by lane 0; the solve's state outputs go to solver state `s_out`.
 template <typename T>
-__device__ __noinline__ void final_outputs_cm(const Model<T>& M, const CModel<T>& C, const T* q,
-                                              const T* v, const T* cmd, const SolverState<T>& s,
-                                              T* eo, int B, int b) {
-  T a[NV_MAX], depth[NC_MAX];
-  SolverState<T> out;
-  solve(M, C, q, v, cmd, s, out, a, depth);
-  T R[NJ_MAX][9], P[NJ_MAX][3], RW[NJ_MAX][9], PW[NJ_MAX][3], VEL[NJ_MAX][6], ACC[NJ_MAX][6];
-  joint_x(M, q, R, P);
-  world_placements(M, R, P, RW, PW);
-  fk_vel_acc(M, R, P, v, a, VEL, ACC);
+__device__ __noinline__ void final_outputs_cm(const Model<T>& M_in, const CModel<T>& C_in,
+                                              const T* q, const T* v, const T* cmd, int s,
+                                              int s_out, T* eo, int B, int b) {
+  const Lanes L;
+  const Model<T> M = M_in;
+  const CModel<T> C = C_in;
+  const Work<T> w = env_work(M, C);
+  const SolverState<T> out = w.state(s_out);
+  T a[NV_MAX];
+  solve(L, M, C, w, q, v, cmd, s, s_out, a);
+  if (!L.leader()) return;
+  // The tree arrays are free again once the solve is done
+  joint_x(M, q, w.R, w.P);
+  world_placements(M, w.R, w.P, w.RW, w.PW);
+  fk_vel_acc(M, w.R, w.P, v, a, w.VEL, w.ACC);
+  const T (*RW)[9] = w.RW;
+  const T (*VEL)[6] = w.VEL;
+  const T (*ACC)[6] = w.ACC;
   const int nv = M.nv, nc = C.nc;
   for (int k = 0; k < nv; ++k) eo[(size_t)k * B + b] = a[k];
   const int o_fw = nv, o_wl = nv + 3 * nc, o_d = nv + 9 * nc, o_imu = nv + 10 * nc;
@@ -599,7 +1151,7 @@ __device__ __noinline__ void final_outputs_cm(const Model<T>& M, const CModel<T>
       eo[(size_t)(o_wl + 6 * k + i) * B + b] = n_l[i];
       eo[(size_t)(o_wl + 6 * k + 3 + i) * B + b] = f_l[i];
     }
-    eo[(size_t)(o_d + k) * B + b] = depth[k];
+    eo[(size_t)(o_d + k) * B + b] = w.depth[k];
   }
 #pragma unroll 1
   for (int k = 0; k < M.ni; ++k) {
@@ -636,10 +1188,10 @@ __device__ __noinline__ void final_outputs_cm(const Model<T>& M, const CModel<T>
 }
 
 // Read / write the solver channels [lam (N) | cact (nc) | bact (nb)] at
-// row `off` of an (n, B) array.
+// row `off` of an (n, B) array (lane 0).
 template <typename T>
 __device__ void load_solver_state(const CModel<T>& C, const T* src, int off, int B, int b,
-                                  SolverState<T>& s) {
+                                  const SolverState<T>& s) {
   for (int r = 0; r < C.n; ++r) s.lam[r] = src[(size_t)(off + r) * B + b];
   for (int k = 0; k < C.nc; ++k) s.cact[k] = src[(size_t)(off + C.n + k) * B + b] > T(0.5);
   for (int k = 0; k < C.nb; ++k) s.bact[k] = src[(size_t)(off + C.n + C.nc + k) * B + b] > T(0.5);
@@ -654,8 +1206,17 @@ __device__ void store_solver_state(const CModel<T>& C, const SolverState<T>& s, 
     dst[(size_t)(off + C.n + C.nc + k) * B + b] = s.bact[k] ? T(1) : T(0);
 }
 
+template <typename T>
+__device__ void copy_solver_state(const CModel<T>& C, const SolverState<T>& src,
+                                  const SolverState<T>& dst) {
+  for (int r = 0; r < C.n; ++r) dst.lam[r] = src.lam[r];
+  for (int k = 0; k < C.nc; ++k) dst.cact[k] = src.cact[k];
+  for (int k = 0; k < C.nb; ++k) dst.bact[k] = src.bact[k];
+}
+
 // --------------------------------------------------------------------------
-// The two entry kernels
+// The two entry kernels: CM_LANES lanes per env, CM_ENVS envs per block,
+// one CmLayout slice of dynamic shared memory per env.
 // --------------------------------------------------------------------------
 
 // One controller period: cc = [cmd (n_cmd) | lam | cact | bact].
@@ -665,21 +1226,28 @@ __global__ void cdyn_period_cm_kernel(const int* ci, const T* cf, const int* si,
                                       const T* __restrict__ cc_g, T* __restrict__ qo,
                                       T* __restrict__ vo, T* __restrict__ eo, int B, int n_cmd,
                                       int n_substeps, int integrator) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const Lanes L;
+  const int slot = threadIdx.x / CM_LANES;
+  const int b = blockIdx.x * CM_ENVS + slot;
+  if (b >= B) return;  // the whole group
   const Model<T> M(ci, cf);
   const CModel<T> C(si, sf);
+  const Work<T> w = env_work(M, C);
   T q[NQ_MAX], v[NV_MAX], cmd[NCMD_MAX];
-  SolverState<T> s;
-  for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
-  for (int i = 0; i < M.nv; ++i) v[i] = v_g[(size_t)i * B + b];
-  for (int i = 0; i < n_cmd; ++i) cmd[i] = cc_g[(size_t)i * B + b];
-  load_solver_state(C, cc_g, n_cmd, B, b, s);
+  if (L.leader()) {
+    tree_levels(M, w.jorder, w.lstart, w.cnt + 3);
+    for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
+    for (int i = 0; i < M.nv; ++i) v[i] = v_g[(size_t)i * B + b];
+    for (int i = 0; i < n_cmd; ++i) cmd[i] = cc_g[(size_t)i * B + b];
+    load_solver_state(C, cc_g, n_cmd, B, b, w.state(ST_CARRY));
+  }
 #pragma unroll 1
-  for (int k = 0; k < n_substeps; ++k) substep_cm(M, C, q, v, cmd, s, integrator);
-  for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = q[i];
-  for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = v[i];
-  final_outputs_cm(M, C, q, v, cmd, s, eo, B, b);
+  for (int k = 0; k < n_substeps; ++k) substep_cm(M, C, q, v, cmd, ST_CARRY, integrator);
+  if (L.leader()) {
+    for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = q[i];
+    for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = v[i];
+  }
+  final_outputs_cm(M, C, q, v, cmd, ST_CARRY, ST_TMP, eo, B, b);
 }
 
 // One env step: carry = [block carry (n_block) | lam | cact | bact]; extras
@@ -692,37 +1260,50 @@ __global__ void cdyn_rollout_cm_kernel(const int* ci, const T* cf, const int* si
                                        T* __restrict__ qo, T* __restrict__ vo, T* __restrict__ eo,
                                        int B, int n_action, int n_block, int n_cmd, int n_ticks,
                                        int n_substeps, int integrator) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+  const Lanes L;
+  const int slot = threadIdx.x / CM_LANES;
+  const int b = blockIdx.x * CM_ENVS + slot;
+  if (b >= B) return;  // the whole group
   const Model<T> M(ci, cf);
   const CModel<T> C(si, sf);
+  const Work<T> w = env_work(M, C);
+  // the carry's solver channels and the command row's (ST_TMP for the stages)
+  const SolverState<T> carry = w.state(ST_CARRY), cc = w.state(ST_CC);
+  const bool lead = L.leader();
   T q[NQ_MAX], v[NV_MAX], ac[NACT_MAX], bc[NCARRY_MAX], bc_new[NCARRY_MAX], cmd[NCMD_MAX];
-  SolverState<T> carry, cc;  // the carry's solver channels and the command row's
-  for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
-  for (int i = 0; i < M.nv; ++i) v[i] = v_g[(size_t)i * B + b];
-  for (int i = 0; i < n_action; ++i) ac[i] = a_g[(size_t)i * B + b];
-  for (int i = 0; i < n_block; ++i) bc[i] = c_g[(size_t)i * B + b];
-  load_solver_state(C, c_g, n_block, B, b, carry);
-  for (int i = 0; i < n_cmd; ++i) cmd[i] = T(0);
+  if (lead) {
+    tree_levels(M, w.jorder, w.lstart, w.cnt + 3);
+    for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
+    for (int i = 0; i < M.nv; ++i) v[i] = v_g[(size_t)i * B + b];
+    for (int i = 0; i < n_action; ++i) ac[i] = a_g[(size_t)i * B + b];
+    for (int i = 0; i < n_block; ++i) bc[i] = c_g[(size_t)i * B + b];
+    load_solver_state(C, c_g, n_block, B, b, carry);
+    for (int i = 0; i < n_cmd; ++i) cmd[i] = T(0);
+  }
 #pragma unroll 1
   for (int t = 0; t < n_ticks; ++t) {
-    if (controller == CONTROLLER_PD) {
-      pd_controller(pi, pf, q, v, bc, ac, cmd, bc_new);
-      for (int i = 0; i < n_block; ++i) bc[i] = bc_new[i];
-    } else {  // zero-order hold of the action, block carry unchanged
-      for (int i = 0; i < n_cmd; ++i) cmd[i] = ac[i];
+    if (lead) {
+      if (controller == CONTROLLER_PD) {
+        pd_controller(pi, pf, q, v, bc, ac, cmd, bc_new);
+        for (int i = 0; i < n_block; ++i) bc[i] = bc_new[i];
+      } else {  // zero-order hold of the action, block carry unchanged
+        for (int i = 0; i < n_cmd; ++i) cmd[i] = ac[i];
+      }
+      copy_solver_state(C, carry, cc);
     }
-    cc = carry;
 #pragma unroll 1
-    for (int k = 0; k < n_substeps; ++k) substep_cm(M, C, q, v, cmd, cc, integrator);
+    for (int k = 0; k < n_substeps; ++k) substep_cm(M, C, q, v, cmd, ST_CC, integrator);
     if (t < n_ticks - 1) {  // end-of-tick refresh of the carried warm start
-      T a[NV_MAX], depth[NC_MAX];
-      solve(M, C, q, v, cmd, cc, carry, a, depth);
+      T a[NV_MAX];
+      solve(L, M, C, w, q, v, cmd, ST_CC, ST_CARRY, a);
     }
   }
-  for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = q[i];
-  for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = v[i];
-  final_outputs_cm(M, C, q, v, cmd, cc, eo, B, b);
+  if (lead) {
+    for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = q[i];
+    for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = v[i];
+  }
+  final_outputs_cm(M, C, q, v, cmd, ST_CC, ST_TMP, eo, B, b);
+  if (!lead) return;
   const int n_std = M.nv + 10 * C.nc + 6 * M.ni + C.n + C.nc + C.nb;
   const int n_ccrow = n_cmd + C.n + C.nc + C.nb;
   for (int i = 0; i < n_cmd; ++i) eo[(size_t)(n_std + i) * B + b] = cmd[i];

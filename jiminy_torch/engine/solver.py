@@ -24,6 +24,11 @@ Kernels (`csrc/pgs.cuh`, instantiated in `csrc/cdyn.cu`):
 - `cdyn_rollout_cm` replaces the constrained body of `_pallas_rollout_fn`
   (`thread_cc=True` with the end-of-tick warm-start refresh).
 
+They run a group of lanes per env with the solve's matrices in shared
+memory, solving the active rows alone over each row's support dofs;
+`pack_constraints` packs those supports and `cm_smem_per_env` sizes each
+env's shared memory.
+
 Only flat ground, point contacts, joint bounds and ground contacts are
 ported; distance-loop and rolling rows raise `NotImplementedError` naming
 ROADMAP.md queue 1 item 10.
@@ -39,6 +44,7 @@ import numpy as np
 import torch
 
 from jiminy_torch.engine.constraints import ConstraintSet
+from jiminy_torch.models import joints as jt
 from jiminy_torch.ops import cdyn
 from jiminy_torch.ops.cdyn import m_mv, m_tv, v_add, v_cross, v_dot, v_scale, v_sub
 
@@ -588,9 +594,9 @@ class ConstrainedRolloutIntegrator(_ConstrainedCore):
 # Constant packing (layout read by csrc/pgs.cuh, `struct CModel`)
 # --------------------------------------------------------------------------- #
 
-SI_HEADER, SF_HEADER = 8, 8  # [N nb nc iter_max stage_warm ...], [kp kd friction torsion reg
-#                                     min_reg transition_eps ...]
-SI_BOUND, SI_CONTACT = 2, 1  # (q index, v index); (parent joint)
+SI_HEADER, SF_HEADER = 8, 8  # [N nb nc iter_max stage_warm support_width ...],
+#                               [kp kd friction torsion reg min_reg transition_eps ...]
+SI_BOUND, SI_CONTACT = 2, 3  # (q index, v index); (parent joint, support size, support offset)
 SF_BOUND, SF_CONTACT = 4, 12  # (lo hi lo+eps hi-eps); fpos(3) frot(9)
 
 
@@ -601,19 +607,32 @@ class PackedConstraints:
     counts: dict  # n_rows, nb, nc
 
 
+def support_dofs(cd, joint: int) -> list:
+    """The dofs of `joint` and its ancestors, ascending: the support of a
+    contact row on a frame of `joint` (the dofs its Jacobian may touch)."""
+    c = cd.c
+    dofs = []
+    for j in cd._ancestors(joint):
+        width = 6 if c.types[j] == jt.JointType.FREE else 1
+        dofs += range(c.idx_v[j], c.idx_v[j] + width)
+    return sorted(dofs)
+
+
 def pack_constraints(cd, cset: ConstraintSet, opts: SolverOptions, device,
                      dtype) -> PackedConstraints:
-    """Pack the row layout, bound limits, contact frames, solver constants
-    and the relaxation weights of every sweep. Floats are computed in
-    float64 on the host, as the plain version computes its Python-float
-    constants, then rounded once to `dtype`."""
+    """Pack the row layout, bound limits, contact frames and support dofs,
+    solver constants and the relaxation weights of every sweep. Floats are
+    computed in float64 on the host, as the plain version computes its
+    Python-float constants, then rounded once to `dtype`."""
     _unported_rows(cset)
     model, c = cd.model, cd.c
     nb, nc, n = cset.n_bounds, cset.n_contacts, cset.total_rows
     lo_all = np.asarray(model.position_limit_lower, dtype=np.float64)
     hi_all = np.asarray(model.position_limit_upper, dtype=np.float64)
     eps = opts.transition_eps
-    si = [n, nb, nc, opts.iter_max, int(opts.stage_warm_start)]
+    supports = [support_dofs(cd, c.frame_parents[f]) for f in cset.contact_frame_indices]
+    width = max([1 if nb else 0] + [len(sup) for sup in supports])
+    si = [n, nb, nc, opts.iter_max, int(opts.stage_warm_start), width]
     si += [0] * (SI_HEADER - len(si))
     sf = [opts.kp, opts.kd, opts.friction, opts.torsion, opts.regularization, _MIN_REGULARIZER,
           eps]
@@ -624,13 +643,18 @@ def pack_constraints(cd, cset: ConstraintSet, opts: SolverOptions, device,
         lo, hi = float(lo_all[qi]), float(hi_all[qi])
         si += [qi, model.idx_v[j]]
         sf += [lo, hi, lo + eps, hi - eps]
-    for fidx in cset.contact_frame_indices:
-        si += [c.frame_parents[fidx]]
+    off = len(si) + SI_CONTACT * nc
+    for fidx, sup in zip(cset.contact_frame_indices, supports):
+        si += [c.frame_parents[fidx], len(sup), off]
+        off += len(sup)
         sf += list(c.fpos[fidx]) + [x for row in c.frot[fidx] for x in row]
+    for sup in supports:
+        si += sup
     return PackedConstraints(
         si=torch.tensor(si, dtype=torch.int32, device=device),
         sf=torch.tensor(sf, dtype=torch.float64).to(device=device, dtype=dtype),
-        counts=dict(n_rows=n, nb_rows=nb, nc_rows=nc, iter_max=opts.iter_max),
+        counts=dict(n_rows=n, nb_rows=nb, nc_rows=nc, iter_max=opts.iter_max,
+                    support_width=width),
     )
 
 
@@ -638,20 +662,24 @@ def pack_constraints(cd, cset: ConstraintSet, opts: SolverOptions, device,
 # Kernel launches
 # --------------------------------------------------------------------------- #
 
-
 def _n_solver(cpk: PackedConstraints) -> int:
     """Width of the solver channels [lam | contact active | bound active]."""
     return cpk.counts["n_rows"] + cpk.counts["nc_rows"] + cpk.counts["nb_rows"]
 
 
-def _check_constraint_caps(cpk: PackedConstraints) -> None:
+def cm_smem_per_env(packed, cpk: PackedConstraints, dtype) -> int:
+    """Bytes of dynamic shared memory one env of a constrained launch
+    takes; raises for more rows than the kernels take (a block's share past
+    the card's limit fails at the launch)."""
     from jiminy_torch.ops import kernels
 
-    caps = kernels.load().caps
-    for key, val in cpk.counts.items():
-        cap = caps.get(key)
-        if cap is not None and val > cap:
-            raise ValueError(f"cdyn kernel: {key}={val} exceeds the compiled cap {cap}")
+    c, k = packed.counts, cpk.counts
+    elt = torch.empty((), dtype=dtype).element_size()
+    per_env = kernels.load().cm_smem_bytes(c["nj"], c["nq"], c["nv"], k["n_rows"], k["nc_rows"],
+                                           k["nb_rows"], k["support_width"], elt)
+    if per_env < 0:
+        raise ValueError(f"constrained kernels: {k['n_rows']} rows exceed the compiled cap")
+    return per_env
 
 
 def _launch_period_cm(packed, cpk: PackedConstraints, q, v, cc, n_substeps: int,
@@ -660,7 +688,7 @@ def _launch_period_cm(packed, cpk: PackedConstraints, q, v, cc, n_substeps: int,
     cdyn._check_inputs(packed, cpk.sf)
     nq, nv, n_cc = packed.counts["nq"], packed.counts["nv"], cc.shape[-1]
     cdyn._check_caps(packed, n_cmd=n_cmd)
-    _check_constraint_caps(cpk)
+    smem = cm_smem_per_env(packed, cpk, q.dtype)
     if n_cc != n_cmd + _n_solver(cpk):
         raise ValueError(f"cdyn_period_cm: command row width {n_cc} != {n_cmd} + solver channels")
     if n_cmd < packed.counts["nm"]:
@@ -675,7 +703,7 @@ def _launch_period_cm(packed, cpk: PackedConstraints, q, v, cc, n_substeps: int,
         cdyn._launch("cdyn_period_cm", q.dtype, packed.ci.data_ptr(), packed.cf.data_ptr(),
                      cpk.si.data_ptr(), cpk.sf.data_ptr(), qs.data_ptr(), vs.data_ptr(),
                      cs.data_ptr(), qo.data_ptr(), vo.data_ptr(), eo.data_ptr(), b, n_cmd,
-                     int(n_substeps), int(integrator))
+                     int(n_substeps), int(integrator), smem)
     return (
         qo.t().reshape(tuple(batch) + (nq,)),
         vo.t().reshape(tuple(batch) + (nv,)),
@@ -692,7 +720,7 @@ def _launch_rollout_cm(packed, cpk: PackedConstraints, ctrl, kind: int, q, v, ac
     na, n_carry = action.shape[-1], carry.shape[-1]
     n_block = n_carry - _n_solver(cpk)
     cdyn._check_caps(packed, n_cmd=n_cmd, n_action=na, n_carry=n_block)
-    _check_constraint_caps(cpk)
+    smem = cm_smem_per_env(packed, cpk, q.dtype)
     if n_block != (3 * n_cmd if kind == cdyn.CONTROLLER_PD else 0):
         raise ValueError(f"cdyn_rollout_cm: carry width {n_carry} does not fit the controller "
                          "and the solver channels")
@@ -714,7 +742,7 @@ def _launch_rollout_cm(packed, cpk: PackedConstraints, ctrl, kind: int, q, v, ac
                      cpk.si.data_ptr(), cpk.sf.data_ptr(), pi.data_ptr(), pf.data_ptr(),
                      int(kind), qs.data_ptr(), vs.data_ptr(), as_.data_ptr(), bs.data_ptr(),
                      qo.data_ptr(), vo.data_ptr(), eo.data_ptr(), b, na, n_block, int(n_cmd),
-                     int(n_ticks), int(n_substeps), int(integrator))
+                     int(n_ticks), int(n_substeps), int(integrator), smem)
     return (
         qo.t().reshape(tuple(batch) + (nq,)),
         vo.t().reshape(tuple(batch) + (nv,)),

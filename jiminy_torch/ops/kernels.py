@@ -30,8 +30,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-CAP_NAMES = ("nj", "nq", "nv", "nc", "ni", "nm", "nb", "n_cmd", "n_action", "n_carry",
-             "n_rows", "nb_rows", "nc_rows")
+CM_PHASES = 8  # phases of a constrained solve timed by a CDYN_CM_PROFILE build
+CAP_NAMES = ("nj", "nq", "nv", "nc", "ni", "nm", "nb", "n_cmd", "n_action", "n_carry")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -39,9 +39,9 @@ _SIGNATURES = {
     "cdyn_period": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cdyn_rollout": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _P],
-    "cdyn_period_cm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cdyn_period_cm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cdyn_rollout_cm": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -63,12 +63,17 @@ class BuildResult:
     reused: bool
 
 
-def build(source: Path = SOURCE) -> BuildResult:
-    """Compile `source` unless a build of the same source and flags exists."""
+def build(source: Path = SOURCE, defines: tuple = ()) -> BuildResult:
+    """Compile `source` unless a build of the same source and flags exists.
+    `defines` are preprocessor macros, each a build of its own:
+    `CDYN_CM_PROFILE` (the constrained solve's phase timing),
+    `CDYN_CM_LANES=n`, `CDYN_CM_ENVS=n` (another launch geometry of the
+    constrained kernels)."""
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     digest = hashlib.sha256()
     for p in (source, *HEADERS):
         digest.update(p.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(flags).encode())
     key = digest.hexdigest()[:16]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib = BUILD_DIR / f"lib{source.stem}_{key}.so"
@@ -78,7 +83,7 @@ def build(source: Path = SOURCE) -> BuildResult:
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(source)],
+        [nvcc_path(), *flags, "-I", str(CSRC_DIR), "-o", str(tmp), str(source)],
         capture_output=True,
         text=True,
     )
@@ -111,6 +116,13 @@ class Library:
         if n != len(CAP_NAMES):
             raise RuntimeError(f"cdyn_caps returned {n} caps, expected {len(CAP_NAMES)}")
         self.caps = dict(zip(CAP_NAMES, list(buf)))
+        self._cm_smem = self._dll.cdyn_cm_smem_bytes
+        self._cm_smem.argtypes = [_I] * 8
+        self._cm_smem.restype = ctypes.c_int
+        self._phases = getattr(self._dll, "cdyn_cm_phase_cycles", None)
+        if self._phases is not None:
+            self._phases.argtypes = [_P]
+            self._phases.restype = ctypes.c_int
         self._err = self._dll.cdyn_error_string
         self._err.argtypes = [ctypes.c_int]
         self._err.restype = ctypes.c_char_p
@@ -121,20 +133,42 @@ class Library:
         except KeyError:
             raise ValueError(f"no kernel {name} for dtype {dtype}") from None
 
+    def cm_smem_bytes(self, nj, nq, nv, n_rows, nc, nb, ns, elt) -> int:
+        """Bytes of dynamic shared memory one env of the constrained kernels
+        takes (`CmLayout`, `cm_env_stride` in csrc/pgs.cuh); -1 for more rows
+        than the kernels take."""
+        return int(self._cm_smem(nj, nq, nv, n_rows, nc, nb, ns, elt))
+
+    def cm_phase_cycles(self) -> list:
+        """Cycles the constrained solves spent in each phase since the last
+        call (a build with `CDYN_CM_PROFILE` only), then zeroed."""
+        if self._phases is None:
+            raise RuntimeError("this build has no phase timing (build with CDYN_CM_PROFILE)")
+        buf = (ctypes.c_ulonglong * CM_PHASES)()
+        rc = self._phases(ctypes.cast(buf, ctypes.c_void_p))
+        if rc != 0:
+            raise RuntimeError(f"cdyn_cm_phase_cycles: CUDA error {rc} ({self.error_string(rc)})")
+        return list(buf)
+
     def error_string(self, code: int) -> str:
         return self._err(int(code)).decode()
 
 
 _LIBRARY: Optional[Library] = None
+_DEFINES: tuple = ()
 
 
-def load() -> Library:
-    """Build (if needed) and bind the kernels once per process."""
-    global _LIBRARY
+def load(defines: tuple = ()) -> Library:
+    """Build (if needed) and bind the kernels once per process. A process
+    that wants another build (`defines`, see `build`) asks for it before
+    any kernel runs; it then serves every launch of that process."""
+    global _LIBRARY, _DEFINES
     if _LIBRARY is None:
         if not torch.cuda.is_available():
             raise RuntimeError("the cdyn kernels need a CUDA device")
-        _LIBRARY = Library(build())
+        _LIBRARY, _DEFINES = Library(build(defines=tuple(defines))), tuple(defines)
+    elif defines and tuple(defines) != _DEFINES:
+        raise RuntimeError(f"the kernels are already loaded with defines {_DEFINES}")
     return _LIBRARY
 
 

@@ -6,7 +6,8 @@ offsets with some joints pushed past their bounds, a tilted base, random
 velocities and torques. `constrained_inputs` draws the same kind of states
 for the constrained (PGS) path, with every foot 0-3 cm into the ground and
 the solver channels (warm-start multipliers, active sets) that ride the
-command row and the carry. `column_errors` and `column_quantile_errors`
+command row and the carry, or with every row, no row or the contact rows of
+a robot at rest active. `column_errors` and `column_quantile_errors`
 hold a kernel's outputs against its plain version column by column. The
 card tests and `chip_smoke.py` use them. `constraint_mode_options` turns an
 env's engine options into constraint contact mode, as `bench.py` does with
@@ -59,12 +60,21 @@ def constraint_mode_options(options):
     )
 
 
-def constrained_inputs(env, batch: int, seed: int, device=None, dtype=None):
+def constrained_inputs(env, batch: int, seed: int, device=None, dtype=None, rows: str = "mixed"):
     """(q, v, cmd, solver) for the constrained kernels: feet 0-3 cm into the
     ground, joint offsets with a quarter of the envs past a joint bound,
     random velocities and motor commands, and the solver channels `[lam (N)
     | contact active (nc) | bound active (nb)]`: multipliers from 0 to 50
-    in half the envs (0 in the others) and random 0/1 masks."""
+    in half the envs (0 in the others) and random 0/1 masks.
+
+    `rows="all"` makes every row active at the first solve (every bounded
+    joint just past its upper bound, every foot 1-3 cm deep, all masks 1);
+    `rows="none"` makes none active (the base 2 m up, joints inside their
+    bounds, masks 0); `rows="standing"` is the robot at rest in its nominal
+    pose (feet 1 mm deep, no velocity, contact masks 1, bound masks 0, no
+    warm start): the contact rows active, the bound rows not."""
+    if rows not in ("mixed", "all", "none", "standing"):
+        raise ValueError(f"rows must be 'mixed', 'all', 'none' or 'standing', got {rows!r}")
     device = env.device if device is None else device
     dtype = env.dtype if dtype is None else dtype
     eng = env.engine
@@ -84,11 +94,40 @@ def constrained_inputs(env, batch: int, seed: int, device=None, dtype=None):
     cmd = rng.normal(size=(batch, env.robot.nmotors)) * 20.0
     lam = rng.uniform(0.0, 50.0, size=(batch, cset.total_rows)) * (rng.uniform(size=(batch, 1)) < 0.5)
     masks = (rng.uniform(size=(batch, cset.n_contacts + cset.n_bounds)) < 0.5).astype(np.float64)
+    if rows == "all":  # joints just past their upper bounds, every foot 1-3 cm deep
+        hi = np.asarray(model.position_limit_upper)[bounds]
+        q[:, bounds] = hi + rng.uniform(0.0005, 0.003, size=(batch, len(bounds)))
+        q[:, 2] -= _highest_foot(eng, q) + rng.uniform(0.01, 0.03, size=batch)
+        masks[:] = 1.0
+    elif rows == "none":
+        q[:, 2] += 2.0
+        q[:, 7:] = np.asarray(env.nominal_q.cpu(), np.float64)[7:]
+        masks[:] = 0.0
+    elif rows == "standing":
+        q[:] = np.asarray(env.nominal_q.cpu(), np.float64)
+        q[:, 2] -= _highest_foot(eng, q) + 0.001
+        v[:] = 0.0
+        lam[:] = 0.0
+        masks[:, : cset.n_contacts] = 1.0
+        masks[:, cset.n_contacts :] = 0.0
 
     def t(x):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
     return t(q), t(v), t(cmd), t(np.concatenate([lam, masks], axis=1))
+
+
+def _highest_foot(eng, q: np.ndarray) -> np.ndarray:
+    """Height of the highest contact point per env (float64, on the CPU)."""
+    cd = eng._cdyn_cm
+    qt = torch.as_tensor(q, dtype=torch.float64)
+    world = cd._world_placements(cd._joint_x([qt[:, i] for i in range(qt.shape[1])]))
+    heights = []
+    for f in eng.cset.contact_frame_indices:
+        rw, pw = world[cd.c.frame_parents[f]]
+        fp = cd.c.fpos[f]
+        heights.append(sum(rw[2][k] * fp[k] for k in range(3)) + pw[2])
+    return torch.stack(heights, -1).amax(-1).numpy()
 
 
 def _columns(x: torch.Tensor) -> torch.Tensor:

@@ -13,6 +13,10 @@ starts and active sets. jiminy_tpu runs eagerly under `jax.disable_jit()`:
 compiling its constrained ANYmal graph takes minutes, an eager solve a few
 seconds.
 
+The last tests check the premises of the constrained kernels' design on the
+plain version alone: the sweeps on the active rows give the full system's
+multipliers, and the packed support dofs are the rows' non-zero pattern.
+
 Tolerances: the port mirrors jiminy_tpu op for op, so CRBA, RNEA, the LDL^T
 factor and the rows agree to 1e-12 absolute; the Gauss-Seidel row dot is one
 reduction in the port and a sequential sum in jiminy_tpu, so everything
@@ -301,3 +305,107 @@ def test_constrained_rollout_matches_jax(envs, inputs):
     for a, b in zip(out, ref):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
     assert out[2].shape == (4, 108 + 56 + 80)
+
+
+# --------------------------------------------------------------------------- #
+# The premises of the constrained kernels' design (csrc/pgs.cuh): inactive
+# rows can be left out of the solve, and a row's sums can run over its
+# support dofs alone.
+# --------------------------------------------------------------------------- #
+
+
+def _states(t_env, kind):
+    """(q, v, lam, cact, bact) at float64: `constrained_inputs` states with
+    mixed, all or no active rows, or standing at rest."""
+    n, nc = t_env.engine.cset.total_rows, t_env.engine.cset.n_contacts
+    q, v, _, sol = constrained_inputs(t_env, 6, seed=7, rows=kind)
+    return q, v, sol[:, :n], sol[:, n:n + nc] > 0.5, sol[:, n + nc:] > 0.5
+
+
+@pytest.mark.parametrize("kind", ["mixed", "standing", "none", "all"])
+def test_sweeps_on_the_active_rows_alone_match_the_full_system(envs, kind, monkeypatch):
+    """The plain sweeps on the active sub-system (inactive rows and columns
+    of A and b removed) give the full system's active multipliers, and the
+    full system keeps every inactive multiplier at exactly 0. Both sides run
+    torch's sum, whose grouping of terms depends on their count, so the
+    active multipliers are held to rounding (1e-13 of the largest), not to
+    the bit; the kernels' own sums drop the same exact zeros."""
+    t_env = envs[0]
+    eng = t_env.engine
+    cset = eng.cset
+    nb, nc = cset.n_bounds, cset.n_contacts
+    q, v, lam, cact, bact = _states(t_env, kind)
+    seen = {}
+    plain_sweeps = t_solver._pgs_sweep_components
+
+    def spy(cs, a, b, lam0, friction, torsion, iter_max):
+        seen.update(a=a, b=b, lam0=lam0, args=(friction, torsion, iter_max))
+        return plain_sweeps(cs, a, b, lam0, friction, torsion, iter_max)
+
+    monkeypatch.setattr(t_solver, "_pgs_sweep_components", spy)
+    o = eng._solver_opts
+    out = t_solver.constrained_accel_full_components(
+        eng._cdyn_cm, cset, _comps(q), _comps(v), _comps(torch.zeros_like(v)), *_solver_args(o),
+        _comps(cact), _comps(bact), _comps(lam),
+    )
+    cact_new, bact_new = torch.stack(out[4], -1), torch.stack(out[5], -1)
+    full = out[1]
+    counts = []
+    for e in range(q.shape[0]):
+        bsel = [k for k in range(nb) if bact_new[e, k]]
+        csel = [k for k in range(nc) if cact_new[e, k]]
+        rows = bsel + [nb + 4 * k + j for k in csel for j in range(4)]
+        counts.append(len(rows))
+        inactive = [r for r in range(cset.total_rows) if r not in rows]
+        assert bool((full[inactive, e] == 0).all())
+        if not rows:
+            continue
+        sub = dataclasses.replace(
+            cset, bound_joint_indices=tuple(cset.bound_joint_indices[k] for k in bsel),
+            contact_frame_indices=tuple(cset.contact_frame_indices[k] for k in csel),
+            contact_radii=tuple(cset.contact_radii[k] for k in csel),
+        )
+        idx = torch.tensor(rows)
+        a, b, lam0 = (seen[k][..., e] for k in ("a", "b", "lam0"))
+        x = plain_sweeps(sub, a[idx][:, idx], b[idx], lam0[idx], *seen["args"])
+        scale = float(full[:, e].abs().max())
+        np.testing.assert_allclose(x.numpy(), full[idx, e].numpy(), rtol=0, atol=1e-13 * scale)
+    if kind == "none":
+        assert max(counts) == 0
+    elif kind == "all":
+        assert min(counts) == cset.total_rows
+    elif kind == "standing":
+        assert counts == [4 * nc] * len(counts)
+    else:
+        assert 0 < max(counts) < cset.total_rows
+
+
+@pytest.mark.parametrize("kind", ["mixed", "standing", "none", "all"])
+def test_packed_supports_match_the_rows_nonzero_pattern(envs, kind):
+    """`pack_constraints` packs each contact's support dofs (its parent
+    joint's and ancestors' dofs, ascending): exactly the entries of its four
+    plain rows that are not Python 0.0; a bound row's one entry is its dof."""
+    t_env = envs[0]
+    eng = t_env.engine
+    cset, cd = eng.cset, eng._cdyn_cm
+    nb = cset.n_bounds
+    q, v, _, cact, bact = _states(t_env, kind)
+    qc, vc = _comps(q), _comps(v)
+    xs = cd._joint_x(qc)
+    world = cd._world_placements(xs)
+    vel, acc = cd._vel_bias_components(xs, vc)
+    o = eng._solver_opts
+    rows = t_solver.constraint_system_components(cd, cset, qc, vc, xs, world, vel, acc, o.kp, o.kd,
+                                                 o.transition_eps, _comps(cact), _comps(bact))[0]
+    si = t_solver.pack_constraints(cd, cset, o, "cpu", torch.float64).si.tolist()
+    head = t_solver.SI_HEADER
+    for k in range(nb):
+        assert [d for d, x in enumerate(rows[k]) if not t_solver._lit0(x)] == [si[head + 2 * k + 1]]
+    for k in range(cset.n_contacts):
+        parent, n_sup, off = si[head + 2 * nb + 3 * k : head + 2 * nb + 3 * k + 3]
+        assert parent == t_env.robot.model.frame_parents[cset.contact_frame_indices[k]]
+        sup = si[off : off + n_sup]
+        assert sup == t_solver.support_dofs(cd, parent) and len(sup) == 9
+        for r in range(4):
+            row = rows[nb + 4 * k + r]
+            assert [d for d, x in enumerate(row) if not t_solver._lit0(x)] == sup

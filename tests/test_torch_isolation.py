@@ -252,13 +252,17 @@ def test_packed_constraint_constants_match_model(cm_env):
     model, cset, o = cm_env.robot.model, eng.cset, eng._solver_opts
     packed = solver.pack_constraints(eng._cdyn_cm, cset, o, "cpu", torch.float64)
     si, sf = packed.si.numpy(), packed.sf.numpy()
-    assert list(si[:5]) == [28, 12, 4, o.iter_max, 1]
+    assert list(si[:6]) == [28, 12, 4, o.iter_max, 1, 9]  # 9: the widest support
     bounds = si[solver.SI_HEADER:solver.SI_HEADER + 2 * 12].reshape(12, 2)
     assert tuple(bounds[:, 0]) == tuple(model.idx_q[j] for j in cset.bound_joint_indices)
     assert tuple(bounds[:, 1]) == tuple(model.idx_v[j] for j in cset.bound_joint_indices)
-    assert tuple(si[solver.SI_HEADER + 24:]) == tuple(
+    contacts = si[solver.SI_HEADER + 24:solver.SI_HEADER + 36].reshape(4, 3)
+    assert tuple(contacts[:, 0]) == tuple(
         model.frame_parents[f] for f in cset.contact_frame_indices
     )
+    for parent, n_sup, off in contacts:  # support dofs: 6 base + 3 leg dofs
+        assert list(si[off:off + n_sup]) == solver.support_dofs(eng._cdyn_cm, parent)
+    assert len(si) == solver.SI_HEADER + 36 + 4 * 9
     np.testing.assert_array_equal(sf[:7], [o.kp, o.kd, o.friction, o.torsion, o.regularization,
                                            1e-11, o.transition_eps])
     relax = sf[solver.SF_HEADER:solver.SF_HEADER + o.iter_max]

@@ -14,8 +14,9 @@ neither needs nor finds on the card's machine.)
 Tolerances, per output column, so that a small output is not hidden
 behind a large one:
 - float64: max over envs |kernel - plain| / (1 + max over envs |plain|)
-  below 1e-9. Both sides run the same IEEE operations in the same order; the
-  kernel differs by FMA contraction only.
+  below 1e-9. Both sides run the same IEEE operations; the kernels differ by
+  FMA contraction and, in the constrained kernels, by the order of the sums
+  that a group of lanes shares.
 - float32: the 90th percentile over envs of |kernel - plain| / RMS of the
   column below 2e-3 for one evaluation, 1e-2 for integrated periods and
   steps. FMA contraction changes the last bit of many products, and the
@@ -24,9 +25,12 @@ behind a large one:
   still fails.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
+from jiminy_torch.engine import solver
 from jiminy_torch.envs import make
 from jiminy_torch.ops import cdyn
 from jiminy_torch.testing import (
@@ -180,6 +184,59 @@ def test_constrained_rollout_kernel_matches_plain(cuda_device, dtype, controller
     for out, ref in zip(outs, refs):
         assert torch.isfinite(out).all()
         assert _error(out, ref, dtype) < TOL[dtype][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,batch", [("all", 64), ("none", 64), ("mixed", 1003), ("mixed", 1)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_constrained_kernels_match_plain_at_the_extremes(cuda_device, dtype, rows, batch):
+    """Every row active, none active, and batches that leave the last block
+    of envs part-filled."""
+    env = _cm_env(cuda_device, dtype)
+    nm, n_rows = env.robot.nmotors, env.engine.cset.total_rows
+    q, v, cmd, sol = constrained_inputs(env, batch, seed=5, rows=rows)
+    if rows != "mixed":
+        assert bool((sol[:, n_rows:] == (1.0 if rows == "all" else 0.0)).all())
+    run = env.engine._get_period_run("rk4")
+    cc = torch.cat([cmd, sol], dim=-1)
+    period = run.kernel(q, v, cc, n_substeps=1), run.plain(q, v, cc, n_substeps=1)
+    block = torch.zeros((batch, 3 * nm), dtype=dtype, device=cuda_device)
+    block[:, :nm] = q[:, 7:]
+    carry = torch.cat([block, sol], dim=-1)
+    rrun = env.engine._get_rollout_run("test-pd", env.block.component_controller(env.env), 8)
+    rollout = (rrun.kernel(q, v, cmd * 2.5, carry, n_ticks=2, n_substeps=1),
+               rrun.plain(q, v, cmd * 2.5, carry, n_ticks=2, n_substeps=1))
+    torch.cuda.synchronize()
+    for outs, refs in (period, rollout):
+        for out, ref in zip(outs, refs):
+            assert torch.isfinite(out).all()
+            assert _error(out, ref, dtype) < TOL[dtype][1]
+    lam = period[0][2][:, -sol.shape[1]:][:, :n_rows]  # the solver channels end the extras
+    if rows == "none":
+        assert bool((lam == 0).all())
+    if rows == "all":
+        assert bool((lam != 0).any(-1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("too_big", ["rows", "shared memory"])
+def test_constrained_launch_refuses_what_does_not_fit(cuda_device, too_big):
+    """A model with more rows than the kernels take, or whose envs would
+    need more shared memory than a block may use, raises; nothing runs in
+    its place."""
+    env = _cm_env(cuda_device, torch.float32)
+    run = env.engine._get_period_run("rk4")
+    q, v, cmd, sol = constrained_inputs(env, 4, seed=6)
+    packed = run.cd.pack(run.tau_c, run.dt, run.imu_frames, cuda_device, torch.float32)
+    cpk = run.pack(cuda_device, torch.float32)
+    grown = {"rows": dict(n_rows=41), "shared memory": dict(support_width=4000)}[too_big]
+    cpk = dataclasses.replace(cpk, counts=dict(cpk.counts, **grown))
+    cdyn.reset_launch_counts()
+    with pytest.raises((ValueError, RuntimeError), match="constrained kernels|cdyn_period_cm"):
+        solver._launch_period_cm(packed, cpk, q, v, torch.cat([cmd, sol], dim=-1), 1,
+                                 cdyn._INTEGRATORS["rk4"], run.n_cmd, run.n_extra)
+    torch.cuda.synchronize()
+    assert cdyn.KERNELS["cdyn_period_cm"].launches == 0
 
 
 @pytest.mark.cuda
