@@ -24,7 +24,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    on perturbed states (not at equilibrium), as in phase 3 (the whole 8-tick
    rollout is let stray beyond 1e-9 in at most F64_CHAOS_SHARE of the envs,
    with a last-bit nudge of the input as the witness of how far rounding
-   alone carries them). The bound is max(bytes / 3.35 TB/s, ops / 67
+   alone carries them); the period and rollout kernels also at a batch one
+   env short (the last block of envs part-filled) against the same plain
+   outputs. The bound is max(bytes / 3.35 TB/s, ops / 67
    TFLOP/s) from this run's shapes and an op count of the plain version (one
    torch elementwise call per op, counted on the CPU with a
    TorchFunctionMode) with the model's structural zeros folded away; the
@@ -519,6 +521,20 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2):
                 "cdyn_period": period_launches["cdyn_period"],
                 "cdyn_rollout": fused_launches["cdyn_rollout"]}
     n_time = {"cdyn_accel": 20, "cdyn_period": 5, "cdyn_rollout": 3}
+    # The period and rollout kernels' launch geometry and shared memory an env
+    from jiminy_torch.ops import kernels
+
+    c = engines[torch.float32]._cdyn.pack(None, 0.0, (), device, torch.float32).counts
+    geometry = {}
+    for name, widths in (("cdyn_period", (nm, 0, 0)), ("cdyn_rollout", (nm, nm, carry.shape[1]))):
+        per_env = {elt: kernels.load().sp_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], *widths,
+                                                     elt) for elt in (4, 8)}
+        lanes, envs = per_env[4][1:]
+        geometry[name] = {"lanes_per_env": lanes, "envs_per_block": envs,
+                          "smem_per_env": per_env[4][0], "smem_per_env_f64": per_env[8][0]}
+        log(f"[smem] {name}: {lanes} lanes an env, {envs} envs a block; {per_env[4][0]} B of shared "
+            f"memory an env at float32, {per_env[8][0]} B at float64 ({envs * per_env[4][0]} / "
+            f"{envs * per_env[8][0]} B a block)")
 
     def as_tuple(x):
         return x if isinstance(x, tuple) else (x,)
@@ -572,6 +588,16 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2):
             f"(allowed {allowed:g}); the kernel against itself with q moved one ulp: "
             f"{e_nudge:.3e} at {at_nudge}, share beyond {tol64:g}: {share_n:.3e}")
         check(share <= allowed, f"{name} float64 disagrees on perturbed states: share {share}")
+        share_rag = None
+        if integrated:  # the last block of envs part-filled, against the same plain outputs
+            b_rag = B_MAIN - 1
+            outs_rag = as_tuple(fns(name, engines[torch.float64])[0](*(x[:b_rag] for x in xs)))
+            share_rag = share_beyond(outs_rag, tuple(r[:b_rag] for r in refs), tol64)
+            log(f"[check] {name} float64 B={b_rag} (ragged), perturbed states: share of envs "
+                f"beyond {tol64:g}: {share_rag:.3e} (allowed {allowed:g})")
+            check(all(bool(torch.isfinite(o).all()) for o in outs_rag), f"{name}: non-finite output")
+            check(share_rag <= allowed, f"{name} float64 disagrees at B={b_rag}: {share_rag}")
+            del outs_rag
         del outs, refs, outs_n
 
         # float32, perturbed states: per column, q90 over envs / column RMS
@@ -588,7 +614,7 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2):
         rec = {
             "name": name,
             "route": "cuda",
-            "source": "jiminy_torch/csrc/cdyn.cu",
+            "source": "jiminy_torch/csrc/cdyn.cu" if name == "cdyn_accel" else "jiminy_torch/csrc/spring.cuh",
             "replaces": cdyn.KERNELS[name].replaces.split()[0],
             "launches": launches[name],
             "max_abs_err": e_abs,
@@ -606,6 +632,8 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2):
             "f64_share_perturbed": share,
             "f64_share_one_ulp": share_n,
             "f32_q90_err_perturbed": e32_pert,
+            **({"f64_share_ragged": share_rag} if share_rag is not None else {}),
+            **geometry.get(name, {}),
         }
         log(f"[kernel] {name} B={B_MAIN} float32: {ms:.3f} ms (CUDA events), plain {plain_ms:.1f} ms "
             f"(host clock), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; generic formulation "

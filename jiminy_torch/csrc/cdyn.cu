@@ -6,22 +6,18 @@
 //   cdyn_rollout <- _pallas_rollout_fn (one env step: controller ticks x
 //                                       substeps + extras)
 //
-// and, from pgs.cuh, the constrained (PGS) bodies of the last two:
-// cdyn_period_cm and cdyn_rollout_cm (a group of lanes per env there; the
-// notes below are those of the three spring-damper kernels).
+// The spring-damper bodies of the last two are in spring.cuh (a group of
+// lanes per env, the working set in shared memory), their constrained (PGS)
+// bodies in pgs.cuh (cdyn_period_cm, cdyn_rollout_cm). This file holds the
+// model view, the shared helpers and cdyn_accel.
 //
-// They compute what the Pallas kernels compute, not their block structure.
-// One thread integrates one environment: the whole state of an env step
-// stays in the thread, and the I/O is read and written once in
-// struct-of-arrays (n, B) layout, so neighbouring threads touch neighbouring
-// addresses. The model's constants are read at run time from two buffers
-// packed once per model (`pack_model` in jiminy_torch/ops/cdyn.py), so one
-// build serves every model; joint loops stay loops (`#pragma unroll 1`).
-//
-// What bounds them: arithmetic. One ANYmal evaluation is about 19 k scalar
-// operations per env; an env step is 161 evaluations. The design spends
-// nothing on memory traffic beyond one read and one write of the state; the
-// per-joint arrays live in local memory (cached in L1/L2).
+// cdyn_accel: one thread integrates one environment, the I/O read and
+// written once in struct-of-arrays (n, B) layout, so neighbouring threads
+// touch neighbouring addresses; it runs once per reset. The model's
+// constants are read at run time from two buffers packed once per model
+// (`pack_model` in jiminy_torch/ops/cdyn.py), so one build serves every
+// model; joint loops stay loops (`#pragma unroll 1`) and the per-joint arrays
+// of `accel_core` live on the thread's stack (local memory).
 //
 // Every expression mirrors the plain PyTorch version (ComponentDynamics in
 // jiminy_torch/ops/cdyn.py) term for term and in the same association order,
@@ -166,14 +162,19 @@ __device__ __forceinline__ void quat_to_m(T qx, T qy, T qz, T qw, T* r) {
   r[6] = two * (xz - wy); r[7] = two * (yz + wx); r[8] = one - two * (xx + yy);
 }
 
-// exp(axis * q) for a constant unit axis, with the axis products packed
+// exp(axis * q) for a constant unit axis, with the axis products packed,
+// from c = cos(q) and s = sin(q)
 template <typename T>
-__device__ __forceinline__ void rodrigues(const T* ax, const T* p, T q, T* r) {
-  T c = cos(q), s = sin(q);
+__device__ __forceinline__ void rodrigues_cs(const T* ax, const T* p, T c, T s, T* r) {
   T one_c = T(1) - c;
   r[0] = c + p[0] * one_c; r[1] = p[3] * one_c - ax[2] * s; r[2] = p[4] * one_c + ax[1] * s;
   r[3] = p[3] * one_c + ax[2] * s; r[4] = c + p[1] * one_c; r[5] = p[5] * one_c - ax[0] * s;
   r[6] = p[4] * one_c - ax[1] * s; r[7] = p[5] * one_c + ax[0] * s; r[8] = c + p[2] * one_c;
+}
+
+template <typename T>
+__device__ __forceinline__ void rodrigues(const T* ax, const T* p, T q, T* r) {
+  rodrigues_cs(ax, p, cos(q), sin(q), r);
 }
 
 // I_parent = X_F I X_M^{-1} for the placement (r, pos) of the child in its
@@ -234,7 +235,7 @@ __device__ void transform_sym6(const T* ia, const T* r, const T* pos, T* out) {
 
 // Unrolled LDL^T solve of a symmetric positive definite 6x6 system, in place.
 template <typename T>
-__device__ void solve_sym6(const T* m, T* y) {
+__device__ __forceinline__ void solve_sym6(const T* m, T* y) {
   T l[36], d[6];
 #pragma unroll
   for (int j = 0; j < 6; ++j) {
@@ -318,21 +319,20 @@ __device__ void world_placements(const Model<T>& M, const T (*R)[9], const T (*P
   }
 }
 
-// One spring-damper ground contact on flat ground (`_contact_fext`):
+// One spring-damper ground contact on flat ground (`_contact_fext`), from
+// the world placement (rw, pw) and LOCAL velocity (w, v) of its parent joint:
 // world force fw, LOCAL parent-joint wrench (nj, fj), depth, and with `wl`
 // the LOCAL contact-frame wrench [n(3), f(3)].
 template <typename T>
-__device__ void contact_eval(const Model<T>& M, int k, const T (*RW)[9], const T (*PW)[3],
-                             const T (*VEL)[6], T* fw, T* fj, T* nj, T* depth_out, T* wl) {
-  const int parent = M.cparent(k);
+__device__ __forceinline__ void contact_eval_at(const Model<T>& M, int k, const T* rw, const T* pw,
+                                                const T* vel, T* fw, T* fj, T* nj, T* depth_out,
+                                                T* wl) {
   const T* fp = M.cfpos(k);
-  const T* rw = RW[parent];
-  const T* pw = PW[parent];
   T pc[3], tmp[3];
   mv3(rw, fp, tmp);
   for (int i = 0; i < 3; ++i) pc[i] = tmp[i] + pw[i];
-  const T* w_l = VEL[parent];
-  const T* v_l = VEL[parent] + 3;
+  const T* w_l = vel;
+  const T* v_l = vel + 3;
   T vpt[3];
   cross3(w_l, fp, tmp);
   for (int i = 0; i < 3; ++i) vpt[i] = v_l[i] + tmp[i];
@@ -390,6 +390,13 @@ __device__ void contact_eval(const Model<T>& M, int k, const T (*RW)[9], const T
       wl[0] = T(0); wl[1] = T(0); wl[2] = T(0);
     }
   }
+}
+
+template <typename T>
+__device__ void contact_eval(const Model<T>& M, int k, const T (*RW)[9], const T (*PW)[3],
+                             const T (*VEL)[6], T* fw, T* fj, T* nj, T* depth_out, T* wl) {
+  const int parent = M.cparent(k);
+  contact_eval_at(M, k, RW[parent], PW[parent], VEL[parent], fw, fj, nj, depth_out, wl);
 }
 
 // --------------------------------------------------------------------------
@@ -648,6 +655,30 @@ __device__ void fk_vel_acc(const Model<T>& M, const T (*R)[9], const T (*P)[3], 
   }
 }
 
+// The joint torque of motor m under command cc[m] (`MotorTransmission.__call__`).
+template <typename T>
+__device__ __forceinline__ T motor_effort(const Model<T>& M, int m, const T* v, const T* cc) {
+  const int* mi = M.motor(m);
+  const T* mf = M.motorf(m);  // red el vl denom fvp fvn fdp fdn fds
+  const T v_j = v[mi[0]];
+  T u = cc[m];
+  if (mi[1] == MOTOR_ENVELOPE) {
+    const T v_m = mf[0] * v_j;
+    const T smin = clip((mf[2] + v_m) / mf[3], T(0), T(1));
+    const T smax = clip((mf[2] - v_m) / mf[3], T(0), T(1));
+    u = clip(u, -mf[1] * smin, mf[1] * smax);
+  } else if (mi[1] == MOTOR_CLIP) {
+    u = clip(u, -mf[1], mf[1]);
+  }
+  T u_t = mf[0] * u;
+  if (mi[2]) {
+    const T fr = (v_j > T(0)) ? mf[4] * v_j + mf[6] * tanh(mf[8] * v_j)
+                              : mf[5] * v_j + mf[7] * tanh(mf[8] * v_j);
+    u_t = u_t + fr;
+  }
+  return u_t;
+}
+
 // Motor commands -> joint torques (`MotorTransmission.__call__`).
 template <typename T>
 __device__ void tau_c(const Model<T>& M, const T* v, const T* cc, T* tc) {
@@ -655,27 +686,50 @@ __device__ void tau_c(const Model<T>& M, const T* v, const T* cc, T* tc) {
   for (int i = 0; i < M.nv; ++i) tc[i] = T(0);
 #pragma unroll 1
   for (int m = 0; m < M.nm; ++m) {
-    const int* mi = M.motor(m);
-    const T* mf = M.motorf(m);  // red el vl denom fvp fvn fdp fdn fds
-    const int vi = mi[0];
-    const T v_j = v[vi];
-    T u = cc[m];
-    if (mi[1] == MOTOR_ENVELOPE) {
-      const T v_m = mf[0] * v_j;
-      const T smin = clip((mf[2] + v_m) / mf[3], T(0), T(1));
-      const T smax = clip((mf[2] - v_m) / mf[3], T(0), T(1));
-      u = clip(u, -mf[1] * smin, mf[1] * smax);
-    } else if (mi[1] == MOTOR_CLIP) {
-      u = clip(u, -mf[1], mf[1]);
-    }
-    T u_t = mf[0] * u;
-    if (mi[2]) {
-      const T fr = (v_j > T(0)) ? mf[4] * v_j + mf[6] * tanh(mf[8] * v_j)
-                                : mf[5] * v_j + mf[7] * tanh(mf[8] * v_j);
-      u_t = u_t + fr;
-    }
-    tc[vi] = tc[vi] + u_t;
+    const int vi = M.motor(m)[0];
+    tc[vi] = tc[vi] + motor_effort(M, m, v, cc);
   }
+}
+
+// The free-flyer retraction q (+) dv of one FREE joint (`integrate_components`):
+// q its 7 coordinates, dv its 6 (linear, angular), into out (which may be q).
+template <typename T>
+__device__ __forceinline__ void free_integrate(const T* q, const T* dv, T* out) {
+  const T vl[3] = {dv[0], dv[1], dv[2]};
+  const T w[3] = {dv[3], dv[4], dv[5]};
+  const T eps = machine_eps<T>();
+  const T theta2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
+  const T theta = sqrt(tmax(theta2, eps * eps));
+  const bool small = theta2 < T(1e-6);
+  // V(omega) @ v of the SE(3) exponential
+  const T b = small ? T(0.5) - theta2 / T(24) : (T(1) - cos(theta)) / tmax(theta2, T(1e-30));
+  const T c = small ? T(1.0 / 6.0) - theta2 / T(120)
+                    : (theta - sin(theta)) / tmax(theta2 * theta, T(1e-30));
+  T wxv[3], wxwxv[3], p_d[3];
+  cross3(w, vl, wxv);
+  cross3(w, wxv, wxwxv);
+  for (int k = 0; k < 3; ++k) p_d[k] = vl[k] + b * wxv[k] + c * wxwxv[k];
+  T rot[9], tmp[3];
+  quat_to_m(q[3], q[4], q[5], q[6], rot);
+  mv3(rot, p_d, tmp);
+  // quat * exp3(omega), normalized
+  const T s_over = small ? T(0.5) - theta2 / T(48) : sin(T(0.5) * theta) / theta;
+  const T cw = small ? T(1) - theta2 / T(8) + theta2 * theta2 / T(384) : cos(T(0.5) * theta);
+  const T x2 = w[0] * s_over, y2 = w[1] * s_over, z2 = w[2] * s_over, w2 = cw;
+  const T x1 = q[3], y1 = q[4], z1 = q[5], w1 = q[6];
+  const T qx = w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2;
+  const T qy = w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2;
+  const T qz = w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2;
+  const T qw = w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2;
+  const T nrm = sqrt(qx * qx + qy * qy + qz * qz + qw * qw);
+  const T p0 = q[0] + tmp[0], p1 = q[1] + tmp[1], p2 = q[2] + tmp[2];
+  out[0] = p0;
+  out[1] = p1;
+  out[2] = p2;
+  out[3] = qx / nrm;
+  out[4] = qy / nrm;
+  out[5] = qz / nrm;
+  out[6] = qw / nrm;
 }
 
 // Configuration retraction q (+) dv (`integrate_components`).
@@ -690,128 +744,7 @@ __device__ void integrate(const Model<T>& M, const T* q, const T* dv, T* out) {
       out[qi] = q[qi] + dv[vi];
       continue;
     }
-    const T* vl = dv + vi;
-    const T* w = dv + vi + 3;
-    const T eps = machine_eps<T>();
-    const T theta2 = w[0] * w[0] + w[1] * w[1] + w[2] * w[2];
-    const T theta = sqrt(tmax(theta2, eps * eps));
-    const bool small = theta2 < T(1e-6);
-    // V(omega) @ v of the SE(3) exponential
-    const T b = small ? T(0.5) - theta2 / T(24) : (T(1) - cos(theta)) / tmax(theta2, T(1e-30));
-    const T c = small ? T(1.0 / 6.0) - theta2 / T(120)
-                      : (theta - sin(theta)) / tmax(theta2 * theta, T(1e-30));
-    T wxv[3], wxwxv[3], p_d[3];
-    cross3(w, vl, wxv);
-    cross3(w, wxv, wxwxv);
-    for (int k = 0; k < 3; ++k) p_d[k] = vl[k] + b * wxv[k] + c * wxwxv[k];
-    T rot[9], tmp[3];
-    quat_to_m(q[qi + 3], q[qi + 4], q[qi + 5], q[qi + 6], rot);
-    mv3(rot, p_d, tmp);
-    for (int k = 0; k < 3; ++k) out[qi + k] = q[qi + k] + tmp[k];
-    // quat * exp3(omega), normalized
-    const T s_over = small ? T(0.5) - theta2 / T(48) : sin(T(0.5) * theta) / theta;
-    const T cw = small ? T(1) - theta2 / T(8) + theta2 * theta2 / T(384) : cos(T(0.5) * theta);
-    const T x2 = w[0] * s_over, y2 = w[1] * s_over, z2 = w[2] * s_over, w2 = cw;
-    const T x1 = q[qi + 3], y1 = q[qi + 4], z1 = q[qi + 5], w1 = q[qi + 6];
-    const T qx = w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2;
-    const T qy = w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2;
-    const T qz = w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2;
-    const T qw = w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2;
-    const T nrm = sqrt(qx * qx + qy * qy + qz * qz + qw * qw);
-    out[qi + 3] = qx / nrm;
-    out[qi + 4] = qy / nrm;
-    out[qi + 5] = qz / nrm;
-    out[qi + 6] = qw / nrm;
-  }
-}
-
-// One fixed-dt substep (`_build_substep`), q and v updated in place.
-template <typename T>
-__device__ __noinline__ void substep(const Model<T>& M, T* q, T* v, const T* cc, int integrator) {
-  T tc[NV_MAX], k1[NV_MAX], dq[NV_MAX], qt[NQ_MAX];
-  const int nv = M.nv;
-  const T dt = M.dt(), hdt = M.half_dt();
-  tau_c(M, v, cc, tc);
-  accel_core(M, q, v, tc, k1);
-  if (integrator == EULER) {
-    for (int k = 0; k < nv; ++k) dq[k] = dt * v[k];
-    integrate(M, q, dq, qt);
-    for (int k = 0; k < M.nq; ++k) q[k] = qt[k];
-    for (int k = 0; k < nv; ++k) v[k] = v[k] + dt * k1[k];
-    return;
-  }
-  T k2[NV_MAX], k3[NV_MAX], k4[NV_MAX], v2[NV_MAX], v3[NV_MAX], v4[NV_MAX];
-  for (int k = 0; k < nv; ++k) dq[k] = hdt * v[k];
-  integrate(M, q, dq, qt);
-  for (int k = 0; k < nv; ++k) v2[k] = v[k] + hdt * k1[k];
-  tau_c(M, v2, cc, tc);
-  accel_core(M, qt, v2, tc, k2);
-  for (int k = 0; k < nv; ++k) dq[k] = hdt * v2[k];
-  integrate(M, q, dq, qt);
-  for (int k = 0; k < nv; ++k) v3[k] = v[k] + hdt * k2[k];
-  tau_c(M, v3, cc, tc);
-  accel_core(M, qt, v3, tc, k3);
-  for (int k = 0; k < nv; ++k) dq[k] = dt * v3[k];
-  integrate(M, q, dq, qt);
-  for (int k = 0; k < nv; ++k) v4[k] = v[k] + dt * k3[k];
-  tau_c(M, v4, cc, tc);
-  accel_core(M, qt, v4, tc, k4);
-  const T dt6 = M.dt6();
-  for (int k = 0; k < nv; ++k) dq[k] = dt6 * (v[k] + T(2) * v2[k] + T(2) * v3[k] + v4[k]);
-  integrate(M, q, dq, qt);
-  for (int k = 0; k < M.nq; ++k) q[k] = qt[k];
-  for (int k = 0; k < nv; ++k) v[k] = v[k] + dt6 * (k1[k] + T(2) * k2[k] + T(2) * k3[k] + k4[k]);
-}
-
-// End-of-period outputs `[a | f_world | w_local | depth | imu]` written to
-// rows of the (n_extra, B) extras array (`_build_final_outputs`).
-template <typename T>
-__device__ __noinline__ void final_outputs(const Model<T>& M, const T* q, const T* v, const T* cc,
-                                           T* eo, int B, int b) {
-  T tc[NV_MAX], a[NV_MAX];
-  tau_c(M, v, cc, tc);
-  accel_core(M, q, v, tc, a);
-  T R[NJ_MAX][9], P[NJ_MAX][3], RW[NJ_MAX][9], PW[NJ_MAX][3], VEL[NJ_MAX][6], ACC[NJ_MAX][6];
-  joint_x(M, q, R, P);
-  world_placements(M, R, P, RW, PW);
-  fk_vel_acc(M, R, P, v, a, VEL, ACC);
-  const int nv = M.nv, nc = M.has_contacts ? M.nc : 0;
-  for (int k = 0; k < nv; ++k) eo[(size_t)k * B + b] = a[k];
-  const int o_fw = nv, o_wl = nv + 3 * nc, o_d = nv + 9 * nc, o_imu = nv + 10 * nc;
-#pragma unroll 1
-  for (int k = 0; k < nc; ++k) {
-    T fw[3], fj[3], nj[3], depth, wl[6];
-    contact_eval(M, k, RW, PW, VEL, fw, fj, nj, &depth, wl);
-    for (int c = 0; c < 3; ++c) eo[(size_t)(o_fw + 3 * k + c) * B + b] = fw[c];
-    for (int c = 0; c < 6; ++c) eo[(size_t)(o_wl + 6 * k + c) * B + b] = wl[c];
-    eo[(size_t)(o_d + k) * B + b] = depth;
-  }
-#pragma unroll 1
-  for (int k = 0; k < M.ni; ++k) {
-    const int parent = M.iparent(k);
-    const T* frot = M.ifrot(k);
-    const T* fp = M.ifpos(k);
-    const T* w_l = VEL[parent];
-    const T* v_l = VEL[parent] + 3;
-    const T* a_a = ACC[parent];
-    const T* a_l = ACC[parent] + 3;
-    T w_f[3], v_f[3], al_f[3], tmp[3], tmp2[3];
-    tv3(frot, w_l, w_f);
-    cross3(fp, w_l, tmp);
-    for (int c = 0; c < 3; ++c) tmp2[c] = v_l[c] - tmp[c];
-    tv3(frot, tmp2, v_f);
-    cross3(fp, a_a, tmp);
-    for (int c = 0; c < 3; ++c) tmp2[c] = a_l[c] - tmp[c];
-    tv3(frot, tmp2, al_f);
-    cross3(w_f, v_f, tmp);
-    T rot_f[9], g_f[3];
-    mm3(RW[parent], frot, rot_f);
-    const T g[3] = {M.g(0), M.g(1), M.g(2)};
-    tv3(rot_f, g, g_f);
-    for (int c = 0; c < 3; ++c) {
-      eo[(size_t)(o_imu + 6 * k + c) * B + b] = w_f[c];
-      eo[(size_t)(o_imu + 6 * k + 3 + c) * B + b] = (al_f[c] + tmp[c]) - g_f[c];
-    }
+    free_integrate(q + qi, dv + vi, out + qi);
   }
 }
 
@@ -856,7 +789,8 @@ __device__ void pd_controller(const int* __restrict__ pi, const T* __restrict__ 
 }
 
 // --------------------------------------------------------------------------
-// The three entry kernels: one thread per environment, (n, B) layout.
+// cdyn_accel: one thread per environment, (n, B) layout (the period and
+// rollout kernels are in spring.cuh).
 // --------------------------------------------------------------------------
 
 template <typename T>
@@ -873,68 +807,19 @@ __global__ void cdyn_accel_kernel(const int* ci, const T* cf, const T* __restric
   for (int i = 0; i < M.nv; ++i) out[(size_t)i * B + b] = qdd[i];
 }
 
-template <typename T>
-__global__ void cdyn_period_kernel(const int* ci, const T* cf, const T* __restrict__ q_g,
-                                   const T* __restrict__ v_g, const T* __restrict__ cmd_g,
-                                   T* __restrict__ qo, T* __restrict__ vo, T* __restrict__ eo,
-                                   int B, int n_cmd, int n_substeps, int integrator) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Model<T> M(ci, cf);
-  T q[NQ_MAX], v[NV_MAX], cc[NCMD_MAX];
-  for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
-  for (int i = 0; i < M.nv; ++i) v[i] = v_g[(size_t)i * B + b];
-  for (int i = 0; i < n_cmd; ++i) cc[i] = cmd_g[(size_t)i * B + b];
-#pragma unroll 1
-  for (int s = 0; s < n_substeps; ++s) substep(M, q, v, cc, integrator);
-  for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = q[i];
-  for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = v[i];
-  final_outputs(M, q, v, cc, eo, B, b);
-}
-
-template <typename T>
-__global__ void cdyn_rollout_kernel(const int* ci, const T* cf, const int* pi, const T* pf,
-                                    int controller, const T* __restrict__ q_g,
-                                    const T* __restrict__ v_g, const T* __restrict__ a_g,
-                                    const T* __restrict__ c_g, T* __restrict__ qo,
-                                    T* __restrict__ vo, T* __restrict__ eo, int B, int n_action,
-                                    int n_carry, int n_cmd, int n_ticks, int n_substeps,
-                                    int integrator) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Model<T> M(ci, cf);
-  T q[NQ_MAX], v[NV_MAX], ac[NACT_MAX], bc[NCARRY_MAX], bc_new[NCARRY_MAX], cc[NCMD_MAX];
-  for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
-  for (int i = 0; i < M.nv; ++i) v[i] = v_g[(size_t)i * B + b];
-  for (int i = 0; i < n_action; ++i) ac[i] = a_g[(size_t)i * B + b];
-  for (int i = 0; i < n_carry; ++i) bc[i] = c_g[(size_t)i * B + b];
-  for (int i = 0; i < n_cmd; ++i) cc[i] = T(0);
-#pragma unroll 1
-  for (int t = 0; t < n_ticks; ++t) {
-    if (controller == CONTROLLER_PD) {
-      pd_controller(pi, pf, q, v, bc, ac, cc, bc_new);
-      for (int i = 0; i < n_carry; ++i) bc[i] = bc_new[i];
-    } else {  // zero-order hold of the action, carry unchanged
-      for (int i = 0; i < n_cmd; ++i) cc[i] = ac[i];
-    }
-#pragma unroll 1
-    for (int s = 0; s < n_substeps; ++s) substep(M, q, v, cc, integrator);
-  }
-  for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = q[i];
-  for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = v[i];
-  final_outputs(M, q, v, cc, eo, B, b);
-  const int n_std = M.nv + 10 * (M.has_contacts ? M.nc : 0) + 6 * M.ni;
-  for (int i = 0; i < n_cmd; ++i) eo[(size_t)(n_std + i) * B + b] = cc[i];
-  for (int i = 0; i < n_carry; ++i) eo[(size_t)(n_std + n_cmd + i) * B + b] = bc[i];
-}
-
 }  // namespace cdyn
 
 #include "pgs.cuh"
+#include "spring.cuh"
 
 namespace cdyn {
 
-constexpr int kThreads = 128;
+// Threads a block of cdyn_accel (one env a thread); a build may set another
+// (-DCDYN_ACCEL_THREADS=n) to time the serial evaluation at other occupancies.
+#ifndef CDYN_ACCEL_THREADS
+#define CDYN_ACCEL_THREADS 128
+#endif
+constexpr int kThreads = CDYN_ACCEL_THREADS;
 
 inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
 
@@ -948,12 +833,24 @@ int launch_accel(const void* ci, const void* cf, const void* q, const void* v, c
   return static_cast<int>(cudaGetLastError());
 }
 
+// The spring kernels: SP_LANES lanes per env, SP_ENVS envs per block,
+// `smem_per_env` bytes of dynamic shared memory per env
+// (`cdyn_sp_smem_bytes`); a block's share past the card's limit fails here.
+template <typename K>
+int prepare_sp(K kernel, int smem_per_env) {
+  cudaGetLastError();
+  return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               smem_per_env * SP_ENVS));
+}
+
 template <typename T>
 int launch_period(const void* ci, const void* cf, const void* q, const void* v, const void* cmd,
                   void* qo, void* vo, void* eo, int B, int n_cmd, int n_substeps, int integrator,
-                  void* stream) {
-  cudaGetLastError();
-  cdyn_period_kernel<T><<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                  int smem_per_env, void* stream) {
+  const int rc = prepare_sp(cdyn_period_kernel<T>, smem_per_env);
+  if (rc != 0) return rc;
+  cdyn_period_kernel<T><<<(B + SP_ENVS - 1) / SP_ENVS, SP_LANES * SP_ENVS,
+                          (size_t)smem_per_env * SP_ENVS, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const T*>(q),
       static_cast<const T*>(v), static_cast<const T*>(cmd), static_cast<T*>(qo),
       static_cast<T*>(vo), static_cast<T*>(eo), B, n_cmd, n_substeps, integrator);
@@ -964,9 +861,11 @@ template <typename T>
 int launch_rollout(const void* ci, const void* cf, const void* pi, const void* pf, int controller,
                    const void* q, const void* v, const void* action, const void* carry, void* qo,
                    void* vo, void* eo, int B, int n_action, int n_carry, int n_cmd, int n_ticks,
-                   int n_substeps, int integrator, void* stream) {
-  cudaGetLastError();
-  cdyn_rollout_kernel<T><<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                   int n_substeps, int integrator, int smem_per_env, void* stream) {
+  const int rc = prepare_sp(cdyn_rollout_kernel<T>, smem_per_env);
+  if (rc != 0) return rc;
+  cdyn_rollout_kernel<T><<<(B + SP_ENVS - 1) / SP_ENVS, SP_LANES * SP_ENVS,
+                           (size_t)smem_per_env * SP_ENVS, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const int*>(pi),
       static_cast<const T*>(pf), controller, static_cast<const T*>(q), static_cast<const T*>(v),
       static_cast<const T*>(action), static_cast<const T*>(carry), static_cast<T*>(qo),
@@ -1044,6 +943,18 @@ int cdyn_cm_smem_bytes(int nj, int nq, int nv, int n, int nc, int nb, int ns, in
   return cdyn::cm_env_stride(cdyn::CmLayout(nj, nq, nv, n, nc, nb, ns, elt).bytes, elt);
 }
 
+// Bytes of dynamic shared memory one env of the spring kernels takes (its
+// slice and the padding to the next one) for a model of nj joints, nq and nv
+// coordinates and nc contacts, a command of n_cmd, an action of n_act and a
+// carry of n_carry values, at elt bytes a float; then the lanes per env and
+// the envs per block of this build into geometry[0..1].
+int cdyn_sp_smem_bytes(int nj, int nq, int nv, int nc, int n_cmd, int n_act, int n_carry, int elt,
+                       int* geometry) {
+  geometry[0] = cdyn::SP_LANES;
+  geometry[1] = cdyn::SP_ENVS;
+  return cdyn::sp_env_stride(cdyn::SpLayout(nj, nq, nv, nc, n_cmd, n_act, n_carry).elems, elt);
+}
+
 #ifdef CDYN_CM_PROFILE
 // The phase cycles of the constrained solves since the last call (`out`
 // holds cdyn::CM_PHASES values), then zeroed.
@@ -1067,18 +978,18 @@ const char* cdyn_error_string(int code) {
   }                                                                                              \
   int cdyn_period_##SUFFIX(const void* ci, const void* cf, const void* q, const void* v,         \
                            const void* cmd, void* qo, void* vo, void* eo, int B, int n_cmd,      \
-                           int n_substeps, int integrator, void* stream) {                       \
+                           int n_substeps, int integrator, int smem_per_env, void* stream) {     \
     return cdyn::launch_period<T>(ci, cf, q, v, cmd, qo, vo, eo, B, n_cmd, n_substeps,           \
-                                  integrator, stream);                                           \
+                                  integrator, smem_per_env, stream);                             \
   }                                                                                              \
   int cdyn_rollout_##SUFFIX(const void* ci, const void* cf, const void* pi, const void* pf,      \
                             int controller, const void* q, const void* v, const void* action,    \
                             const void* carry, void* qo, void* vo, void* eo, int B,              \
                             int n_action, int n_carry, int n_cmd, int n_ticks, int n_substeps,   \
-                            int integrator, void* stream) {                                      \
+                            int integrator, int smem_per_env, void* stream) {                    \
     return cdyn::launch_rollout<T>(ci, cf, pi, pf, controller, q, v, action, carry, qo, vo, eo,  \
                                    B, n_action, n_carry, n_cmd, n_ticks, n_substeps, integrator, \
-                                   stream);                                                      \
+                                   smem_per_env, stream);                                        \
   }                                                                                              \
   int cdyn_period_cm_##SUFFIX(const void* ci, const void* cf, const void* si, const void* sf,    \
                               const void* q, const void* v, const void* cc, void* qo, void* vo,  \

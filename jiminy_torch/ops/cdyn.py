@@ -19,18 +19,18 @@ Kernels (`csrc/cdyn.cu`, CUDA C++ for sm_90a, built by `ops/kernels.py`):
 - `cdyn_rollout` replaces `_pallas_rollout_fn` (one whole env step: n_ticks
   x (controller, n_substeps substeps), then the extras).
 
-What bounds them: arithmetic. One `_accel_core` evaluation of the ANYmal is
-about 19 k scalar operations per env against about 0.25 KB of input, and an
-env step is 161 evaluations (about 3.1 M operations) against about 0.94 KB of
-I/O: thousands of operations per byte, far above the card's float32 ridge
-point. The design maps one environment to one thread (the GPU counterpart of
-"envs on lanes"), keeps the whole state of an env step in the thread, reads
-the I/O in struct-of-arrays (n, B) layout so neighbouring threads touch
-neighbouring addresses, and reads the model's constants at run time from two
-device buffers packed once per model (`pack_model`), so one build serves
-every model. The cost of that genericity: the structural zeros that the JAX
-trace folds away are multiplied at run time, and the per-joint arrays spill
-to local memory.
+What bounds them: arithmetic, once the working set stays on the chip. One
+`_accel_core` evaluation of the ANYmal is about 11 k scalar operations per
+env with the model's structural zeros folded (19 k generic) against about
+0.25 KB of input, and an env step is 161 evaluations against about 0.94 KB
+of I/O. `cdyn_accel` (once per reset) maps one env to one thread with the
+per-joint arrays on its stack. `cdyn_period` and `cdyn_rollout` (csrc/
+spring.cuh) run a group of lanes per env: the tree passes depth after depth
+a joint per lane, the working set in a slice of shared memory sized from
+the model (`sp_smem_per_env`), and the structural zeros of joints whose axis
+is a coordinate axis dropped (`axis_class`, `spring_section`). All read the
+model's constants at run time from buffers packed once per model
+(`pack_model`), so one build serves every model.
 
 Wrappers dispatch by device: a CPU tensor goes to the plain version, a CUDA
 tensor to the kernel, anything else raises. There is no fallback from the
@@ -1338,7 +1338,9 @@ class PDComponents:
 # Constant packing (layout read by csrc/cdyn.cu, `struct Model`)
 # --------------------------------------------------------------------------- #
 
-CI_HEADER = 16  # NJ NQ NV NC NI NM NB has_contacts blend, then reserved
+CI_HEADER = 16  # NJ NQ NV NC NI NM NB has_contacts blend, spring offset, then reserved
+CI_SPRING = 9  # header slot: where the spring section (`spring_section`) starts
+AX_X, AX_Y, AX_Z, AX_GENERAL = 0, 1, 2, 3  # axis classes of a 1-dof joint (-1 FREE)
 CF_HEADER = 16  # g(3) stiffness damping friction v_trans eps_trans dt dt/2 dt/6
 CI_JOINT, CI_CONTACT, CI_IMU, CI_MOTOR, CI_BOUND = 4, 2, 1, 3, 2
 CF_JOINT, CF_CONTACT, CF_IMU, CF_MOTOR, CF_BOUND = 57, 13, 12, 9, 4
@@ -1349,6 +1351,50 @@ class PackedModel:
     ci: torch.Tensor  # int32
     cf: torch.Tensor  # the run's float dtype
     counts: dict  # nj, nq, nv, nc, ni, nm, nb
+
+
+def axis_class(joint_type, axis) -> int:
+    """AX_X, AX_Y or AX_Z for a 1-dof joint whose axis has exactly one
+    non-zero component (the coordinate axis it lies on, either sign, as
+    Pinocchio's RX/RY/RZ joints), AX_GENERAL otherwise; -1 for FREE."""
+    if jt.JointType(joint_type) == jt.JointType.FREE:
+        return -1
+    nonzero = [k for k in range(3) if float(axis[k]) != 0.0]
+    return nonzero[0] if len(nonzero) == 1 else AX_GENERAL
+
+
+def spring_section(cd: ComponentDynamics, tau_c: Optional[MotorTransmission]) -> list:
+    """The spring kernels' int section (csrc/spring.cuh, `SpTree`): [nlev,
+    motors on distinct dofs, lstart (nlev + 1)], then per slot its joint, per
+    joint its slot, per slot its parent's slot, the slot of its child of
+    highest joint index and of its next lower-index sibling (-1 for none),
+    per joint its axis class and the index of the penalty bound on its dof
+    (-1 for none; bounds in `pack_model`'s order). Slots list the joints depth
+    after depth, in joint order within a depth."""
+    c = cd.c
+    depth = []
+    for i in range(c.nj):
+        depth.append(0 if c.parents[i] < 0 else depth[c.parents[i]] + 1)
+    nlev = max(depth) + 1 if depth else 0
+    jorder = sorted(range(c.nj), key=lambda i: (depth[i], i))
+    lstart = [sum(1 for d in depth if d < lev) for lev in range(nlev + 1)]
+    slot = [0] * c.nj
+    for s, j in enumerate(jorder):
+        slot[j] = s
+    pslot = [slot[c.parents[j]] if c.parents[j] >= 0 else -1 for j in jorder]
+    fchild, nsib = [-1] * c.nj, [-1] * c.nj
+    for j in range(c.nj):  # children in ascending index: each becomes the first
+        p = c.parents[j]
+        if p >= 0:
+            nsib[slot[j]] = fchild[slot[p]]
+            fchild[slot[p]] = slot[j]
+    dofs = list(tau_c.v_indices) if tau_c is not None else []
+    distinct = int(len(set(dofs)) == len(dofs))
+    axes = [axis_class(c.types[j], c.axis[j]) for j in range(c.nj)]
+    bound_of_dof = {vi: b for b, vi in enumerate(sorted(cd.bound_gains))}
+    bound = [bound_of_dof.get(c.idx_v[j], -1) if c.types[j] != jt.JointType.FREE else -1
+             for j in range(c.nj)]
+    return [nlev, distinct, *lstart, *jorder, *slot, *pslot, *fchild, *nsib, *axes, *bound]
 
 
 def pack_model(cd: ComponentDynamics, tau_c: Optional[MotorTransmission], dt: float,
@@ -1392,6 +1438,8 @@ def pack_model(cd: ComponentDynamics, tau_c: Optional[MotorTransmission], dt: fl
     for vi, (lo, hi, kp, kd, qi) in bounds:
         ci += [vi, qi]
         cf += [lo, hi, kp, kd]
+    ci[CI_SPRING] = len(ci)
+    ci += spring_section(cd, tau_c)
     counts = dict(nj=model.njoints, nq=model.nq, nv=model.nv, nc=nc, ni=ni, nm=nm,
                   nb=len(bounds))
     return PackedModel(
@@ -1487,11 +1535,24 @@ def _launch_accel(packed: PackedModel, q, v, tau):
     return out.t().reshape(tuple(batch) + (nv,))
 
 
+def sp_smem_per_env(packed: PackedModel, n_cmd: int, n_action: int, n_carry: int, dtype) -> int:
+    """Bytes of dynamic shared memory one env of a spring launch (cdyn_period,
+    cdyn_rollout) takes; a block's share past what the card grants fails at
+    the launch."""
+    from jiminy_torch.ops import kernels
+
+    c = packed.counts
+    elt = torch.empty((), dtype=dtype).element_size()
+    return kernels.load().sp_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], n_cmd, n_action,
+                                        n_carry, elt)[0]
+
+
 def _launch_period(packed: PackedModel, q, v, cmd, n_substeps: int, integrator: int,
                    n_extra: int):
     _check_inputs(packed, q, v, cmd)
     nq, nv, nm = packed.counts["nq"], packed.counts["nv"], cmd.shape[-1]
     _check_caps(packed, n_cmd=nm)
+    smem = sp_smem_per_env(packed, nm, 0, 0, q.dtype)
     if nm < packed.counts["nm"]:
         raise ValueError(f"cdyn_period: command width {nm} < {packed.counts['nm']} motors")
     batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1], cmd.shape[:-1])
@@ -1503,7 +1564,7 @@ def _launch_period(packed: PackedModel, q, v, cmd, n_substeps: int, integrator: 
     if b:
         _launch("cdyn_period", q.dtype, packed.ci.data_ptr(), packed.cf.data_ptr(),
                 qs.data_ptr(), vs.data_ptr(), cs.data_ptr(), qo.data_ptr(), vo.data_ptr(),
-                eo.data_ptr(), b, nm, int(n_substeps), int(integrator))
+                eo.data_ptr(), b, nm, int(n_substeps), int(integrator), smem)
     return (
         qo.t().reshape(tuple(batch) + (nq,)),
         vo.t().reshape(tuple(batch) + (nv,)),
@@ -1518,6 +1579,7 @@ def _launch_rollout(packed: PackedModel, ctrl, kind: int, q, v, action, carry,
     nq, nv = packed.counts["nq"], packed.counts["nv"]
     na, nb = action.shape[-1], carry.shape[-1]
     _check_caps(packed, n_cmd=n_cmd, n_action=na, n_carry=nb)
+    smem = sp_smem_per_env(packed, n_cmd, na, nb, q.dtype)
     if n_cmd < packed.counts["nm"]:
         raise ValueError(f"cdyn_rollout: command width {n_cmd} < {packed.counts['nm']} motors")
     if kind == CONTROLLER_ZOH and na < n_cmd:
@@ -1534,7 +1596,7 @@ def _launch_rollout(packed: PackedModel, ctrl, kind: int, q, v, action, carry,
         _launch("cdyn_rollout", q.dtype, packed.ci.data_ptr(), packed.cf.data_ptr(),
                 pi.data_ptr(), pf.data_ptr(), int(kind), qs.data_ptr(), vs.data_ptr(),
                 as_.data_ptr(), bs.data_ptr(), qo.data_ptr(), vo.data_ptr(), eo.data_ptr(),
-                b, na, nb, int(n_cmd), int(n_ticks), int(n_substeps), int(integrator))
+                b, na, nb, int(n_cmd), int(n_ticks), int(n_substeps), int(integrator), smem)
     return (
         qo.t().reshape(tuple(batch) + (nq,)),
         vo.t().reshape(tuple(batch) + (nv,)),

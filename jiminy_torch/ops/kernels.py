@@ -25,7 +25,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "jiminy_torch"
 SOURCE = CSRC_DIR / "cdyn.cu"
-HEADERS = (CSRC_DIR / "cdyn.cuh", CSRC_DIR / "pgs.cuh")
+HEADERS = (CSRC_DIR / "cdyn.cuh", CSRC_DIR / "pgs.cuh", CSRC_DIR / "spring.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -36,9 +36,9 @@ CAP_NAMES = ("nj", "nq", "nv", "nc", "ni", "nm", "nb", "n_cmd", "n_action", "n_c
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "cdyn_accel": [_P, _P, _P, _P, _P, _P, _I, _P],
-    "cdyn_period": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "cdyn_period": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cdyn_rollout": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _I, _P],
+                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "cdyn_period_cm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cdyn_rollout_cm": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                         _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -68,7 +68,8 @@ def build(source: Path = SOURCE, defines: tuple = ()) -> BuildResult:
     `defines` are preprocessor macros, each a build of its own:
     `CDYN_CM_PROFILE` (the constrained solve's phase timing),
     `CDYN_CM_LANES=n`, `CDYN_CM_ENVS=n` (another launch geometry of the
-    constrained kernels)."""
+    constrained kernels), `CDYN_SP_LANES=n`, `CDYN_SP_ENVS=n` (of the spring
+    kernels), `CDYN_ACCEL_THREADS=n` (threads a block of cdyn_accel)."""
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     digest = hashlib.sha256()
     for p in (source, *HEADERS):
@@ -119,6 +120,9 @@ class Library:
         self._cm_smem = self._dll.cdyn_cm_smem_bytes
         self._cm_smem.argtypes = [_I] * 8
         self._cm_smem.restype = ctypes.c_int
+        self._sp_smem = self._dll.cdyn_sp_smem_bytes
+        self._sp_smem.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_int)]
+        self._sp_smem.restype = ctypes.c_int
         self._phases = getattr(self._dll, "cdyn_cm_phase_cycles", None)
         if self._phases is not None:
             self._phases.argtypes = [_P]
@@ -138,6 +142,14 @@ class Library:
         takes (`CmLayout`, `cm_env_stride` in csrc/pgs.cuh); -1 for more rows
         than the kernels take."""
         return int(self._cm_smem(nj, nq, nv, n_rows, nc, nb, ns, elt))
+
+    def sp_smem_bytes(self, nj, nq, nv, nc, n_cmd, n_action, n_carry, elt) -> tuple:
+        """(bytes of dynamic shared memory one env of the spring kernels
+        takes, lanes per env, envs per block) of this build (`SpLayout`,
+        `sp_env_stride` in csrc/spring.cuh)."""
+        geometry = (ctypes.c_int * 2)()
+        per_env = self._sp_smem(nj, nq, nv, nc, n_cmd, n_action, n_carry, elt, geometry)
+        return int(per_env), int(geometry[0]), int(geometry[1])
 
     def cm_phase_cycles(self) -> list:
         """Cycles the constrained solves spent in each phase since the last

@@ -128,6 +128,61 @@ def test_rollout_kernel_matches_plain(cuda_device, dtype, controller):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [131071, 1])
+@pytest.mark.parametrize("controller", ["pd", "zoh", "period"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_spring_kernels_match_plain_at_ragged_batches(cuda_device, dtype, controller, batch):
+    """Batches that leave the last block of envs part-filled (131071 is one
+    short of the main path's batch; 1 fills one group of lanes)."""
+    env = _env(cuda_device, dtype)
+    base = env.env
+    nm = env.robot.nmotors
+    q, v, _ = perturbed_states(env, batch, seed=3)
+    gen = torch.Generator(cuda_device).manual_seed(3)
+    action = torch.randn((batch, nm), dtype=dtype, device=cuda_device, generator=gen) * 20.0
+    if controller == "period":
+        run = base.engine._get_period_run("rk4")
+        outs, refs = run.kernel(q, v, action, n_substeps=2), run.plain(q, v, action, n_substeps=2)
+    else:
+        if controller == "pd":
+            ctrl = env.block.component_controller(base)
+            carry = torch.zeros((batch, 3 * nm), dtype=dtype, device=cuda_device)
+            carry[:, :nm] = q[:, 7:]
+        else:
+            ctrl = cdyn.ZOHPassThrough(nm)
+            carry = torch.zeros((batch, 0), dtype=dtype, device=cuda_device)
+        run = base.engine._get_rollout_run("test-" + controller, ctrl, 8)
+        outs = run.kernel(q, v, action, carry, n_ticks=2, n_substeps=1)
+        refs = run.plain(q, v, action, carry, n_ticks=2, n_substeps=1)
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert torch.isfinite(out).all()
+        assert _error(out, ref, dtype) < TOL[dtype][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["cdyn_period", "cdyn_rollout"])
+def test_spring_launch_refuses_what_does_not_fit(cuda_device, kernel, monkeypatch):
+    """A launch whose envs would need more shared memory than a block may
+    use raises; nothing runs in its place."""
+    env = _env(cuda_device, torch.float32)
+    nm = env.robot.nmotors
+    q, v, _ = perturbed_states(env, 4, seed=4)
+    action = torch.zeros((4, nm), dtype=torch.float32, device=cuda_device)
+    monkeypatch.setattr(cdyn, "sp_smem_per_env", lambda *args: 200_000)
+    cdyn.reset_launch_counts()
+    with pytest.raises(RuntimeError, match=kernel):
+        if kernel == "cdyn_period":
+            env.env.engine._get_period_run("rk4").kernel(q, v, action)
+        else:
+            ctrl = cdyn.ZOHPassThrough(nm)
+            run = env.env.engine._get_rollout_run("test-zoh", ctrl, 8)
+            run.kernel(q, v, action, torch.zeros((4, 0), device=cuda_device))
+    torch.cuda.synchronize()
+    assert cdyn.KERNELS[kernel].launches == 0
+
+
+@pytest.mark.cuda
 def test_wrappers_route_cuda_tensors_to_kernels(cuda_device):
     env = _env(cuda_device, torch.float64)
     cdyn.reset_launch_counts()
