@@ -18,21 +18,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    set to 0 just before and read just after; then the per-period path
    (use_fused_rollout=False). Golden rows of tests/goldens/anymal-pid.csv are
    reproduced at float64, B=1, through the kernels on both paths.
-5. Kernels at the main path's shapes (B=131072): float32 on the main path's
-   own states, timed (CUDA events) beside its plain version; float64 on the
-   same states, every column within 1e-9 in every env; float64 and float32
-   on perturbed states (not at equilibrium), as in phase 3 (the whole 8-tick
-   rollout is let stray beyond 1e-9 in at most F64_CHAOS_SHARE of the envs,
-   with a last-bit nudge of the input as the witness of how far rounding
-   alone carries them); the period and rollout kernels also at a batch one
-   env short (the last block of envs part-filled) against the same plain
-   outputs. The bound is max(bytes / 3.35 TB/s, ops / 67
-   TFLOP/s) from this run's shapes and an op count of the plain version (one
-   torch elementwise call per op, counted on the CPU with a
+5. Adaptive DOPRI 5(4) (the same env with `dopri_options`: the C++
+   reference's runge_kutta_dopri5), float32 on the card, B=131072: reset, a
+   warm-up step and N_STEPS_DOPRI steps with zero actions, launch counts set
+   to 0 just before and read just after: every dynamics evaluation is one
+   cdyn_accel launch over the batch, 2 + 6 x trials a period (the most any
+   env took), and nothing else runs. Checks: all finite, no env diverged or
+   terminated. Trials a period (mean and max over the batch), env-steps/s,
+   and one more step with CUDA events around each launch: the step's time
+   split into kernel and glue. Then two periods from the standing robot, its
+   velocities perturbed, at float64, B=256, through the kernel and through
+   `accel_plain`: the same trials, q, v and a within 1e-9.
+6. Kernels at the main path's shapes (B=131072): float32 on the main path's
+   own states, timed (CUDA events) beside its plain version (cdyn_accel also
+   on DOPRI's stage states); float64 on the same states, every column within
+   1e-9 in every env; float64 and float32 on perturbed states (not at
+   equilibrium), as in phase 3 (the whole 8-tick rollout is let stray
+   beyond 1e-9 in at most F64_CHAOS_SHARE of the envs, with a last-bit nudge
+   of the input as the witness of how far rounding alone carries them); and
+   at a batch one env short (the last block of envs part-filled) against the
+   same plain outputs. cdyn_accel's launches are the DOPRI path's (its main
+   path now; one more at every reset). The bound is max(bytes / 3.35 TB/s,
+   ops / 67 TFLOP/s) from this run's shapes and an op count of the plain
+   version (one torch elementwise call per op, counted on the CPU with a
    TorchFunctionMode) with the model's structural zeros folded away; the
    generic formulation's count, zeros included, is printed beside it.
-
-6. Constrained path (anymal-pid in constraint contact mode, ground contacts
+7. Constrained path (anymal-pid in constraint contact mode, ground contacts
    and joint bounds through the PGS solver, as bench.py builds it with
    BENCH_CONTACT=constraint), float32 on the card: batched reset at B=131072
    (the plain constrained solve, timed), 25 steps with zero actions through
@@ -41,7 +52,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    state (all finite, none terminated, the feet carry the robot's weight
    within 5 %, joints within their limits, multipliers inside their boxes
    and friction cones).
-7. The constrained kernels at B=131072: float32 on the main path's states,
+8. The constrained kernels at B=131072: float32 on the main path's states,
    timed against the plain version at the full tick and substep counts; float64 on the main path's
    states and float64 and float32 on states with active rows
    (`constrained_inputs`), with every row and with no row active, and at a
@@ -74,6 +85,8 @@ ERR_NAME = {"float64": "column max rel err", "float32": "column q90 err / rms"}
 F64_CHAOS_SHARE = 0.01
 GOLDEN_ATOL = 1e-9
 N_STEPS_CM = 25  # constrained main path
+N_STEPS_DOPRI = 5  # DOPRI main path
+B_DOPRI_F64 = 256  # DOPRI kernel-vs-plain periods
 CM_TICKS, CM_SUBSTEPS = 2, 2  # cut of the constrained kernel-vs-plain checks
 CM_WEIGHT_TOL = 0.05  # feet carry m g within this share at rest
 CM_JOINT_SLACK = 1e-2  # [rad] beyond a joint limit
@@ -425,6 +438,192 @@ def phase_main_path(device, smi):
     return env, fused_launches, period_launches, steps_per_s, st, st2
 
 
+def _dopri_make(device, dtype=None):
+    from jiminy_torch.envs import make
+    from jiminy_torch.testing import dopri_options
+
+    options = make("anymal-pid", device=device, dtype=dtype).engine.options
+    return make("anymal-pid", device=device, dtype=dtype, options=dopri_options(options))
+
+
+def _period_trials(periods):
+    """Trials each env took in each recorded period (accepted + rejected)."""
+    return [(b.iterations + b.iter_failed) - (a.iterations + a.iter_failed) for a, b in periods]
+
+
+def _recording(eng, periods):
+    """`eng.step` that keeps each period's stepper states (before, after)."""
+    step = type(eng).step
+
+    def recorded(state, command=None):
+        out = step(eng, state, command)
+        periods.append((state.stepper, out.stepper))
+        return out
+
+    return recorded
+
+
+def dopri_glue_calls():
+    """Torch calls a DOPRI trial and a period make outside cdyn_accel (the
+    glue), counted on the CPU at B=2, float64: one period from rest (few
+    trials) and one from a perturbed state (more), solved for the two."""
+    import numpy as np
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    env = _dopri_make("cpu", torch.float64)
+    eng, cd = env.engine, env.engine._cdyn
+
+    class Counter(TorchFunctionMode):
+        n, inside = 0, 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            Counter.n += Counter.inside == 0
+            return func(*args, **(kwargs or {}))
+
+    def accel(q, v, tau):
+        Counter.inside += 1
+        try:
+            return type(cd).accel(cd, q, v, tau)
+        finally:
+            Counter.inside -= 1
+
+    rng = np.random.default_rng(0)
+    q = env.nominal_q.expand(2, -1).clone()
+    v = torch.zeros((2, env.robot.nv), dtype=torch.float64)
+    points = []
+    for scale in (0.0, 1.0):
+        q[1, 7:] += torch.as_tensor(rng.normal(size=12) * 0.05 * scale)
+        v[1] = torch.as_tensor(rng.normal(size=env.robot.nv) * 0.3 * scale)
+        st = eng.reset(q, v)
+        cd.accel, Counter.n = accel, 0
+        with torch.no_grad(), Counter():
+            st1 = eng.step(st, torch.zeros((2, env.robot.nmotors), dtype=torch.float64))
+        del cd.accel
+        points.append((int((st1.stepper.iterations + st1.stepper.iter_failed).max()), Counter.n))
+    (t0, n0), (t1, n1) = points
+    per_trial = (n1 - n0) / (t1 - t0)
+    return per_trial, n0 - per_trial * t0
+
+
+def phase_dopri(device, smi):
+    """Adaptive DOPRI on the card (phase 5): the main path, its launches and
+    trials, the kernel/glue split, and the kernel against the plain version
+    over two periods at float64."""
+    import numpy as np
+    import torch
+
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.testing import column_errors
+
+    env = _dopri_make(device)  # float32
+    eng = env.engine
+    action = torch.zeros(env.action_size, device=device)
+    st, _ = env.reset(batch_size=B_MAIN)
+    st, *_ = env.step(st, action)  # warm-up, outside the counted run
+    torch.cuda.synchronize()
+
+    periods = []
+    eng.step = _recording(eng, periods)
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(N_STEPS_DOPRI):
+        st, obs, reward, term, trunc, _ = env.step(st, action)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    del eng.step
+    trials = torch.stack(_period_trials(periods)).double()  # (periods, B)
+    loops = [int(t.max()) for t in trials]
+    want = sum(2 + 6 * n for n in loops)
+    log(f"[dopri] anymal-pid DOPRI float32 B={B_MAIN}, {N_STEPS_DOPRI} steps ({len(periods)} "
+        f"periods): launches {launches}; trials a period: mean {float(trials.mean()):.4f}, max "
+        f"{int(trials.max())}, loop iterations {loops}; 2 + 6 x trials summed over periods: {want}")
+    check(launches["cdyn_accel"] == want, "cdyn_accel did not run once per DOPRI evaluation")
+    check(sum(launches.values()) == want, "a kernel other than cdyn_accel ran on the DOPRI path")
+    sim = st.sim
+    for name, x in (("q", sim.q), ("v", sim.v), ("a", sim.a), ("reward", reward),
+                    ("contact_forces", sim.contact_forces), ("dt", sim.stepper.dt)):
+        check(bool(torch.isfinite(x).all()), f"non-finite {name} on the DOPRI path")
+    check(not bool(sim.stepper.diverged.any()), "a DOPRI env diverged")
+    fell = float(term.float().mean())
+    check(fell == 0.0, "standing ANYmal terminated under DOPRI and zero actions")
+    steps_per_s = B_MAIN * N_STEPS_DOPRI / elapsed
+    log(f"[dopri] env-steps/s {steps_per_s:.1f} ({elapsed:.4f} s for {N_STEPS_DOPRI} steps, host "
+        f"clock; base height mean {float(sim.q[:, 2].mean()):.4f} m, dt mean "
+        f"{float(sim.stepper.dt.double().mean()):.3e}) on {smi}")
+
+    # One more step, CUDA events around every launch; the stage inputs kept
+    cd, events, stage = eng._cdyn, [], []
+
+    def timed(q, v, tau):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = type(cd).accel(cd, q, v, tau)
+        b.record()
+        events.append((a, b))
+        stage.append((q, v, tau))
+        return out
+
+    cd.accel = timed
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st, *_ = env.step(st, action)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    del cd.accel
+    bracket_ms = sum(a.elapsed_time(b) for a, b in events)
+    stage_inputs = tuple(x.contiguous() for x in stage[len(stage) // 2])
+    launch_ms = _time_cuda(lambda: cd.accel(*stage_inputs), 20)
+    kernel_ms = len(events) * launch_ms
+    per_trial, per_period = dopri_glue_calls()
+    n_periods = env.env.n_ctrl_per_step
+    calls = per_period * n_periods + per_trial * (len(events) - 2 * n_periods) / 6
+    log(f"[dopri] glue: {per_trial:.0f} torch calls a trial and {per_period:.0f} a period outside "
+        f"cdyn_accel (counted on the CPU at B=2), so {calls:.0f} in the step below")
+    log(f"[dopri] one step: {step_ms:.2f} ms (host clock); its {len(events)} cdyn_accel calls "
+        f"{bracket_ms:.2f} ms between CUDA events around each (the kernel and the wrapper's host "
+        f"work, which the idle card waits on), of which kernel {kernel_ms:.2f} ms ({len(events)} x "
+        f"{launch_ms:.4f} ms, back-to-back launches on a stage state); glue "
+        f"{step_ms - kernel_ms:.2f} ms ({(step_ms - kernel_ms) / step_ms:.1%} of the step) on {smi}")
+    del stage, events
+
+    # Two periods at float64 from the standing robot of the main path, its
+    # velocities perturbed: the kernel against the plain version
+    env64 = _dopri_make(device, torch.float64)
+    eng64 = env64.engine
+    rng = np.random.default_rng(0)
+    v0 = rng.normal(size=(B_DOPRI_F64, env64.robot.nv)) * 0.05
+    st0 = eng64.reset(st.sim.q[:B_DOPRI_F64].double(),
+                      st.sim.v[:B_DOPRI_F64].double() + torch.as_tensor(v0, device=device))
+    cmd = torch.zeros((B_DOPRI_F64, env64.robot.nmotors), dtype=torch.float64, device=device)
+    runs = {}
+    for route in ("kernel", "plain"):
+        if route == "plain":
+            eng64._cdyn.accel = eng64._cdyn.accel_plain
+        x = st0
+        for _ in range(2):
+            x = eng64.step(x, cmd)
+        runs[route] = x
+    del eng64._cdyn.accel
+    torch.cuda.synchronize()
+    k, p = runs["kernel"], runs["plain"]
+    tk, tp = (r.stepper.iterations + r.stepper.iter_failed for r in (k, p))
+    e64 = max(float(column_errors(a, b).max()) for a, b in ((k.q, p.q), (k.v, p.v), (k.a, p.a)))
+    log(f"[dopri] float64 B={B_DOPRI_F64}, two periods, velocities perturbed: trials kernel / plain mean "
+        f"{float(tk.double().mean()):.3f} / {float(tp.double().mean()):.3f}, max {int(tk.max())} / "
+        f"{int(tp.max())}, equal in every env: {bool(torch.equal(tk, tp))}; q, v, a column max "
+        f"rel err {e64:.3e} (tol {TOL['float64'][1]:g})")
+    check(bool(torch.equal(tk, tp)), "DOPRI took other trials through the kernel than the plain path")
+    check(e64 < TOL["float64"][1], f"DOPRI periods through the kernel disagree at float64: {e64}")
+    return {"launches": launches["cdyn_accel"], "steps_per_s": steps_per_s,
+            "trials_mean": float(trials.mean()), "trials_max": int(trials.max()),
+            "step_ms": step_ms, "kernel_ms": kernel_ms, "bracket_ms": bracket_ms,
+            "glue_calls_per_trial": per_trial, "glue_calls_per_period": per_period,
+            "f64_err_periods": e64,
+            "stage_inputs": stage_inputs}
+
+
 def _time_cuda(fn, n):
     import torch
 
@@ -439,12 +638,13 @@ def _time_cuda(fn, n):
     return start.elapsed_time(end) / n
 
 
-def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2):
+def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2, dopri):
     """Each kernel at the main path's shapes (B = B_MAIN).
 
     - float32 on the main path's own states (`st` after the fused steps,
       `st2` after the per-period steps): the kernel timed with CUDA events,
-      its plain version with the host clock, and their largest difference.
+      its plain version with the host clock, and their largest difference;
+      cdyn_accel also timed on a DOPRI trial's stage states (`dopri`, phase 5).
       These standing states are not checked at float32: there the
       accelerations are small differences of large contact and gravity
       forces, which float32 rounding alone moves by a large share.
@@ -517,24 +717,31 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2):
         "cdyn_period": 2 * nq + 2 * nv + nm + n_extra,
         "cdyn_rollout": 2 * nq + 2 * nv + nm + carry.shape[1] + n_extra_r,
     }
-    launches = {"cdyn_accel": fused_launches["cdyn_accel"],
+    launches = {"cdyn_accel": dopri["launches"],
                 "cdyn_period": period_launches["cdyn_period"],
                 "cdyn_rollout": fused_launches["cdyn_rollout"]}
     n_time = {"cdyn_accel": 20, "cdyn_period": 5, "cdyn_rollout": 3}
-    # The period and rollout kernels' launch geometry and shared memory an env
+    # The spring kernels' launch geometry and shared memory an env
     from jiminy_torch.ops import kernels
 
     c = engines[torch.float32]._cdyn.pack(None, 0.0, (), device, torch.float32).counts
     geometry = {}
-    for name, widths in (("cdyn_period", (nm, 0, 0)), ("cdyn_rollout", (nm, nm, carry.shape[1]))):
-        per_env = {elt: kernels.load().sp_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], *widths,
-                                                     elt) for elt in (4, 8)}
+    lib = kernels.load()
+    for name, widths in (("cdyn_accel", None), ("cdyn_period", (nm, 0, 0)),
+                         ("cdyn_rollout", (nm, nm, carry.shape[1]))):
+        per_env = {elt: lib.accel_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt)
+                   if widths is None else
+                   lib.sp_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], *widths, elt)
+                   for elt in (4, 8)}
         lanes, envs = per_env[4][1:]
+        per_sm = {elt: lib.sp_envs_per_sm(name, elt, per_env[elt][0]) for elt in (4, 8)}
         geometry[name] = {"lanes_per_env": lanes, "envs_per_block": envs,
-                          "smem_per_env": per_env[4][0], "smem_per_env_f64": per_env[8][0]}
+                          "smem_per_env": per_env[4][0], "smem_per_env_f64": per_env[8][0],
+                          "envs_per_sm": per_sm[4], "envs_per_sm_f64": per_sm[8]}
         log(f"[smem] {name}: {lanes} lanes an env, {envs} envs a block; {per_env[4][0]} B of shared "
             f"memory an env at float32, {per_env[8][0]} B at float64 ({envs * per_env[4][0]} / "
-            f"{envs * per_env[8][0]} B a block)")
+            f"{envs * per_env[8][0]} B a block); the runtime keeps {per_sm[4]} / {per_sm[8]} envs "
+            f"an SM")
 
     def as_tuple(x):
         return x if isinstance(x, tuple) else (x,)
@@ -556,6 +763,9 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2):
         kern32, plain32 = fns(name, engines[torch.float32])
         xs = main_inputs[name]
         ms = _time_cuda(lambda: kern32(*xs), n_time[name])
+        ms_stage = None
+        if name == "cdyn_accel":
+            ms_stage = _time_cuda(lambda: kern32(*dopri["stage_inputs"]), n_time[name])
         outs = as_tuple(kern32(*xs))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -588,16 +798,15 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2):
             f"(allowed {allowed:g}); the kernel against itself with q moved one ulp: "
             f"{e_nudge:.3e} at {at_nudge}, share beyond {tol64:g}: {share_n:.3e}")
         check(share <= allowed, f"{name} float64 disagrees on perturbed states: share {share}")
-        share_rag = None
-        if integrated:  # the last block of envs part-filled, against the same plain outputs
-            b_rag = B_MAIN - 1
-            outs_rag = as_tuple(fns(name, engines[torch.float64])[0](*(x[:b_rag] for x in xs)))
-            share_rag = share_beyond(outs_rag, tuple(r[:b_rag] for r in refs), tol64)
-            log(f"[check] {name} float64 B={b_rag} (ragged), perturbed states: share of envs "
-                f"beyond {tol64:g}: {share_rag:.3e} (allowed {allowed:g})")
-            check(all(bool(torch.isfinite(o).all()) for o in outs_rag), f"{name}: non-finite output")
-            check(share_rag <= allowed, f"{name} float64 disagrees at B={b_rag}: {share_rag}")
-            del outs_rag
+        # the last block of envs part-filled, against the same plain outputs
+        b_rag = B_MAIN - 1
+        outs_rag = as_tuple(fns(name, engines[torch.float64])[0](*(x[:b_rag] for x in xs)))
+        share_rag = share_beyond(outs_rag, tuple(r[:b_rag] for r in refs), tol64)
+        log(f"[check] {name} float64 B={b_rag} (ragged), perturbed states: share of envs "
+            f"beyond {tol64:g}: {share_rag:.3e} (allowed {allowed:g})")
+        check(all(bool(torch.isfinite(o).all()) for o in outs_rag), f"{name}: non-finite output")
+        check(share_rag <= allowed, f"{name} float64 disagrees at B={b_rag}: {share_rag}")
+        del outs_rag
         del outs, refs, outs_n
 
         # float32, perturbed states: per column, q90 over envs / column RMS
@@ -614,7 +823,7 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2):
         rec = {
             "name": name,
             "route": "cuda",
-            "source": "jiminy_torch/csrc/cdyn.cu" if name == "cdyn_accel" else "jiminy_torch/csrc/spring.cuh",
+            "source": "jiminy_torch/csrc/spring.cuh",
             "replaces": cdyn.KERNELS[name].replaces.split()[0],
             "launches": launches[name],
             "max_abs_err": e_abs,
@@ -632,10 +841,14 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2):
             "f64_share_perturbed": share,
             "f64_share_one_ulp": share_n,
             "f32_q90_err_perturbed": e32_pert,
-            **({"f64_share_ragged": share_rag} if share_rag is not None else {}),
+            "f64_share_ragged": share_rag,
+            **({"ms_dopri_stage": ms_stage, "launches_path": "dopri",
+                "dopri_trials_mean": dopri["trials_mean"], "dopri_trials_max": dopri["trials_max"],
+                "dopri_env_steps_per_s": dopri["steps_per_s"]} if ms_stage else {}),
             **geometry.get(name, {}),
         }
-        log(f"[kernel] {name} B={B_MAIN} float32: {ms:.3f} ms (CUDA events), plain {plain_ms:.1f} ms "
+        stage_note = f" ({ms_stage:.4f} ms on DOPRI stage states)" if ms_stage else ""
+        log(f"[kernel] {name} B={B_MAIN} float32: {ms:.4f} ms{stage_note} (CUDA events), plain {plain_ms:.1f} ms "
             f"(host clock), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; generic formulation "
             f"{rec['bound_ms_generic']:.4f} ms); |kernel-plain| on the main path's states "
             f"{e_abs:.3e} on {smi}")
@@ -1091,14 +1304,16 @@ def main():
     phase_build()
     phase_kernels_vs_plain(device)
     env, fused_launches, period_launches, steps_per_s, st, st2 = phase_main_path(device, smi)
-    records = phase_kernel_records(env, fused_launches, period_launches, smi, st, st2)
+    dopri = phase_dopri(device, smi)
+    records = phase_kernel_records(env, fused_launches, period_launches, smi, st, st2, dopri)
     del env, st, st2
     cm = phase_constrained_main_path(device, smi)
     cm_env, cm_launches, cm_period_launches, cm_steps_per_s, _, cm_reset_ms, cm_st, cm_st2 = cm
     records += phase_constrained_records(cm_env, cm_launches, cm_period_launches, smi, cm_st,
                                          cm_st2)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; anymal-pid env-steps/s {steps_per_s:.1f}, "
-        f"constraint mode {cm_steps_per_s:.1f} (reset {cm_reset_ms:.1f} ms) on {smi}")
+        f"DOPRI {dopri['steps_per_s']:.1f}, constraint mode {cm_steps_per_s:.1f} (reset "
+        f"{cm_reset_ms:.1f} ms) on {smi}")
     log(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -6,18 +6,14 @@
 //   cdyn_rollout <- _pallas_rollout_fn (one env step: controller ticks x
 //                                       substeps + extras)
 //
-// The spring-damper bodies of the last two are in spring.cuh (a group of
-// lanes per env, the working set in shared memory), their constrained (PGS)
-// bodies in pgs.cuh (cdyn_period_cm, cdyn_rollout_cm). This file holds the
-// model view, the shared helpers and cdyn_accel.
+// The spring-damper bodies are in spring.cuh (a group of lanes per env, the
+// working set in shared memory), the constrained (PGS) bodies of the last
+// two in pgs.cuh (cdyn_period_cm, cdyn_rollout_cm). This file holds the model
+// view, the shared helpers, the launches and the plain C interface.
 //
-// cdyn_accel: one thread integrates one environment, the I/O read and
-// written once in struct-of-arrays (n, B) layout, so neighbouring threads
-// touch neighbouring addresses; it runs once per reset. The model's
-// constants are read at run time from two buffers packed once per model
-// (`pack_model` in jiminy_torch/ops/cdyn.py), so one build serves every
-// model; joint loops stay loops (`#pragma unroll 1`) and the per-joint arrays
-// of `accel_core` live on the thread's stack (local memory).
+// The model's constants are read at run time from two buffers packed once
+// per model (`pack_model` in jiminy_torch/ops/cdyn.py), so one build serves
+// every model.
 //
 // Every expression mirrors the plain PyTorch version (ComponentDynamics in
 // jiminy_torch/ops/cdyn.py) term for term and in the same association order,
@@ -392,213 +388,6 @@ __device__ __forceinline__ void contact_eval_at(const Model<T>& M, int k, const 
   }
 }
 
-template <typename T>
-__device__ void contact_eval(const Model<T>& M, int k, const T (*RW)[9], const T (*PW)[3],
-                             const T (*VEL)[6], T* fw, T* fj, T* nj, T* depth_out, T* wl) {
-  const int parent = M.cparent(k);
-  contact_eval_at(M, k, RW[parent], PW[parent], VEL[parent], fw, fj, nj, depth_out, wl);
-}
-
-// --------------------------------------------------------------------------
-// The dynamics core (`_accel_core`): ABA with armature, joint damping,
-// penalty joint bounds and spring-damper contact.
-// --------------------------------------------------------------------------
-
-template <typename T>
-__device__ __noinline__ void accel_core(const Model<T>& M, const T* q, const T* v, const T* tc_in,
-                                        T* qdd) {
-  T tc[NV_MAX];
-#pragma unroll 1
-  for (int i = 0; i < M.nv; ++i) {
-    const T damp = M.damping(i);
-    tc[i] = (damp != T(0)) ? tc_in[i] - damp * v[i] : tc_in[i];
-  }
-  T R[NJ_MAX][9], P[NJ_MAX][3];
-  joint_x(M, q, R, P);
-
-  // Pass 1: velocities, bias, body articulated inertia, bias force
-  T VEL[NJ_MAX][6], BIAS[NJ_MAX][6], IA[NJ_MAX][36], PA[NJ_MAX][6], S6[NJ_MAX][6];
-#pragma unroll 1
-  for (int i = 0; i < M.nj; ++i) {
-    const int p = M.parent(i);
-    const int t = M.type(i);
-    const int vi = M.iv(i);
-    T w_p[3] = {T(0), T(0), T(0)}, v_p[3] = {T(0), T(0), T(0)};
-    if (p >= 0)
-      for (int k = 0; k < 3; ++k) { w_p[k] = VEL[p][k]; v_p[k] = VEL[p][3 + k]; }
-    T w_in[3], v_in[3], tmp[3];
-    tv3(R[i], w_p, w_in);
-    cross3(P[i], w_p, tmp);
-    for (int k = 0; k < 3; ++k) tmp[k] = v_p[k] - tmp[k];
-    tv3(R[i], tmp, v_in);
-    T vj_ang[3], vj_lin[3];
-    if (t == FREE) {
-      for (int k = 0; k < 3; ++k) { vj_lin[k] = v[vi + k]; vj_ang[k] = v[vi + 3 + k]; }
-    } else {
-      const T* ax = M.axis(i);
-      if (t == REVOLUTE) {
-        for (int k = 0; k < 3; ++k) {
-          vj_ang[k] = ax[k] * v[vi]; vj_lin[k] = T(0);
-          S6[i][k] = ax[k]; S6[i][3 + k] = T(0);
-        }
-      } else {
-        for (int k = 0; k < 3; ++k) {
-          vj_ang[k] = T(0); vj_lin[k] = ax[k] * v[vi];
-          S6[i][k] = T(0); S6[i][3 + k] = ax[k];
-        }
-      }
-    }
-    T* w_i = VEL[i];
-    T* v_i = VEL[i] + 3;
-    for (int k = 0; k < 3; ++k) { w_i[k] = w_in[k] + vj_ang[k]; v_i[k] = v_in[k] + vj_lin[k]; }
-    T c1[3], c2[3];
-    cross3(w_i, vj_ang, BIAS[i]);
-    cross3(w_i, vj_lin, c1);
-    cross3(v_i, vj_ang, c2);
-    for (int k = 0; k < 3; ++k) BIAS[i][3 + k] = c1[k] + c2[k];
-    const T* ia0 = M.ia0(i);
-    for (int k = 0; k < 36; ++k) IA[i][k] = ia0[k];
-    T iv[6];
-    sym6_mv(IA[i], w_i, v_i, iv);
-    cross3(w_i, iv, c1);
-    cross3(v_i, iv + 3, c2);
-    for (int k = 0; k < 3; ++k) PA[i][k] = c1[k] + c2[k];
-    cross3(w_i, iv + 3, PA[i] + 3);
-  }
-
-  // Contacts subtract from the bias force (LOCAL joint wrenches)
-  if (M.has_contacts) {
-    T RW[NJ_MAX][9], PW[NJ_MAX][3];
-    world_placements(M, R, P, RW, PW);
-    T FEXT[NJ_MAX][6];
-    bool has[NJ_MAX];
-#pragma unroll 1
-    for (int i = 0; i < M.nj; ++i) has[i] = false;
-#pragma unroll 1
-    for (int k = 0; k < M.nc; ++k) {
-      T fw[3], fj[3], nj[3], depth;
-      contact_eval(M, k, RW, PW, VEL, fw, fj, nj, &depth, static_cast<T*>(nullptr));
-      const int parent = M.cparent(k);
-      if (!has[parent]) {
-        for (int c = 0; c < 3; ++c) { FEXT[parent][c] = nj[c]; FEXT[parent][3 + c] = fj[c]; }
-        has[parent] = true;
-      } else {
-        for (int c = 0; c < 3; ++c) {
-          FEXT[parent][c] = FEXT[parent][c] + nj[c];
-          FEXT[parent][3 + c] = FEXT[parent][3 + c] + fj[c];
-        }
-      }
-    }
-#pragma unroll 1
-    for (int i = 0; i < M.nj; ++i)
-      if (has[i])
-        for (int c = 0; c < 6; ++c) PA[i][c] = PA[i][c] - FEXT[i][c];
-  }
-
-  // Stable penalty joint bounds
-  T te[NV_MAX];
-#pragma unroll 1
-  for (int k = 0; k < M.nv; ++k) te[k] = T(0);
-#pragma unroll 1
-  for (int b = 0; b < M.nb; ++b) {
-    const int vi = M.bound(b)[0], qi = M.bound(b)[1];
-    const T* bf = M.boundf(b);
-    const T over = tmax(q[qi] - bf[1], T(0));
-    const T under = tmax(bf[0] - q[qi], T(0));
-    const bool active = (over > T(0)) || (under > T(0));
-    te[vi] = bf[2] * (under - over) - (active ? bf[3] * v[vi] : T(0));
-  }
-
-  // Pass 2: articulated inertia, inward
-  T U[NJ_MAX][6], DINV[NJ_MAX], URHS[NJ_MAX];
-  int root = -1;
-#pragma unroll 1
-  for (int i = M.nj - 1; i >= 0; --i) {
-    const int p = M.parent(i);
-    if (M.type(i) == FREE) {
-      root = i;
-      continue;
-    }
-    const int vi = M.iv(i);
-    const T* s6 = S6[i];
-    const T* pa6 = PA[i];
-    T* u6 = U[i];
-    sym6_mv(IA[i], s6, s6 + 3, u6);
-    T d = s6[0] * u6[0];
-    for (int k = 1; k < 6; ++k) d = d + s6[k] * u6[k];
-    const T dinv = T(1) / (d + M.armature(vi));
-    T spa = s6[0] * pa6[0];
-    for (int k = 1; k < 6; ++k) spa = spa + s6[k] * pa6[k];
-    const T u_r = tc[vi] + te[vi] - spa;
-    DINV[i] = dinv;
-    URHS[i] = u_r;
-    if (p >= 0) {
-      T ia_a[36];
-      for (int r = 0; r < 6; ++r)
-        for (int c = 0; c < 6; ++c) ia_a[6 * r + c] = IA[i][6 * r + c] - u6[r] * u6[c] * dinv;
-      T iab[6];
-      sym6_mv(ia_a, BIAS[i], BIAS[i] + 3, iab);
-      const T coef = u_r * dinv;
-      T pa_n[6];
-      for (int k = 0; k < 6; ++k) pa_n[k] = pa6[k] + iab[k] + u6[k] * coef;
-      T ia_p[36];
-      transform_sym6(ia_a, R[i], P[i], ia_p);
-      for (int k = 0; k < 36; ++k) IA[p][k] = IA[p][k] + ia_p[k];
-      T f_a[3], n_a[3], tmp[3];
-      mv3(R[i], pa_n + 3, f_a);
-      mv3(R[i], pa_n, n_a);
-      cross3(P[i], f_a, tmp);
-      for (int k = 0; k < 3; ++k) {
-        PA[p][k] = PA[p][k] + (n_a[k] + tmp[k]);
-        PA[p][3 + k] = PA[p][3 + k] + f_a[k];
-      }
-    }
-  }
-
-  // Pass 3: outward accelerations (-gravity at the root)
-  T ACC[NJ_MAX][6];
-  const T a0[6] = {T(0), T(0), T(0), -M.g(0), -M.g(1), -M.g(2)};
-#pragma unroll 1
-  for (int i = 0; i < M.nj; ++i) {
-    const int p = M.parent(i);
-    const int vi = M.iv(i);
-    const T* a_p = (p >= 0) ? ACC[p] : a0;
-    T am[6], tmp[3], tmp2[3];
-    tv3(R[i], a_p, am);
-    cross3(P[i], a_p, tmp);
-    for (int k = 0; k < 3; ++k) tmp2[k] = a_p[3 + k] - tmp[k];
-    tv3(R[i], tmp2, am + 3);
-    for (int k = 0; k < 6; ++k) am[k] = am[k] + BIAS[i][k];
-    if (M.type(i) == FREE) {
-      const T* ia_root = IA[root];
-      T m6[36];
-      for (int r = 0; r < 6; ++r)
-        for (int c = 0; c < 6; ++c) m6[6 * r + c] = ia_root[6 * ((r + 3) % 6) + (c + 3) % 6];
-      for (int k = 0; k < 6; ++k) m6[7 * k] = m6[7 * k] + M.armature(vi + k);
-      T iam[6];
-      sym6_mv(ia_root, am, am + 3, iam);
-      T y[6];
-      for (int k = 0; k < 3; ++k) {
-        y[k] = tc[vi + k] - PA[i][3 + k] - iam[3 + k];
-        y[3 + k] = tc[vi + 3 + k] - PA[i][k] - iam[k];
-      }
-      solve_sym6(m6, y);
-      for (int k = 0; k < 6; ++k) qdd[vi + k] = y[k];
-      for (int k = 0; k < 3; ++k) {
-        ACC[i][k] = am[k] + y[3 + k];
-        ACC[i][3 + k] = am[3 + k] + y[k];
-      }
-    } else {
-      const T* u6 = U[i];
-      T s = u6[0] * am[0];
-      for (int k = 1; k < 6; ++k) s = s + u6[k] * am[k];
-      const T a = DINV[i] * (URHS[i] - s);
-      qdd[vi] = a;
-      for (int k = 0; k < 6; ++k) ACC[i][k] = am[k] + S6[i][k] * a;
-    }
-  }
-}
-
 // Velocity and gravity-free acceleration recursion given solved joint
 // accelerations (`_fk_accel_components`).
 template <typename T>
@@ -788,25 +577,6 @@ __device__ void pd_controller(const int* __restrict__ pi, const T* __restrict__ 
   }
 }
 
-// --------------------------------------------------------------------------
-// cdyn_accel: one thread per environment, (n, B) layout (the period and
-// rollout kernels are in spring.cuh).
-// --------------------------------------------------------------------------
-
-template <typename T>
-__global__ void cdyn_accel_kernel(const int* ci, const T* cf, const T* __restrict__ q_g,
-                                  const T* __restrict__ v_g, const T* __restrict__ tau_g,
-                                  T* __restrict__ out, int B) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const Model<T> M(ci, cf);
-  T q[NQ_MAX], v[NV_MAX], tau[NV_MAX], qdd[NV_MAX];
-  for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
-  for (int i = 0; i < M.nv; ++i) { v[i] = v_g[(size_t)i * B + b]; tau[i] = tau_g[(size_t)i * B + b]; }
-  accel_core(M, q, v, tau, qdd);
-  for (int i = 0; i < M.nv; ++i) out[(size_t)i * B + b] = qdd[i];
-}
-
 }  // namespace cdyn
 
 #include "pgs.cuh"
@@ -814,33 +584,27 @@ __global__ void cdyn_accel_kernel(const int* ci, const T* cf, const T* __restric
 
 namespace cdyn {
 
-// Threads a block of cdyn_accel (one env a thread); a build may set another
-// (-DCDYN_ACCEL_THREADS=n) to time the serial evaluation at other occupancies.
-#ifndef CDYN_ACCEL_THREADS
-#define CDYN_ACCEL_THREADS 128
-#endif
-constexpr int kThreads = CDYN_ACCEL_THREADS;
-
-inline int blocks_for(int B) { return (B + kThreads - 1) / kThreads; }
-
-template <typename T>
-int launch_accel(const void* ci, const void* cf, const void* q, const void* v, const void* tau,
-                 void* out, int B, void* stream) {
-  cudaGetLastError();
-  cdyn_accel_kernel<T><<<blocks_for(B), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const T*>(q),
-      static_cast<const T*>(v), static_cast<const T*>(tau), static_cast<T*>(out), B);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The spring kernels: SP_LANES lanes per env, SP_ENVS envs per block,
-// `smem_per_env` bytes of dynamic shared memory per env
-// (`cdyn_sp_smem_bytes`); a block's share past the card's limit fails here.
-template <typename K>
+// The spring kernels: SP_LANES lanes per env, ENVS envs per block (SP_ENVS,
+// SPA_ENVS for cdyn_accel), `smem_per_env` bytes of dynamic shared memory per
+// env (`cdyn_sp_smem_bytes`, `cdyn_accel_smem_bytes`); a block's share past
+// the card's limit fails here.
+template <int ENVS = SP_ENVS, typename K>
 int prepare_sp(K kernel, int smem_per_env) {
   cudaGetLastError();
   return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               smem_per_env * SP_ENVS));
+                                               smem_per_env * ENVS));
+}
+
+template <typename T>
+int launch_accel(const void* ci, const void* cf, const void* q, const void* v, const void* tau,
+                 void* out, int B, int smem_per_env, void* stream) {
+  const int rc = prepare_sp<SPA_ENVS>(cdyn_accel_kernel<T>, smem_per_env);
+  if (rc != 0) return rc;
+  cdyn_accel_kernel<T><<<(B + SPA_ENVS - 1) / SPA_ENVS, SP_LANES * SPA_ENVS,
+                         (size_t)smem_per_env * SPA_ENVS, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const T*>(q),
+      static_cast<const T*>(v), static_cast<const T*>(tau), static_cast<T*>(out), B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -955,6 +719,37 @@ int cdyn_sp_smem_bytes(int nj, int nq, int nv, int nc, int n_cmd, int n_act, int
   return cdyn::sp_env_stride(cdyn::SpLayout(nj, nq, nv, nc, n_cmd, n_act, n_carry).elems, elt);
 }
 
+// Bytes of dynamic shared memory one env of cdyn_accel takes (its slice and
+// the padding to the next one) for a model of nj joints, nq and nv
+// coordinates and nc contacts, at elt bytes a float; then the lanes per env
+// and the envs per block of this build into geometry[0..1].
+int cdyn_accel_smem_bytes(int nj, int nq, int nv, int nc, int elt, int* geometry) {
+  geometry[0] = cdyn::SP_LANES;
+  geometry[1] = cdyn::SPA_ENVS;
+  return cdyn::sp_env_stride(cdyn::SpAccelLayout(nj, nq, nv, nc).elems, elt);
+}
+
+// Blocks of a spring kernel (0 cdyn_accel, 1 cdyn_period, 2 cdyn_rollout)
+// the runtime would keep on one SM with smem_per_env bytes of dynamic shared
+// memory an env, at elt bytes a float; a negative CUDA error code on failure.
+int cdyn_sp_blocks_per_sm(int kernel, int elt, int smem_per_env) {
+  int blocks = 0;
+  cudaError_t e = cudaSuccess;
+  const int threads = cdyn::SP_LANES * (kernel == 0 ? cdyn::SPA_ENVS : cdyn::SP_ENVS);
+  const size_t smem = (size_t)smem_per_env * (kernel == 0 ? cdyn::SPA_ENVS : cdyn::SP_ENVS);
+#define CDYN_OCC(K, T) cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, K<T>, threads, smem)
+  if (elt == 4)
+    e = kernel == 0 ? CDYN_OCC(cdyn::cdyn_accel_kernel, float)
+      : kernel == 1 ? CDYN_OCC(cdyn::cdyn_period_kernel, float)
+                    : CDYN_OCC(cdyn::cdyn_rollout_kernel, float);
+  else
+    e = kernel == 0 ? CDYN_OCC(cdyn::cdyn_accel_kernel, double)
+      : kernel == 1 ? CDYN_OCC(cdyn::cdyn_period_kernel, double)
+                    : CDYN_OCC(cdyn::cdyn_rollout_kernel, double);
+#undef CDYN_OCC
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
+}
+
 #ifdef CDYN_CM_PROFILE
 // The phase cycles of the constrained solves since the last call (`out`
 // holds cdyn::CM_PHASES values), then zeroed.
@@ -973,8 +768,8 @@ const char* cdyn_error_string(int code) {
 
 #define CDYN_ENTRIES(SUFFIX, T)                                                                  \
   int cdyn_accel_##SUFFIX(const void* ci, const void* cf, const void* q, const void* v,          \
-                          const void* tau, void* out, int B, void* stream) {                     \
-    return cdyn::launch_accel<T>(ci, cf, q, v, tau, out, B, stream);                             \
+                          const void* tau, void* out, int B, int smem_per_env, void* stream) {   \
+    return cdyn::launch_accel<T>(ci, cf, q, v, tau, out, B, smem_per_env, stream);               \
   }                                                                                              \
   int cdyn_period_##SUFFIX(const void* ci, const void* cf, const void* q, const void* v,         \
                            const void* cmd, void* qo, void* vo, void* eo, int B, int n_cmd,      \

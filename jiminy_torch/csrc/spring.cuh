@@ -1,19 +1,21 @@
-// Spring-damper bodies of the period and rollout kernels for Hopper: the
-// CUDA counterparts of jiminy_tpu/ops/cdyn.py's
+// Spring-damper bodies of the three kernels for Hopper: the CUDA
+// counterparts of jiminy_tpu/ops/cdyn.py's
 //
 //   cdyn_period  <- _pallas_period_fn  (n_substeps RK4/Euler substeps, extras)
 //   cdyn_rollout <- _pallas_rollout_fn (n_ticks x (controller, n_substeps
 //                                       substeps), extras, command, carry)
+//   cdyn_accel   <- _pallas_accel_fn   (one evaluation; DOPRI's stages)
 //
 // What bounds them: arithmetic, once the working set stays on the chip. An
 // ANYmal env step is 161 evaluations of `_accel_core` (ABA with armature,
 // damping, penalty bounds and spring-damper contact), about 1.8 M scalar
 // operations per env with the model's structural zeros folded, against
-// about a thousand bytes of I/O. A thread per env with the ABA's per-joint
-// arrays on its stack (as cdyn_accel still is) streams that working set,
-// some 17 KB an evaluation, through local memory, which at full occupancy
-// misses L1 and L2 (PERF.md). Kept on the chip, an evaluation is a chain of
-// dependent steps: the time follows how many envs an SM holds.
+// about a thousand bytes of I/O; one evaluation is about 11 k operations
+// against 292 bytes. A thread per env with the ABA's per-joint arrays on its
+// stack streams that working set, some 17 KB an evaluation, through local
+// memory, which at full occupancy misses L1 and L2 (PERF.md). Kept on the
+// chip, an evaluation is a chain of dependent steps: the time follows how
+// many envs an SM holds.
 //
 // Design. A group of SP_LANES lanes (aligned in its warp) steps one env,
 // SP_ENVS envs to a block; a group past the end of the batch leaves whole.
@@ -776,9 +778,10 @@ __device__ __forceinline__ void sp_pass(const Model<T>& M, const SpTree& tr, con
 #undef CDYN_SP_PASS
 }
 
-// One evaluation of `_accel_core` by the group, at (w.qs, w.vs) under the
-// command w.cc: the joint accelerations into w.qdd.
-template <typename T>
+// One evaluation of `_accel_core` by the group, at (w.qs, w.vs): the joint
+// accelerations into w.qdd. With MOTORS the motor efforts under the command
+// w.cc first become the torques w.tc; without, w.tc holds the torques.
+template <bool MOTORS = true, typename T>
 __device__ __forceinline__ void sp_evaluate(const SpLanes& L, const Model<T>& M, const SpTree& tr,
                                             const SpWork<T>& w) {
   const int lane = L.lane, G = SP_LANES, nlev = tr.nlev;
@@ -790,7 +793,7 @@ __device__ __forceinline__ void sp_evaluate(const SpLanes& L, const Model<T>& M,
   }
   // Contacts, then motors (one task for all when two share a dof)
   const int nc = M.has_contacts ? M.nc : 0;
-  const int n_mt = tr.distinct ? M.nm : (M.nm > 0 ? 1 : 0);
+  const int n_mt = !MOTORS ? 0 : tr.distinct ? M.nm : (M.nm > 0 ? 1 : 0);
 #pragma unroll 1
   for (int t = lane; t < nc + n_mt; t += G) {
     if (t < nc) {
@@ -1069,6 +1072,74 @@ __global__ void __launch_bounds__(SP_LANES * SP_ENVS)
   const int n_std = M.nv + 10 * (M.has_contacts ? M.nc : 0) + 6 * M.ni;
   store_rows(L, w.cc, n_cmd, eo + (size_t)n_std * B, B, b);
   store_rows(L, w.bc, n_carry, eo + (size_t)(n_std + n_cmd) * B, B, b);
+}
+
+// --------------------------------------------------------------------------
+// cdyn_accel: one evaluation of `_accel_core` an env (jiminy_tpu's
+// _pallas_accel_fn; the per-stage kernel of adaptive DOPRI, once a reset
+// otherwise). The same group passes as the period kernel's, with the torques
+// given, so the motor task is skipped. The slice holds what one evaluation
+// needs (`SpAccelLayout`): the joint records, the root's placement, (q, v)
+// and the contact wrenches; no integrator vectors, command, action or carry,
+// so more envs fit an SM. The torques are read, and the accelerations
+// written, in the caller's row-major (B, n) layout straight from the lanes
+// (a row is one env's; the groups of a warp cover neighbouring rows).
+// --------------------------------------------------------------------------
+
+// Envs a block of cdyn_accel; a build may set another (-DCDYN_ACCEL_ENVS) to
+// time it (spring_profile.py). Both 8 and 16 hold 80 envs an SM; 16 halves
+// the blocks of a launch of one evaluation and measured 2.6 % faster.
+#ifndef CDYN_ACCEL_ENVS
+#define CDYN_ACCEL_ENVS 16
+#endif
+constexpr int SPA_ENVS = CDYN_ACCEL_ENVS;
+static_assert(SP_LANES * SPA_ENVS <= 1024, "SP_LANES * SPA_ENVS threads a block");
+
+// Element offsets of one env's accel slice (the same on host and device).
+struct SpAccelLayout {
+  int rec, root, q, v, fext, elems;
+  __host__ __device__ SpAccelLayout(int nj, int nq, int nv, int nc) {
+    rec = 0;
+    root = JREC * nj;
+    q = root + 12;
+    v = q + nq;
+    fext = v + nv;
+    elems = fext + 6 * nc;
+  }
+};
+
+// This thread's env accel slice, built from the shared-memory symbol, with
+// the env's torque row (read only) and acceleration row in global memory.
+template <typename T>
+__device__ __forceinline__ SpWork<T> sp_accel_work(const Model<T>& M, const T* tau, T* qdd) {
+  const SpAccelLayout lo(M.nj, M.nq, M.nv, M.nc);
+  const int slot = threadIdx.x / SP_LANES;
+  T* b = reinterpret_cast<T*>(dynamic_smem() +
+                              (size_t)slot * sp_env_stride(lo.elems, static_cast<int>(sizeof(T))));
+  T* tc = const_cast<T*>(tau);  // only read: no motor task runs
+  return {b + lo.rec, b + lo.root, b + lo.q, b + lo.q, b + lo.v, b + lo.v, qdd,
+          nullptr,    nullptr,     tc,       b + lo.fext, nullptr, nullptr, nullptr};
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SP_LANES * SPA_ENVS)
+    cdyn_accel_kernel(const int* ci, const T* cf, const T* __restrict__ q_g,
+                      const T* __restrict__ v_g, const T* __restrict__ tau_g, T* __restrict__ out,
+                      int B) {
+  const SpLanes L;
+  const int b = blockIdx.x * SPA_ENVS + threadIdx.x / SP_LANES;
+  if (b >= B) return;  // the whole group
+  const Model<T> M(ci, cf);
+  const SpTree tr(ci);
+  const SpWork<T> w = sp_accel_work(M, tau_g + (size_t)b * M.nv, out + (size_t)b * M.nv);
+  const T* q = q_g + (size_t)b * M.nq;
+  const T* v = v_g + (size_t)b * M.nv;
+#pragma unroll 1
+  for (int i = L.lane; i < M.nq; i += SP_LANES) w.qs[i] = q[i];
+#pragma unroll 1
+  for (int i = L.lane; i < M.nv; i += SP_LANES) w.vs[i] = v[i];
+  L.sync();
+  sp_evaluate<false>(L, M, tr, w);
 }
 
 }  // namespace cdyn

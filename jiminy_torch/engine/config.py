@@ -1,8 +1,9 @@
 """Engine options (port of `jiminy_tpu.engine.config`): the fields the
-fixed-step spring-damper and constrained (PGS) paths read, under the JAX
-package's names and with its defaults. The engine raises
+spring-damper and constrained (PGS) paths read, under the JAX package's
+names and with its defaults. Euler and RK4 run on both paths; adaptive
+DOPRI 5(4) runs on the spring-damper path. The engine raises
 `NotImplementedError` for the values whose code paths are not ported yet
-(DOPRI, terrain).
+(DOPRI beside PGS rows, terrain).
 """
 
 from __future__ import annotations
@@ -44,7 +45,15 @@ class WorldOptions:
 @dataclasses.dataclass(frozen=True)
 class StepperOptions:
     integrator: IntegratorType = IntegratorType.RUNGE_KUTTA_4
+    # Adaptive DOPRI: error tolerances, first and smallest trial step, and the
+    # successive rejections after which an env is flagged diverged and frozen
+    tol_abs: float = 1.0e-5
+    tol_rel: float = 1.0e-4
     dt_max: float = 0.02  # fixed-step substep: ceil(period / dt_max) per period
+    dt_init: float = 1.0e-3
+    dt_min: float = 1.0e-10
+    max_trials: int = 24  # read by neither package: a period stops after 100000 trials
+    successive_iter_failed_max: int = 1000
     # PGS constraint solver: fixed sweep count, diagonal regularization, and
     # multipliers + active sets chained through every solver stage
     pgs_iter_max: int = 16

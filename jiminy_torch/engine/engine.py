@@ -7,7 +7,10 @@ ground contacts (`ContactModel.CONSTRAINT`, `joint_bounds_mode="constraint"`).
   constrained solve (constrained; plain torch on the card, as jiminy_tpu
   runs it in XLA outside its kernels).
 - `Engine.step(state, command)` advances one controller period with a
-  zero-order-held command through `cdyn_period` or `cdyn_period_cm`.
+  zero-order-held command through `cdyn_period` or `cdyn_period_cm` (Euler,
+  RK4), or, under adaptive DOPRI 5(4) on the spring-damper path, through
+  trials of six `cdyn_accel` evaluations each in masked lock-step over the
+  batch (`engine/steppers.py`).
 - `Engine.step_rollout_fused(...)` advances a whole env step, the controller
   re-evaluated at every period, through `cdyn_rollout` or `cdyn_rollout_cm`.
 
@@ -27,7 +30,7 @@ import numpy as np
 import torch
 
 from jiminy_torch.devices import resolve_device, resolve_dtype
-from jiminy_torch.engine import solver
+from jiminy_torch.engine import solver, steppers
 from jiminy_torch.engine.config import ContactModel, EngineOptions, IntegratorType
 from jiminy_torch.engine.constraints import build_constraint_set
 from jiminy_torch.engine.hardware import ImuSensorGroup
@@ -55,10 +58,6 @@ def _refuse_unported(robot: Robot, opts: EngineOptions) -> None:
         raise NotImplementedError(
             "ground profiles (terrain) are not ported yet (ROADMAP.md queue 1 item 13 "
             "and queue 2, terrain height_components)"
-        )
-    if opts.stepper.integrator not in _FIXED_STEP:
-        raise NotImplementedError(
-            "adaptive DOPRI is not ported yet (ROADMAP.md queue 1 item 11)"
         )
     if opts.joint_bounds_mode not in ("constraint", "penalty", "none"):
         raise ValueError(f"unknown joint_bounds_mode {opts.joint_bounds_mode!r}")
@@ -118,6 +117,12 @@ class Engine:
         gravity = tuple(float(g) for g in opts.world.gravity)
         self._cdyn = self._cdyn_cm = None
         if self.cset.total_rows:
+            if opts.stepper.integrator not in _FIXED_STEP:
+                raise NotImplementedError(
+                    "adaptive DOPRI beside PGS rows (constraint contacts or bounds) is not "
+                    "ported yet: its stage-warm-started trial, jiminy_tpu's "
+                    "dopri_trial_stateful (ROADMAP.md queue 1 item 11)"
+                )
             if not self.constraint_mode and robot.contact_frame_indices:
                 raise NotImplementedError(
                     "joint bounds through the PGS solver beside spring-damper contacts "
@@ -331,7 +336,12 @@ class Engine:
             u_motor=aux["u_motor"],
             contact_forces=aux["contact_f_world"],
             stepper=StepperState(
+                dt=torch.full(batch, min(self.options.stepper.dt_init,
+                                         self.options.stepper.dt_max),
+                              dtype=self.dtype, device=self.device),
                 iterations=self._zeros(batch, torch.int32),
+                iter_failed=self._zeros(batch, torch.int32),
+                successive_iter_failed=self._zeros(batch, torch.int32),
                 diverged=self._zeros(batch, torch.bool),
             ),
             measurements={},
@@ -377,7 +387,9 @@ class Engine:
                              bound_active=aux["bound_active"], lam=aux["lam"])
 
     def _integrate_period(self, state: SimState, command):
-        kind = _FIXED_STEP[self.options.stepper.integrator]
+        kind = _FIXED_STEP.get(self.options.stepper.integrator)
+        if kind is None:
+            return self._integrate_period_dopri(state, command)
         cc = command
         if self._cdyn_cm is not None:
             # Warm-start multipliers and active sets ride the command row
@@ -390,14 +402,74 @@ class Engine:
         stepper = state.stepper.replace(iterations=state.stepper.iterations + self.n_substeps)
         return state.replace(q=integ.normalize(self.robot.model, q), v=v), a, aux, stepper
 
+    def _accel_fn(self, command):
+        """`a = f(t, q, v)` under a zero-order-held command: the motor
+        efforts, then `cdyn_accel` (the plain `_accel_core` on the CPU)."""
+        cd = self._cdyn
+
+        def f(t, q, v):
+            return cd.accel(q, v, self._compute_efforts(command, v)[1])
+
+        return f
+
+    def _integrate_period_dopri(self, state: SimState, command):
+        """One tick of adaptive DOPRI 5(4) in masked lock-step: trials run over
+        the whole batch while any env is short of the tick's end, and an env
+        that is done (or diverged) keeps its carry (jiminy_tpu's `jax.vmap`
+        of its `lax.while_loop`). A rejected trial keeps q, v and a."""
+        opts = self.options.stepper
+        model = self.robot.model
+        period = self.tick_period
+        f = self._accel_fn(command)
+        st = state.stepper
+        q, v = state.q, state.v
+        a = f(state.t, q, v)
+        t_local = torch.zeros_like(st.dt)
+        dt_pref, iters, fails = st.dt, st.iterations, st.iter_failed
+        succ_failed, diverged = st.successive_iter_failed, st.diverged
+        trials = torch.zeros_like(iters)
+        while True:
+            active = (t_local < period - 1e-12) & ~diverged & (trials < 100000)
+            if not bool(active.any()):
+                break
+            dt_try = torch.minimum(dt_pref, period - t_local)
+            q5, v5, err_vec, mag, a_last = steppers.dopri_trial(
+                model, f, state.t + t_local, q, v, a, dt_try
+            )
+            err = steppers.dopri_error_norm(err_vec, mag, opts.tol_abs, opts.tol_rel)
+            err = torch.where(torch.isnan(err), torch.full_like(err, math.inf), err)
+            ok, dt_new = steppers.dopri_adjust(dt_try, err, opts.dt_min, opts.dt_max)
+            # On success keep the preferred dt unless the trial took it (the
+            # reference's dtLargest bookkeeping)
+            dt_next = torch.where(ok & (dt_try < dt_pref), dt_pref, dt_new)
+            succ_next = torch.where(ok, torch.zeros_like(succ_failed), succ_failed + 1)
+            take, take_v = active & ok, (active & ok)[..., None]
+            q = torch.where(take_v, q5, q)
+            v = torch.where(take_v, v5, v)
+            a = torch.where(take_v, a_last, a)
+            t_local = torch.where(take, t_local + dt_try, t_local)
+            dt_pref = torch.where(active, dt_next, dt_pref)
+            iters = iters + take.to(iters.dtype)
+            fails = fails + (active & ~ok).to(fails.dtype)
+            succ_failed = torch.where(active, succ_next, succ_failed)
+            diverged = torch.where(active, succ_next >= opts.successive_iter_failed_max, diverged)
+            trials = trials + active.to(trials.dtype)
+        q = integ.normalize(model, q)
+        a, aux = self._final_eval(q, v, command)
+        stepper = StepperState(dt=dt_pref, iterations=iters, iter_failed=fails,
+                               successive_iter_failed=succ_failed, diverged=diverged)
+        return state.replace(q=q, v=v), a, aux, stepper
+
     # ------------------------------------------------------------------ #
     @property
     def supports_fused_rollout(self) -> bool:
         """True when `step_rollout_fused` can replace per-period `step` calls:
-        one sensor tick per controller period (fixed-step integration and
-        clean sensors are all this port accepts), on the spring-damper core
-        or the constrained one."""
-        return self.n_sensor_periods == 1
+        fixed-step integration (Euler, RK4) and one sensor tick per controller
+        period (clean sensors are all this port accepts), on the spring-damper
+        core or the constrained one. Under DOPRI the gym layer steps period by
+        period."""
+        return (self.options.stepper.integrator in _FIXED_STEP
+                and self.n_sensor_periods == 1)
 
     def _get_rollout_run(self, cache_key: str, controller, n_periods: int):
         key = ("rollout", cache_key, n_periods)

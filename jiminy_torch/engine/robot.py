@@ -74,7 +74,7 @@ class Robot:
             )
         if loop_constraints:
             raise NotImplementedError(
-                "loop closures are not ported yet (ROADMAP.md queue 1 item 9)"
+                "loop closures are not ported yet (ROADMAP.md queue 1 item 10)"
             )
         if isinstance(model_or_urdf, RobotModel):
             model = model_or_urdf

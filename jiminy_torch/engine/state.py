@@ -17,8 +17,11 @@ import torch
 
 @dataclasses.dataclass
 class StepperState:
-    iterations: torch.Tensor  # (...,) int32 integration substeps taken
-    diverged: torch.Tensor  # (...,) bool; fixed-step integration never sets it
+    dt: torch.Tensor  # (...,) the adaptive step size DOPRI tries next
+    iterations: torch.Tensor  # (...,) int32 integration substeps taken (accepted)
+    iter_failed: torch.Tensor  # (...,) int32 rejected DOPRI trials
+    successive_iter_failed: torch.Tensor  # (...,) int32
+    diverged: torch.Tensor  # (...,) bool; set by DOPRI after too many rejections in a row
 
     def replace(self, **kw) -> "StepperState":
         return dataclasses.replace(self, **kw)

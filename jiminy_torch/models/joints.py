@@ -132,6 +132,42 @@ def _exp6_translation(omega: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return lie.mv(v_mat, v)
 
 
+def _log6(rot: torch.Tensor, p: torch.Tensor):
+    """SE(3) logarithm: (omega, v) with exp6(omega, v) = (rot, p)."""
+    omega = lie.log3_mat(rot)
+    theta2 = torch.sum(omega * omega, dim=-1)
+    small = theta2 < 1e-6
+    theta = torch.sqrt(torch.clamp_min(theta2, torch.finfo(p.dtype).eps ** 2))
+    # V^{-1} = I - W/2 + (1/t^2 - (1+cos)/(2 t sin)) W^2
+    st, ct = torch.sin(theta), torch.cos(theta)
+    coef = torch.where(
+        small,
+        1.0 / 12.0 + theta2 / 720.0,
+        (1.0 / torch.clamp_min(theta2, 1e-30)) - (1.0 + ct) / torch.clamp_min(2.0 * theta * st, 1e-30),
+    )
+    sk = lie.skew(omega)
+    eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(sk.shape)
+    v_inv = eye - 0.5 * sk + coef[..., None, None] * lie.mm(sk, sk)
+    return omega, lie.mv(v_inv, p)
+
+
+def difference_joint(jtype: int, q0_j: torch.Tensor, q1_j: torch.Tensor) -> torch.Tensor:
+    """Tangent-space difference q1 (-) q0 for one joint (SE(3) logarithm for
+    the free-flyer)."""
+    jtype = JointType(jtype)
+    if jtype in (JointType.REVOLUTE, JointType.PRISMATIC):
+        return q1_j - q0_j
+    if jtype == JointType.FREE:
+        p0, quat0 = q0_j[..., 0:3], q0_j[..., 3:7]
+        p1, quat1 = q1_j[..., 0:3], q1_j[..., 3:7]
+        rot0 = lie.quat_to_mat(quat0)
+        dp_local = lie.mv(rot0.transpose(-1, -2), p1 - p0)
+        drot = lie.quat_to_mat(lie.quat_mul(lie.quat_conjugate(quat0), quat1))
+        omega, v = _log6(drot, dp_local)
+        return torch.cat([v, omega], dim=-1)
+    raise _unported(jtype)
+
+
 def normalize_joint(jtype: int, q_j: torch.Tensor) -> torch.Tensor:
     jtype = JointType(jtype)
     if jtype == JointType.FREE:

@@ -10,7 +10,8 @@ substep and final-output builders and the bodies of the period and rollout
 integrators, op for op. They are the CPU path and the reference that the
 kernels are held against on the card.
 
-Kernels (`csrc/cdyn.cu`, CUDA C++ for sm_90a, built by `ops/kernels.py`):
+Kernels (`csrc/spring.cuh`, CUDA C++ for sm_90a, built with `csrc/cdyn.cu` by
+`ops/kernels.py`):
 
 - `cdyn_accel` replaces `jiminy_tpu/ops/cdyn.py::_pallas_accel_fn` (one
   dynamics evaluation per env);
@@ -22,15 +23,16 @@ Kernels (`csrc/cdyn.cu`, CUDA C++ for sm_90a, built by `ops/kernels.py`):
 What bounds them: arithmetic, once the working set stays on the chip. One
 `_accel_core` evaluation of the ANYmal is about 11 k scalar operations per
 env with the model's structural zeros folded (19 k generic) against about
-0.25 KB of input, and an env step is 161 evaluations against about 0.94 KB
-of I/O. `cdyn_accel` (once per reset) maps one env to one thread with the
-per-joint arrays on its stack. `cdyn_period` and `cdyn_rollout` (csrc/
-spring.cuh) run a group of lanes per env: the tree passes depth after depth
-a joint per lane, the working set in a slice of shared memory sized from
-the model (`sp_smem_per_env`), and the structural zeros of joints whose axis
-is a coordinate axis dropped (`axis_class`, `spring_section`). All read the
-model's constants at run time from buffers packed once per model
-(`pack_model`), so one build serves every model.
+0.29 KB of I/O, and an env step is 161 evaluations against about 0.94 KB
+of I/O. All three (csrc/spring.cuh) run a group of lanes per env: the tree
+passes depth after depth a joint per lane, the working set in a slice of
+shared memory sized from the model (`sp_smem_per_env`, and the smaller
+`accel_smem_per_env` of one evaluation), and the structural zeros of joints
+whose axis is a coordinate axis dropped (`axis_class`, `spring_section`).
+`cdyn_accel` (once a reset; six times a DOPRI trial) reads and writes the
+caller's row-major (B, n) tensors, the other two a struct-of-arrays copy.
+All read the model's constants at run time from buffers packed once per
+model (`pack_model`), so one build serves every model.
 
 Wrappers dispatch by device: a CPU tensor goes to the plain version, a CUDA
 tensor to the kernel, anything else raises. There is no fallback from the
@@ -1521,18 +1523,34 @@ def _check_caps(packed: PackedModel, **extra) -> None:
             raise ValueError(f"cdyn kernel: {key}={val} exceeds the compiled cap {cap}")
 
 
+def _rows(x: torch.Tensor, batch, n: int) -> torch.Tensor:
+    """(..., n) -> (B, n) contiguous rows (no copy for a contiguous batch)."""
+    return x.expand(tuple(batch) + (n,)).reshape(math.prod(batch), n).contiguous()
+
+
+def accel_smem_per_env(packed: PackedModel, dtype) -> int:
+    """Bytes of dynamic shared memory one env of cdyn_accel takes; a block's
+    share past what the card grants fails at the launch."""
+    from jiminy_torch.ops import kernels
+
+    c = packed.counts
+    elt = torch.empty((), dtype=dtype).element_size()
+    return kernels.load().accel_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt)[0]
+
+
 def _launch_accel(packed: PackedModel, q, v, tau):
     _check_inputs(packed, q, v, tau)
     nq, nv = packed.counts["nq"], packed.counts["nv"]
     _check_caps(packed)
+    smem = accel_smem_per_env(packed, q.dtype)
     batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1], tau.shape[:-1])
-    qs, vs, ts = _soa(q, batch, nq), _soa(v, batch, nv), _soa(tau, batch, nv)
-    b = qs.shape[1]
-    out = torch.empty((nv, b), dtype=q.dtype, device=q.device)
+    qs, vs, ts = _rows(q, batch, nq), _rows(v, batch, nv), _rows(tau, batch, nv)
+    b = qs.shape[0]
+    out = torch.empty((b, nv), dtype=q.dtype, device=q.device)
     if b:
-        _launch("cdyn_accel", q.dtype, packed.ci.data_ptr(), packed.cf.data_ptr(), qs.data_ptr(), vs.data_ptr(), ts.data_ptr(),
-                out.data_ptr(), b)
-    return out.t().reshape(tuple(batch) + (nv,))
+        _launch("cdyn_accel", q.dtype, packed.ci.data_ptr(), packed.cf.data_ptr(), qs.data_ptr(),
+                vs.data_ptr(), ts.data_ptr(), out.data_ptr(), b, smem)
+    return out.reshape(tuple(batch) + (nv,))
 
 
 def sp_smem_per_env(packed: PackedModel, n_cmd: int, n_action: int, n_carry: int, dtype) -> int:

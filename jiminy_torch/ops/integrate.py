@@ -1,5 +1,5 @@
 """Configuration-space Lie-group operations (port of `jiminy_tpu.ops.integrate`,
-`integrate` and `normalize`)."""
+`integrate`, `difference` and `normalize`)."""
 
 from __future__ import annotations
 
@@ -16,6 +16,17 @@ def integrate(model: RobotModel, q: torch.Tensor, dv: torch.Tensor) -> torch.Ten
         for i in range(model.njoints)
     ]
     return torch.cat(segs, dim=-1) if segs else q
+
+
+def difference(model: RobotModel, q0: torch.Tensor, q1: torch.Tensor) -> torch.Tensor:
+    """q1 (-) q0: the tangent-space difference with integrate(q0, d) ~= q1."""
+    segs = [
+        jt.difference_joint(model.joint_types[i], q0[..., model.q_slice(i)], q1[..., model.q_slice(i)])
+        for i in range(model.njoints)
+    ]
+    if not segs:
+        return torch.zeros(q0.shape[:-1] + (0,), dtype=q0.dtype, device=q0.device)
+    return torch.cat(segs, dim=-1)
 
 
 def normalize(model: RobotModel, q: torch.Tensor) -> torch.Tensor:

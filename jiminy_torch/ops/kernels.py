@@ -35,7 +35,7 @@ CAP_NAMES = ("nj", "nq", "nv", "nc", "ni", "nm", "nb", "n_cmd", "n_action", "n_c
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "cdyn_accel": [_P, _P, _P, _P, _P, _P, _I, _P],
+    "cdyn_accel": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     "cdyn_period": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "cdyn_rollout": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -69,7 +69,8 @@ def build(source: Path = SOURCE, defines: tuple = ()) -> BuildResult:
     `CDYN_CM_PROFILE` (the constrained solve's phase timing),
     `CDYN_CM_LANES=n`, `CDYN_CM_ENVS=n` (another launch geometry of the
     constrained kernels), `CDYN_SP_LANES=n`, `CDYN_SP_ENVS=n` (of the spring
-    kernels), `CDYN_ACCEL_THREADS=n` (threads a block of cdyn_accel)."""
+    kernels; the lanes are cdyn_accel's too), `CDYN_ACCEL_ENVS=n` (envs a
+    block of cdyn_accel)."""
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     digest = hashlib.sha256()
     for p in (source, *HEADERS):
@@ -123,6 +124,12 @@ class Library:
         self._sp_smem = self._dll.cdyn_sp_smem_bytes
         self._sp_smem.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_int)]
         self._sp_smem.restype = ctypes.c_int
+        self._accel_smem = self._dll.cdyn_accel_smem_bytes
+        self._accel_smem.argtypes = [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        self._accel_smem.restype = ctypes.c_int
+        self._sp_blocks = self._dll.cdyn_sp_blocks_per_sm
+        self._sp_blocks.argtypes = [_I] * 3
+        self._sp_blocks.restype = ctypes.c_int
         self._phases = getattr(self._dll, "cdyn_cm_phase_cycles", None)
         if self._phases is not None:
             self._phases.argtypes = [_P]
@@ -150,6 +157,27 @@ class Library:
         geometry = (ctypes.c_int * 2)()
         per_env = self._sp_smem(nj, nq, nv, nc, n_cmd, n_action, n_carry, elt, geometry)
         return int(per_env), int(geometry[0]), int(geometry[1])
+
+    def accel_smem_bytes(self, nj, nq, nv, nc, elt) -> tuple:
+        """(bytes of dynamic shared memory one env of cdyn_accel takes, lanes
+        per env, envs per block) of this build (`SpAccelLayout` in
+        csrc/spring.cuh)."""
+        geometry = (ctypes.c_int * 2)()
+        per_env = self._accel_smem(nj, nq, nv, nc, elt, geometry)
+        return int(per_env), int(geometry[0]), int(geometry[1])
+
+    def sp_envs_per_sm(self, kernel: str, elt: int, smem_per_env: int) -> int:
+        """Envs of a spring kernel ("cdyn_accel", "cdyn_period" or
+        "cdyn_rollout") that the runtime keeps on one SM
+        (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` x envs a block)."""
+        which = ("cdyn_accel", "cdyn_period", "cdyn_rollout").index(kernel)
+        blocks = self._sp_blocks(which, elt, smem_per_env)
+        if blocks < 0:
+            raise RuntimeError(f"cdyn_sp_blocks_per_sm: CUDA error {-blocks} "
+                               f"({self.error_string(-blocks)})")
+        geometry = (self.accel_smem_bytes(1, 1, 1, 0, elt) if which == 0 else
+                    self.sp_smem_bytes(1, 1, 1, 0, 0, 0, 0, elt))
+        return blocks * geometry[2]
 
     def cm_phase_cycles(self) -> list:
         """Cycles the constrained solves spent in each phase since the last

@@ -1,5 +1,5 @@
 """Lie-group and spatial-algebra primitives on torch tensors (port of
-`jiminy_tpu.ops.lie`, the part this slice calls).
+`jiminy_tpu.ops.lie`, the part the port calls).
 
 Conventions are the reference's: quaternions are ``(x, y, z, w)``; a placement
 of frame B in frame A is ``(rot, pos)`` with ``x_A = rot @ x_B + pos``; spatial
@@ -56,6 +56,10 @@ def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.linalg.norm(q, dim=-1, keepdim=True)
 
 
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype, device=q.device)
+
+
 def quat_mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     x1, y1, z1, w1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
     x2, y2, z2, w2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
@@ -85,6 +89,41 @@ def quat_to_mat(q: torch.Tensor) -> torch.Tensor:
     )
 
 
+def mat_to_quat(r: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (x, y, z, w), w >= 0: of the four
+    candidate constructions, the one with the largest pivot."""
+    m00, m01, m02 = r[..., 0, 0], r[..., 0, 1], r[..., 0, 2]
+    m10, m11, m12 = r[..., 1, 0], r[..., 1, 1], r[..., 1, 2]
+    m20, m21, m22 = r[..., 2, 0], r[..., 2, 1], r[..., 2, 2]
+    tr = m00 + m11 + m22
+    tw = 1.0 + tr
+    tx = 1.0 + m00 - m11 - m22
+    ty = 1.0 - m00 + m11 - m22
+    tz = 1.0 - m00 - m11 + m22
+    eps = _eps(r.dtype)
+
+    def safe_sqrt(t):
+        return torch.sqrt(torch.clamp_min(t, eps))
+
+    sw = safe_sqrt(tw) * 2.0
+    sx = safe_sqrt(tx) * 2.0
+    sy = safe_sqrt(ty) * 2.0
+    sz = safe_sqrt(tz) * 2.0
+    cand = torch.stack(
+        [
+            torch.stack([(m21 - m12) / sw, (m02 - m20) / sw, (m10 - m01) / sw, 0.25 * sw], dim=-1),
+            torch.stack([0.25 * sx, (m01 + m10) / sx, (m02 + m20) / sx, (m21 - m12) / sx], dim=-1),
+            torch.stack([(m01 + m10) / sy, 0.25 * sy, (m12 + m21) / sy, (m02 - m20) / sy], dim=-1),
+            torch.stack([(m02 + m20) / sz, (m12 + m21) / sz, 0.25 * sz, (m10 - m01) / sz], dim=-1),
+        ],
+        dim=-2,
+    )  # (..., 4 candidates, 4)
+    best = torch.argmax(torch.stack([tw, tx, ty, tz], dim=-1), dim=-1)
+    q = torch.gather(cand, -2, best[..., None, None].expand(best.shape + (1, 4)))[..., 0, :]
+    q = torch.where(q[..., 3:4] < 0.0, -q, q)
+    return quat_normalize(q)
+
+
 def exp3(w: torch.Tensor) -> torch.Tensor:
     """so(3) -> quaternion (x, y, z, w)."""
     theta2 = torch.sum(w * w, dim=-1, keepdim=True)
@@ -109,6 +148,24 @@ def exp3_mat(w: torch.Tensor) -> torch.Tensor:
     s = skew(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(s.shape)
     return eye + a[..., None, None] * s + b[..., None, None] * mm(s, s)
+
+
+def log3_quat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion -> so(3) (angle * axis), angle in [0, pi]."""
+    q = torch.where(q[..., 3:4] < 0.0, -q, q)  # w >= 0: angle <= pi
+    vec = q[..., :3]
+    norm_v = torch.linalg.norm(vec, dim=-1)
+    half = torch.atan2(norm_v, q[..., 3])  # in [0, pi/2]
+    theta2 = (2.0 * half) ** 2
+    small = norm_v < _SMALL_ANGLE
+    scale = torch.where(small, 2.0 + theta2 / 12.0,
+                        2.0 * half / torch.clamp_min(norm_v, _eps(q.dtype)))
+    return vec * scale[..., None]
+
+
+def log3_mat(r: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> so(3), through the quaternion."""
+    return log3_quat(mat_to_quat(r))
 
 
 # --------------------------------------------------------------------------- #

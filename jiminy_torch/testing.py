@@ -11,7 +11,8 @@ a robot at rest active. `column_errors` and `column_quantile_errors`
 hold a kernel's outputs against its plain version column by column. The
 card tests and `chip_smoke.py` use them. `constraint_mode_options` turns an
 env's engine options into constraint contact mode, as `bench.py` does with
-`BENCH_CONTACT=constraint`.
+`BENCH_CONTACT=constraint`; `dopri_options` turns them to adaptive DOPRI
+5(4), every other option kept.
 """
 
 from __future__ import annotations
@@ -48,6 +49,16 @@ def perturbed_states(env, batch: int, seed: int, device=None, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
     return t(q), t(v), t(tau)
+
+
+def dopri_options(options):
+    """The options with the adaptive DOPRI 5(4) integrator (the C++
+    reference's `odeSolver = "runge_kutta_dopri5"`)."""
+    from jiminy_torch.engine.config import IntegratorType
+
+    return options.replace(
+        stepper=dataclasses.replace(options.stepper, integrator=IntegratorType.RUNGE_KUTTA_DOPRI)
+    )
 
 
 def constraint_mode_options(options):

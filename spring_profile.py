@@ -1,32 +1,35 @@
 #!/usr/bin/env python3
-"""Launch geometry, local memory and occupancy of the spring-damper kernels
-(cdyn_rollout, cdyn_period) on one NVIDIA GPU.
+"""Launch geometry and local memory of the spring-damper kernels
+(cdyn_rollout, cdyn_period, cdyn_accel) on one NVIDIA GPU.
 
-    python3 spring_profile.py [--steps N] [--against DIR]
+    python3 spring_profile.py [--steps N] [--against DIR [--pairs N]]
 
-Builds csrc/cdyn.cu at once: the default build, one build per candidate
-launch geometry of the spring kernels (CDYN_SP_LANES lanes per env x
-CDYN_SP_ENVS envs per block) and the occupancy build (CDYN_ACCEL_THREADS=32:
-cdyn_accel, one env per thread with its evaluation's working set on the
-stack, in blocks of one warp). Then:
+Builds csrc/cdyn.cu at once: the default build and one build per candidate
+launch geometry (CDYN_SP_LANES lanes per env x CDYN_SP_ENVS envs per block,
+cdyn_accel's envs per block CDYN_ACCEL_ENVS set alike; then cdyn_accel alone
+at other envs per block). Then:
 
 - SASS: the LDL / STL instructions (local-memory loads and stores) of each
   function of the default build, from `cuobjdump -sass`, and those of the
   float32 spring kernels by the source line they come from (a `-lineinfo`
   cubin of the same source, `nvdisasm -g`).
-- One process per build: anymal-pid at float32, B = 131072, reset and N
-  steps with zero actions (default 2); cdyn_rollout and cdyn_period timed
-  with CUDA events on those states.
-- Occupancy: in the occupancy build's process and the default build's,
-  cdyn_accel and cdyn_rollout on the first B_k = 32 k x (number of SMs) of
-  those states, k = 1, 2, 4, 8, 16: with one-warp blocks about k warps an
-  SM. A warp that takes longer as more warps share its SM (the serial
-  kernel, as its stack leaves L1) is held back by memory traffic; one that
-  takes as long is held back by the latency of its dependent arithmetic.
+- The inputs, made once on the card with the default build: anymal-pid at
+  float32, B = 131072, reset and N steps with zero actions (default 2), and
+  the stage states of a DOPRI trial (the same env under adaptive DOPRI, one
+  step from its reset, the inputs of the middle evaluation of its second
+  step).
+- One process per build: cdyn_rollout and cdyn_period timed with CUDA events
+  on the main path's states, cdyn_accel on those states and on the DOPRI
+  stage states; then the spring-damper main path's env-steps/s over
+  chip_smoke.py's step count (host clock), five times, so that two
+  checkouts compare end to end in one call.
 
 With --against DIR, another checkout of the repo (for example the parent
 commit, unpacked with `git archive`) is built and timed the same way in the
 same call, before the builds here and after them, and its SASS counted.
+With --pairs N as well, only the two default builds run: N pairs of
+processes, alternating which checkout runs first, for an A/B of the
+spring-damper main path in one call.
 Prints a line per build and, last, one JSON object of them all. Needs one
 card; chip_smoke.py holds the kernels against their plain versions, this
 script only times them.
@@ -36,17 +39,20 @@ import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 CANDIDATES = ((4, 8), (4, 16), (8, 4), (8, 8), (2, 16), (1, 32))  # (lanes per env, envs a block)
-OCCUPANCY = ("CDYN_ACCEL_THREADS=32",)
-OCCUPANCY_K = (1, 2, 4, 8, 16)
+ACCEL_ENVS = (4, 8, 32)  # cdyn_accel alone at 4 lanes per env
+INPUTS = os.path.join("build", "spring_profile_inputs.pt")
+RUNS = 5  # timed runs of the spring-damper main path in each build's process
 
 
 def defines_of(lanes, envs):
-    return (f"CDYN_SP_LANES={lanes}", f"CDYN_SP_ENVS={envs}")
+    return (f"CDYN_SP_LANES={lanes}", f"CDYN_SP_ENVS={envs}", f"CDYN_ACCEL_ENVS={envs}")
 
 
 def sass_local_counts(lib_path):
@@ -93,8 +99,8 @@ def sass_local_lines():
         if m:
             where = f"{os.path.basename(m.group(1))}:{m.group(2)}"
             continue
-        name = next((k for k in ("cdyn_rollout_kernelIf", "cdyn_period_kernelIf") if fn and k in fn),
-                    None)
+        name = next((k for k in ("cdyn_rollout_kernelIf", "cdyn_period_kernelIf",
+                                  "cdyn_accel_kernelIf") if fn and k in fn), None)
         if name and re.search(r"\b(LDL|STL)(\.\w+)*\b", line):
             per = hits.setdefault(name[:-2], {})
             per[where] = per.get(where, 0) + 1
@@ -107,7 +113,38 @@ def spring_sass(counts):
     return {f: c for f, c in counts.items() if any(k in f for k in keys) and "_cm" not in f}
 
 
+def make_inputs(steps):
+    """The main path's states and a DOPRI trial's stage states on the card
+    (float32, B = B_MAIN), saved for every build's process."""
+    import torch
+
+    import chip_smoke as cs
+    from jiminy_torch.envs import make
+    from jiminy_torch.testing import dopri_options
+
+    dev = torch.device("cuda", 0)
+    env = make("anymal-pid", device=dev)
+    action = torch.zeros(env.action_size, device=dev)
+    st, _ = env.reset(batch_size=cs.B_MAIN)
+    for _ in range(steps):
+        st, *_ = env.step(st, action)
+    eng = env.env.engine
+    main = (st.sim.q, st.sim.v, eng._compute_efforts(st.sim.command, st.sim.v)[1])
+    denv = make("anymal-pid", device=dev, options=dopri_options(env.engine.options))
+    dst, _ = denv.reset(batch_size=cs.B_MAIN)
+    dst, *_ = denv.step(dst, action)
+    cd, seen = denv.engine._cdyn, []
+    cd.accel = lambda q, v, tau: seen.append((q, v, tau)) or type(cd).accel(cd, q, v, tau)
+    denv.step(dst, action)
+    del cd.accel
+    stage = seen[len(seen) // 2]
+    os.makedirs(os.path.dirname(INPUTS), exist_ok=True)
+    torch.save({"main": [x.contiguous().cpu() for x in main],
+                "stage": [x.contiguous().cpu() for x in stage], "commands": len(seen)}, INPUTS)
+
+
 def child(defines, steps, root=None):
+    inputs = os.path.abspath(INPUTS)
     if root:  # another checkout: its package, its chip_smoke helpers, its build
         sys.path.insert(0, root)
         os.chdir(root)
@@ -133,31 +170,38 @@ def child(defines, steps, root=None):
     cmd = st.sim.command.contiguous()
     xs = (q, v, torch.zeros((cs.B_MAIN, env.robot.nmotors), device=dev),
           st.blocks[block].reshape(cs.B_MAIN, -1).contiguous())
+    saved = torch.load(inputs)
+    main, stage = ([x.to(dev) for x in saved[k]] for k in ("main", "stage"))
     rec = {"defines": list(defines), "root": root,
            "ms_rollout": cs._time_cuda(lambda: run.kernel(*xs), 3),
-           "ms_period": cs._time_cuda(lambda: prun.kernel(q, v, cmd), 5)}
-    if not defines or defines == OCCUPANCY:
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        tau = eng._compute_efforts(cmd, v)[1].contiguous()
-        occ = []
-        for k in OCCUPANCY_K:
-            b = 32 * k * sms
-            sub = tuple(x[:b].contiguous() for x in xs)
-            ms_a = cs._time_cuda(lambda: eng._cdyn.accel_kernel(q[:b], v[:b], tau[:b]), 20)
-            ms_r = cs._time_cuda(lambda: run.kernel(*sub), 2)
-            occ.append({"k": k, "B": b, "ms_accel": ms_a, "ms_rollout": ms_r,
-                        "ns_per_env_accel": ms_a * 1e6 / b, "ns_per_env_rollout": ms_r * 1e6 / b})
-        rec["occupancy"] = occ
-        rec["ns_per_env_accel_full"] = cs._time_cuda(
-            lambda: eng._cdyn.accel_kernel(q, v, tau), 20) * 1e6 / cs.B_MAIN
+           "ms_period": cs._time_cuda(lambda: prun.kernel(q, v, cmd), 5),
+           "ms_accel_main": cs._time_cuda(lambda: eng._cdyn.accel_kernel(*main), 20),
+           "ms_accel_stage": cs._time_cuda(lambda: eng._cdyn.accel_kernel(*stage), 20)}
+    # The spring-damper main path end to end, as chip_smoke.py times it,
+    # RUNS times over (host clock; the median is reported)
+    rec["env_steps_per_s"] = []
+    for _ in range(RUNS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(cs.N_STEPS):
+            st, *_ = env.step(st, action)
+        torch.cuda.synchronize()
+        rec["env_steps_per_s"].append(cs.B_MAIN * cs.N_STEPS / (time.perf_counter() - t0))
     if not root:
         from jiminy_torch.ops import cdyn
 
         packed = run.cd.pack(run.tau_c, run.dt, run.imu_frames, dev, torch.float32)
-        smem = getattr(cdyn, "sp_smem_per_env", None)
-        if smem is not None:
-            rec["smem_per_env"] = smem(packed, run.controller.n_cmd, xs[2].shape[1],
-                                       xs[3].shape[1], torch.float32)
+        rec["smem_per_env"] = cdyn.sp_smem_per_env(packed, run.controller.n_cmd, xs[2].shape[1],
+                                                   xs[3].shape[1], torch.float32)
+        rec["accel_smem_per_env"] = cdyn.accel_smem_per_env(packed, torch.float32)
+        c = packed.counts
+        rec["accel_geometry"] = kernels.load().accel_smem_bytes(c["nj"], c["nq"], c["nv"],
+                                                                c["nc"], 4)[1:]
+        # The four struct-of-arrays copies a (n, B) kernel would need a call
+        # (three inputs, one output), which cdyn_accel's (B, n) rows avoid
+        out = torch.empty((c["nv"], cs.B_MAIN), device=dev)
+        rec["ms_accel_soa_copies"] = cs._time_cuda(
+            lambda: [x.t().contiguous() for x in (*main, out)], 20)
     print(json.dumps(rec), flush=True)
 
 
@@ -196,11 +240,49 @@ def build_against(root):
     return json.loads(proc.stdout.strip().splitlines()[-1])
 
 
+def run_pairs(pairs, steps, against, out, report, smi):
+    """`pairs` pairs of processes, the other checkout's default build and
+    this one's, alternating which runs first; the spring-damper env-steps/s
+    of each process is the median of its RUNS runs."""
+    sides = {"parent": [], "change": []}
+    for i in range(pairs):
+        for side in ("parent", "change") if i % 2 == 0 else ("change", "parent"):
+            rec = run_child(steps, root=against if side == "parent" else None)
+            if rec is None:
+                return 1
+            sides[side].append(rec)
+            report(rec, f"pair {i + 1}, {side}")
+    med = {k: [statistics.median(r["env_steps_per_s"]) for r in v] for k, v in sides.items()}
+    ahead = sum(c > p for p, c in zip(med["parent"], med["change"]))
+
+    def summary(xs):
+        q1, q2, q3 = statistics.quantiles(xs, n=4)
+        return f"{q2:.1f} (quartiles {q1:.1f}-{q3:.1f})"
+
+    print(f"[sp-profile] {pairs} pairs, alternating: spring-damper env-steps/s, the median of the "
+          f"processes' medians: {against} {summary(med['parent'])}, this checkout "
+          f"{summary(med['change'])}; this checkout ahead in {ahead} of {pairs} pairs; "
+          f"cdyn_rollout {statistics.median(r['ms_rollout'] for r in sides['parent']):.3f} / "
+          f"{statistics.median(r['ms_rollout'] for r in sides['change']):.3f} ms on {smi}",
+          flush=True)
+    out["pairs"] = sides
+    with open(os.path.join("chiprun_out", "spring_profile_pairs.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    return 0
+
+
 def main(argv):
     steps = int(argv[argv.index("--steps") + 1]) if "--steps" in argv else 2
     against = os.path.abspath(argv[argv.index("--against") + 1]) if "--against" in argv else None
+    pairs = int(argv[argv.index("--pairs") + 1]) if "--pairs" in argv else 0
+    if pairs and not against:
+        print("spring_profile: --pairs needs --against", file=sys.stderr)
+        return 2
     if "--child" in argv:
         child(tuple(argv[argv.index("--child") + 1:]), steps, against)
+        return 0
+    if "--inputs" in argv:
+        make_inputs(steps)
         return 0
 
     import torch
@@ -212,7 +294,8 @@ def main(argv):
         print("spring_profile: no CUDA device", file=sys.stderr)
         return 2
     smi = cs.nvidia_smi_line()
-    builds = [()] + [defines_of(*g) for g in CANDIDATES[1:]] + [OCCUPANCY]
+    builds = [()] if pairs else ([()] + [defines_of(*g) for g in CANDIDATES[1:]]
+                                 + [(f"CDYN_ACCEL_ENVS={e}",) for e in ACCEL_ENVS])
     os.makedirs("chiprun_out", exist_ok=True)
     with ThreadPoolExecutor(len(builds) + 2) as pool:
         done = pool.submit(build_against, against) if against else None
@@ -235,18 +318,29 @@ def main(argv):
         print(f"[sp-profile] {against} SASS, LDL / STL per function: "
               f"{out['against']['sass_local']}; ptxas (float32): {out['against']['ptxas']}",
               flush=True)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--steps", str(steps),
+                           "--inputs"], capture_output=True, text=True)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+        return 1
 
     def report(rec, label):
-        occ = ""
-        if "occupancy" in rec:
-            occ = "; occupancy (k warps an SM in one-warp blocks for the accel build): " + ", ".join(
-                f"k={o['k']} accel {o['ns_per_env_accel']:.3f} / rollout {o['ns_per_env_rollout']:.1f}"
-                f" ns per env" for o in rec["occupancy"])
-            occ += f"; accel at B={cs.B_MAIN}: {rec['ns_per_env_accel_full']:.3f} ns per env"
-        smem = f", {rec['smem_per_env']} B a env" if "smem_per_env" in rec else ""
+        smem = ""
+        if "smem_per_env" in rec:
+            smem = (f", {rec['smem_per_env']} B a env (rollout), {rec['accel_smem_per_env']} B "
+                    f"(accel, {rec['accel_geometry'][0]} lanes x {rec['accel_geometry'][1]} envs; "
+                    f"the (n, B) copies it avoids {rec['ms_accel_soa_copies']:.4f} ms a call)")
         print(f"[sp-profile] {label}{smem}: cdyn_rollout {rec['ms_rollout']:.3f} ms, cdyn_period "
-              f"{rec['ms_period']:.3f} ms (float32, B={cs.B_MAIN}, CUDA events){occ} on {smi}",
+              f"{rec['ms_period']:.3f} ms, cdyn_accel {rec['ms_accel_main']:.4f} ms on the main "
+              f"path's states / {rec['ms_accel_stage']:.4f} ms on DOPRI stage states (float32, "
+              f"B={cs.B_MAIN}, CUDA events); spring-damper "
+              f"{statistics.median(rec['env_steps_per_s']):.1f} env-steps/s (median of "
+              f"{len(rec['env_steps_per_s'])} runs of {cs.N_STEPS} steps, host clock; "
+              f"{min(rec['env_steps_per_s']):.1f}-{max(rec['env_steps_per_s']):.1f}) on {smi}",
               flush=True)
+
+    if pairs:
+        return run_pairs(pairs, steps, against, out, report, smi)
 
     def time_against():
         rec = run_child(steps, root=against)
@@ -262,8 +356,6 @@ def main(argv):
         rec = run_child(steps, defines)
         if rec is None:
             return 1
-        if defines and defines != OCCUPANCY:
-            rec["lanes"], rec["envs_per_block"] = (int(d.split("=")[1]) for d in defines)
         rec["ptxas"] = ptxas_lines(res.ptxas_log)
         out["builds"].append(rec)
         report(rec, " ".join(defines) or "default build")

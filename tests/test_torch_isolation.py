@@ -14,6 +14,8 @@ import torch
 
 import jiminy_torch
 from jiminy_torch.engine.config import (
+    ContactModel,
+    ContactOptions,
     EngineOptions,
     IntegratorType,
     StepperOptions,
@@ -106,7 +108,8 @@ def test_unported_options_raise_not_implemented(env):
     base = dict(joint_bounds_mode="penalty")
     for opts in (
         EngineOptions(use_fast_dynamics=False, **base),
-        EngineOptions(stepper=stepper, **base),
+        EngineOptions(stepper=stepper, contacts=ContactOptions(model=ContactModel.CONSTRAINT),
+                      joint_bounds_mode="constraint"),
         EngineOptions(joint_bounds_mode="constraint"),
         EngineOptions(world=WorldOptions(ground_profile=lambda xy: (0.0, (0.0, 0.0, 1.0))), **base),
     ):

@@ -85,6 +85,40 @@ def test_accel_kernel_matches_plain(cuda_device, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [131071, 1])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_accel_kernel_matches_plain_at_ragged_batches(cuda_device, dtype, batch):
+    """cdyn_accel with the last block of envs part-filled, on (B, n) rows
+    handed in as they are (no copy) and on a broadcast torque row."""
+    env = _env(cuda_device, dtype)
+    cd = env.engine._cdyn
+    q, v, tau = perturbed_states(env, batch, seed=5)
+    for t in (tau, tau[0]):
+        out = cd.accel_kernel(q, v, t)
+        ref = cd.accel_plain(q, v, t)
+        torch.cuda.synchronize()
+        assert out.shape == (batch, env.robot.nv) and torch.isfinite(out).all()
+        assert _error(out, ref, dtype) < TOL[dtype][0]
+
+
+@pytest.mark.cuda
+def test_accel_slice_size_matches_its_layout(cuda_device):
+    """The library's cdyn_accel slice is the size tests/test_torch_accel_slice.py
+    derives from its layout, smaller than the period kernel's."""
+    from test_torch_accel_slice import accel_slice_bytes
+
+    from jiminy_torch.ops import kernels
+
+    c = _env(cuda_device, torch.float32).engine._cdyn.pack(None, 0.0, (), cuda_device,
+                                                          torch.float32).counts
+    lib = kernels.load()
+    for elt in (4, 8):
+        per_env, lanes, envs = lib.accel_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt)
+        assert per_env == accel_slice_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt, lanes)
+        assert per_env < lib.sp_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], 12, 0, 0, elt)[0]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_period_kernel_matches_plain(cuda_device, dtype):
     env = _env(cuda_device, dtype)
@@ -161,18 +195,21 @@ def test_spring_kernels_match_plain_at_ragged_batches(cuda_device, dtype, contro
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["cdyn_period", "cdyn_rollout"])
+@pytest.mark.parametrize("kernel", ["cdyn_period", "cdyn_rollout", "cdyn_accel"])
 def test_spring_launch_refuses_what_does_not_fit(cuda_device, kernel, monkeypatch):
     """A launch whose envs would need more shared memory than a block may
     use raises; nothing runs in its place."""
     env = _env(cuda_device, torch.float32)
     nm = env.robot.nmotors
-    q, v, _ = perturbed_states(env, 4, seed=4)
+    q, v, tau = perturbed_states(env, 4, seed=4)
     action = torch.zeros((4, nm), dtype=torch.float32, device=cuda_device)
     monkeypatch.setattr(cdyn, "sp_smem_per_env", lambda *args: 200_000)
+    monkeypatch.setattr(cdyn, "accel_smem_per_env", lambda *args: 200_000)
     cdyn.reset_launch_counts()
     with pytest.raises(RuntimeError, match=kernel):
-        if kernel == "cdyn_period":
+        if kernel == "cdyn_accel":
+            env.engine._cdyn.accel_kernel(q, v, tau)
+        elif kernel == "cdyn_period":
             env.env.engine._get_period_run("rk4").kernel(q, v, action)
         else:
             ctrl = cdyn.ZOHPassThrough(nm)
@@ -192,6 +229,36 @@ def test_wrappers_route_cuda_tensors_to_kernels(cuda_device):
     assert cdyn.KERNELS["cdyn_accel"].launches == 1
     assert cdyn.KERNELS["cdyn_rollout"].launches == 1
     assert torch.isfinite(st.sim.q).all()
+
+
+@pytest.mark.cuda
+def test_dopri_steps_through_cdyn_accel(cuda_device):
+    """Adaptive DOPRI on the card: every dynamics evaluation of a period is
+    one cdyn_accel launch over the batch, 2 + 6 x the period's trials (the
+    most any env took); at float64 the period matches the plain path on the
+    CPU, trial for trial."""
+    from jiminy_torch.testing import dopri_options
+
+    def engine(device):
+        base = _env(device, torch.float64).engine.options
+        return make("anymal-pid", device=device, dtype=torch.float64,
+                    options=dopri_options(base)).engine
+
+    eng, eng_cpu = engine(cuda_device), engine("cpu")
+    env_cpu = make("anymal-pid", device="cpu", dtype=torch.float64)
+    q, v, _ = perturbed_states(env_cpu, 6, seed=6)
+    cmd = torch.zeros((6, 12), dtype=torch.float64)
+    st_cpu = eng_cpu.step(eng_cpu.reset(q, v * 0.1), cmd)
+    st = eng.reset(q.to(cuda_device), (v * 0.1).to(cuda_device))
+    cdyn.reset_launch_counts()
+    st = eng.step(st, cmd.to(cuda_device))
+    torch.cuda.synchronize()
+    trials = (st.stepper.iterations + st.stepper.iter_failed).cpu()
+    assert torch.equal(trials, st_cpu.stepper.iterations + st_cpu.stepper.iter_failed)
+    assert cdyn.KERNELS["cdyn_accel"].launches == 2 + 6 * int(trials.max())
+    assert sum(k.launches for k in cdyn.KERNELS.values()) == cdyn.KERNELS["cdyn_accel"].launches
+    for a, b in ((st.q, st_cpu.q), (st.v, st_cpu.v), (st.a, st_cpu.a)):
+        assert float(column_errors(a.cpu(), b).max()) < 1e-9
 
 
 def _cm_env(device, dtype):
