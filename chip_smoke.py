@@ -29,11 +29,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    split into kernel and glue. Then two periods from the standing robot, its
    velocities perturbed, at float64, B=256, through the kernel and through
    `accel_plain`: the same trials, q, v and a within 1e-9.
-6. Kernels at the main path's shapes (B=131072): float32 on the main path's
-   own states, timed (CUDA events) beside its plain version (cdyn_accel also
-   on DOPRI's stage states); float64 on the same states, every column within
-   1e-9 in every env; float64 and float32 on perturbed states (not at
-   equilibrium), as in phase 3 (the whole 8-tick rollout is let stray
+6. The three spring kernels at the main path's shapes (B=131072), one
+   function for each robot (`phase_kernel_records`): float32 on the main
+   path's own states, timed (CUDA events) beside its plain version (cdyn_accel
+   also on DOPRI's stage states), TOL's float32 measure printed beside a
+   one-ulp witness; float64 on the same states, every column within 1e-9 in
+   every env, and a zeroed output refused; float64 and float32 on perturbed
+   states (not at equilibrium), as in phase 3 (the rollout is let stray
    beyond 1e-9 in at most F64_CHAOS_SHARE of the envs, with a last-bit nudge
    of the input as the witness of how far rounding alone carries them); and
    at a batch one env short (the last block of envs part-filled) against the
@@ -64,10 +66,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    state, those with an exactly-zero operand (structural or inactive-row
    zeros) folded away.
 
+9. Atlas golden rows: atlas-reduced-pid at float64 through the kernels, both
+   paths, ATLAS_GOLDEN_ROWS rows of tests/goldens/atlas-reduced-pid.csv.
+   The standing humanoid amplifies a difference tenfold a controller tick
+   once its feet touch down, so env 0 is held to GOLDEN_REACH times the
+   spread of two witnesses started with the base height one ulp up and down
+   (envs 1, 2), plus GOLDEN_ATOL, row by row.
+10. Atlas main path: make("atlas-pid") (31 joints, nv 36, 30 motors, 12
+   contact points; 16 controller ticks of 5 RK4 substeps a step) at float32
+   on the card, launch counts set to 0, batched reset at B=131072, a warm-up
+   step and N_STEPS_ATLAS steps of zero actions, counts read; env-steps/s,
+   the cdyn_rollout launch (CUDA events), the share of terminated envs;
+   then one step of the per-period path.
+11. The three spring kernels on atlas-pid's path states, as in phase 6 at
+   B=131072, each rollout held to its plain version over ATLAS_CHECK_TICKS
+   controller ticks (one-ulp differences grow tenfold a tick on the standing
+   humanoid), the plain rollout's whole-step time extrapolated from its
+   times over 1 and ATLAS_CHECK_TICKS ticks. Their records join the kernel
+   line with `"model": "atlas-pid"`.
+
 The last two lines are the `{"kernels": [...]}` record and the device line.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -84,6 +106,10 @@ TOL = {"float64": (1e-9, 1e-9), "float32": (2e-3, 1e-2)}
 ERR_NAME = {"float64": "column max rel err", "float32": "column q90 err / rms"}
 F64_CHAOS_SHARE = 0.01
 GOLDEN_ATOL = 1e-9
+GOLDEN_REACH = 5.0  # atlas golden rows: times the one-ulp witnesses' spread
+ATLAS_GOLDEN_ROWS = 10
+N_STEPS_ATLAS = 10  # atlas-pid main path
+ATLAS_CHECK_TICKS = 2  # atlas rollouts held to their plain version: controller ticks
 N_STEPS_CM = 25  # constrained main path
 N_STEPS_DOPRI = 5  # DOPRI main path
 B_DOPRI_F64 = 256  # DOPRI kernel-vs-plain periods
@@ -638,28 +664,65 @@ def _time_cuda(fn, n):
     return start.elapsed_time(end) / n
 
 
-def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2, dopri):
-    """Each kernel at the main path's shapes (B = B_MAIN).
+def _spring_geometry(eng, nm, n_carry):
+    """The spring kernels' launch geometry and shared memory an env for the
+    engine's model (a PD rollout of `nm` motors and an `n_carry` carry), and
+    the envs an SM the runtime keeps, at float32 and float64."""
+    from jiminy_torch.ops import kernels
+
+    c = eng._cdyn.pack(None, 0.0, (), eng.device, eng.dtype).counts
+    geometry = {}
+    lib = kernels.load()
+    for name, widths in (("cdyn_accel", None), ("cdyn_period", (nm, 0, 0)),
+                         ("cdyn_rollout", (nm, nm, n_carry))):
+        per_env = {elt: lib.accel_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt)
+                   if widths is None else
+                   lib.sp_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], *widths, elt)
+                   for elt in (4, 8)}
+        lanes, envs = per_env[4][1:]
+        per_sm = {elt: lib.sp_envs_per_sm(name, elt, per_env[elt][0]) for elt in (4, 8)}
+        geometry[name] = {"lanes_per_env": lanes, "envs_per_block": envs,
+                          "smem_per_env": per_env[4][0], "smem_per_env_f64": per_env[8][0],
+                          "envs_per_sm": per_sm[4], "envs_per_sm_f64": per_sm[8]}
+        log(f"[smem] {eng.robot.name} {name}: {lanes} lanes an env, {envs} envs a block; "
+            f"{per_env[4][0]} B of shared memory an env at float32, {per_env[8][0]} B at float64 "
+            f"({envs * per_env[4][0]} / {envs * per_env[8][0]} B a block); the runtime keeps "
+            f"{per_sm[4]} / {per_sm[8]} envs an SM")
+        check(per_sm[4] > 0 and per_sm[8] > 0, f"{name}: no block of {eng.robot.name} fits an SM")
+    return geometry
+
+
+def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, dopri=None):
+    """The three spring kernels at the main path's shapes (B = B_MAIN) for
+    `model` (the env id of `env`, float32 on the card), `launches` each
+    kernel's count in its main path's run.
 
     - float32 on the main path's own states (`st` after the fused steps,
       `st2` after the per-period steps): the kernel timed with CUDA events,
-      its plain version with the host clock, and their largest difference;
-      cdyn_accel also timed on a DOPRI trial's stage states (`dopri`, phase 5).
-      These standing states are not checked at float32: there the
-      accelerations are small differences of large contact and gravity
-      forces, which float32 rounding alone moves by a large share.
-    - float64 on the same states: every output column within TOL in every env.
+      its plain version with the host clock, their largest difference, and
+      TOL's float32 measure printed beside the kernel against itself with q
+      moved one ulp; cdyn_accel also timed on a DOPRI trial's stage states
+      (`dopri`, phase 5). These standing states are not held at float32:
+      there the accelerations are small differences of large contact and
+      gravity forces, which float32 rounding alone moves by a large share.
+    - float64 on the same states: every output column within TOL in every
+      env; a zeroed output is refused.
     - float64 on perturbed states (`perturbed_states`, seed 0: feet in the
       ground, joints past their bounds, random velocities, torques, commands
-      and actions): the same, except that the whole 8-tick rollout may stray
-      in up to F64_CHAOS_SHARE of the envs. Beside it, the kernel against
-      itself on the input moved by one ulp: the share of envs that rounding
-      alone carries as far.
+      and actions): the same, except that the rollout may stray in up to
+      F64_CHAOS_SHARE of the envs. Beside it, the kernel against itself on
+      the input moved by one ulp: the share of envs that rounding alone
+      carries as far. Then a batch one env short (the last block of envs
+      part-filled) against the same plain outputs.
     - float32 on the perturbed states: every output column within TOL
       (90th percentile over envs, relative to the column's RMS).
-    """
-    import math
 
+    With `check_ticks`, every rollout held against its plain version runs
+    that many controller ticks (a humanoid's 16 ticks carry a one-ulp
+    difference far), and the plain rollout's time over a whole step is
+    extrapolated from its times over 1 and `check_ticks` ticks (every tick
+    runs the same ops).
+    """
     import torch
 
     from jiminy_torch.envs import make
@@ -667,28 +730,32 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2, dop
     from jiminy_torch.testing import perturbed_states
 
     device = env.device
-    env64 = make("anymal-pid", device=device, dtype=torch.float64)
+    env64 = make(model, device=device, dtype=torch.float64)
     engines = {torch.float32: env.env.engine, torch.float64: env64.env.engine}
     elt = 4
     nq, nv, nm = env.robot.nq, env.robot.nv, env.robot.nmotors
-    env_cpu = make("anymal-pid", device="cpu", dtype=torch.float64)
+    env_cpu = make(model, device="cpu", dtype=torch.float64)
     ops = plain_op_counts(env_cpu, prune_zeros=True)
     ops_generic = plain_op_counts(env_cpu, prune_zeros=False)
-    log(f"[ops] plain-version ops per env, structural zeros folded away: {ops}")
-    log(f"[ops] plain-version ops per env, generic formulation (what the kernels run): {ops_generic}")
+    del env_cpu
+    log(f"[ops] {model} plain-version ops per env, structural zeros folded away: {ops}")
+    log(f"[ops] {model} plain-version ops per env, generic formulation (what the kernels run): "
+        f"{ops_generic}")
 
     block = env.block.name
     ctrl = env.env._component_controllers[block]
     n_ticks = env.env.n_ctrl_per_step
 
-    def fns(name, eng):
+    def fns(name, dtype, ticks=None):
+        eng = engines[dtype]
         if name == "cdyn_accel":
             return eng._cdyn.accel_kernel, eng._cdyn.accel_plain
         if name == "cdyn_period":
             run = eng._get_period_run("rk4")
-        else:
-            run = eng._get_rollout_run(block, ctrl, n_ticks)
-        return run.kernel, run.plain
+            return run.kernel, run.plain
+        run = eng._get_rollout_run(block, ctrl, n_ticks)
+        return (lambda *xs: run.kernel(*xs, n_ticks=ticks),
+                lambda *xs: run.plain(*xs, n_ticks=ticks))
 
     # Main path states, float32 as stepped
     q, v = st.sim.q.contiguous(), st.sim.v.contiguous()
@@ -717,104 +784,105 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2, dop
         "cdyn_period": 2 * nq + 2 * nv + nm + n_extra,
         "cdyn_rollout": 2 * nq + 2 * nv + nm + carry.shape[1] + n_extra_r,
     }
-    launches = {"cdyn_accel": dopri["launches"],
-                "cdyn_period": period_launches["cdyn_period"],
-                "cdyn_rollout": fused_launches["cdyn_rollout"]}
     n_time = {"cdyn_accel": 20, "cdyn_period": 5, "cdyn_rollout": 3}
-    # The spring kernels' launch geometry and shared memory an env
-    from jiminy_torch.ops import kernels
-
-    c = engines[torch.float32]._cdyn.pack(None, 0.0, (), device, torch.float32).counts
-    geometry = {}
-    lib = kernels.load()
-    for name, widths in (("cdyn_accel", None), ("cdyn_period", (nm, 0, 0)),
-                         ("cdyn_rollout", (nm, nm, carry.shape[1]))):
-        per_env = {elt: lib.accel_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt)
-                   if widths is None else
-                   lib.sp_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], *widths, elt)
-                   for elt in (4, 8)}
-        lanes, envs = per_env[4][1:]
-        per_sm = {elt: lib.sp_envs_per_sm(name, elt, per_env[elt][0]) for elt in (4, 8)}
-        geometry[name] = {"lanes_per_env": lanes, "envs_per_block": envs,
-                          "smem_per_env": per_env[4][0], "smem_per_env_f64": per_env[8][0],
-                          "envs_per_sm": per_sm[4], "envs_per_sm_f64": per_sm[8]}
-        log(f"[smem] {name}: {lanes} lanes an env, {envs} envs a block; {per_env[4][0]} B of shared "
-            f"memory an env at float32, {per_env[8][0]} B at float64 ({envs * per_env[4][0]} / "
-            f"{envs * per_env[8][0]} B a block); the runtime keeps {per_sm[4]} / {per_sm[8]} envs "
-            f"an SM")
+    geometry = _spring_geometry(engines[torch.float32], nm, carry.shape[1])
 
     def as_tuple(x):
         return x if isinstance(x, tuple) else (x,)
 
-    def run_pair(name, dtype, xs):
-        kern, plain = fns(name, engines[dtype])
+    def run_pair(name, dtype, xs, ticks):
+        kern, plain = fns(name, dtype, ticks)
         outs, refs = as_tuple(kern(*xs)), as_tuple(plain(*xs))
         torch.cuda.synchronize()
         check(all(bool(torch.isfinite(o).all()) for o in outs), f"{name}: non-finite kernel output")
         return outs, refs
+
+    def plain_time(plain, xs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = as_tuple(plain(*xs))
+        torch.cuda.synchronize()
+        return refs, (time.perf_counter() - t0) * 1e3
 
     records = []
     for name in ("cdyn_accel", "cdyn_period", "cdyn_rollout"):
         integrated = name != "cdyn_accel"
         tol64 = TOL["float64"][integrated]
         tol32 = TOL["float32"][integrated]
+        ticks = check_ticks if name == "cdyn_rollout" else None
+        span = f" ({ticks} ticks)" if ticks else ""
 
         # float32, main path states: timing and distance
-        kern32, plain32 = fns(name, engines[torch.float32])
         xs = main_inputs[name]
+        kern32 = fns(name, torch.float32)[0]
         ms = _time_cuda(lambda: kern32(*xs), n_time[name])
         ms_stage = None
-        if name == "cdyn_accel":
+        if name == "cdyn_accel" and dopri:
             ms_stage = _time_cuda(lambda: kern32(*dopri["stage_inputs"]), n_time[name])
-        outs = as_tuple(kern32(*xs))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        refs = as_tuple(plain32(*xs))
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        kern_c, plain_c = fns(name, torch.float32, ticks)
+        outs = as_tuple(kern_c(*xs))
+        refs, plain_ms = plain_time(plain_c, xs)
+        plain_basis = "measured"
+        if ticks:
+            _, ms_one = plain_time(fns(name, torch.float32, 1)[1], xs)
+            plain_ms = ms_one + (n_ticks - 1) * (plain_ms - ms_one) / (ticks - 1)
+            plain_basis = f"extrapolated to {n_ticks} ticks from 1 and {ticks}"
         e_abs = abs_err(outs, refs)
+        e32_path, at32_path = output_error(outs, refs, "float32")
+        nudged = (torch.nextafter(xs[0], torch.full_like(xs[0], math.inf)),) + xs[1:]
+        e32_ulp, _ = output_error(as_tuple(kern_c(*nudged)), outs, "float32")
+        log(f"[check] {model} {name} float32 B={B_MAIN}{span}, main path states (printed, not "
+            f"held): {ERR_NAME['float32']} {e32_path:.3e} at {at32_path}, max abs err {e_abs:.3e}; "
+            f"the kernel against itself with q moved one ulp {e32_ulp:.3e}")
         del outs, refs
 
         # float64, main path states: every column, every env
-        outs, refs = run_pair(name, torch.float64, tuple(x.double() for x in xs))
+        outs, refs = run_pair(name, torch.float64, tuple(x.double() for x in xs), ticks)
         e64_main, at64_main = output_error(outs, refs, "float64")
-        log(f"[check] {name} float64 B={B_MAIN}, main path states: column max rel err "
-            f"{e64_main:.3e} at {at64_main} (tol {tol64:g})")
-        check(e64_main < tol64, f"{name} float64 disagrees on the main path's states: {e64_main}")
+        e_zero, _ = output_error(tuple(torch.zeros_like(o) for o in outs), refs, "float64")
+        log(f"[check] {model} {name} float64 B={B_MAIN}{span}, main path states: column max rel "
+            f"err {e64_main:.3e} at {at64_main} (tol {tol64:g}); a zeroed output {e_zero:.3e}")
+        check(e64_main < tol64, f"{model} {name} float64 disagrees on the main path's states: "
+              f"{e64_main}")
+        check(e_zero > tol64, f"{model} {name}: the check passes a zeroed output")
         del outs, refs
 
         # float64, perturbed states, with the one-ulp witness
         xs = pert[torch.float64][name]
-        outs, refs = run_pair(name, torch.float64, xs)
+        kern64 = fns(name, torch.float64, ticks)[0]
+        outs, refs = run_pair(name, torch.float64, xs, ticks)
         e64_pert, at64_pert = output_error(outs, refs, "float64")
         share = share_beyond(outs, refs, tol64)
         nudged = (torch.nextafter(xs[0], torch.full_like(xs[0], math.inf)),) + xs[1:]
-        outs_n = as_tuple(fns(name, engines[torch.float64])[0](*nudged))
+        outs_n = as_tuple(kern64(*nudged))
         share_n = share_beyond(outs_n, outs, tol64)
         e_nudge, at_nudge = output_error(outs_n, outs, "float64")
         allowed = F64_CHAOS_SHARE if name == "cdyn_rollout" else 0.0
-        log(f"[check] {name} float64 B={B_MAIN}, perturbed states: column max rel err "
-            f"{e64_pert:.3e} at {at64_pert}; share of envs beyond {tol64:g}: {share:.3e} "
+        log(f"[check] {model} {name} float64 B={B_MAIN}{span}, perturbed states: column max rel "
+            f"err {e64_pert:.3e} at {at64_pert}; share of envs beyond {tol64:g}: {share:.3e} "
             f"(allowed {allowed:g}); the kernel against itself with q moved one ulp: "
             f"{e_nudge:.3e} at {at_nudge}, share beyond {tol64:g}: {share_n:.3e}")
-        check(share <= allowed, f"{name} float64 disagrees on perturbed states: share {share}")
+        check(share <= allowed, f"{model} {name} float64 disagrees on perturbed states: "
+              f"share {share}")
         # the last block of envs part-filled, against the same plain outputs
         b_rag = B_MAIN - 1
-        outs_rag = as_tuple(fns(name, engines[torch.float64])[0](*(x[:b_rag] for x in xs)))
+        outs_rag = as_tuple(kern64(*(x[:b_rag] for x in xs)))
         share_rag = share_beyond(outs_rag, tuple(r[:b_rag] for r in refs), tol64)
-        log(f"[check] {name} float64 B={b_rag} (ragged), perturbed states: share of envs "
-            f"beyond {tol64:g}: {share_rag:.3e} (allowed {allowed:g})")
+        log(f"[check] {model} {name} float64 B={b_rag} (ragged){span}, perturbed states: share "
+            f"of envs beyond {tol64:g}: {share_rag:.3e} (allowed {allowed:g})")
         check(all(bool(torch.isfinite(o).all()) for o in outs_rag), f"{name}: non-finite output")
-        check(share_rag <= allowed, f"{name} float64 disagrees at B={b_rag}: {share_rag}")
+        check(share_rag <= allowed, f"{model} {name} float64 disagrees at B={b_rag}: {share_rag}")
         del outs_rag
         del outs, refs, outs_n
 
         # float32, perturbed states: per column, q90 over envs / column RMS
-        outs, refs = run_pair(name, torch.float32, pert[torch.float32][name])
+        outs, refs = run_pair(name, torch.float32, pert[torch.float32][name], ticks)
         e32_pert, at32_pert = output_error(outs, refs, "float32")
-        log(f"[check] {name} float32 B={B_MAIN}, perturbed states: column q90 err / rms "
-            f"{e32_pert:.3e} at {at32_pert} (tol {tol32:g}); max abs err {abs_err(outs, refs):.3e}")
-        check(e32_pert < tol32, f"{name} float32 disagrees on perturbed states: {e32_pert}")
+        log(f"[check] {model} {name} float32 B={B_MAIN}{span}, perturbed states: column q90 err "
+            f"/ rms {e32_pert:.3e} at {at32_pert} (tol {tol32:g}); max abs err "
+            f"{abs_err(outs, refs):.3e}")
+        check(e32_pert < tol32, f"{model} {name} float32 disagrees on perturbed states: "
+              f"{e32_pert}")
         del outs, refs
 
         t_ops = ops[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
@@ -832,10 +900,15 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2, dop
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
+            "model": model,
+            "check_ticks": ticks,
+            "plain_ms_basis": plain_basis,
             "ops_per_env": ops[name],
             "ops_per_env_generic": ops_generic[name],
             "bound_ms_generic": max(t_ops_generic, t_bytes),
             "bytes_per_env": io_per_env[name] * elt,
+            "f32_q90_err_main": e32_path,
+            "f32_q90_err_main_one_ulp": e32_ulp,
             "f64_err_main": e64_main,
             "f64_err_perturbed": e64_pert,
             "f64_share_perturbed": share,
@@ -845,15 +918,143 @@ def phase_kernel_records(env, fused_launches, period_launches, smi, st, st2, dop
             **({"ms_dopri_stage": ms_stage, "launches_path": "dopri",
                 "dopri_trials_mean": dopri["trials_mean"], "dopri_trials_max": dopri["trials_max"],
                 "dopri_env_steps_per_s": dopri["steps_per_s"]} if ms_stage else {}),
-            **geometry.get(name, {}),
+            **geometry[name],
         }
         stage_note = f" ({ms_stage:.4f} ms on DOPRI stage states)" if ms_stage else ""
-        log(f"[kernel] {name} B={B_MAIN} float32: {ms:.4f} ms{stage_note} (CUDA events), plain {plain_ms:.1f} ms "
-            f"(host clock), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; generic formulation "
-            f"{rec['bound_ms_generic']:.4f} ms); |kernel-plain| on the main path's states "
-            f"{e_abs:.3e} on {smi}")
+        log(f"[kernel] {model} {name} B={B_MAIN} float32: {ms:.4f} ms{stage_note} (CUDA events), "
+            f"plain {plain_ms:.1f} ms (host clock, {plain_basis}), bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}; generic formulation {rec['bound_ms_generic']:.4f} ms), "
+            f"{rec['bound_ms'] / ms:.2%} of it; |kernel-plain| on the main path's states"
+            f"{span} {e_abs:.3e}; launches {rec['launches']} on {smi}")
         records.append(rec)
     return records
+
+
+# --------------------------------------------------------------------------- #
+# Atlas (atlas-reduced-pid, atlas-pid): the three spring kernels at the
+# full 36-dof humanoid
+# --------------------------------------------------------------------------- #
+
+
+def _golden_row(sim, reward, i):
+    import numpy as np
+
+    return np.concatenate([[float(sim.t[i])], sim.q[i].cpu().numpy(), sim.v[i].cpu().numpy(),
+                           [float(reward[i])], sim.contact_forces[i].cpu().numpy().ravel()])
+
+
+def phase_atlas_golden(device):
+    """atlas-reduced-pid at float64 through the kernels, both paths, against
+    tests/goldens/atlas-reduced-pid.csv. After the feet touch down the
+    standing Atlas amplifies a difference tenfold a controller tick, so no
+    program that rounds otherwise than the golden's can stay within
+    GOLDEN_ATOL of it: env 0 is held to GOLDEN_REACH times the largest
+    distance between it and two witnesses started with the base height one
+    ulp up and down (envs 1, 2), plus GOLDEN_ATOL, row by row."""
+    import numpy as np
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.ops import cdyn
+
+    golden = np.loadtxt(os.path.join(ROOT, "tests", "goldens", "atlas-reduced-pid.csv"),
+                        delimiter=",", skiprows=1)
+    for fused in (True, False):
+        genv = make("atlas-reduced-pid", device=device, dtype=torch.float64)
+        genv.use_fused_rollout = fused
+        gst, _ = genv.reset(batch_size=3)
+        q = gst.sim.q.clone()
+        for w, to in ((1, math.inf), (2, -math.inf)):
+            q[w, 2] = torch.nextafter(q[w, 2], torch.tensor(to, dtype=q.dtype, device=device))
+        gst = gst.replace(sim=gst.sim.replace(q=q))
+        zero = torch.zeros(genv.action_size, dtype=torch.float64, device=device)
+        cdyn.reset_launch_counts()
+        worst = 0.0
+        for k in range(ATLAS_GOLDEN_ROWS):
+            gst, _, rew, term, *_ = genv.step(gst, zero)
+            own = _golden_row(gst.sim, rew, 0)
+            dist = float(np.abs(own - golden[k]).max())
+            spread = max(float(np.abs(_golden_row(gst.sim, rew, w) - own).max()) for w in (1, 2))
+            limit = GOLDEN_REACH * spread + GOLDEN_ATOL
+            worst = max(worst, dist / limit)
+            log(f"[atlas golden] float64 {'fused' if fused else 'per-period'} row {k}: max abs "
+                f"err {dist:.3e}, one-ulp witnesses {spread:.3e} (limit {limit:.3e})")
+            check(not bool(term.any()), "atlas-reduced-pid terminated on the golden path")
+            check(spread < 1.0 and dist <= limit,
+                  f"atlas-reduced-pid golden row {k} beyond rounding's reach: {dist} > {limit}")
+        kern = "cdyn_rollout" if fused else "cdyn_period"
+        per_step = 1 if fused else genv.env.n_ctrl_per_step
+        check(cdyn.KERNELS[kern].launches == ATLAS_GOLDEN_ROWS * per_step,
+              f"the atlas golden rows did not go through {kern}")
+        log(f"[atlas golden] {'fused' if fused else 'per-period'}: {ATLAS_GOLDEN_ROWS} rows, "
+            f"worst err / limit {worst:.3f}; {kern} launches {cdyn.KERNELS[kern].launches}")
+
+
+def phase_atlas_main_path(device, smi):
+    """atlas-pid at float32 on the card, B = B_MAIN: counts to 0, batched
+    reset, a warm-up step and N_STEPS_ATLAS steps of zero actions, counts
+    read; then the per-period path for a step."""
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.ops import cdyn
+
+    env = make("atlas-pid", device=device)  # float32 on the card
+    nq, nv, nm = env.robot.nq, env.robot.nv, env.robot.nmotors
+    log(f"[atlas] atlas-pid: nq {nq}, nv {nv}, {env.robot.model.njoints} joints, "
+        f"{len(env.robot.contact_frame_indices)} contact points, {nm} motors, "
+        f"{env.env.n_ctrl_per_step} controller ticks x {env.env.engine.n_substeps} substeps a step")
+    action = torch.zeros(env.action_size, device=device)
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, _ = env.reset(batch_size=B_MAIN)
+    torch.cuda.synchronize()
+    reset_ms = (time.perf_counter() - t0) * 1e3
+    st, *_ = env.step(st, action)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_STEPS_ATLAS):
+        st, obs, reward, term, trunc, _ = env.step(st, action)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    log(f"[atlas main] atlas-pid float32 B={B_MAIN}, reset ({reset_ms:.1f} ms) + warm-up + "
+        f"{N_STEPS_ATLAS} steps: launches {launches}")
+    check(launches["cdyn_rollout"] == N_STEPS_ATLAS + 1, "atlas: cdyn_rollout not once a step")
+    check(launches["cdyn_accel"] >= 1, "atlas: cdyn_accel did not run at reset")
+    for name, x in (("q", st.sim.q), ("v", st.sim.v), ("reward", reward),
+                    ("contact_forces", st.sim.contact_forces)):
+        check(bool(torch.isfinite(x).all()), f"atlas: non-finite {name} after the main path")
+    check(st.sim.q.shape == (B_MAIN, nq), "atlas: unexpected state shape")
+    fell = float(term.float().mean())
+    steps_per_s = B_MAIN * N_STEPS_ATLAS / elapsed
+    log(f"[atlas main] base height mean {float(st.sim.q[:, 2].mean()):.4f} m, terminated share "
+        f"{fell:.4f}; env-steps/s {steps_per_s:.1f} ({elapsed:.4f} s for {N_STEPS_ATLAS} steps, "
+        f"host clock) on {smi}")
+    carry = st.blocks[env.block.name].reshape(B_MAIN, -1).contiguous()
+    ctrl = env.env._component_controllers[env.block.name]
+    run = env.env.engine._get_rollout_run(env.block.name, ctrl, env.env.n_ctrl_per_step)
+    q, v = st.sim.q.contiguous(), st.sim.v.contiguous()
+    zero = torch.zeros((B_MAIN, nm), dtype=torch.float32, device=device)
+    step_ms = _time_cuda(lambda: run.kernel(q, v, zero, carry), 2)
+    log(f"[atlas main] cdyn_rollout launch {step_ms:.2f} ms (CUDA events), "
+        f"{step_ms / (1e3 * elapsed / N_STEPS_ATLAS):.3f} of a step")
+
+    env.use_fused_rollout = False
+    st2, *_ = env.step(st, action)
+    torch.cuda.synchronize()
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    st2, *_ = env.step(st2, action)
+    torch.cuda.synchronize()
+    elapsed_pp = time.perf_counter() - t0
+    period_launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    log(f"[atlas main] per-period path, 1 step: launches {period_launches}; env-steps/s "
+        f"{B_MAIN / elapsed_pp:.1f} on {smi}")
+    check(period_launches["cdyn_period"] == env.env.n_ctrl_per_step,
+          "atlas: cdyn_period did not run once per controller period")
+    check(bool(torch.isfinite(st2.sim.q).all()), "atlas: non-finite q on the per-period path")
+    return env, launches, period_launches, steps_per_s, st, st2
 
 
 # --------------------------------------------------------------------------- #
@@ -1064,8 +1265,6 @@ def constrained_op_counts(env_cpu, st, fold_zeros):
 def phase_constrained_records(env, launches, period_launches, smi, st, st2):
     """The two constrained kernels at B = B_MAIN, records for the kernels line."""
     import dataclasses
-    import math
-
     import torch
 
     from jiminy_torch.engine import solver
@@ -1264,6 +1463,7 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2):
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
+            "model": "anymal-pid",
             "ops_per_env": ops[name],
             "ops_per_env_generic": ops_generic[name],
             "bound_ms_generic": max(t_ops_generic, t_bytes),
@@ -1305,15 +1505,26 @@ def main():
     phase_kernels_vs_plain(device)
     env, fused_launches, period_launches, steps_per_s, st, st2 = phase_main_path(device, smi)
     dopri = phase_dopri(device, smi)
-    records = phase_kernel_records(env, fused_launches, period_launches, smi, st, st2, dopri)
+    launches = {"cdyn_accel": dopri["launches"], "cdyn_period": period_launches["cdyn_period"],
+                "cdyn_rollout": fused_launches["cdyn_rollout"]}
+    records = phase_kernel_records("anymal-pid", env, launches, smi, st, st2, dopri=dopri)
     del env, st, st2
     cm = phase_constrained_main_path(device, smi)
     cm_env, cm_launches, cm_period_launches, cm_steps_per_s, _, cm_reset_ms, cm_st, cm_st2 = cm
     records += phase_constrained_records(cm_env, cm_launches, cm_period_launches, smi, cm_st,
                                          cm_st2)
+    del cm_env, cm_st, cm_st2
+    phase_atlas_golden(device)
+    atlas = phase_atlas_main_path(device, smi)
+    at_env, at_launches, at_period_launches, at_steps_per_s, at_st, at_st2 = atlas
+    launches = {"cdyn_accel": at_launches["cdyn_accel"],
+                "cdyn_period": at_period_launches["cdyn_period"],
+                "cdyn_rollout": at_launches["cdyn_rollout"]}
+    records += phase_kernel_records("atlas-pid", at_env, launches, smi, at_st, at_st2,
+                                    check_ticks=ATLAS_CHECK_TICKS)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; anymal-pid env-steps/s {steps_per_s:.1f}, "
         f"DOPRI {dopri['steps_per_s']:.1f}, constraint mode {cm_steps_per_s:.1f} (reset "
-        f"{cm_reset_ms:.1f} ms) on {smi}")
+        f"{cm_reset_ms:.1f} ms), atlas-pid {at_steps_per_s:.1f} on {smi}")
     log(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

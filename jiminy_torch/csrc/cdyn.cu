@@ -731,23 +731,26 @@ int cdyn_accel_smem_bytes(int nj, int nq, int nv, int nc, int elt, int* geometry
 
 // Blocks of a spring kernel (0 cdyn_accel, 1 cdyn_period, 2 cdyn_rollout)
 // the runtime would keep on one SM with smem_per_env bytes of dynamic shared
-// memory an env, at elt bytes a float; a negative CUDA error code on failure.
+// memory an env, at elt bytes a float, the kernel's shared-memory limit
+// raised to that block's share first, as a launch raises it; a negative CUDA
+// error code on failure (a block past what the card grants).
 int cdyn_sp_blocks_per_sm(int kernel, int elt, int smem_per_env) {
-  int blocks = 0;
-  cudaError_t e = cudaSuccess;
   const int threads = cdyn::SP_LANES * (kernel == 0 ? cdyn::SPA_ENVS : cdyn::SP_ENVS);
-  const size_t smem = (size_t)smem_per_env * (kernel == 0 ? cdyn::SPA_ENVS : cdyn::SP_ENVS);
-#define CDYN_OCC(K, T) cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, K<T>, threads, smem)
+  const int smem = smem_per_env * (kernel == 0 ? cdyn::SPA_ENVS : cdyn::SP_ENVS);
+  auto occupancy = [&](auto k) {
+    int blocks = 0;
+    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
+    cudaGetLastError();
+    return e == cudaSuccess ? blocks : -static_cast<int>(e);
+  };
   if (elt == 4)
-    e = kernel == 0 ? CDYN_OCC(cdyn::cdyn_accel_kernel, float)
-      : kernel == 1 ? CDYN_OCC(cdyn::cdyn_period_kernel, float)
-                    : CDYN_OCC(cdyn::cdyn_rollout_kernel, float);
-  else
-    e = kernel == 0 ? CDYN_OCC(cdyn::cdyn_accel_kernel, double)
-      : kernel == 1 ? CDYN_OCC(cdyn::cdyn_period_kernel, double)
-                    : CDYN_OCC(cdyn::cdyn_rollout_kernel, double);
-#undef CDYN_OCC
-  return e == cudaSuccess ? blocks : -static_cast<int>(e);
+    return kernel == 0 ? occupancy(cdyn::cdyn_accel_kernel<float>)
+         : kernel == 1 ? occupancy(cdyn::cdyn_period_kernel<float>)
+                       : occupancy(cdyn::cdyn_rollout_kernel<float>);
+  return kernel == 0 ? occupancy(cdyn::cdyn_accel_kernel<double>)
+       : kernel == 1 ? occupancy(cdyn::cdyn_period_kernel<double>)
+                     : occupancy(cdyn::cdyn_rollout_kernel<double>);
 }
 
 #ifdef CDYN_CM_PROFILE

@@ -2,13 +2,18 @@
 //
 // The layout must match `pack_model` in jiminy_torch/ops/cdyn.py (int buffer
 // `ci`, float buffer `cf`) and `PDComponents.pack` / `ZOHPassThrough.pack`
-// (controller buffers `pi`, `pf`). The Python wrappers read the caps through
-// `cdyn_caps` and refuse a model beyond them.
+// (controller buffers `pi`, `pf`). The caps bound the constrained kernels'
+// per-thread arrays (pgs.cuh); the Python wrappers read them through
+// `cdyn_caps` and refuse a constrained launch beyond them. The spring kernels
+// (spring.cuh) keep no cap-sized array and take any model whose shared-memory
+// slice the card grants.
 #pragma once
 
 namespace cdyn {
 
-// Per-thread array sizes. The ANYmal uses nj 13, nq 19, nv 18, nc 4, ni 1, nm 12.
+// Per-thread array sizes of the constrained kernels. The ANYmal uses nj 13,
+// nq 19, nv 18, nc 4, ni 1, nm 12 (the full Atlas: nj 31, nq 37, nv 36, nc 12,
+// nm 30, beyond them).
 constexpr int NJ_MAX = 24;
 constexpr int NV_MAX = 30;
 constexpr int NQ_MAX = NV_MAX + 1;  // free-flyer root + 1-dof joints

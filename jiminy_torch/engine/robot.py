@@ -2,9 +2,11 @@
 `jiminy_tpu.engine.robot`).
 
 This slice assembles motors (armature folded onto the model diagonal),
-encoder, effort, IMU and force sensors, and point contact frames. Flexibility
-and backlash joints and collision bodies/pairs are refused with the
-ROADMAP.md item that will port them.
+encoder, effort, IMU and force sensors, point contact frames, and collision
+bodies expanded into radius-0 contact points (boxes, point clouds).
+Flexibility and backlash joints, the other collision primitives (spheres,
+capsules, cylinders), collision pairs and loop closures are refused with
+the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from jiminy_torch.engine.hardware import (
     build_motor_bank,
 )
 from jiminy_torch.models.model import RobotModel
-from jiminy_torch.models.urdf import build_model_from_urdf
+from jiminy_torch.models.urdf import build_model_from_urdf, parse_collision_geometries
 
 
 @dataclasses.dataclass(eq=False)
@@ -67,10 +69,9 @@ class Robot:
             raise NotImplementedError(
                 "flexibility joints are not ported yet (ROADMAP.md queue 1 item 11)"
             )
-        if collision_bodies or collision_pairs:
+        if collision_pairs:
             raise NotImplementedError(
-                "collision bodies and collision pairs are not ported yet "
-                "(ROADMAP.md queue 1 item 10)"
+                "collision pairs are not ported yet (ROADMAP.md queue 1 item 10)"
             )
         if loop_constraints:
             raise NotImplementedError(
@@ -80,6 +81,21 @@ class Robot:
             model = model_or_urdf
         else:
             model = build_model_from_urdf(model_or_urdf, has_freeflyer, lock_joints=lock_joints)
+        if any(isinstance(cb, str) for cb in collision_bodies):
+            # Link names: their <collision> geometries from the URDF
+            # (hardware-file `collisionBodyNames`)
+            if isinstance(model_or_urdf, RobotModel):
+                raise ValueError("collision_bodies by link name require building from URDF")
+            geoms = parse_collision_geometries(model_or_urdf)
+            expanded: list = []
+            for cb in collision_bodies:
+                if not isinstance(cb, str):
+                    expanded.append(cb)
+                elif cb in geoms:
+                    expanded.extend(geoms[cb])
+                else:
+                    raise ValueError(f"link '{cb}' has no <collision> geometry in the URDF")
+            collision_bodies = expanded
         name = name or model.name
 
         bank = build_motor_bank(model, motors) if motors else None
@@ -95,6 +111,9 @@ class Robot:
             model = model.replace(armature=arm)
 
         contact_idx = tuple(model.frame_index(fn) for fn in contact_frames)
+        if collision_bodies:
+            model, extra_idx = _expand_collision_bodies(model, collision_bodies)
+            contact_idx = contact_idx + extra_idx
         suite = _build_sensor_suite(model, bank, sensors or {}, contact_idx)
         return Robot(
             name=name,
@@ -104,6 +123,82 @@ class Robot:
             contact_frame_indices=contact_idx,
             contact_radii=(0.0,) * len(contact_idx),
         )
+
+
+def _hull_downsample(points: np.ndarray, max_points: int) -> np.ndarray:
+    """A vertex cloud reduced to its convex-hull vertices, then (if still too
+    many) to a farthest-point subset of `max_points` seeded at the lowest
+    vertex. Only hull vertices can touch a locally planar ground."""
+    points = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+    if len(points) > 4:
+        try:
+            from scipy.spatial import ConvexHull
+
+            points = points[np.unique(ConvexHull(points).vertices)]
+        except Exception:  # a flat or degenerate cloud keeps every point
+            pass
+    if len(points) <= max_points:
+        return points
+    chosen = [int(np.argmin(points[:, 2]))]
+    d = np.linalg.norm(points - points[chosen[0]], axis=1)
+    for _ in range(max_points - 1):
+        nxt = int(np.argmax(d))
+        chosen.append(nxt)
+        d = np.minimum(d, np.linalg.norm(points - points[nxt], axis=1))
+    return points[chosen]
+
+
+def box_corners(size) -> list:
+    """The 8 corners of a box of edge lengths `size`, centred at the origin."""
+    sx, sy, sz = (0.5 * float(s) for s in size)
+    return [
+        np.array([ex * sx, ey * sy, ez * sz])
+        for ex in (-1.0, 1.0)
+        for ey in (-1.0, 1.0)
+        for ez in (-1.0, 1.0)
+    ]
+
+
+def _geometry_points(spec) -> list:
+    """Radius-0 contact offsets (in the geometry's frame) of a box (its 8
+    corners) or a point cloud (its hull vertices, at most `max_points`,
+    default 16)."""
+    geom = spec["geometry"]
+    if geom == "box":
+        return box_corners(spec["size"])
+    if geom in ("mesh", "points"):
+        return list(_hull_downsample(spec["points"], int(spec.get("max_points", 16))))
+    if geom in ("sphere", "capsule", "cylinder"):
+        raise NotImplementedError(
+            f"{geom} collision bodies are not ported yet (ROADMAP.md queue 1 item 10)"
+        )
+    raise ValueError(f"unsupported collision geometry '{geom}'")
+
+
+def _expand_collision_bodies(model: RobotModel, specs) -> tuple:
+    """Collision bodies expanded into radius-0 contact frames on the body's
+    parent joint, named `<body>_collision_<k>` (`<body>_collision` for a
+    body's only point): (model with the frames, their indices). Each spec
+    may carry an `origin` (rot, pos) of the geometry in its frame."""
+    idx: list = []
+    used: dict = {}
+    for spec in specs:
+        fname = spec["frame_name"]
+        fidx = model.frame_index(fname)
+        parent = model.frame_parents[fidx]
+        rot0 = np.asarray(model.fplacement_rot[fidx], np.float64)
+        pos0 = np.asarray(model.fplacement_pos[fidx], np.float64)
+        o_rot, o_pos = spec.get("origin", (np.eye(3), np.zeros(3)))
+        rot0, pos0 = rot0 @ np.asarray(o_rot, float), pos0 + rot0 @ np.asarray(o_pos, float)
+        offsets = _geometry_points(spec)
+        base = used.get(fname, 0)
+        used[fname] = base + len(offsets)
+        single = len(offsets) == 1 and base == 0
+        for k, off in enumerate(offsets):
+            pname = f"{fname}_collision" if single else f"{fname}_collision_{base + k}"
+            model = model.add_frame(pname, parent, rot0, pos0 + rot0 @ off)
+            idx.append(model.nframes - 1)
+    return model, tuple(idx)
 
 
 def _opt_arrays(n, ndata, specs):

@@ -1,19 +1,42 @@
-"""Preconfigured environments (port of `jiminy_tpu.envs`, the ANYmal entries).
+"""Preconfigured environments (port of `jiminy_tpu.envs`: the ANYmal and
+Atlas entries).
 
 `make(env_id, device=None, dtype=None)` builds an env on the card unless
-`device` says otherwise; with no device and no card it raises.
+`device` says otherwise; with no device and no card it raises. The ids of
+`jiminy_tpu` not ported yet raise `NotImplementedError` naming their
+ROADMAP.md item.
 """
 
 from jiminy_torch.envs.anymal import ANYmalEnv, ANYmalPDControlEnv
+from jiminy_torch.envs.bipeds import (
+    AtlasEnv,
+    AtlasPDControlEnv,
+    AtlasReducedEnv,
+    AtlasReducedPDControlEnv,
+)
 from jiminy_torch.envs.locomotion import WalkerEnv
 
 _REGISTRY = {
     "anymal": ANYmalEnv,
     "anymal-pid": ANYmalPDControlEnv,
+    "atlas": AtlasEnv,
+    "atlas-reduced": AtlasReducedEnv,
+    "atlas-pid": AtlasPDControlEnv,
+    "atlas-reduced-pid": AtlasReducedPDControlEnv,
+}
+
+# jiminy_tpu's other ids and the ROADMAP.md queue 1 item that ports them
+_NOT_PORTED = {
+    "cartpole": 8, "acrobot": 8, "pendulum": 8,
+    "ant": 10, "cassie": 10, "cassie-pid": 10, "digit": 10, "digit-pid": 10,
 }
 
 
 def make(name: str, device=None, dtype=None, **kwargs):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"env '{name}' is not ported yet (ROADMAP.md queue 1 item {_NOT_PORTED[name]})"
+        )
     try:
         ctor = _REGISTRY[name]
     except KeyError:
@@ -21,4 +44,13 @@ def make(name: str, device=None, dtype=None, **kwargs):
     return ctor(device=device, dtype=dtype, **kwargs)
 
 
-__all__ = ["ANYmalEnv", "ANYmalPDControlEnv", "WalkerEnv", "make"]
+__all__ = [
+    "ANYmalEnv",
+    "ANYmalPDControlEnv",
+    "AtlasEnv",
+    "AtlasPDControlEnv",
+    "AtlasReducedEnv",
+    "AtlasReducedPDControlEnv",
+    "WalkerEnv",
+    "make",
+]

@@ -1,0 +1,77 @@
+"""Atlas humanoid environments (port of `jiminy_tpu.envs.bipeds`, the Atlas
+entries): the reference's URDF and hardware file, the foot boxes' corner
+contact points pruned to the support hull (`envs.assets.load_robot`), and the
+reduced variant with every non-leg joint locked at the posed configuration.
+Cassie and Digit (pushrod loop closures) and the procedural builders are
+not ported yet (ROADMAP.md queue 1 item 10).
+"""
+
+from __future__ import annotations
+
+import xml.etree.ElementTree as ET
+
+from jiminy_torch.envs import assets
+from jiminy_torch.envs import builders_bipeds as bb
+from jiminy_torch.envs.locomotion import WalkerEnv
+from jiminy_torch.gym.blocks import PDController
+from jiminy_torch.gym.pipeline import ControlledEnv
+
+
+class AtlasEnv(WalkerEnv):
+    """Atlas humanoid (reference `AtlasJiminyEnv`, `atlas.py:113`)."""
+
+    def __init__(self, step_dt: float = 0.04, horizon: int = 500,
+                 reduced: bool = False, procedural: bool = False, **kw):
+        if procedural:
+            raise NotImplementedError(
+                "the procedural Atlas builder is not ported yet (ROADMAP.md queue 1 item 10)"
+            )
+        robot = assets.load_robot("atlas", lock_joints=_atlas_lock_angles() if reduced else ())
+        q0 = assets.nominal_pose("atlas", robot.model)
+        kw.setdefault("base_height_min", 0.55)
+        kw.setdefault("simulation_dt", 5.0e-4)
+        super().__init__(robot, q0, step_dt=step_dt, horizon=horizon, **kw)
+
+
+def _atlas_lock_angles() -> dict:
+    """Locked-joint angles of the reduced Atlas: every non-leg movable joint
+    at the posed configuration (reference `atlas.py:152-169, 200-207`)."""
+    root = ET.parse(assets.urdf_path("atlas")).getroot()
+    return {
+        j.get("name"): assets.ATLAS_POSE.get(j.get("name"), 0.0)
+        for j in root.findall("joint")
+        if j.get("type") != "fixed" and "_leg_" not in j.get("name")
+    }
+
+
+class AtlasReducedEnv(AtlasEnv):
+    """Atlas with arms, neck and back locked at the posed configuration
+    (reference `AtlasReducedJiminyEnv`)."""
+
+    def __init__(self, **kw):
+        kw["reduced"] = True
+        super().__init__(**kw)
+
+
+def _pd_env(env, kp, kd, table):
+    if kp is None or kd is None:
+        kp_t, kd_t = bb.pd_gains(env.robot, table)
+        kp = kp_t if kp is None else kp
+        kd = kd_t if kd is None else kd
+    return ControlledEnv(env, PDController(kp=kp, kd=kd).setup(env))
+
+
+def AtlasPDControlEnv(step_dt: float = 0.04, horizon: int = 500, kp=None, kd=None, **kw):
+    """Reference `AtlasPDControlJiminyEnv`, the robot of the reference's own
+    headline benchmark; default gains from `ATLAS_PD_EFFECTIVE`."""
+    return _pd_env(AtlasEnv(step_dt=step_dt, horizon=horizon, **kw), kp, kd,
+                   bb.ATLAS_PD_EFFECTIVE)
+
+
+def AtlasReducedPDControlEnv(step_dt: float = 0.04, horizon: int = 500, kp=None, kd=None,
+                             **kw):
+    """Reference `AtlasReducedPDControlJiminyEnv` (the leg gains of the same
+    table)."""
+    kw["reduced"] = True
+    return _pd_env(AtlasEnv(step_dt=step_dt, horizon=horizon, **kw), kp, kd,
+                   bb.ATLAS_PD_EFFECTIVE)

@@ -4,8 +4,9 @@ numpy float64).
 Parses the kinematic tree, optionally roots it on a free-flyer joint, folds
 fixed (and locked) joints away by merging their link inertias into the
 supporting movable link, and records an operational frame for every link and
-fixed joint. Visual and collision geometry parsing is not ported yet
-(ROADMAP.md queue 1 item 14, viewer; item 10, bipeds' collision bodies).
+fixed joint. `parse_collision_geometries` reads the links' primitive
+`<collision>` geometries; meshes and visual geometry are not ported yet
+(ROADMAP.md queue 1 item 10, collision meshes; item 14, viewer).
 """
 
 from __future__ import annotations
@@ -227,3 +228,47 @@ def build_model_from_urdf(
             spec["position_limit"] = (lo, hi)
 
     return build_model(name, joint_specs, frame_specs)
+
+
+def parse_collision_geometries(path_or_str: str, links=None) -> dict[str, list[dict]]:
+    """Per-link ``<collision>`` primitives of a URDF: ``{link: [spec, ...]}``,
+    each spec a `Robot.build(collision_bodies=...)` dict with its geometry
+    kind, parameters and ``origin`` (rot, pos) in the link frame.
+
+    ``links`` restricts parsing to the named links. Boxes, spheres,
+    cylinders and capsules are read; a mesh raises (its vertex loading is
+    not ported yet)."""
+    if os.path.exists(path_or_str):
+        root = ET.parse(path_or_str).getroot()
+    else:
+        root = ET.fromstring(path_or_str)
+    out: dict[str, list[dict]] = {}
+    for link in root.findall("link"):
+        lname = link.get("name")
+        if links is not None and lname not in links:
+            continue
+        specs = []
+        for col in link.findall("collision"):
+            geom = col.find("geometry")
+            if geom is None or len(geom) == 0:
+                continue
+            g = geom[0]
+            spec: dict = {"frame_name": lname, "origin": _parse_origin(col.find("origin"))}
+            if g.tag == "box":
+                spec.update(geometry="box", size=tuple(float(x) for x in g.get("size").split()))
+            elif g.tag == "sphere":
+                spec.update(geometry="sphere", radius=float(g.get("radius")))
+            elif g.tag in ("cylinder", "capsule"):
+                spec.update(geometry=g.tag, radius=float(g.get("radius")),
+                            length=float(g.get("length")))
+            elif g.tag == "mesh":
+                raise NotImplementedError(
+                    f"collision mesh on link {lname}: mesh loading is not ported yet "
+                    "(ROADMAP.md queue 1 item 10)"
+                )
+            else:
+                raise ValueError(f"unsupported collision geometry <{g.tag}> on link {lname}")
+            specs.append(spec)
+        if specs:
+            out[lname] = specs
+    return out

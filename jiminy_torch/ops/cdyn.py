@@ -1513,6 +1513,11 @@ def _launch(name: str, dtype, *args) -> None:
 
 
 def _check_caps(packed: PackedModel, **extra) -> None:
+    """Hold a constrained launch (`csrc/pgs.cuh`, whose per-thread arrays are
+    sized at compile time) to the caps of `csrc/cdyn.cuh`. The spring
+    launches keep no cap-sized array: they are held only to their
+    model-sized shared-memory slice, which the launch sets and the card
+    refuses past what it grants a block."""
     from jiminy_torch.ops import kernels
 
     caps = kernels.load().caps
@@ -1541,7 +1546,6 @@ def accel_smem_per_env(packed: PackedModel, dtype) -> int:
 def _launch_accel(packed: PackedModel, q, v, tau):
     _check_inputs(packed, q, v, tau)
     nq, nv = packed.counts["nq"], packed.counts["nv"]
-    _check_caps(packed)
     smem = accel_smem_per_env(packed, q.dtype)
     batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1], tau.shape[:-1])
     qs, vs, ts = _rows(q, batch, nq), _rows(v, batch, nv), _rows(tau, batch, nv)
@@ -1569,7 +1573,6 @@ def _launch_period(packed: PackedModel, q, v, cmd, n_substeps: int, integrator: 
                    n_extra: int):
     _check_inputs(packed, q, v, cmd)
     nq, nv, nm = packed.counts["nq"], packed.counts["nv"], cmd.shape[-1]
-    _check_caps(packed, n_cmd=nm)
     smem = sp_smem_per_env(packed, nm, 0, 0, q.dtype)
     if nm < packed.counts["nm"]:
         raise ValueError(f"cdyn_period: command width {nm} < {packed.counts['nm']} motors")
@@ -1596,7 +1599,6 @@ def _launch_rollout(packed: PackedModel, ctrl, kind: int, q, v, action, carry,
     _check_inputs(packed, q, v, action, carry)
     nq, nv = packed.counts["nq"], packed.counts["nv"]
     na, nb = action.shape[-1], carry.shape[-1]
-    _check_caps(packed, n_cmd=n_cmd, n_action=na, n_carry=nb)
     smem = sp_smem_per_env(packed, n_cmd, na, nb, q.dtype)
     if n_cmd < packed.counts["nm"]:
         raise ValueError(f"cdyn_rollout: command width {n_cmd} < {packed.counts['nm']} motors")

@@ -45,6 +45,7 @@ def test_port_imports_neither_jax_nor_jiminy_tpu():
     mods = _port_modules()
     assert "jiminy_torch.ops.cdyn" in mods and "jiminy_torch.envs.anymal" in mods
     assert "jiminy_torch.engine.solver" in mods and "jiminy_torch.engine.constraints" in mods
+    assert "jiminy_torch.envs.bipeds" in mods and "jiminy_torch.envs.builders_bipeds" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

@@ -1,7 +1,8 @@
 """Card-only tests: each cdyn CUDA kernel held against its plain PyTorch
 version on the card, at a small batch, for the ANYmal constants (the
 constrained kernels for `anymal-pid` in constraint contact mode, on states
-with active contact and bound rows).
+with active contact and bound rows) and, for the spring kernels, for the
+full Atlas (`atlas-pid`).
 
 Marked `cuda`; they skip where no CUDA device is present (the check runs in a
 fixture, never at import). On a machine with a card, run them with:
@@ -217,6 +218,87 @@ def test_spring_launch_refuses_what_does_not_fit(cuda_device, kernel, monkeypatc
             run.kernel(q, v, action, torch.zeros((4, 0), device=cuda_device))
     torch.cuda.synchronize()
     assert cdyn.KERNELS[kernel].launches == 0
+
+
+def _atlas_pid(device, friction=False):
+    """atlas-pid at float64; with `friction`, every motor's declared viscous
+    friction (-0.1 / -0.2 N m s/rad, not enabled in its hardware file) on."""
+    from jiminy_torch.envs import assets
+
+    if not friction:
+        return make("atlas-pid", device=device, dtype=torch.float64)
+    load = assets.load_hardware_description_file
+
+    def with_friction(path):
+        hw = load(path)
+        for m in hw["motors"]:
+            m["enable_friction"] = True
+        return hw
+
+    assets.load_hardware_description_file = with_friction
+    try:
+        return make("atlas-pid", device=device, dtype=torch.float64)
+    finally:
+        assets.load_hardware_description_file = load
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("friction", [False, True], ids=["atlas", "atlas-friction"])
+@pytest.mark.parametrize("batch", [2048, 2047, 1])
+@pytest.mark.parametrize("kernel", ["cdyn_accel", "cdyn_period", "cdyn_rollout"])
+def test_atlas_spring_kernels_match_plain(cuda_device, kernel, batch, friction):
+    """atlas-pid at float64 (31 joints, depths wider than an env's 4 lanes,
+    12 contacts, 6 a force-sensor frame, 30 motors at the velocity-effort
+    envelope, a 90-value PD carry), on perturbed states, at full and ragged
+    batches: beyond the constrained kernels' caps, held only to its shared
+    memory slice."""
+    env = _atlas_pid(cuda_device, friction)
+    eng = env.env.engine
+    nm = env.robot.nmotors
+    assert nm == 30 and env.robot.nv == 36
+    if friction:
+        assert all(eng._build_tau_c().friction)
+    q, v, tau = perturbed_states(env, batch, seed=5)
+    gen = torch.Generator(cuda_device).manual_seed(5)
+    action = torch.randn((batch, nm), dtype=torch.float64, device=cuda_device, generator=gen) * 50.0
+    cdyn.reset_launch_counts()
+    if kernel == "cdyn_accel":
+        outs, refs = (eng._cdyn.accel_kernel(q, v, tau),), (eng._cdyn.accel_plain(q, v, tau),)
+    elif kernel == "cdyn_period":
+        run = eng._get_period_run("rk4")
+        outs, refs = run.kernel(q, v, action, n_substeps=2), run.plain(q, v, action, n_substeps=2)
+    else:
+        ctrl = env.block.component_controller(env.env)
+        carry = torch.zeros((batch, 3 * nm), dtype=torch.float64, device=cuda_device)
+        carry[:, :nm] = q[:, 7:]
+        run = eng._get_rollout_run("test-atlas", ctrl, env.env.n_ctrl_per_step)
+        outs = run.kernel(q, v, action, carry, n_ticks=2, n_substeps=2)
+        refs = run.plain(q, v, action, carry, n_ticks=2, n_substeps=2)
+    torch.cuda.synchronize()
+    assert cdyn.KERNELS[kernel].launches == 1
+    tol = TOL[torch.float64][kernel != "cdyn_accel"]
+    for out, ref in zip(outs, refs):
+        assert torch.isfinite(out).all()
+        assert _error(out, ref, torch.float64) < tol
+        assert _error(torch.zeros_like(out), ref, torch.float64) > tol or not ref.any()
+
+
+@pytest.mark.cuda
+def test_atlas_steps_through_the_spring_kernels(cuda_device):
+    """make("atlas-pid") resets and steps on the card through cdyn_accel,
+    cdyn_rollout and, per period, cdyn_period, with no caps refusal."""
+    env = make("atlas-pid", device=cuda_device)
+    action = torch.zeros(env.action_size, device=cuda_device)
+    cdyn.reset_launch_counts()
+    st, _ = env.reset(batch_size=5)
+    st, *_ = env.step(st, action)
+    env.use_fused_rollout = False
+    st, *_ = env.step(st, action)
+    torch.cuda.synchronize()
+    assert cdyn.KERNELS["cdyn_accel"].launches == 1
+    assert cdyn.KERNELS["cdyn_rollout"].launches == 1
+    assert cdyn.KERNELS["cdyn_period"].launches == env.env.n_ctrl_per_step == 16
+    assert torch.isfinite(st.sim.q).all() and st.sim.q.shape == (5, 37)
 
 
 @pytest.mark.cuda
