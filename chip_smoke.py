@@ -84,6 +84,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    humanoid), the plain rollout's whole-step time extrapolated from its
    times over 1 and ATLAS_CHECK_TICKS ticks. Their records join the kernel
    line with `"model": "atlas-pid"`.
+12. Toy golden rows: make("cartpole"), "acrobot" and "pendulum" at float64,
+   B=1, on the card, every row of tests/goldens/<toy>.csv from jiminy_tpu's
+   initial states (tests/goldens_torch/toy_initial_states.json) with the
+   golden actions, each row within TOY_GOLDEN_ATOL; the pendulum on both
+   paths, through cdyn_rollout_cm once a step and cdyn_period_cm once a
+   period (launch counts); the cartpole and the acrobot launch no kernel
+   (the generic path, whose per-period path is its default path).
+13. Toy main path: each toy at float32, B=131072 (initial states from a
+   seeded torch.Generator), a warm-up step, launch counts to 0,
+   N_STEPS_TOYS steps of zero actions, counts read: env-steps/s, all
+   finite, none terminated; the pendulum also its per-period path. Then one
+   step of anymal-pid on the generic path (use_fast_dynamics=False) at
+   float64 on B_GENERIC_F64 envs against the kernel path from the same
+   states, every column within GENERIC_TOL.
+14. The pendulum's constrained kernels at B=131072 at their full tick and
+   substep counts: float32 on the main path's states, timed (CUDA events)
+   beside the plain version; float64 on the main path's states, perturbed
+   states (a quarter past the bound), every row and no row active, and one
+   env short, every column within TOL; a zeroed acceleration and zeroed
+   multipliers refused; shared memory and envs an SM; records join the
+   kernels line with `"model": "pendulum"`.
 
 The last two lines are the `{"kernels": [...]}` record and the device line.
 """
@@ -1487,6 +1508,418 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2):
     return records
 
 
+# --------------------------------------------------------------------------- #
+# Toys: the generic path (cartpole, acrobot) and the pendulum through the
+# constrained kernels
+# --------------------------------------------------------------------------- #
+
+TOYS = ("cartpole", "acrobot", "pendulum")
+TOY_GOLDEN_ATOL = 1e-10  # the CPU tests hold the toys' goldens to 1e-10 (measured 5.6e-16)
+N_STEPS_TOYS = {"cartpole": 5, "acrobot": 2, "pendulum": 5}  # toy main path, after a warm-up
+B_GENERIC_F64 = 2048  # anymal-pid generic-path cross-check against the kernels
+GENERIC_TOL = 1e-9
+
+
+def _toy_initial_states():
+    """{env_id: (q0, v0, n_rows)} from tests/goldens_torch/toy_initial_states.json:
+    jiminy_tpu's reset states of tests/golden_configs.py, as exact hex floats."""
+    path = os.path.join(ROOT, "tests", "goldens_torch", "toy_initial_states.json")
+    with open(path) as f:
+        raw = json.load(f)
+    return {k: ([float.fromhex(x) for x in r["q0"]], [float.fromhex(x) for x in r["v0"]],
+                int(r["n_rows"])) for k, r in raw.items()}
+
+
+def _actions_sin(n_rows, action_size):
+    """tests/golden_configs.py::_actions_sin (that module imports JAX)."""
+    import numpy as np
+
+    t = np.arange(n_rows)[:, None]
+    return 0.3 * np.sin(0.37 * t) * np.ones((1, action_size))
+
+
+def phase_toy_golden(device):
+    """The toys' golden rows at float64, B=1, through `make(...)` on the card,
+    from jiminy_tpu's initial states, with the golden actions. The CPU
+    tests show no amplification of rounding (5.6e-16 from the goldens over
+    every row), so each row is held to TOY_GOLDEN_ATOL. The pendulum's rows
+    go through cdyn_rollout_cm (default path, once a step) and
+    cdyn_period_cm (per-period path, once a controller period); the cartpole
+    and the acrobot launch no kernel, and their per-period path is their
+    default path (the generic engine has no fused rollout)."""
+    import numpy as np
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.ops import cdyn
+
+    t_phase = time.perf_counter()
+    states = _toy_initial_states()
+    for env_id in TOYS:
+        q0, v0, n_rows = states[env_id]
+        golden = np.loadtxt(os.path.join(ROOT, "tests", "goldens", f"{env_id}.csv"),
+                            delimiter=",", skiprows=1)
+        check(len(golden) == n_rows, f"{env_id}: golden rows and initial states disagree")
+        env = make(env_id, device=device, dtype=torch.float64)
+        paths = (True, False) if env.engine.supports_fused_rollout else (True,)
+        check((env_id == "pendulum") == (len(paths) == 2),
+              f"{env_id}: unexpected path (fused rollout {env.engine.supports_fused_rollout})")
+        actions = _actions_sin(n_rows, env.action_size)
+        for fused in paths:
+            env.use_fused_rollout = fused
+            st, _ = env.reset_at(torch.tensor([q0], dtype=torch.float64, device=device),
+                                 torch.tensor([v0], dtype=torch.float64, device=device))
+            cdyn.reset_launch_counts()
+            t0 = time.perf_counter()
+            worst = 0.0
+            for k in range(n_rows):
+                st, _, rew, *_ = env.step(st, torch.as_tensor(actions[k], device=device))
+                row = _golden_row(st.sim, rew, 0)
+                worst = max(worst, float(np.abs(row - golden[k]).max()))
+            elapsed = time.perf_counter() - t0
+            launches = {k: c.launches for k, c in cdyn.KERNELS.items() if c.launches}
+            path = "default" if fused else "per-period"
+            log(f"[toy golden] {env_id} float64 B=1 {path}: {n_rows} rows, max abs err {worst:.3e} "
+                f"(tol {TOY_GOLDEN_ATOL:g}), launches {launches}, {elapsed:.1f} s")
+            check(worst < TOY_GOLDEN_ATOL, f"{env_id} golden rows not reproduced on the card")
+            if env_id != "pendulum":
+                check(not launches, f"{env_id} launched a kernel on the generic path")
+            elif fused:
+                check(launches == {"cdyn_rollout_cm": n_rows},
+                      "the pendulum's rows did not go through cdyn_rollout_cm once a step")
+            else:
+                check(launches == {"cdyn_period_cm": n_rows * env.n_ctrl_per_step},
+                      "the pendulum's rows did not go through cdyn_period_cm once a period")
+    log(f"[toy golden] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_toy_main_path(device, smi):
+    """Each toy at float32 on the card, B = B_MAIN: batched reset (the
+    initial states drawn by a seeded torch.Generator), a warm-up step, launch
+    counts to 0, N_STEPS_TOYS steps of zero actions, counts read; the
+    pendulum also one step of its per-period path. Then one step of
+    anymal-pid on the generic path (use_fast_dynamics=False) at float64 on
+    B_GENERIC_F64 envs against the kernel path on the same states."""
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.ops import cdyn
+
+    t_phase = time.perf_counter()
+    out = {}
+    for env_id in TOYS:
+        env = make(env_id, device=device)  # float32 on the card
+        action = torch.zeros(env.action_size, device=device)
+        gen = torch.Generator(device).manual_seed(TOYS.index(env_id))
+        st, _ = env.reset(batch_size=B_MAIN, generator=gen)
+        st, *_ = env.step(st, action)  # warm-up
+        torch.cuda.synchronize()
+        n_steps = N_STEPS_TOYS[env_id]
+        cdyn.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            st, obs, reward, term, trunc, _ = env.step(st, action)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+        steps_per_s = B_MAIN * n_steps / elapsed
+        for name, x in (("q", st.sim.q), ("v", st.sim.v), ("reward", reward), ("obs", obs)):
+            check(bool(torch.isfinite(x).all()), f"{env_id}: non-finite {name} on its main path")
+        fell = float(term.float().mean())
+        log(f"[toy main] {env_id} float32 B={B_MAIN}, {n_steps} steps: {steps_per_s:.1f} "
+            f"env-steps/s ({elapsed / n_steps * 1e3:.1f} ms a step, host clock), launches "
+            f"{launches}, terminated share {fell:.4f} on {smi}")
+        check(fell == 0.0, f"{env_id} terminated on its main path")
+        rec = {"steps_per_s": steps_per_s, "step_ms": elapsed / n_steps * 1e3, "launches": launches,
+               "env": env, "st": st}
+        if env_id == "pendulum":
+            check(launches["cdyn_rollout_cm"] == n_steps and sum(launches.values()) == n_steps,
+                  "the pendulum's step did not run cdyn_rollout_cm once (and nothing else)")
+            check(bool((st.sim.lam == 0).all()) and not bool(st.sim.bound_active.any()),
+                  "the pendulum's bound row (+-100 rad) activated on its main path")
+            kernel_ms = _time_cuda(lambda: env.step(st, action), 3)
+            env.use_fused_rollout = False
+            st2, *_ = env.step(st, action)
+            torch.cuda.synchronize()
+            cdyn.reset_launch_counts()
+            t0 = time.perf_counter()
+            st2, *_ = env.step(st2, action)
+            torch.cuda.synchronize()
+            pp_ms = (time.perf_counter() - t0) * 1e3
+            period_launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+            check(period_launches["cdyn_period_cm"] == env.n_ctrl_per_step
+                  and sum(period_launches.values()) == env.n_ctrl_per_step,
+                  "the pendulum's per-period step did not run cdyn_period_cm once a period")
+            check(bool(torch.isfinite(st2.sim.q).all()), "non-finite q on the pendulum's periods")
+            env.use_fused_rollout = True
+            log(f"[toy main] pendulum step {kernel_ms:.3f} ms (CUDA events around env.step); "
+                f"per-period path {B_MAIN / pp_ms * 1e3:.1f} env-steps/s ({pp_ms:.1f} ms a step, "
+                f"launches {period_launches}) on {smi}")
+            rec.update(st2=st2, period_launches=period_launches, pp_steps_per_s=B_MAIN / pp_ms * 1e3)
+        else:
+            check(sum(launches.values()) == 0, f"{env_id} launched a kernel on the generic path")
+        out[env_id] = rec
+    out["generic_anymal"] = _generic_anymal_check(device)
+    log(f"[toy main] phase {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def _generic_anymal_check(device):
+    """One step of anymal-pid at float64 on B_GENERIC_F64 envs through the
+    generic path (plain torch, the PD block eager, period by period) and
+    through the kernels (cdyn_rollout), from the same states: every column
+    within GENERIC_TOL."""
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.testing import column_errors
+
+    kern = make("anymal-pid", device=device, dtype=torch.float64)
+    gen = make("anymal-pid", device=device, dtype=torch.float64,
+               options=kern.engine.options.replace(use_fast_dynamics=False))
+    check(gen.engine._cdyn is None and not gen.engine.supports_fused_rollout,
+          "use_fast_dynamics=False did not select the generic path")
+    action = torch.zeros(kern.action_size, dtype=torch.float64, device=device)
+    st, _ = kern.reset(batch_size=B_GENERIC_F64)
+    st, *_ = kern.step(st, action)  # the feet on the ground
+    action = (_commands(B_GENERIC_F64, kern.action_size, torch.float64, device, seed=7)
+              * 0.005)
+    cdyn.reset_launch_counts()
+    a, *_ = kern.step(st, action)
+    kern_launches = {k: c.launches for k, c in cdyn.KERNELS.items() if c.launches}
+    cdyn.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b, *_ = gen.step(st, action)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    gen_launches = {k: c.launches for k, c in cdyn.KERNELS.items() if c.launches}
+    check(not gen_launches and kern_launches == {"cdyn_rollout": 1},
+          f"unexpected launches: generic {gen_launches}, kernel path {kern_launches}")
+    worst, where = 0.0, ""
+    pairs = [("q", a.sim.q, b.sim.q), ("v", a.sim.v, b.sim.v), ("a", a.sim.a, b.sim.a),
+             ("contact_forces", a.sim.contact_forces.flatten(1), b.sim.contact_forces.flatten(1)),
+             ("pd", a.blocks["pd_controller"].flatten(1), b.blocks["pd_controller"].flatten(1))]
+    pairs += [(k, a.sim.measurements[k].flatten(1), b.sim.measurements[k].flatten(1))
+              for k in a.sim.measurements]
+    for name, x, y in pairs:
+        e = column_errors(y, x)
+        if float(e.max()) > worst:
+            worst, where = float(e.max()), f"{name}[{int(e.argmax())}]"
+    log(f"[generic] anymal-pid float64 B={B_GENERIC_F64}, one step: generic path against the "
+        f"kernels, column max rel err {worst:.3e} at {where} (tol {GENERIC_TOL:g}); generic "
+        f"step {gen_s:.2f} s (host clock), kernel path launches {kern_launches}")
+    check(worst < GENERIC_TOL, f"the generic path disagrees with the kernels: {worst} at {where}")
+    return {"err": worst, "generic_step_s": gen_s}
+
+
+def pendulum_op_counts(env_cpu, q, v, cc, bc, fold_zeros):
+    """Ops per env of one pendulum period (1 substep + the final solve) and
+    one env step (n_ticks x (ZOH controller + 1 substep) + the end-of-tick
+    solves + the final solve), counted on the plain version at B=1."""
+    import torch
+
+    eng = env_cpu.engine
+    qc, vc = [q[..., i] for i in range(q.shape[-1])], [v[..., i] for i in range(v.shape[-1])]
+    ccl = [cc[..., i] for i in range(cc.shape[-1])]
+    bcl = [bc[..., i] for i in range(bc.shape[-1])]
+    acl = [torch.zeros(1, dtype=torch.float64)] * env_cpu.action_size
+    run = eng._get_period_run("rk4")
+    rrun = eng._get_rollout_run("zoh", env_cpu._component_controllers["zoh"], env_cpu.n_ctrl_per_step)
+
+    def count(fn):
+        return count_elem_ops(fn, fold_zeros)
+
+    sub = count(lambda: run.substep(qc, vc, ccl))
+    fin = count(lambda: run.final_outputs(qc, vc, ccl))
+    ctl = count(lambda: rrun.controller_fn(qc, vc, bcl, acl))
+    post = count(lambda: rrun.post_tick_fn(qc, vc, ccl, bcl))
+    n_sub, n_ticks = run.n_substeps, rrun.n_ticks
+    return {"cdyn_period_cm": n_sub * sub + fin,
+            "cdyn_rollout_cm": n_ticks * (ctl + n_sub * sub) + (n_ticks - 1) * post + fin}
+
+
+def phase_pendulum_records(toys, smi):
+    """The two constrained kernels on the pendulum (fixed root, 1 joint, 0
+    contacts, 1 bound row; 50 ticks of 1 RK4 substep a step behind a ZOH
+    controller) at B = B_MAIN, at their full tick and substep counts:
+    float32 on the main path's states, timed against the plain version;
+    float64 on the main path's states, on perturbed states (a quarter of the
+    envs past the bound), with every row and with no row active at the
+    first solve, and one env short (the last block part-filled), every
+    column within TOL; witnesses: a zeroed acceleration column on the path
+    states and zeroed multipliers with every row active fail the check.
+    Records for the kernels line with "model": "pendulum"."""
+    import torch
+
+    from jiminy_torch.engine import solver
+    from jiminy_torch.envs import make
+    from jiminy_torch.ops import cdyn, kernels
+    from jiminy_torch.testing import bound_row_inputs, column_errors, column_quantile_errors
+
+    t_phase = time.perf_counter()
+    rec_toy = toys["pendulum"]
+    env, st, st2 = rec_toy["env"], rec_toy["st"], rec_toy["st2"]
+    device = env.device
+    env64 = make("pendulum", device=device, dtype=torch.float64)
+    env64.step(env64.reset(batch_size=4)[0], torch.zeros(1, dtype=torch.float64, device=device))
+    engines = {torch.float32: env.engine, torch.float64: env64.engine}
+    nm, n_ticks = env.robot.nmotors, env.n_ctrl_per_step
+
+    def run_of(name, dtype):
+        eng, e = engines[dtype], (env if dtype == torch.float32 else env64)
+        if name == "cdyn_period_cm":
+            return eng._get_period_run("rk4")
+        return eng._get_rollout_run("zoh", e._component_controllers["zoh"], n_ticks)
+
+    def main_inputs(name, dtype):
+        if name == "cdyn_period_cm":
+            cmd = st2.sim.command.expand(B_MAIN, nm)
+            return (st2.sim.q.to(dtype), st2.sim.v.to(dtype),
+                    torch.cat([cmd, _cm_solver_row(st2.sim, torch.float32)], -1).to(dtype))
+        return (st.sim.q.to(dtype), st.sim.v.to(dtype), st.sim.command.expand(B_MAIN, nm).to(dtype),
+                _cm_solver_row(st.sim, torch.float32).to(dtype))
+
+    def inputs_of(name, rows, dtype):
+        q, v, cmd, sol = bound_row_inputs(env64, B_MAIN, seed=1, rows=rows)
+        xs = (q, v, torch.cat([cmd, sol], -1)) if name == "cdyn_period_cm" else (q, v, cmd, sol)
+        return tuple(x.to(dtype) for x in xs)
+
+    env_cpu = make("pendulum", device="cpu", dtype=torch.float64)
+    env_cpu.step(env_cpu.reset(batch_size=1)[0], torch.zeros(1, dtype=torch.float64))
+    q1, v1 = st.sim.q[:1].double().cpu(), st.sim.v[:1].double().cpu()
+    sol1 = _cm_solver_row(st.sim, torch.float32)[:1].double().cpu()
+    cc1 = torch.cat([st.sim.command.expand(B_MAIN, nm)[:1].double().cpu(), sol1], -1)
+    ops = pendulum_op_counts(env_cpu, q1, v1, cc1, sol1, fold_zeros=True)
+    ops_generic = pendulum_op_counts(env_cpu, q1, v1, cc1, sol1, fold_zeros=False)
+    log(f"[pendulum-ops] plain-version scalar ops per env, zero operands folded away: {ops}; "
+        f"every element op: {ops_generic}")
+
+    nq, nv = env.robot.nq, env.robot.nv
+    cset = env.engine.cset
+    n_solver = cset.total_rows + cset.n_contacts + cset.n_bounds
+    n_extra = nv + n_solver
+    n_cc, n_carry = nm + n_solver, n_solver
+    io_per_env = {"cdyn_period_cm": 2 * nq + 2 * nv + n_cc + n_extra,
+                  "cdyn_rollout_cm": 2 * nq + 2 * nv + nm + n_carry + n_extra + n_cc + n_carry}
+    lam_cols = slice(nv, nv + cset.total_rows)
+    n_launch = {"cdyn_period_cm": rec_toy["period_launches"]["cdyn_period_cm"],
+                "cdyn_rollout_cm": rec_toy["launches"]["cdyn_rollout_cm"]}
+    lib = kernels.load()
+    tol64, tol32 = TOL["float64"][1], TOL["float32"][1]
+    records = []
+    for name in ("cdyn_period_cm", "cdyn_rollout_cm"):
+        run32, run64 = run_of(name, torch.float32), run_of(name, torch.float64)
+        packed = {dt: r.cd.pack(r.tau_c, r.dt, r.imu_frames, device, dt)
+                  for dt, r in ((torch.float32, run32), (torch.float64, run64))}
+        smem = {dt: solver.cm_smem_per_env(packed[dt], r.pack(device, dt), dt)
+                for dt, r in ((torch.float32, run32), (torch.float64, run64))}
+        per_sm = {dt: lib.cm_envs_per_sm(name, torch.empty((), dtype=dt).element_size(), smem[dt])
+                  for dt in smem}
+        # float32, the main path's states: timing
+        xs = main_inputs(name, torch.float32)
+        ms = _time_cuda(lambda: run32.kernel(*xs), 5)
+        outs = run32.kernel(*xs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = run32.plain(*xs)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        e_abs = abs_err(outs, refs)
+        e32_main, _ = output_error(outs, refs, "float32")
+        del outs, refs
+        errs = {}
+        # float64: the main path's states, perturbed states, every row and no row active
+        for case in ("main", "mixed", "all", "none"):
+            xs64 = main_inputs(name, torch.float64) if case == "main" else inputs_of(name, case, torch.float64)
+            outs, refs = run64.kernel(*xs64), run64.plain(*xs64)
+            torch.cuda.synchronize()
+            e64, at64 = output_error(outs, refs, "float64")
+            check(all(bool(torch.isfinite(o).all()) for o in outs), f"{name}: non-finite output ({case})")
+            lam = refs[2][:, lam_cols]
+            n_act = float((lam != 0).double().sum(-1).mean())
+            msg = ""
+            if case == "main":
+                zeroed = outs[2].clone()
+                zeroed[:, :nv] = 0.0
+                e_zero = float(column_errors(zeroed, refs[2]).max())
+                check(e_zero > tol64, f"{name}: the float64 check misses a zeroed acceleration")
+                check(bool((outs[2][:, lam_cols] == 0).all()),
+                      f"{name}: a multiplier on the pendulum's path (its row never activates)")
+                msg = f"; witness: acceleration zeroed {e_zero:.3e}"
+            elif case == "all":
+                zeroed = outs[2].clone()
+                zeroed[:, lam_cols] = 0.0
+                e_zero = float(column_errors(zeroed, refs[2]).max())
+                check(e_zero > tol64, f"{name}: the float64 check misses zeroed multipliers")
+                msg = f"; witness: multipliers zeroed {e_zero:.3e}"
+            elif case == "none":
+                check(bool((outs[2][:, lam_cols] == 0).all()), f"{name}: a multiplier with no row active")
+            log(f"[pendulum-check] {name} float64 B={B_MAIN}, {case} states: column max rel err "
+                f"{e64:.3e} at {at64} (tol {tol64:g}); {n_act:.2f} nonzero multipliers an env{msg}")
+            check(e64 < tol64, f"{name} float64 disagrees on the pendulum's {case} states: {e64}")
+            errs[case] = e64
+            if case == "mixed":
+                b_rag = B_MAIN - 1
+                outs_rag = run64.kernel(*(x[:b_rag] for x in xs64))
+                e_rag, _ = output_error(outs_rag, tuple(r[:b_rag] for r in refs), "float64")
+                log(f"[pendulum-check] {name} float64 B={b_rag} (ragged), mixed states: column max "
+                    f"rel err {e_rag:.3e}")
+                check(e_rag < tol64, f"{name} float64 disagrees at B={b_rag}: {e_rag}")
+                errs["ragged"] = e_rag
+                del outs_rag
+                xs32 = tuple(x.float() for x in xs64)
+                outs32, refs32 = run32.kernel(*xs32), run32.plain(*xs32)
+                e32, at32 = output_error(outs32, refs32, "float32")
+                log(f"[pendulum-check] {name} float32 B={B_MAIN}, mixed states: column q90 err / "
+                    f"rms {e32:.3e} at {at32} (tol {tol32:g})")
+                check(e32 < tol32, f"{name} float32 disagrees on the pendulum's mixed states: {e32}")
+                errs["f32_mixed"] = e32
+                del outs32, refs32
+            del outs, refs
+        t_ops = ops[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
+        t_ops_generic = ops_generic[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
+        t_bytes = io_per_env[name] * 4 * B_MAIN / PEAK_BYTES * 1e3
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": "jiminy_torch/csrc/pgs.cuh",
+            "replaces": cdyn.KERNELS[name].replaces.split()[0],
+            "launches": n_launch[name],
+            "max_abs_err": e_abs,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+            "model": "pendulum",
+            "ops_per_env": ops[name],
+            "ops_per_env_generic": ops_generic[name],
+            "bound_ms_generic": max(t_ops_generic, t_bytes),
+            "bytes_per_env": io_per_env[name] * 4,
+            "f32_q90_err_main": e32_main,
+            "f64_err_main": errs["main"],
+            "f64_err_mixed": errs["mixed"],
+            "f64_err_all_active": errs["all"],
+            "f64_err_none_active": errs["none"],
+            "f64_err_ragged": errs["ragged"],
+            "f32_q90_err_mixed": errs["f32_mixed"],
+            "smem_per_env": smem[torch.float32],
+            "smem_per_env_f64": smem[torch.float64],
+            "envs_per_sm": per_sm[torch.float32],
+            "envs_per_sm_f64": per_sm[torch.float64],
+        }
+        log(f"[kernel] {name} pendulum B={B_MAIN} float32: {ms:.3f} ms (CUDA events), plain "
+            f"{plain_ms:.1f} ms (host clock), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+            f"every element op {rec['bound_ms_generic']:.4f} ms); {smem[torch.float32]} B an env, "
+            f"{per_sm[torch.float32]} envs an SM (float64 {smem[torch.float64]} B, "
+            f"{per_sm[torch.float64]}); |kernel-plain| on the main path's states {e_abs:.3e} on {smi}")
+        records.append(rec)
+    log(f"[pendulum-check] phase {time.perf_counter() - t_phase:.1f} s")
+    return records
+
+
 def main():
     import torch
 
@@ -1522,9 +1955,14 @@ def main():
                 "cdyn_rollout": at_launches["cdyn_rollout"]}
     records += phase_kernel_records("atlas-pid", at_env, launches, smi, at_st, at_st2,
                                     check_ticks=ATLAS_CHECK_TICKS)
+    del at_env, at_st, at_st2
+    phase_toy_golden(device)
+    toys = phase_toy_main_path(device, smi)
+    records += phase_pendulum_records(toys, smi)
+    toy_rates = ", ".join(f"{k} {toys[k]['steps_per_s']:.1f}" for k in TOYS)
     log(f"[done] {time.perf_counter() - t_start:.1f} s; anymal-pid env-steps/s {steps_per_s:.1f}, "
         f"DOPRI {dopri['steps_per_s']:.1f}, constraint mode {cm_steps_per_s:.1f} (reset "
-        f"{cm_reset_ms:.1f} ms), atlas-pid {at_steps_per_s:.1f} on {smi}")
+        f"{cm_reset_ms:.1f} ms), atlas-pid {at_steps_per_s:.1f}, toys {toy_rates} on {smi}")
     log(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -13,9 +13,10 @@ steps with zero actions (default 2), and cdyn_rollout_cm timed with CUDA
 events on those states; the default build also with one PGS sweep instead of
 the configured count (the sweeps' share of the step), the profile build
 with the clock64() cycles of each phase of a solve, summed over each group's
-lane 0. With --against DIR, another checkout of the repo (for example the
-parent commit, unpacked with `git archive`) has its cdyn_rollout_cm timed
-the same way in the same call, before the builds here and after them.
+lane 0. The default build also times cdyn_period_cm on the same states. With
+--against DIR, another checkout of the repo (for example the parent commit,
+unpacked with `git archive`) has its cdyn_rollout_cm and cdyn_period_cm
+timed the same way in the same call, before the builds here and after them.
 Prints a line per build and, last, one JSON object of them all.
 Needs one card; chip_smoke.py holds the kernels against their plain versions,
 this script only times them.
@@ -62,8 +63,12 @@ def child(defines, steps, root=None):
     xs = (st.sim.q, st.sim.v, torch.zeros((cs.B_MAIN, env.robot.nmotors), device=dev),
           torch.cat([st.blocks[block].reshape(cs.B_MAIN, -1),
                      cs._cm_solver_row(st.sim, torch.float32)], -1))
+    prun = env.engine._get_period_run("rk4")
+    pxs = (st.sim.q, st.sim.v,
+           torch.cat([st.sim.command, cs._cm_solver_row(st.sim, torch.float32)], -1))
     if root:
-        print(json.dumps({"against": root, "ms": cs._time_cuda(lambda: run.kernel(*xs), 2)}))
+        print(json.dumps({"against": root, "ms": cs._time_cuda(lambda: run.kernel(*xs), 2),
+                          "ms_period": cs._time_cuda(lambda: prun.kernel(*pxs), 5)}))
         return
     packed = run.cd.pack(run.tau_c, run.dt, run.imu_frames, dev, torch.float32)
     rec = {"defines": list(defines),
@@ -84,6 +89,7 @@ def child(defines, steps, root=None):
                 run.n_substeps, run.n_ticks, ctrl, run.integrator, run.imu_frames)
             rec["ms_one_sweep"] = cs._time_cuda(lambda: one.kernel(*xs), 2)
             rec["iter_max"] = run.opts.iter_max
+            rec["ms_period"] = cs._time_cuda(lambda: prun.kernel(*pxs), 5)
     print(json.dumps(rec), flush=True)
 
 
@@ -137,15 +143,16 @@ def main(argv):
         results = list(pool.map(lambda d: kernels.build(defines=d), builds))
         if done:
             done.result()
-    records, against_ms = [], []
+    records, against_ms, against_period_ms = [], [], []
 
     def time_against():
         rec = run_child(steps, root=against)
         if rec is None:
             return False
         against_ms.append(rec["ms"])
-        print(f"[cm-profile] cdyn_rollout_cm float32 B={cs.B_MAIN} of {against}: {rec['ms']:.3f} ms "
-              f"(CUDA events) on {smi}", flush=True)
+        against_period_ms.append(rec["ms_period"])
+        print(f"[cm-profile] cdyn_rollout_cm float32 B={cs.B_MAIN} of {against}: {rec['ms']:.3f} ms, "
+              f"cdyn_period_cm {rec['ms_period']:.3f} ms (CUDA events) on {smi}", flush=True)
         return True
 
     if against and not time_against():
@@ -162,7 +169,8 @@ def main(argv):
         extra = ""
         if "ms_one_sweep" in rec:
             share = (rec["ms"] - rec["ms_one_sweep"]) / rec["ms"] * rec["iter_max"] / (rec["iter_max"] - 1)
-            extra = f"; with 1 sweep {rec['ms_one_sweep']:.3f} ms: the sweeps take about {share:.1%}"
+            extra = (f"; with 1 sweep {rec['ms_one_sweep']:.3f} ms: the sweeps take about {share:.1%}"
+                     f"; cdyn_period_cm {rec['ms_period']:.3f} ms")
         if "phase_share" in rec:
             split = ", ".join(f"{k} {v:.1%}" for k, v in rec["phase_share"].items())
             extra = f"; {rec['cycles_per_solve']:.0f} cycles per solve and group: {split}"
@@ -174,7 +182,7 @@ def main(argv):
         return 1
     out = {"device": smi, "cm_profile": records}
     if against:
-        out["against"] = {"root": against, "ms": against_ms}
+        out["against"] = {"root": against, "ms": against_ms, "ms_period": against_period_ms}
     print(json.dumps(out))
     return 0
 

@@ -1,5 +1,7 @@
-"""Carry a simulator's "weights" across: the model arrays, the motor bank and
-the PD block constants, given as plain numpy dictionaries.
+"""Carry a simulator's "weights" across: the model arrays (every joint type:
+free-flyer, revolute, continuous, prismatic, spherical), the motor bank, a
+motorized robot assembled from both, and the PD block constants, given as
+plain numpy dictionaries.
 
 A caller dumps the fields of a `jiminy_tpu` RobotModel / MotorBank /
 PDController to numpy (this package imports nothing of jiminy_tpu) and
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from jiminy_torch.engine.hardware import MOTOR_ARRAY_FIELDS, MotorBank
+from jiminy_torch.engine.robot import Robot
 from jiminy_torch.models.model import ARRAY_FIELDS, META_FIELDS, RobotModel
 from jiminy_torch.ops.cdyn import PDComponents
 
@@ -49,6 +52,16 @@ def motor_bank_from_arrays(arrays: dict) -> MotorBank:
     kw = {f: _meta(arrays[f]) for f in MOTOR_META_FIELDS}
     kw.update({f: np.array(arrays[f], dtype=np.float64) for f in MOTOR_ARRAY_FIELDS})
     return MotorBank(**kw)
+
+
+def robot_from_arrays(model_arrays: dict, motor_arrays=None, name=None) -> Robot:
+    """A sensor-free Robot from a motorized model's arrays and its motor
+    bank's (a robot built with `Robot.build(model, motors=...)`, as the toys
+    build theirs). The model's arrays already hold the motors' armature, so
+    nothing is folded again."""
+    model = model_from_arrays(model_arrays)
+    bank = motor_bank_from_arrays(motor_arrays) if motor_arrays is not None else None
+    return Robot(name=name or model.name, model=model, motors=bank)
 
 
 def pd_components_from_arrays(arrays: dict) -> PDComponents:

@@ -753,6 +753,28 @@ int cdyn_sp_blocks_per_sm(int kernel, int elt, int smem_per_env) {
                      : occupancy(cdyn::cdyn_rollout_kernel<double>);
 }
 
+// Envs of a constrained kernel (0 cdyn_period_cm, 1 cdyn_rollout_cm) the
+// runtime would keep on one SM (its blocks there x CM_ENVS) with
+// smem_per_env bytes of dynamic shared memory an env, at elt bytes a float,
+// as `cdyn_sp_blocks_per_sm` counts blocks of the spring kernels; a negative
+// CUDA error code on failure.
+int cdyn_cm_envs_per_sm(int kernel, int elt, int smem_per_env) {
+  const int threads = cdyn::CM_LANES * cdyn::CM_ENVS;
+  const int smem = smem_per_env * cdyn::CM_ENVS;
+  auto occupancy = [&](auto k) {
+    int blocks = 0;
+    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
+    cudaGetLastError();
+    return e == cudaSuccess ? blocks * cdyn::CM_ENVS : -static_cast<int>(e);
+  };
+  if (elt == 4)
+    return kernel == 0 ? occupancy(cdyn::cdyn_period_cm_kernel<float>)
+                       : occupancy(cdyn::cdyn_rollout_cm_kernel<float>);
+  return kernel == 0 ? occupancy(cdyn::cdyn_period_cm_kernel<double>)
+                     : occupancy(cdyn::cdyn_rollout_cm_kernel<double>);
+}
+
 #ifdef CDYN_CM_PROFILE
 // The phase cycles of the constrained solves since the last call (`out`
 // holds cdyn::CM_PHASES values), then zeroed.

@@ -1,7 +1,7 @@
 """Engine options (port of `jiminy_tpu.engine.config`): the fields the
-spring-damper and constrained (PGS) paths read, under the JAX package's
-names and with its defaults. Euler and RK4 run on both paths; adaptive
-DOPRI 5(4) runs on the spring-damper path. The engine raises
+spring-damper, constrained (PGS) and generic paths read, under the JAX
+package's names and with its defaults. Euler and RK4 run on every path;
+adaptive DOPRI 5(4) runs where no PGS row is. The engine raises
 `NotImplementedError` for the values whose code paths are not ported yet
 (DOPRI beside PGS rows, terrain).
 """
@@ -72,8 +72,8 @@ class EngineOptions:
     # "none" = unconstrained, "constraint" = PGS rows.
     joint_bounds_mode: str = "constraint"
     joint_bounds_freq: float = 20.0  # [Hz] penalty natural frequency
-    # The port always runs the component-dynamics core; False asks for the
-    # generic ops path, which is not ported yet.
+    # True (or "always"): the component core (its kernels on the card)
+    # wherever `cdyn.supports_model` holds; False: the generic path.
     use_fast_dynamics: object = True
 
     def replace(self, **kw) -> "EngineOptions":

@@ -1,5 +1,7 @@
-"""Kinematic constraint registry (port of `jiminy_tpu.engine.constraints`,
-`ConstraintSet` and `build_constraint_set`).
+"""Kinematic constraints (port of `jiminy_tpu.engine.constraints`): the
+static registry (`ConstraintSet`, `build_constraint_set`) and the generic
+path's batched assembly of the rows (`ConstraintSystem`,
+`compute_constraint_system`).
 
 The registry is resolved once per engine in the reference ordering
 BOUNDS_JOINTS -> CONTACT_FRAMES -> distance loops -> rolling rows; the PGS
@@ -11,17 +13,31 @@ solution depends on this order. Row conventions:
   lambda_z, the tangent rows ||lambda_xy|| <= mu lambda_z;
 - distance (1 row) and rolling (3 rows per sphere or wheel): unbounded.
 
-The component solver (`engine/solver.py`) assembles bound and contact rows;
-distance and rolling rows are ROADMAP.md queue 1 item 10.
+The component solver (`engine/solver.py`) and `compute_constraint_system`
+assemble bound and contact rows; distance and rolling rows are ROADMAP.md
+queue 1 item 10.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
+import torch
 
+from jiminy_torch.engine.config import ContactOptions
+from jiminy_torch.engine.contact import flat_ground
 from jiminy_torch.models import joints as jt
+from jiminy_torch.models.model import RobotModel
+from jiminy_torch.ops import lie
+from jiminy_torch.ops.kinematics import (
+    KinData,
+    frame_jacobian_world_aligned,
+    frame_placement,
+    frame_velocity_local,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,3 +125,149 @@ def build_constraint_set(robot, loop_pairs=(), include_contacts=True,
         sphere_specs=tuple(spheres),
         wheel_specs=tuple(wheels),
     )
+
+
+class ConstraintSystem(NamedTuple):
+    """One evaluation's assembled constraint problem."""
+
+    jac: torch.Tensor  # (..., N, nv)
+    drift: torch.Tensor  # (..., N)
+    active: torch.Tensor  # (..., N) bool row activity
+    contact_basis: torch.Tensor  # (..., nc, 3, 3) ground-normal basis (world columns)
+    contact_active: torch.Tensor  # (..., nc)
+    bound_active: torch.Tensor  # (..., nb)
+    contact_depth: torch.Tensor  # (..., nc)
+
+
+def _normal_basis(n: torch.Tensor) -> torch.Tensor:
+    """Right-handed basis whose column 2 is the ground normal (reference
+    `FrameConstraint::setNormal`)."""
+    ex = torch.zeros_like(n)
+    ex[..., 0] = 1.0
+    c1 = lie.cross(n, ex)
+    # Degenerate when n ~ ex: n x ey instead
+    ey = torch.zeros_like(n)
+    ey[..., 1] = 1.0
+    c1_alt = lie.cross(n, ey)
+    use_alt = torch.linalg.norm(c1, dim=-1, keepdim=True) < 1e-6
+    c1 = torch.where(use_alt, c1_alt, c1)
+    c1 = c1 / torch.clamp(torch.linalg.norm(c1, dim=-1, keepdim=True), min=1e-12)
+    c0 = lie.cross(c1, n)
+    return torch.stack([c0, c1, n], dim=-1)
+
+
+def compute_constraint_system(model: RobotModel, cset: ConstraintSet, opts: ContactOptions,
+                              ground_fn: Optional[Callable], kin_bias: KinData,
+                              jac_world: torch.Tensor, q: torch.Tensor, v: torch.Tensor,
+                              prev_contact_active: torch.Tensor,
+                              prev_bound_active: torch.Tensor) -> ConstraintSystem:
+    """(J, drift, active) of the bound and contact rows, with the reference's
+    hysteresis on the active sets. `kin_bias` is forward kinematics at zero
+    acceleration, so its accelerations are the velocity-bias terms."""
+    if cset.n_distance or cset.n_rolling:
+        raise NotImplementedError(
+            "distance-loop and rolling constraint rows are not ported yet "
+            "(ROADMAP.md queue 1 item 10)"
+        )
+    if ground_fn is None:
+        ground_fn = flat_ground
+    batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1])
+    nv = model.nv
+    n_rows = cset.total_rows
+    jac = q.new_zeros(batch + (n_rows, nv))
+    drift = q.new_zeros(batch + (n_rows,))
+    active = torch.zeros(batch + (n_rows,), dtype=torch.bool, device=q.device)
+
+    omega = 2.0 * math.pi * opts.stabilization_freq
+    kp, kd = omega * omega, 2.0 * omega
+    off_b, off_c, _, _ = cset.row_offsets()
+    lo_all = np.asarray(model.position_limit_lower, np.float64)
+    hi_all = np.asarray(model.position_limit_upper, np.float64)
+
+    # Joint bounds: blocked in one direction, J = -e above the upper bound
+    # and +e otherwise, lambda >= 0
+    bound_active_list = []
+    for k, j in enumerate(cset.bound_joint_indices):
+        qi, vi = model.idx_q[j], model.idx_v[j]
+        qj, vj = q[..., qi], v[..., vi]
+        lo, hi = float(lo_all[qi]), float(hi_all[qi])
+        over = qj > hi
+        raw = over | (qj < lo)
+        inside = (qj > lo + opts.transition_eps) & (qj < hi - opts.transition_eps)
+        act = raw | (prev_bound_active[..., k] & ~inside)
+        bound_active_list.append(act)
+        sign = torch.where(over, -1.0, 1.0).to(q.dtype)
+        row = off_b + k
+        jac[..., row, vi] = sign
+        dq = qj - torch.clamp(qj, lo, hi)
+        drift[..., row] = sign * (kp * dq + kd * vj)
+        active[..., row] = act
+    bound_active = (torch.stack(bound_active_list, dim=-1) if bound_active_list
+                    else torch.zeros(batch + (0,), dtype=torch.bool, device=q.device))
+
+    # Contact frames
+    basis_list, cact_list, depth_list = [], [], []
+    radii = cset.contact_radii or (0.0,) * cset.n_contacts
+    fplace_rot = model.tensor("fplacement_rot", q.device, q.dtype)
+    fplace_pos = model.tensor("fplacement_pos", q.device, q.dtype)
+    for k, fidx in enumerate(cset.contact_frame_indices):
+        radius = radii[k]
+        rot, pos = frame_placement(model, kin_bias, fidx)
+        h, n = ground_fn(pos[..., :2])
+        n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-12)
+        depth = (pos[..., 2] - h) * n[..., 2]
+        if radius > 0.0:
+            depth = depth - radius
+        act = (depth < 0.0) | (prev_contact_active[..., k] & (depth <= opts.transition_eps))
+        basis = _normal_basis(n)
+
+        # The frame Jacobian, world-aligned (ang, lin), in basis coordinates
+        jf = frame_jacobian_world_aligned(model, kin_bias, jac_world, fidx)
+        bt = basis.transpose(-1, -2)
+        j_lin_w = jf[..., 3:6, :]
+        if radius > 0.0:
+            # A sphere: the surface point at -r n
+            sk = radius * lie.skew(n)
+            j_lin_w = j_lin_w + lie.mm(sk, jf[..., 0:3, :])
+        j_lin = lie.mm(bt, j_lin_w)
+        j_ang = lie.mm(bt, jf[..., 0:3, :])
+
+        # The frame's classical world-aligned bias acceleration and velocity
+        v_local = frame_velocity_local(model, kin_bias, fidx)
+        parent = model.frame_parents[fidx]
+        a_sp_local = lie.motion_act_inv(fplace_rot[fidx], fplace_pos[fidx],
+                                        kin_bias.acc[..., parent, :])
+        v_ang_w = lie.mv(rot, v_local[..., 0:3])
+        v_lin_w = lie.mv(rot, v_local[..., 3:6])
+        a_lin_w = lie.mv(rot, a_sp_local[..., 3:6]) + lie.cross(v_ang_w, v_lin_w)
+        a_ang_w = lie.mv(rot, a_sp_local[..., 0:3])
+        if radius > 0.0:
+            v_lin_w = v_lin_w + lie.mv(sk, v_ang_w)
+            a_lin_w = a_lin_w + lie.mv(sk, a_ang_w)
+
+        # Baumgarte: the reference sits on the ground below the frame, so
+        # the position error is depth n and the rotation error 0
+        g_lin = a_lin_w + kp * depth[..., None] * n + kd * v_lin_w
+        g_ang = a_ang_w + kd * v_ang_w
+        g_lin_b = lie.mv(bt, g_lin)
+        g_ang_b = lie.mv(bt, g_ang)
+
+        row = off_c + 4 * k
+        jac[..., row : row + 3, :] = j_lin
+        jac[..., row + 3, :] = j_ang[..., 2, :]
+        drift[..., row : row + 3] = g_lin_b
+        drift[..., row + 3] = g_ang_b[..., 2]
+        active[..., row : row + 4] = act[..., None]
+        basis_list.append(basis)
+        cact_list.append(act)
+        depth_list.append(depth)
+
+    contact_basis = (torch.stack(basis_list, dim=-3) if basis_list
+                     else q.new_zeros(batch + (0, 3, 3)))
+    contact_active = (torch.stack(cact_list, dim=-1) if cact_list
+                      else torch.zeros(batch + (0,), dtype=torch.bool, device=q.device))
+    contact_depth = (torch.stack(depth_list, dim=-1) if depth_list
+                     else q.new_zeros(batch + (0,)))
+    return ConstraintSystem(jac=jac, drift=drift, active=active, contact_basis=contact_basis,
+                            contact_active=contact_active, bound_active=bound_active,
+                            contact_depth=contact_depth)

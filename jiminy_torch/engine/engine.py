@@ -1,30 +1,39 @@
-"""The simulation engine (port of `jiminy_tpu.engine.engine`): the
-spring-damper path and the constrained (PGS) path of joint bounds and
-ground contacts (`ContactModel.CONSTRAINT`, `joint_bounds_mode="constraint"`).
+"""The simulation engine (port of `jiminy_tpu.engine.engine`): the component
+core (spring-damper contacts, or PGS joint bounds and ground contacts with
+`ContactModel.CONSTRAINT`, `joint_bounds_mode="constraint"`), and the
+generic dynamics path.
 
 - `Engine.reset(q0, v0)` builds the initial state; its dynamics evaluation
-  goes through `cdyn_accel` on the card (spring-damper) or the plain
-  constrained solve (constrained; plain torch on the card, as jiminy_tpu
-  runs it in XLA outside its kernels).
+  goes through `cdyn_accel` on the card (spring-damper core), the plain
+  constrained solve (constrained core; plain torch on the card, as
+  jiminy_tpu runs it in XLA outside its kernels), or `dynamics_full`
+  (generic path).
 - `Engine.step(state, command)` advances one controller period with a
-  zero-order-held command through `cdyn_period` or `cdyn_period_cm` (Euler,
-  RK4), or, under adaptive DOPRI 5(4) on the spring-damper path, through
-  trials of six `cdyn_accel` evaluations each in masked lock-step over the
-  batch (`engine/steppers.py`).
+  zero-order-held command: through `cdyn_period` or `cdyn_period_cm` on the
+  core (Euler, RK4), under adaptive DOPRI 5(4) through trials of six
+  dynamics evaluations each in masked lock-step over the batch
+  (`engine/steppers.py`), and on the generic path stage by stage, every
+  stage one `dynamics_full`.
 - `Engine.step_rollout_fused(...)` advances a whole env step, the controller
-  re-evaluated at every period, through `cdyn_rollout` or `cdyn_rollout_cm`.
+  re-evaluated at every period, through `cdyn_rollout` or `cdyn_rollout_cm`
+  (the core only).
 
-Unlike jiminy_tpu, which runs its component core only off the CPU, the port
-always runs the component core: the plain versions on the CPU, the kernels on
-the card, so the CPU tests exercise the same control flow as the card.
-Options whose code paths are not ported raise `NotImplementedError` naming
-the ROADMAP.md item that will port them.
+The path follows jiminy_tpu's rule, on every device: the component core when
+`cdyn.supports_model` holds (a free-flyer or fixed root with revolute and
+prismatic joints), no external force is registered and `use_fast_dynamics`
+is not False; otherwise the generic path (`dynamics_full`: generic forward
+kinematics, spring-damper contact forces, penalty bounds, then ABA or the
+array-form PGS solve), plain torch on every device, as jiminy_tpu runs it in
+XLA. Unlike jiminy_tpu, which takes its component core only off the CPU, the
+port takes it on the CPU too (its plain version there), so the CPU tests
+exercise the card's control flow. Options whose code paths are not ported
+raise `NotImplementedError` naming the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -32,7 +41,8 @@ import torch
 from jiminy_torch.devices import resolve_device, resolve_dtype
 from jiminy_torch.engine import solver, steppers
 from jiminy_torch.engine.config import ContactModel, EngineOptions, IntegratorType
-from jiminy_torch.engine.constraints import build_constraint_set
+from jiminy_torch.engine.constraints import build_constraint_set, compute_constraint_system
+from jiminy_torch.engine.contact import compute_contact_forces
 from jiminy_torch.engine.hardware import ImuSensorGroup
 from jiminy_torch.engine.robot import Robot
 from jiminy_torch.engine.state import SimState, StepperState
@@ -40,20 +50,17 @@ from jiminy_torch.models import joints as jt
 from jiminy_torch.ops import cdyn
 from jiminy_torch.ops import dynamics as dyn
 from jiminy_torch.ops import integrate as integ
-from jiminy_torch.ops.kinematics import forward_kinematics
+from jiminy_torch.ops import lie
+from jiminy_torch.ops.kinematics import forward_kinematics, frame_placement, joint_space_jacobian
 
 _FIXED_STEP = {
     IntegratorType.EULER_EXPLICIT: "euler",
     IntegratorType.RUNGE_KUTTA_4: "rk4",
 }
+_PGS_KEYS = ("lam", "contact_active", "bound_active")
 
 
 def _refuse_unported(robot: Robot, opts: EngineOptions) -> None:
-    if opts.use_fast_dynamics is False:
-        raise NotImplementedError(
-            "use_fast_dynamics=False asks for the generic dynamics path, which is "
-            "not ported yet (ROADMAP.md queue 1 item 2, generic ops)"
-        )
     if opts.world.ground_profile is not None:
         raise NotImplementedError(
             "ground profiles (terrain) are not ported yet (ROADMAP.md queue 1 item 13 "
@@ -67,6 +74,19 @@ def _refuse_unported(robot: Robot, opts: EngineOptions) -> None:
                 f"sensor group '{name}' declares noise, bias or delay, which is not "
                 "ported yet (ROADMAP.md queue 1 item 11)"
             )
+
+
+def penalty_bounds_torque(gains: dict, nv: int, q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Penalty joint-bound torques with per-dof gains {vidx: (lo, hi, kp, kd,
+    qidx)}, the formula of the component core's penalty bounds."""
+    u = q.new_zeros(torch.broadcast_shapes(q.shape[:-1], v.shape[:-1]) + (nv,))
+    for vi, (lo, hi, kp, kd, qi) in gains.items():
+        qj, vj = q[..., qi], v[..., vi]
+        over = torch.clamp(qj - hi, min=0.0)
+        under = torch.clamp(lo - qj, min=0.0)
+        active = (over > 0.0) | (under > 0.0)
+        u[..., vi] = u[..., vi] + (kp * (under - over) - torch.where(active, kd * vj, 0.0))
+    return u
 
 
 class Engine:
@@ -106,23 +126,31 @@ class Engine:
             self._build_penalty_bound_gains() if opts.joint_bounds_mode == "penalty" else {}
         )
         # In constraint contact mode the contacts, and with "constraint"
-        # bounds the joint bounds, are PGS rows; with no rows, the
-        # spring-damper core.
+        # bounds the joint bounds, are PGS rows
         self.constraint_mode = opts.contacts.model == ContactModel.CONSTRAINT
         self.cset = build_constraint_set(
             robot,
             include_contacts=self.constraint_mode,
             include_bounds=opts.joint_bounds_mode == "constraint",
         )
-        gravity = tuple(float(g) for g in opts.world.gravity)
-        self._cdyn = self._cdyn_cm = None
-        if self.cset.total_rows:
+        self.has_constraints = self.cset.total_rows > 0
+        self._has_joint_damping = bool(np.any(np.asarray(robot.model.damping) != 0.0))
+        # User forces f(t, q, v) -> (..., nj, 6) LOCAL joint wrenches; while
+        # any is registered, the generic path runs
+        self.external_force_fn: Optional[Callable] = None
+        self._registered_forces: list = []
+        if self.has_constraints:
             if opts.stepper.integrator not in _FIXED_STEP:
                 raise NotImplementedError(
                     "adaptive DOPRI beside PGS rows (constraint contacts or bounds) is not "
                     "ported yet: its stage-warm-started trial, jiminy_tpu's "
                     "dopri_trial_stateful (ROADMAP.md queue 1 item 11)"
                 )
+            self._solver_opts = solver.solver_options(opts)
+        gravity = tuple(float(g) for g in opts.world.gravity)
+        self._cdyn = self._cdyn_cm = None
+        core = opts.use_fast_dynamics is not False and cdyn.supports_model(robot.model)
+        if core and self.has_constraints:
             if not self.constraint_mode and robot.contact_frame_indices:
                 raise NotImplementedError(
                     "joint bounds through the PGS solver beside spring-damper contacts "
@@ -132,13 +160,7 @@ class Engine:
             # Component CRBA/NLE for the PGS path; penalty bounds are not
             # applied beside PGS rows (as in jiminy_tpu)
             self._cdyn_cm = cdyn.ComponentDynamics(robot.model, gravity)
-            self._solver_opts = solver.solver_options(opts)
-        elif self.constraint_mode:
-            raise NotImplementedError(
-                "constraint contact mode with no constraint rows runs the generic "
-                "dynamics path, which is not ported yet (ROADMAP.md queue 1 item 2)"
-            )
-        else:
+        elif core and not self.constraint_mode:
             self._cdyn = cdyn.ComponentDynamics(
                 robot.model,
                 gravity,
@@ -147,8 +169,13 @@ class Engine:
                 contact_radii=robot.contact_radii,
                 bound_gains=self._bound_gains,
             )
+        # (constraint contact mode with no row builds no core, as in jiminy_tpu)
         self._tau_c = self._build_tau_c()
         self._period_runs = {}
+        # The generic path's substep, and its ticks' CUDA graphs by input shape
+        self._dt_tick = torch.as_tensor(self.tick_period, dtype=self.dtype,
+                                        device=self.device) / self.n_substeps
+        self._graphs = {}
 
     def _build_penalty_bound_gains(self) -> dict:
         """Per-joint penalty gains kp = m_ii w^2, kd = 2 m_ii w, with m_ii the
@@ -252,10 +279,20 @@ class Engine:
             aux["bound_active"] = extras[..., off + n_lam + n_cact : off + n_lam + n_cact + n_bact] > 0.5
         return a, aux
 
-    def _final_eval(self, q, v, command):
-        """(a, aux) at a state: `cdyn_accel` then the plain aux outputs, or
-        on the constrained path the plain constrained solve from a cold
-        start (no warm start, no active set), as at jiminy_tpu's reset."""
+    def _use_core(self) -> bool:
+        """True when this evaluation goes through the component core (its
+        kernels on the card); False on the generic path."""
+        return (self._cdyn is not None or self._cdyn_cm is not None) and (
+            self.external_force_fn is None
+        )
+
+    def _final_eval(self, t, q, v, command, carry=None):
+        """(a, aux) at a state. On the core: `cdyn_accel` then the plain aux
+        outputs, or on the constrained core the plain constrained solve from
+        a cold start (no warm start, no active set), as at jiminy_tpu's
+        reset. On the generic path: `dynamics_full` from `carry`."""
+        if not self._use_core():
+            return self.dynamics_full(t, q, v, command, carry)
         u_motor, u = self._compute_efforts(command, v)
         if self._cdyn_cm is not None:
             return self._constrained_eval(q, v, u, u_motor)
@@ -268,6 +305,241 @@ class Engine:
             raws[name] = imu_raw[..., off : off + len(frames), :]
             off += len(frames)
         return a, {"u_motor": u_motor, "sensor_raws": raws, **auxc}
+
+    # ------------------------------------------------------------------ #
+    # External forces (reference `registerProfileForce` and
+    # `registerImpulseForce`): wrenches at a frame in world-aligned axes,
+    # moved onto the frame's parent joint. They run on the generic path.
+    # ------------------------------------------------------------------ #
+    def register_profile_force(self, frame_name: str, force_fn: Callable) -> None:
+        """`force_fn(t) -> (..., 6)` world-aligned wrench (ang, lin) at the frame."""
+        fidx = self.robot.model.frame_index(frame_name)
+        self._registered_forces.append(("profile", fidx, force_fn))
+        self._rebuild_force_fn()
+
+    def register_impulse_force(self, frame_name: str, t_start: float, duration: float,
+                               wrench) -> None:
+        """A constant world wrench during [t_start, t_start + duration)."""
+        fidx = self.robot.model.frame_index(frame_name)
+        w = torch.as_tensor(wrench, dtype=self.dtype, device=self.device)
+
+        def force_fn(t):
+            on = (t >= t_start) & (t < t_start + duration)
+            return torch.where(on, 1.0, 0.0).to(w.dtype)[..., None] * w
+
+        self._registered_forces.append(("impulse", fidx, force_fn))
+        self._rebuild_force_fn()
+
+    def register_state_force(self, force_fn: Callable) -> None:
+        """`force_fn(t, q, v, kin) -> (..., nj, 6)` LOCAL joint wrenches."""
+        self._registered_forces.append(("state", None, force_fn))
+        self._rebuild_force_fn()
+
+    def remove_forces(self) -> None:
+        self._registered_forces = []
+        self.external_force_fn = None
+
+    def _rebuild_force_fn(self) -> None:
+        model = self.robot.model
+        entries = list(self._registered_forces)
+
+        def fn(t, q, v):
+            kin = forward_kinematics(model, q, v)
+            fext = q.new_zeros(q.shape[:-1] + (model.njoints, 6))
+            for kind, fidx, force_fn in entries:
+                if kind == "state":
+                    fext = fext + force_fn(t, q, v, kin)
+                    continue
+                w = force_fn(t)
+                parent = model.frame_parents[fidx]
+                pos_f = frame_placement(model, kin, fidx)[1]
+                rot_j = kin.rot[..., parent, :, :]
+                pos_j = kin.pos[..., parent, :]
+                lever = pos_f - pos_j
+                f_w = w[..., 3:6]
+                n_w = w[..., 0:3] + lie.cross(lever, f_w)
+                rt = rot_j.transpose(-1, -2)
+                fext[..., parent, 0:3] += lie.mv(rt, n_w)
+                fext[..., parent, 3:6] += lie.mv(rt, f_w)
+            return fext
+
+        self.external_force_fn = fn if entries else None
+
+    # ------------------------------------------------------------------ #
+    # The generic path
+    # ------------------------------------------------------------------ #
+    def _zero_carry(self, batch) -> dict:
+        """A cold PGS carry: no multiplier, no active row."""
+        cset = self.cset
+        return {"lam": self._zeros(batch + (cset.total_rows,)),
+                "contact_active": self._zeros(batch + (cset.n_contacts,), torch.bool),
+                "bound_active": self._zeros(batch + (cset.n_bounds,), torch.bool)}
+
+    def _carry_of(self, state: SimState) -> dict:
+        """The PGS warm start and active sets a state carries (a cold,
+        zero-width carry on a state without rows)."""
+        if state.lam is None:
+            return self._zero_carry(state.q.shape[:-1])
+        return {"lam": state.lam, "contact_active": state.contact_active,
+                "bound_active": state.bound_active}
+
+    def dynamics_full(self, t, q, v, command, carry=None):
+        """One generic dynamics evaluation (reference
+        `Engine::computeRobotsDynamics`), plain torch on every device: forward
+        kinematics at zero acceleration, the spring-damper contact forces,
+        the external forces, penalty bounds, then ABA, or the array-form PGS
+        solve over the constraint rows (warm-started and hysteresis-masked
+        from `carry`; None: all inactive). Returns (a, aux)."""
+        robot = self.robot
+        model = robot.model
+        batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1])
+        nc = len(robot.contact_frame_indices)
+        kin = None
+        if nc or self.has_constraints or self.constraint_mode:
+            # The accelerations of FK at zero acceleration are the
+            # velocity-bias terms of the constraint drifts
+            kin = forward_kinematics(model, q, v, q.new_zeros(batch + (model.nv,)))
+        fext_user = self.external_force_fn(t, q, v) if self.external_force_fn is not None else None
+        u_motor, u = self._compute_efforts(command, v)
+        if self._has_joint_damping:
+            u = u - model.tensor("damping", q.device, q.dtype) * v
+
+        if not self.constraint_mode:
+            if kin is None:  # no contact: no contact force
+                fext = None
+                f_world, w_local, depth = (self._zeros(batch + (0, 3)), self._zeros(batch + (0, 6)),
+                                           self._zeros(batch + (0,)))
+            else:
+                fext, f_world, w_local, depth = compute_contact_forces(
+                    model, self.options.contacts, None, kin, robot.contact_frame_indices,
+                    robot.contact_radii,
+                )
+            if fext_user is not None:
+                fext = fext_user if fext is None else fext + fext_user
+            if self._bound_gains:
+                u = u + penalty_bounds_torque(self._bound_gains, model.nv, q, v)
+            aux_c = {}
+            if self.has_constraints:  # joint bounds through PGS
+                csys, a, lam = self._constrained_accel(q, v, u, fext, kin, carry)
+                aux_c = {"lam": lam, "contact_active": csys.contact_active,
+                         "bound_active": csys.bound_active}
+            else:
+                a = dyn.aba(model, self.gravity, q, v, u, fext)
+            return a, {"u_motor": u_motor, "contact_f_world": f_world,
+                       "contact_w_local": w_local, "contact_depth": depth, **aux_c}
+
+        # Constraint contact mode: the contact forces are the multipliers,
+        # written back in the normal basis (reference `engine.cc:3770-3857`)
+        csys, a, lam = self._constrained_accel(q, v, u, fext_user, kin, carry)
+        if nc:
+            off_c = self.cset.row_offsets()[1]
+            lam_c = lam[..., off_c : off_c + 4 * nc]
+            lam_blocks = lam_c.reshape(lam_c.shape[:-1] + (nc, 4))
+            f_world = lie.mv(csys.contact_basis, lam_blocks[..., 0:3])
+            tau_n_world = csys.contact_basis[..., :, 2] * lam_blocks[..., 3:4]
+            w_local_list = []
+            for k, fidx in enumerate(robot.contact_frame_indices):
+                rt = frame_placement(model, kin, fidx)[0].transpose(-1, -2)
+                f_l = lie.mv(rt, f_world[..., k, :])
+                n_l = lie.mv(rt, tau_n_world[..., k, :])
+                w_local_list.append(torch.cat([n_l, f_l], dim=-1))
+            w_local = torch.stack(w_local_list, dim=-2)
+        else:
+            f_world = self._zeros(batch + (0, 3))
+            w_local = self._zeros(batch + (0, 6))
+        return a, {"u_motor": u_motor, "contact_f_world": f_world, "contact_w_local": w_local,
+                   "contact_depth": csys.contact_depth, "lam": lam,
+                   "contact_active": csys.contact_active, "bound_active": csys.bound_active}
+
+    def _constrained_accel(self, q, v, u, fext, kin, carry):
+        """The array-form PGS solve of the generic path: (csys, a, lam)."""
+        model, cset = self.robot.model, self.cset
+        if carry is None:
+            carry = self._zero_carry(torch.broadcast_shapes(q.shape[:-1], v.shape[:-1]))
+        csys = compute_constraint_system(
+            model, cset, self.options.contacts, None, kin, joint_space_jacobian(model, kin), q, v,
+            carry["contact_active"], carry["bound_active"],
+        )
+        o = self._solver_opts
+        res = solver.constrained_forward_dynamics(
+            model, self.gravity, q, v, u, fext, csys, cset, carry["lam"], o.friction, o.torsion,
+            o.regularization, o.iter_max,
+        )
+        return csys, res.qdd, res.lam
+
+    def _integrate_period_generic(self, state: SimState, command, kind: str):
+        """One tick of fixed-step Euler or RK4 on the generic path. On the
+        card, with no external force registered (a user's force function may
+        not be capturable), the tick's eager torch ops are captured once per
+        input shape as a CUDA graph and replayed: the same kernels, without
+        their launch overhead."""
+        carry = self._carry_of(state)
+        args = (state.t, state.q, state.v, command, [carry[k] for k in _PGS_KEYS])
+        if self.device.type == "cuda" and self.external_force_fn is None:
+            q, v, a, aux = self._replay_generic_period(kind, *args)
+        else:
+            q, v, a, aux = self._generic_period(kind, *args)
+        stepper = state.stepper.replace(iterations=state.stepper.iterations + self.n_substeps)
+        return state.replace(q=q, v=v), a, aux, stepper
+
+    def _generic_period(self, kind: str, t, q, v, command, carry_list):
+        """The generic tick's substeps, every stage one `dynamics_full`; with
+        PGS rows and the stage-chained warm start, the multipliers and active
+        sets thread through every stage and the end-of-tick evaluation.
+        Returns (q', v', a, aux), q' normalized, a and aux at the tick's end."""
+        model = self.robot.model
+        carry = dict(zip(_PGS_KEYS, carry_list))
+        dt = self._dt_tick
+        if self.has_constraints and self.options.stepper.pgs_stage_warm_start:
+            step = steppers.euler_step_stateful if kind == "euler" else steppers.rk4_step_stateful
+
+            def f2(t, q, v, pgs):
+                a, aux = self.dynamics_full(t, q, v, command, pgs)
+                return a, {k: aux[k] for k in _PGS_KEYS}
+
+            for _ in range(self.n_substeps):
+                q, v, _, carry = step(model, f2, t, q, v, dt, carry)
+                t = t + dt
+        else:
+            step = steppers.euler_step if kind == "euler" else steppers.rk4_step
+            f = self._accel_fn(command, carry)
+            for _ in range(self.n_substeps):
+                q, v, _ = step(model, f, t, q, v, dt)
+                t = t + dt
+        a, aux = self.dynamics_full(t, q, v, command, carry)
+        return integ.normalize(model, q), v, a, aux
+
+    def _replay_generic_period(self, kind: str, t, q, v, command, carry_list):
+        """`_generic_period` through a CUDA graph captured for these input
+        shapes: the inputs are copied into the graph's own, the graph
+        replayed, and its outputs copied out (the next replay overwrites
+        them)."""
+        inputs = [t, q, v, command] + list(carry_list)
+        key = (kind,) + tuple((tuple(x.shape), x.dtype) for x in inputs)
+        entry = self._graphs.get(key)
+        if entry is None:
+            static = [x.clone() for x in inputs]
+
+            def run():
+                return self._generic_period(kind, *static[:4], static[4:])
+
+            # Warm up on a side stream (lazy inits stay out of the capture)
+            stream = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(stream)
+            with torch.cuda.stream(side):
+                for _ in range(2):
+                    run()
+            stream.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = run()
+            entry = self._graphs[key] = (graph, static, out)
+        graph, static, (q2, v2, a, aux) = entry
+        for dst, src in zip(static, inputs):
+            dst.copy_(src)
+        graph.replay()
+        return q2.clone(), v2.clone(), a.clone(), {k: x.clone() for k, x in aux.items()}
 
     def _constrained_eval(self, q, v, u, u_motor):
         """The constrained dynamics at one state, plain torch on any device
@@ -326,9 +598,10 @@ class Engine:
         )
         q0 = integ.normalize(model, q0)
         command = self._zeros(batch + (self.robot.nmotors,))
-        a0, aux = self._final_eval(q0, v0, command)
+        t0 = self._zeros(batch)
+        a0, aux = self._final_eval(t0, q0, v0, command)
         st = SimState(
-            t=self._zeros(batch),
+            t=t0,
             q=q0,
             v=v0,
             a=a0,
@@ -347,7 +620,7 @@ class Engine:
             measurements={},
             tick=self._zeros(batch, torch.int32),
         )
-        if self._cdyn_cm is not None:
+        if "lam" in aux:
             st = st.replace(
                 contact_active=aux["contact_active"],
                 bound_active=aux["bound_active"],
@@ -390,6 +663,8 @@ class Engine:
         kind = _FIXED_STEP.get(self.options.stepper.integrator)
         if kind is None:
             return self._integrate_period_dopri(state, command)
+        if not self._use_core():
+            return self._integrate_period_generic(state, command, kind)
         cc = command
         if self._cdyn_cm is not None:
             # Warm-start multipliers and active sets ride the command row
@@ -402,9 +677,13 @@ class Engine:
         stepper = state.stepper.replace(iterations=state.stepper.iterations + self.n_substeps)
         return state.replace(q=integ.normalize(self.robot.model, q), v=v), a, aux, stepper
 
-    def _accel_fn(self, command):
-        """`a = f(t, q, v)` under a zero-order-held command: the motor
-        efforts, then `cdyn_accel` (the plain `_accel_core` on the CPU)."""
+    def _accel_fn(self, command, carry=None):
+        """`a = f(t, q, v)` under a zero-order-held command: on the
+        spring-damper core the motor efforts, then `cdyn_accel` (the plain
+        `_accel_core` on the CPU); on the generic path `dynamics_full` from
+        `carry`."""
+        if not self._use_core():
+            return lambda t, q, v: self.dynamics_full(t, q, v, command, carry)[0]
         cd = self._cdyn
 
         def f(t, q, v):
@@ -420,7 +699,7 @@ class Engine:
         opts = self.options.stepper
         model = self.robot.model
         period = self.tick_period
-        f = self._accel_fn(command)
+        f = self._accel_fn(command, self._carry_of(state))
         st = state.stepper
         q, v = state.q, state.v
         a = f(state.t, q, v)
@@ -455,7 +734,7 @@ class Engine:
             diverged = torch.where(active, succ_next >= opts.successive_iter_failed_max, diverged)
             trials = trials + active.to(trials.dtype)
         q = integ.normalize(model, q)
-        a, aux = self._final_eval(q, v, command)
+        a, aux = self._final_eval(state.t + period, q, v, command)
         stepper = StepperState(dt=dt_pref, iterations=iters, iter_failed=fails,
                                successive_iter_failed=succ_failed, diverged=diverged)
         return state.replace(q=q, v=v), a, aux, stepper
@@ -466,10 +745,11 @@ class Engine:
         """True when `step_rollout_fused` can replace per-period `step` calls:
         fixed-step integration (Euler, RK4) and one sensor tick per controller
         period (clean sensors are all this port accepts), on the spring-damper
-        core or the constrained one. Under DOPRI the gym layer steps period by
-        period."""
+        core or the constrained one. Under DOPRI, and on the generic path, the
+        gym layer steps period by period."""
         return (self.options.stepper.integrator in _FIXED_STEP
-                and self.n_sensor_periods == 1)
+                and self.n_sensor_periods == 1
+                and self._use_core())
 
     def _get_rollout_run(self, cache_key: str, controller, n_periods: int):
         key = ("rollout", cache_key, n_periods)

@@ -11,6 +11,7 @@ ROADMAP.md queue 1 item 11, and the engine refuses a robot that declares them.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -96,14 +97,13 @@ class MotorBank(_Placed):
         def t(name):
             return self.tensor(name, command.device, command.dtype)
 
-        vidx = torch.as_tensor(self.v_indices, dtype=torch.long, device=v.device)
+        vidx = self.tensor("v_indices", v.device, torch.long)
         v_joint = torch.index_select(v, -1, vidx)
         red, el, vl = t("mechanical_reduction"), t("effort_limit"), t("velocity_limit")
         v_motor = red * v_joint
-        inf = torch.tensor(float("inf"), dtype=command.dtype, device=command.device)
         en_e = t("enable_effort_limit") > 0
-        effort_min = torch.where(en_e, -el, -inf)
-        effort_max = torch.where(en_e, el, inf)
+        effort_min = torch.where(en_e, -el, -math.inf)
+        effort_max = torch.where(en_e, el, math.inf)
         el_fin = torch.where(torch.isfinite(el), el, 0.0)
         vl_fin = torch.where(torch.isfinite(vl), vl, 0.0)
         vel_delta = el_fin * t("velocity_effort_inv_slope")
@@ -215,12 +215,11 @@ class EncoderSensorGroup(_GroupBase):
         red = self.tensor("reduction", q.device, q.dtype)
         out = []
         for i in range(self.nsensors):
+            qi = self.q_indices[i]
             if jt.JointType(self.joint_types[i]) == jt.JointType.REVOLUTE_UNBOUNDED:
-                raise NotImplementedError(
-                    "encoders on unbounded revolute joints are not ported yet "
-                    "(ROADMAP.md queue 1 item 8, toys)"
-                )
-            pos = q[..., self.q_indices[i]]
+                pos = torch.atan2(q[..., qi + 1], q[..., qi])  # (cos, sin) -> angle
+            else:
+                pos = q[..., qi]
             vel = v[..., self.v_indices[i]]
             if not self.joint_side[i]:
                 pos = pos * red[i]

@@ -1,7 +1,15 @@
 """Constrained forward dynamics by projected Gauss-Seidel over the Delassus
-matrix A = J M^-1 J^T (port of `jiminy_tpu.engine.solver`, the component
-path), and the two CUDA kernels that replace the constrained bodies of its
-Pallas kernels.
+matrix A = J M^-1 J^T (port of `jiminy_tpu.engine.solver`: the array form
+of the generic path and the component path), and the two CUDA kernels that
+replace the constrained bodies of its Pallas kernels.
+
+The array form. `constrained_forward_dynamics` takes a `ConstraintSystem`
+(`engine/constraints.py`): M from `crba`, nle from `nonlinear_effects`
+(external forces included), a Cholesky factor of M
+(`torch.linalg.cholesky_ex`, `solve_triangular`, as jiminy_tpu runs them in
+XLA outside its kernels), and `pgs_solve` over the (..., N, N) Delassus
+matrix. It is the generic path's solve (`Engine.dynamics_full`), plain
+torch on every device.
 
 Plain versions. `constrained_accel_full_components` mirrors jiminy_tpu's
 function of the same name: component CRBA and RNEA, an LDL^T factor of the
@@ -43,9 +51,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from jiminy_torch.engine.constraints import ConstraintSet
+from jiminy_torch.engine.constraints import ConstraintSet, ConstraintSystem
 from jiminy_torch.models import joints as jt
+from jiminy_torch.models.model import RobotModel
 from jiminy_torch.ops import cdyn
+from jiminy_torch.ops import dynamics as dyn
+from jiminy_torch.ops import lie
 from jiminy_torch.ops.cdyn import m_mv, m_tv, v_add, v_cross, v_dot, v_scale, v_sub
 
 _MIN_REGULARIZER = 1.0e-11
@@ -144,6 +155,116 @@ def _pgs_sweep_components(cset: ConstraintSet, a, b, lam0, friction: float,
             x[i0] = x0 * scale
             x[i1] = x1 * scale
     return x
+
+
+def pgs_solve(cset: ConstraintSet, A: torch.Tensor, b: torch.Tensor, lam0: torch.Tensor,
+              friction: float, torsion: float, iter_max: int,
+              componentwise: bool = False) -> torch.Tensor:
+    """Fixed-iteration PGS with boxed bounds and friction-cone projection:
+    A (..., N, N), b and the warm start lam0 (..., N) -> (..., N).
+    `componentwise=True` runs the component sweep (`_pgs_sweep_components`)
+    on the same rows."""
+    if not componentwise:
+        return _pgs_solve_einsum(cset, A, b, lam0, friction, torsion, iter_max)
+    lam = _pgs_sweep_components(
+        cset, torch.movedim(A, (-2, -1), (0, 1)), torch.movedim(b, -1, 0),
+        torch.movedim(lam0.expand(b.shape), -1, 0), friction, torsion, iter_max,
+    )
+    return torch.movedim(lam, 0, -1)
+
+
+def _pgs_solve_einsum(cset: ConstraintSet, A, b, lam0, friction: float, torsion: float,
+                      iter_max: int) -> torch.Tensor:
+    """Array-form PGS: the rows' sweep order and projections of
+    `_pgs_sweep_components`, each row's dot one reduction over A's column."""
+    off_b, off_c, off_d, off_r = cset.row_offsets()
+    x = lam0.expand(b.shape).clone()
+
+    def dot_col(i):
+        return lie.mv(A[..., :, i].unsqueeze(-2), x)[..., 0]
+
+    for it in range(iter_max):
+        w = _relaxation(it, iter_max)
+        for i in [off_d + k for k in range(cset.n_distance)] + [
+            off_r + k for k in range(3 * cset.n_rolling)
+        ]:
+            x[..., i] = x[..., i] + (b[..., i] - dot_col(i)) / A[..., i, i]
+        for i in [off_b + k for k in range(cset.n_bounds)] + [
+            off_c + 4 * k + 2 for k in range(cset.n_contacts)
+        ]:
+            y = b[..., i] - dot_col(i)
+            x[..., i] = torch.clamp(x[..., i] + w * y / A[..., i, i], min=0.0)
+        for k in range(cset.n_contacts):
+            i, iz = off_c + 4 * k + 3, off_c + 4 * k + 2
+            if torsion <= 0.0:
+                x[..., i] = 0.0
+                continue
+            y = b[..., i] - dot_col(i)
+            thr = torsion * x[..., iz]
+            x[..., i] = cdyn._clip(x[..., i] + w * y / A[..., i, i], -thr, thr)
+        for k in range(cset.n_contacts):
+            i0 = off_c + 4 * k
+            i1, iz = i0 + 1, i0 + 2
+            if friction <= 0.0:
+                x[..., i0] = 0.0
+                x[..., i1] = 0.0
+                continue
+            y0 = b[..., i0] - dot_col(i0)
+            y1 = b[..., i1] - dot_col(i1)
+            a_max = torch.maximum(A[..., i0, i0], A[..., i1, i1])
+            x0 = x[..., i0] + w * y0 / a_max
+            x1 = x[..., i1] + w * y1 / a_max
+            thr = friction * x[..., iz]
+            norm2 = x0 * x0 + x1 * x1
+            scale = torch.where(
+                norm2 > thr * thr, thr / torch.sqrt(torch.clamp(norm2, min=1e-30)), 1.0
+            )
+            x[..., i0] = x0 * scale
+            x[..., i1] = x1 * scale
+    return x
+
+
+@dataclasses.dataclass
+class ConstrainedDynamicsResult:
+    qdd: torch.Tensor  # (..., nv)
+    lam: torch.Tensor  # (..., N) multipliers (constraint-space forces)
+
+
+def constrained_forward_dynamics(model: RobotModel, gravity, q: torch.Tensor, v: torch.Tensor,
+                                 tau: torch.Tensor, fext, csys: ConstraintSystem,
+                                 cset: ConstraintSet, lam_warm: torch.Tensor, friction: float,
+                                 torsion: float, regularization: float,
+                                 iter_max: int) -> ConstrainedDynamicsResult:
+    """qdd = M^-1 (J^T lam + tau - nle), lam from PGS over A = J M^-1 J^T +
+    reg (reference `SolveBoxedForwardDynamics`). Inactive rows are masked to
+    a zero Jacobian and drift, so they carry no force."""
+    mass_matrix = dyn.crba(model, q)  # armature included
+    nle = dyn.nonlinear_effects(model, gravity, q, v, fext)
+    chol = torch.linalg.cholesky_ex(mass_matrix)[0]  # no host sync (CUDA graphs)
+
+    def minv(x):
+        vec = x.ndim == q.ndim
+        if vec:
+            x = x[..., None]
+        y = torch.linalg.solve_triangular(chol, x, upper=False)
+        y = torch.linalg.solve_triangular(chol.transpose(-1, -2), y, upper=True)
+        return y[..., 0] if vec else y
+
+    mask = csys.active.to(q.dtype)
+    jac = csys.jac * mask[..., None]
+    drift = csys.drift * mask
+
+    tau_res = minv(tau - nle)
+    minv_jt = minv(jac.transpose(-1, -2))  # (..., nv, N)
+    A = lie.mm(jac, minv_jt)
+    diag = torch.diagonal(A, dim1=-2, dim2=-1)
+    reg = torch.clamp(diag * regularization, min=_MIN_REGULARIZER)
+    A = A + torch.diag_embed(reg)
+    b = -drift - lie.mv(jac, tau_res)
+    b = b * mask
+    lam = pgs_solve(cset, A, b, lam_warm * mask, friction, torsion, iter_max)
+    qdd = minv(lie.mv(jac.transpose(-1, -2), lam)) + tau_res
+    return ConstrainedDynamicsResult(qdd=qdd, lam=lam)
 
 
 def _ldl_factor_components(a):

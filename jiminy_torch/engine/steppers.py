@@ -1,5 +1,7 @@
-"""Adaptive Dormand-Prince 5(4) on the Lie group (port of
-`jiminy_tpu.engine.steppers`, the stateless DOPRI pieces).
+"""Lie-group ODE steppers (port of `jiminy_tpu.engine.steppers`): explicit
+Euler and RK4, stateless and with a stateful dynamics callback (the generic
+path's per-stage loop, the PGS warm start chained through every stage), and
+the stateless adaptive Dormand-Prince 5(4) pieces.
 
 The state (q, v) lives on the model's configuration group: increments are
 applied with the retraction `q (+) dt * v` and errors measured with
@@ -9,9 +11,10 @@ env that has finished its period carries its state through. Error control is
 the reference's boost-odeint scheme: the inf-norm of the 5th-vs-4th order
 mismatch scaled by `tol_abs + tol_rel * |state|`.
 
-The dynamics callback is `a = f(t, q, v)`; on the card each call is one
-`cdyn_accel` launch over the batch. The stage-warm-started variants of the
-constrained (PGS) path are not ported (ROADMAP.md queue 1 item 11).
+The dynamics callback is `a = f(t, q, v)`, or `(a, s') = f(t, q, v, s)`
+for the stateful steppers. Under DOPRI on the component core each call is
+one `cdyn_accel` launch over the batch. The stage-warm-started DOPRI trial
+of the constrained (PGS) path is not ported (ROADMAP.md queue 1 item 11).
 """
 
 from __future__ import annotations
@@ -47,6 +50,61 @@ _ERROR_THRESHOLD = 0.5
 _MIN_FACTOR = 0.2
 _MAX_FACTOR = 5.0
 _ORDER = 5.0
+
+
+def euler_step(model: RobotModel, f: Callable, t, q, v, dt):
+    """One explicit-Euler step (reference `EulerExplicitStepper`)."""
+    a = f(t, q, v)
+    q_new = integ.integrate(model, q, v * dt[..., None])
+    v_new = v + a * dt[..., None]
+    return q_new, v_new, a
+
+
+def rk4_step(model: RobotModel, f: Callable, t, q, v, dt):
+    """One classical RK4 step on the Lie group (reference `RungeKutta4Stepper`)."""
+    dtc = dt[..., None]
+    k1v, k1a = v, f(t, q, v)
+    q2 = integ.integrate(model, q, 0.5 * dtc * k1v)
+    v2 = v + 0.5 * dtc * k1a
+    k2v, k2a = v2, f(t + 0.5 * dt, q2, v2)
+    q3 = integ.integrate(model, q, 0.5 * dtc * k2v)
+    v3 = v + 0.5 * dtc * k2a
+    k3v, k3a = v3, f(t + 0.5 * dt, q3, v3)
+    q4 = integ.integrate(model, q, dtc * k3v)
+    v4 = v + dtc * k3a
+    k4v, k4a = v4, f(t + dt, q4, v4)
+    dq = (dtc / 6.0) * (k1v + 2.0 * k2v + 2.0 * k3v + k4v)
+    dv = (dtc / 6.0) * (k1a + 2.0 * k2a + 2.0 * k3a + k4a)
+    return integ.integrate(model, q, dq), v + dv, k4a
+
+
+def euler_step_stateful(model: RobotModel, f: Callable, t, q, v, dt, s):
+    """`euler_step` with a stateful dynamics callback `(a, s') = f(t, q, v,
+    s)`: the PGS warm start and active-set hysteresis chained through every
+    dynamics evaluation (the reference's multipliers persist across solves)."""
+    a, s = f(t, q, v, s)
+    q_new = integ.integrate(model, q, v * dt[..., None])
+    v_new = v + a * dt[..., None]
+    return q_new, v_new, a, s
+
+
+def rk4_step_stateful(model: RobotModel, f: Callable, t, q, v, dt, s):
+    """`rk4_step` with a stateful dynamics callback: each stage's solve is
+    warm-started from the previous stage's."""
+    dtc = dt[..., None]
+    k1a, s = f(t, q, v, s)
+    q2 = integ.integrate(model, q, 0.5 * dtc * v)
+    v2 = v + 0.5 * dtc * k1a
+    k2a, s = f(t + 0.5 * dt, q2, v2, s)
+    q3 = integ.integrate(model, q, 0.5 * dtc * v2)
+    v3 = v + 0.5 * dtc * k2a
+    k3a, s = f(t + 0.5 * dt, q3, v3, s)
+    q4 = integ.integrate(model, q, dtc * v3)
+    v4 = v + dtc * k3a
+    k4a, s = f(t + dt, q4, v4, s)
+    dq = (dtc / 6.0) * (v + 2.0 * v2 + 2.0 * v3 + v4)
+    dv = (dtc / 6.0) * (k1a + 2.0 * k2a + 2.0 * k3a + k4a)
+    return integ.integrate(model, q, dq), v + dv, k4a, s
 
 
 def _weighted(coefs, ks):

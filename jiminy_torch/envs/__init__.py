@@ -1,5 +1,5 @@
-"""Preconfigured environments (port of `jiminy_tpu.envs`: the ANYmal and
-Atlas entries).
+"""Preconfigured environments (port of `jiminy_tpu.envs`: the toys, the
+ANYmal and the Atlas entries).
 
 `make(env_id, device=None, dtype=None)` builds an env on the card unless
 `device` says otherwise; with no device and no card it raises. The ids of
@@ -15,8 +15,12 @@ from jiminy_torch.envs.bipeds import (
     AtlasReducedPDControlEnv,
 )
 from jiminy_torch.envs.locomotion import WalkerEnv
+from jiminy_torch.envs.toys import AcrobotEnv, CartPoleEnv, PendulumEnv
 
 _REGISTRY = {
+    "cartpole": CartPoleEnv,
+    "acrobot": AcrobotEnv,
+    "pendulum": PendulumEnv,
     "anymal": ANYmalEnv,
     "anymal-pid": ANYmalPDControlEnv,
     "atlas": AtlasEnv,
@@ -27,7 +31,6 @@ _REGISTRY = {
 
 # jiminy_tpu's other ids and the ROADMAP.md queue 1 item that ports them
 _NOT_PORTED = {
-    "cartpole": 8, "acrobot": 8, "pendulum": 8,
     "ant": 10, "cassie": 10, "cassie-pid": 10, "digit": 10, "digit-pid": 10,
 }
 
@@ -45,6 +48,9 @@ def make(name: str, device=None, dtype=None, **kwargs):
 
 
 __all__ = [
+    "AcrobotEnv",
+    "CartPoleEnv",
+    "PendulumEnv",
     "ANYmalEnv",
     "ANYmalPDControlEnv",
     "AtlasEnv",

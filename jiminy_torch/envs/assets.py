@@ -3,8 +3,9 @@
 
 The URDF and `*_hardware.toml` files are read as data from the JAX package's
 data directory; nothing of that package is imported. This slice loads the
-ANYmal (point contact frames) and Atlas (foot collision boxes expanded into
-corner contact points, pruned to the support hull at the nominal pose;
+toys (cartpole, acrobot, simple_pendulum: fixed base, no hardware file),
+the ANYmal (point contact frames) and Atlas (foot collision boxes expanded
+into corner contact points, pruned to the support hull at the nominal pose;
 locked joints folded away); collision meshes and the Cassie/Digit pushrod
 loop closures wait for ROADMAP.md queue 1 item 10.
 """
@@ -29,6 +30,9 @@ DATA_DIR = os.path.normpath(
 )
 
 _ASSET_SUBDIRS = {
+    "cartpole": "toys_models/cartpole",
+    "acrobot": "toys_models/acrobot",
+    "simple_pendulum": "toys_models/simple_pendulum",
     "anymal": "quadrupedal_robots/anymal",
     "atlas": "bipedal_robots/atlas",
 }

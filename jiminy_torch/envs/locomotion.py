@@ -91,7 +91,7 @@ class WalkerEnv(BaseEnv):
         self.base_height_min = base_height_min
         self.std_ratio = std_ratio
 
-    def _sample_state(self, batch: tuple):
+    def _sample_state(self, batch: tuple, generator=None):
         model = self.robot.model
         return (
             self.nominal_q.expand(batch + (model.nq,)),

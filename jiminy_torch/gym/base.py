@@ -72,8 +72,10 @@ class BaseEnv:
     # ------------------------------------------------------------------ #
     # Hooks
     # ------------------------------------------------------------------ #
-    def _sample_state(self, batch: tuple) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Initial (q, v) of shape batch + (n,); override for other resets."""
+    def _sample_state(self, batch: tuple, generator: Optional[torch.Generator] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Initial (q, v) of shape batch + (n,), drawn with `generator` where
+        the env samples; override for other resets."""
         model = self.robot.model
         q = torch.as_tensor(model.neutral(), dtype=self.dtype, device=self.device)
         return q.expand(batch + (model.nq,)), torch.zeros(
@@ -100,10 +102,21 @@ class BaseEnv:
     # ------------------------------------------------------------------ #
     # Core API
     # ------------------------------------------------------------------ #
-    def reset(self, batch_size: Optional[int] = None) -> Tuple[EnvState, Any]:
-        """Reset `batch_size` environments (None: one unbatched environment)."""
+    def reset(self, batch_size: Optional[int] = None,
+              generator: Optional[torch.Generator] = None) -> Tuple[EnvState, Any]:
+        """Reset `batch_size` environments (None: one unbatched environment),
+        their initial states drawn with `generator` (None: torch's default)."""
         batch = () if batch_size is None else (int(batch_size),)
-        q0, v0 = self._sample_state(batch)
+        # (a hook overridden with the one-argument signature draws nothing)
+        sample = self._sample_state(batch) if generator is None else self._sample_state(batch, generator)
+        return self.reset_at(*sample)
+
+    def reset_at(self, q0, v0) -> Tuple[EnvState, Any]:
+        """Reset environments at the given initial states, q0 (..., nq) and
+        v0 (..., nv)."""
+        q0 = torch.as_tensor(q0, dtype=self.dtype, device=self.device)
+        v0 = torch.as_tensor(v0, dtype=self.dtype, device=self.device)
+        batch = q0.shape[:-1]
         sim = self.engine.reset(q0, v0)
         state = EnvState(
             sim=sim,

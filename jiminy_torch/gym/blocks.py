@@ -124,11 +124,6 @@ class PDController:
         Carry layout = the flattened (3, nm) command state."""
         enc = env.robot.sensors.encoder
         nm = env.robot.motors.nmotors
-        if any(jt.JointType(t) == jt.JointType.REVOLUTE_UNBOUNDED for t in enc.joint_types):
-            raise NotImplementedError(
-                "encoders on unbounded revolute joints are not ported yet "
-                "(ROADMAP.md queue 1 item 8)"
-            )
         kp = np.broadcast_to(self.kp, (nm,))
         kd = np.broadcast_to(self.kd, (nm,))
         return cdyn.PDComponents(
@@ -142,4 +137,6 @@ class PDController:
             q_indices=tuple(enc.q_indices),
             v_indices=tuple(enc.v_indices),
             joint_side=tuple(bool(x) for x in enc.joint_side),
+            unbounded=tuple(jt.JointType(t) == jt.JointType.REVOLUTE_UNBOUNDED
+                            for t in enc.joint_types),
         )

@@ -17,8 +17,11 @@ class _Wrapper:
     def observe(self, state):
         return self.env.observe(state)
 
-    def reset(self, batch_size=None):
-        return self.env.reset(batch_size)
+    def reset(self, batch_size=None, generator=None):
+        return self.env.reset(batch_size, generator)
+
+    def reset_at(self, q0, v0):
+        return self.env.reset_at(q0, v0)
 
     def step(self, state, action):
         return self.env.step(state, action)
@@ -49,8 +52,13 @@ class ControlledEnv(_Wrapper):
             obs["targets"] = {**obs.get("targets", {}), self.block.name: state.blocks[self.block.name]}
         return obs
 
-    def reset(self, batch_size=None):
-        state, _ = self.env.reset(batch_size)
+    def reset(self, batch_size=None, generator=None):
+        return self._with_block(self.env.reset(batch_size, generator)[0])
+
+    def reset_at(self, q0, v0):
+        return self._with_block(self.env.reset_at(q0, v0)[0])
+
+    def _with_block(self, state):
         bstate = self.block.init_state(state)
         state = state.replace(blocks={**state.blocks, self.block.name: bstate})
         return state, self.observe(state)

@@ -3,15 +3,17 @@
 
 Configuration-vector layout matches pinocchio:
 
-| type      | nq | q layout            | nv | v layout (LOCAL frame) |
-|-----------|----|---------------------|----|-------------------------|
-| FREE      | 7  | x y z  qx qy qz qw  | 6  | v_lin(3) omega(3)       |
-| REVOLUTE  | 1  | angle               | 1  | dangle                  |
-| PRISMATIC | 1  | displacement        | 1  | ddisplacement           |
+| type               | nq | q layout            | nv | v layout (LOCAL frame) |
+|--------------------|----|---------------------|----|-------------------------|
+| FREE               | 7  | x y z  qx qy qz qw  | 6  | v_lin(3) omega(3)       |
+| REVOLUTE           | 1  | angle               | 1  | dangle                  |
+| REVOLUTE_UNBOUNDED | 2  | cos(a) sin(a)       | 1  | dangle                  |
+| PRISMATIC          | 1  | displacement        | 1  | ddisplacement           |
+| SPHERICAL          | 4  | qx qy qz qw         | 3  | omega(3)                |
 
-REVOLUTE_UNBOUNDED and SPHERICAL are known to the model (URDF "continuous"
-joints, flexibility joints) but their kinematics are not ported yet: see
-ROADMAP.md queue 1 item 2 (generic ops) and queue 2 (spherical joints).
+Every type runs on the generic path (`ops/dynamics.py`); the component core
+and its kernels take the FREE root, REVOLUTE and PRISMATIC joints only
+(`ops/cdyn.py::supports_model`).
 """
 
 from __future__ import annotations
@@ -49,13 +51,6 @@ JOINT_NV = {
 }
 
 
-def _unported(jtype: JointType):
-    return NotImplementedError(
-        f"joint type {jtype.name} is not ported yet (ROADMAP.md queue 1 item 2, "
-        "generic ops; SPHERICAL also queue 2)"
-    )
-
-
 def neutral_q(jtype: JointType) -> np.ndarray:
     """Neutral configuration segment for one joint (host-side numpy)."""
     if jtype == JointType.FREE:
@@ -76,10 +71,20 @@ def joint_transform(jtype: int, axis: torch.Tensor, q_j: torch.Tensor):
     if jtype == JointType.REVOLUTE:
         rot = lie.exp3_mat(axis * q_j[..., 0:1])
         return rot, torch.zeros(batch + (3,), dtype=q_j.dtype, device=q_j.device)
+    if jtype == JointType.REVOLUTE_UNBOUNDED:
+        # Rodrigues with (cos, sin) given directly: R = I + s S + (1 - c) S^2
+        c, s = q_j[..., 0], q_j[..., 1]
+        sk = lie.skew(axis)
+        eye = torch.eye(3, dtype=axis.dtype, device=axis.device).expand(sk.shape)
+        rot = eye + s[..., None, None] * sk + (1.0 - c)[..., None, None] * lie.mm(sk, sk)
+        return rot, torch.zeros(batch + (3,), dtype=q_j.dtype, device=q_j.device)
     if jtype == JointType.PRISMATIC:
         eye = torch.eye(3, dtype=q_j.dtype, device=q_j.device).expand(batch + (3, 3))
         return eye, axis * q_j[..., 0:1]
-    raise _unported(jtype)
+    if jtype == JointType.SPHERICAL:
+        return lie.quat_to_mat(q_j[..., 0:4]), torch.zeros(batch + (3,), dtype=q_j.dtype,
+                                                           device=q_j.device)
+    raise ValueError(f"unsupported joint type {jtype}")
 
 
 def motion_subspace(jtype: int, axis: torch.Tensor) -> torch.Tensor:
@@ -90,11 +95,15 @@ def motion_subspace(jtype: int, axis: torch.Tensor) -> torch.Tensor:
         s[0:3, 3:6] = torch.eye(3, dtype=axis.dtype, device=axis.device)
         s[3:6, 0:3] = torch.eye(3, dtype=axis.dtype, device=axis.device)
         return s
-    if jtype == JointType.REVOLUTE:
+    if jtype in (JointType.REVOLUTE, JointType.REVOLUTE_UNBOUNDED):
         return torch.cat([axis, torch.zeros_like(axis)], dim=-1)[..., None]
     if jtype == JointType.PRISMATIC:
         return torch.cat([torch.zeros_like(axis), axis], dim=-1)[..., None]
-    raise _unported(jtype)
+    if jtype == JointType.SPHERICAL:
+        s = torch.zeros((6, 3), dtype=axis.dtype, device=axis.device)
+        s[0:3, 0:3] = torch.eye(3, dtype=axis.dtype, device=axis.device)
+        return s
+    raise ValueError(f"unsupported joint type {jtype}")
 
 
 def integrate_joint(jtype: int, q_j: torch.Tensor, dv_j: torch.Tensor) -> torch.Tensor:
@@ -102,6 +111,12 @@ def integrate_joint(jtype: int, q_j: torch.Tensor, dv_j: torch.Tensor) -> torch.
     jtype = JointType(jtype)
     if jtype in (JointType.REVOLUTE, JointType.PRISMATIC):
         return q_j + dv_j
+    if jtype == JointType.REVOLUTE_UNBOUNDED:
+        c, s = q_j[..., 0], q_j[..., 1]
+        cd, sd = torch.cos(dv_j[..., 0]), torch.sin(dv_j[..., 0])
+        return torch.stack([c * cd - s * sd, s * cd + c * sd], dim=-1)
+    if jtype == JointType.SPHERICAL:
+        return lie.quat_normalize(lie.quat_mul(q_j, lie.exp3(dv_j)))
     if jtype == JointType.FREE:
         p, quat = q_j[..., 0:3], q_j[..., 3:7]
         v_lin, omega = dv_j[..., 0:3], dv_j[..., 3:6]
@@ -110,7 +125,7 @@ def integrate_joint(jtype: int, q_j: torch.Tensor, dv_j: torch.Tensor) -> torch.
         p_new = p + lie.mv(rot, p_d)
         quat_new = lie.quat_normalize(lie.quat_mul(quat, lie.exp3(omega)))
         return torch.cat([p_new, quat_new], dim=-1)
-    raise _unported(jtype)
+    raise ValueError(f"unsupported joint type {jtype}")
 
 
 def _exp6_translation(omega: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -157,6 +172,12 @@ def difference_joint(jtype: int, q0_j: torch.Tensor, q1_j: torch.Tensor) -> torc
     jtype = JointType(jtype)
     if jtype in (JointType.REVOLUTE, JointType.PRISMATIC):
         return q1_j - q0_j
+    if jtype == JointType.REVOLUTE_UNBOUNDED:
+        c0, s0 = q0_j[..., 0], q0_j[..., 1]
+        c1, s1 = q1_j[..., 0], q1_j[..., 1]
+        return torch.atan2(s1 * c0 - c1 * s0, c1 * c0 + s1 * s0)[..., None]
+    if jtype == JointType.SPHERICAL:
+        return lie.log3_quat(lie.quat_mul(lie.quat_conjugate(q0_j), q1_j))
     if jtype == JointType.FREE:
         p0, quat0 = q0_j[..., 0:3], q0_j[..., 3:7]
         p1, quat1 = q1_j[..., 0:3], q1_j[..., 3:7]
@@ -165,13 +186,15 @@ def difference_joint(jtype: int, q0_j: torch.Tensor, q1_j: torch.Tensor) -> torc
         drot = lie.quat_to_mat(lie.quat_mul(lie.quat_conjugate(quat0), quat1))
         omega, v = _log6(drot, dp_local)
         return torch.cat([v, omega], dim=-1)
-    raise _unported(jtype)
+    raise ValueError(f"unsupported joint type {jtype}")
 
 
 def normalize_joint(jtype: int, q_j: torch.Tensor) -> torch.Tensor:
     jtype = JointType(jtype)
+    if jtype == JointType.REVOLUTE_UNBOUNDED:
+        return q_j / torch.linalg.norm(q_j, dim=-1, keepdim=True)
+    if jtype == JointType.SPHERICAL:
+        return lie.quat_normalize(q_j)
     if jtype == JointType.FREE:
         return torch.cat([q_j[..., 0:3], lie.quat_normalize(q_j[..., 3:7])], dim=-1)
-    if jtype in (JointType.REVOLUTE, JointType.PRISMATIC):
-        return q_j
-    raise _unported(jtype)
+    return q_j

@@ -256,6 +256,17 @@ def _unsupported_joint(i: int, t: jt.JointType) -> Exception:
     )
 
 
+def supports_model(model: RobotModel) -> bool:
+    """True when the component core and its kernels take `model`: a FREE or
+    fixed root and REVOLUTE / PRISMATIC joints. jiminy_tpu's core also takes
+    SPHERICAL joints; the port's does not yet (ROADMAP.md queue 2)."""
+    try:
+        check_model(model)
+    except NotImplementedError:
+        return False
+    return True
+
+
 def check_model(model: RobotModel) -> None:
     """Raise unless the component core supports `model`."""
     for i, t in enumerate(model.joint_types):
@@ -1276,6 +1287,9 @@ class PDComponents:
     q_indices: tuple  # encoder q index per motor
     v_indices: tuple
     joint_side: tuple
+    # Per motor: its encoder reads a (cos, sin) pair, the angle by atan2. A
+    # model with such joints never reaches the kernels (`supports_model`).
+    unbounded: tuple = ()
 
     @property
     def n_cmd(self) -> int:
@@ -1308,7 +1322,11 @@ class PDComponents:
             vel = torch.where(over, _clip(vel, v_lo2, v_hi2), vel)
             accel_out = (vel - v_prev) / dt
             p = p + dt * vel
-            pos_m = qc[self.q_indices[i]]
+            qi = self.q_indices[i]
+            if self.unbounded and self.unbounded[i]:
+                pos_m = torch.atan2(qc[qi + 1], qc[qi])
+            else:
+                pos_m = qc[qi]
             vel_m = vc[self.v_indices[i]]
             if not self.joint_side[i]:
                 pos_m = pos_m * self.red[i]
@@ -1324,6 +1342,11 @@ class PDComponents:
         """Int buffer `[nm | (q_index, v_index, joint_side) per motor]`, float
         buffer `[dt | (kp, kd, smin0..2, smax0..2, eff, red) per motor]`
         (read by `pd_controller` in csrc/cdyn.cu)."""
+        if any(self.unbounded):
+            raise NotImplementedError(
+                "the kernels' PD controller reads no (cos, sin) encoder: a model with "
+                "continuous joints runs the generic path"
+            )
         ints = [self.n_cmd]
         floats = [self.dt]
         for i in range(self.n_cmd):

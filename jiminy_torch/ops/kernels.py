@@ -130,6 +130,9 @@ class Library:
         self._sp_blocks = self._dll.cdyn_sp_blocks_per_sm
         self._sp_blocks.argtypes = [_I] * 3
         self._sp_blocks.restype = ctypes.c_int
+        self._cm_envs = self._dll.cdyn_cm_envs_per_sm
+        self._cm_envs.argtypes = [_I] * 3
+        self._cm_envs.restype = ctypes.c_int
         self._phases = getattr(self._dll, "cdyn_cm_phase_cycles", None)
         if self._phases is not None:
             self._phases.argtypes = [_P]
@@ -178,6 +181,16 @@ class Library:
         geometry = (self.accel_smem_bytes(1, 1, 1, 0, elt) if which == 0 else
                     self.sp_smem_bytes(1, 1, 1, 0, 0, 0, 0, elt))
         return blocks * geometry[2]
+
+    def cm_envs_per_sm(self, kernel: str, elt: int, smem_per_env: int) -> int:
+        """Envs of a constrained kernel ("cdyn_period_cm" or "cdyn_rollout_cm")
+        that the runtime keeps on one SM, as `sp_envs_per_sm`."""
+        which = ("cdyn_period_cm", "cdyn_rollout_cm").index(kernel)
+        envs = self._cm_envs(which, elt, smem_per_env)
+        if envs < 0:
+            raise RuntimeError(f"cdyn_cm_envs_per_sm: CUDA error {-envs} "
+                               f"({self.error_string(-envs)})")
+        return envs
 
     def cm_phase_cycles(self) -> list:
         """Cycles the constrained solves spent in each phase since the last

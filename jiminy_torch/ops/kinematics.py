@@ -1,6 +1,7 @@
-"""Forward kinematics and frame kinematics on torch tensors (port of
-`jiminy_tpu.ops.kinematics`, the part this slice calls: env auto-levelling,
-IMU/force sensor read-outs and the CPU tests).
+"""Forward kinematics, frame kinematics and Jacobians on torch tensors
+(port of `jiminy_tpu.ops.kinematics`): env auto-levelling, sensor
+read-outs, and the generic dynamics path's contacts, constraint rows and
+external forces.
 
 The tree is static, so every function is a Python loop over joints. Spatial
 quantities are in LOCAL (moving joint/frame) coordinates.
@@ -33,6 +34,18 @@ def _consts(model: RobotModel, q: torch.Tensor):
     return t
 
 
+def motion_subspaces(model: RobotModel, like: torch.Tensor) -> list:
+    """Each joint's constant motion subspace S (6, nv_j) on `like`'s device
+    and dtype (cached per model)."""
+    key = ("motion_subspaces", like.device, like.dtype)
+    ss = model._placed.get(key)
+    if ss is None:
+        axes = model.tensor("joint_axes", like.device, like.dtype)
+        ss = [jt.motion_subspace(model.joint_types[i], axes[i]) for i in range(model.njoints)]
+        model._placed[key] = ss
+    return ss
+
+
 def joint_child_placements(model: RobotModel, q: torch.Tensor) -> list:
     """Placement of each joint's moving frame in its parent joint's moving
     frame: X_i = X_tree_i o XJ_i(q_i)."""
@@ -51,9 +64,8 @@ def forward_kinematics(
     v: Optional[torch.Tensor] = None,
     a: Optional[torch.Tensor] = None,
 ) -> KinData:
-    t = _consts(model, q)
-    axes = t("joint_axes")
     xs = joint_child_placements(model, q)
+    ss = motion_subspaces(model, q)
     batch = q.shape[:-1]
     zero6 = torch.zeros(batch + (6,), dtype=q.dtype, device=q.device)
     eye = torch.eye(3, dtype=q.dtype, device=q.device).expand(batch + (3, 3))
@@ -67,7 +79,7 @@ def forward_kinematics(
         rots.append(r.expand(batch + (3, 3)))
         poss.append(p.expand(batch + (3,)))
         if v is not None:
-            s_i = jt.motion_subspace(model.joint_types[i], axes[i])
+            s_i = ss[i]
             vj = lie.mv(s_i, v[..., model.v_slice(i)])
             v_p = vels[parent] if parent >= 0 else zero6
             v_i = lie.motion_act_inv(x_rot, x_pos, v_p) + vj
@@ -95,8 +107,11 @@ def frame_placement(model: RobotModel, kin: KinData, frame_idx: int):
 
 
 def frame_velocity_local(model: RobotModel, kin: KinData, frame_idx: int) -> torch.Tensor:
+    """Spatial velocity of a frame in LOCAL frame coordinates, (ang, lin)."""
     t = _consts(model, kin.pos)
     parent = model.frame_parents[frame_idx]
+    if parent < 0:
+        return kin.vel.new_zeros(kin.vel.shape[:-2] + (6,))
     return lie.motion_act_inv(
         t("fplacement_rot")[frame_idx], t("fplacement_pos")[frame_idx], kin.vel[..., parent, :]
     )
@@ -113,3 +128,66 @@ def frame_classical_acceleration_local(
     v = lie.motion_act_inv(frot, fpos, kin.vel[..., parent, :])
     a_lin = a[..., 3:] + lie.cross(v[..., :3], v[..., 3:])
     return torch.cat([a[..., :3], a_lin], dim=-1)
+
+
+def frame_velocity_world_aligned(model: RobotModel, kin: KinData, frame_idx: int) -> torch.Tensor:
+    """Spatial velocity in LOCAL_WORLD_ALIGNED coordinates (frame origin,
+    world axes)."""
+    v_local = frame_velocity_local(model, kin, frame_idx)
+    rot = frame_placement(model, kin, frame_idx)[0]
+    return torch.cat([lie.mv(rot, v_local[..., :3]), lie.mv(rot, v_local[..., 3:])], dim=-1)
+
+
+# --------------------------------------------------------------------------- #
+# Jacobians
+# --------------------------------------------------------------------------- #
+
+
+def joint_space_jacobian(model: RobotModel, kin: KinData) -> torch.Tensor:
+    """World-frame joint-space Jacobian (pinocchio data.J), (..., 6, nv): the
+    column block of joint i is its motion subspace moved to world
+    coordinates (world origin, world axes)."""
+    batch = kin.vel.shape[:-2]
+    ss = motion_subspaces(model, kin.pos)
+    cols = []
+    for i in range(model.njoints):
+        rot, pos = kin.rot[..., i, :, :], kin.pos[..., i, :]
+        s_i = ss[i].expand(batch + ss[i].shape[-2:])
+        cols += [lie.motion_act(rot, pos, s_i[..., :, k]) for k in range(s_i.shape[-1])]
+    if not cols:
+        return kin.pos.new_zeros(batch + (6, 0))
+    return torch.stack(cols, dim=-1)
+
+
+def ancestor_dof_mask(model: RobotModel, joint_idx: int) -> tuple:
+    """Static tuple of the v indices of the joints from `joint_idx` up to
+    the root."""
+    dofs = []
+    j = joint_idx
+    while j >= 0:
+        sl = model.v_slice(j)
+        dofs.extend(range(sl.start, sl.stop))
+        j = model.parents[j]
+    return tuple(sorted(dofs))
+
+
+def frame_jacobian_world_aligned(model: RobotModel, kin: KinData, jac_world: torch.Tensor,
+                                 frame_idx: int) -> torch.Tensor:
+    """Frame Jacobian in LOCAL_WORLD_ALIGNED coordinates, (..., 6, nv), rows
+    (ang, lin); the columns of joints that do not move the frame are exactly
+    zero (a static mask)."""
+    pos = frame_placement(model, kin, frame_idx)[1]
+    j_ang = jac_world[..., :3, :]
+    j_lin = jac_world[..., 3:, :] - lie.mm(lie.skew(pos), j_ang)
+    jac = torch.cat([j_ang, j_lin], dim=-2)
+    parent = model.frame_parents[frame_idx]
+    if parent < 0:
+        return torch.zeros_like(jac)
+    key = ("ancestor_mask", parent, jac.device, jac.dtype)
+    mask = model._placed.get(key)
+    if mask is None:
+        dofs = set(ancestor_dof_mask(model, parent))
+        mask = torch.tensor([1.0 if d in dofs else 0.0 for d in range(model.nv)],
+                            dtype=jac.dtype, device=jac.device)
+        model._placed[key] = mask
+    return jac * mask

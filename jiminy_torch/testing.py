@@ -7,7 +7,9 @@ velocities and torques. `constrained_inputs` draws the same kind of states
 for the constrained (PGS) path, with every foot 0-3 cm into the ground and
 the solver channels (warm-start multipliers, active sets) that ride the
 command row and the carry, or with every row, no row or the contact rows of
-a robot at rest active. `column_errors` and `column_quantile_errors`
+a robot at rest active; `bound_row_inputs` draws them for a fixed-root
+model with joint-bound rows only (the pendulum). `column_errors` and
+`column_quantile_errors`
 hold a kernel's outputs against its plain version column by column. The
 card tests and `chip_smoke.py` use them. `constraint_mode_options` turns an
 env's engine options into constraint contact mode, as `bench.py` does with
@@ -121,6 +123,51 @@ def constrained_inputs(env, batch: int, seed: int, device=None, dtype=None, rows
         lam[:] = 0.0
         masks[:, : cset.n_contacts] = 1.0
         masks[:, cset.n_contacts :] = 0.0
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    return t(q), t(v), t(cmd), t(np.concatenate([lam, masks], axis=1))
+
+
+def bound_row_inputs(env, batch: int, seed: int, device=None, dtype=None, rows: str = "mixed"):
+    """(q, v, cmd, solver) for the constrained kernels on a fixed-root model
+    whose rows are joint bounds only (no contact): joint positions uniform in
+    [-pi, pi] (within the bounds), a quarter of the envs with a bounded joint
+    just past its upper bound, random velocities, motor commands up to half
+    the effort limit, and the solver channels `[lam (N) | bound active
+    (nb)]`: multipliers from 0 to 50 in half the envs and random 0/1 masks.
+    `rows="all"` puts every bounded joint 0.5-3 mrad past its upper bound
+    with every mask 1, `rows="none"` every joint inside its bounds with the
+    masks and multipliers 0."""
+    if rows not in ("mixed", "all", "none"):
+        raise ValueError(f"rows must be 'mixed', 'all' or 'none', got {rows!r}")
+    device = env.device if device is None else device
+    dtype = env.dtype if dtype is None else dtype
+    cset, model = env.engine.cset, env.robot.model
+    if cset.n_contacts or any(t not in (1, 3) for t in model.joint_types):
+        raise ValueError("bound_row_inputs takes fixed-root models with joint-bound rows only")
+    rng = np.random.default_rng(seed)
+    lo = np.asarray(model.position_limit_lower, np.float64)
+    hi = np.asarray(model.position_limit_upper, np.float64)
+    q = np.clip(rng.uniform(-math.pi, math.pi, size=(batch, model.nq)), lo, hi)
+    bounds = np.asarray([model.idx_q[j] for j in cset.bound_joint_indices], dtype=np.int64)
+    n_past = batch // 4
+    if rows == "mixed" and len(bounds):
+        qi = bounds[rng.integers(0, len(bounds), size=n_past)]
+        q[np.arange(n_past), qi] = hi[qi] + 0.05
+    elif rows == "all":
+        q[:, bounds] = hi[bounds] + rng.uniform(0.0005, 0.003, size=(batch, len(bounds)))
+    v = rng.normal(size=(batch, model.nv))
+    effort = np.asarray(env.robot.motors.effort_limit, np.float64)
+    cmd = rng.uniform(-0.5, 0.5, size=(batch, env.robot.nmotors)) * effort
+    lam = rng.uniform(0.0, 50.0, size=(batch, cset.total_rows)) * (rng.uniform(size=(batch, 1)) < 0.5)
+    masks = (rng.uniform(size=(batch, cset.n_bounds)) < 0.5).astype(np.float64)
+    if rows == "all":
+        masks[:] = 1.0
+    elif rows == "none":
+        lam[:] = 0.0
+        masks[:] = 0.0
 
     def t(x):
         return torch.as_tensor(x, dtype=dtype, device=device)

@@ -218,8 +218,8 @@ def test_atlas_entry_points_refuse_what_is_not_ported(monkeypatch):
     for name in ("cassie-pid", "ant", "digit"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
             t_make(name, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 8"):
-        t_make("cartpole", device="cpu")
+    # The toys are ported (ROADMAP.md queue 1 item 8, first half)
+    assert t_make("cartpole", device="cpu").action_size == 1
     # Other collision primitives (the hands' spheres, the arms' cylinders) and
     # collision pairs
     urdf = t_assets.urdf_path("atlas")

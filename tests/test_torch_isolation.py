@@ -46,6 +46,7 @@ def test_port_imports_neither_jax_nor_jiminy_tpu():
     assert "jiminy_torch.ops.cdyn" in mods and "jiminy_torch.envs.anymal" in mods
     assert "jiminy_torch.engine.solver" in mods and "jiminy_torch.engine.constraints" in mods
     assert "jiminy_torch.envs.bipeds" in mods and "jiminy_torch.envs.builders_bipeds" in mods
+    assert "jiminy_torch.engine.contact" in mods and "jiminy_torch.envs.toys" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -107,8 +108,11 @@ def test_unported_options_raise_not_implemented(env):
     robot = env.robot
     stepper = StepperOptions(integrator=IntegratorType.RUNGE_KUTTA_DOPRI)
     base = dict(joint_bounds_mode="penalty")
+    # use_fast_dynamics=False is the generic path now, not a refusal
+    generic = type(env.env.engine)(robot, EngineOptions(use_fast_dynamics=False, **base),
+                                   device="cpu")
+    assert generic._cdyn is None and not generic.supports_fused_rollout
     for opts in (
-        EngineOptions(use_fast_dynamics=False, **base),
         EngineOptions(stepper=stepper, contacts=ContactOptions(model=ContactModel.CONSTRAINT),
                       joint_bounds_mode="constraint"),
         EngineOptions(joint_bounds_mode="constraint"),

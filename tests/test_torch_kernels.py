@@ -1,8 +1,9 @@
 """Card-only tests: each cdyn CUDA kernel held against its plain PyTorch
 version on the card, at a small batch, for the ANYmal constants (the
 constrained kernels for `anymal-pid` in constraint contact mode, on states
-with active contact and bound rows) and, for the spring kernels, for the
-full Atlas (`atlas-pid`).
+with active contact and bound rows, and for the pendulum: a fixed root, no
+contact, one bound row, 50 ticks behind a ZOH controller) and, for the
+spring kernels, for the full Atlas (`atlas-pid`).
 
 Marked `cuda`; they skip where no CUDA device is present (the check runs in a
 fixture, never at import). On a machine with a card, run them with:
@@ -35,6 +36,7 @@ from jiminy_torch.engine import solver
 from jiminy_torch.envs import make
 from jiminy_torch.ops import cdyn
 from jiminy_torch.testing import (
+    bound_row_inputs,
     column_errors,
     column_quantile_errors,
     constrained_inputs,
@@ -455,4 +457,50 @@ def test_constrained_wrappers_route_cuda_tensors_to_kernels(cuda_device):
     launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
     assert launches == {"cdyn_accel": 0, "cdyn_period": 0, "cdyn_rollout": 0,
                         "cdyn_period_cm": 8, "cdyn_rollout_cm": 1}
+    assert torch.isfinite(st.sim.q).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,batch", [("mixed", 1003), ("all", 64), ("none", 64), ("mixed", 1)])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_pendulum_constrained_kernels_match_plain(cuda_device, dtype, rows, batch):
+    """The pendulum's model class (fixed root, 0 contacts, 1 bound row) through
+    both constrained kernels at the env's own counts: a period of 1 substep
+    and a rollout of 50 ticks behind the ZOH controller."""
+    env = make("pendulum", device=cuda_device, dtype=dtype)
+    eng = env.engine
+    assert eng._cdyn_cm is not None and eng.cset.n_contacts == 0 and eng.cset.n_bounds == 1
+    q, v, cmd, sol = bound_row_inputs(env, batch, seed=7, rows=rows)
+    run = eng._get_period_run("rk4")
+    rrun = eng._get_rollout_run("zoh", cdyn.ZOHPassThrough(1), env.n_ctrl_per_step)
+    cc = torch.cat([cmd, sol], dim=-1)
+    period = run.kernel(q, v, cc), run.plain(q, v, cc)
+    rollout = rrun.kernel(q, v, cmd, sol), rrun.plain(q, v, cmd, sol)
+    torch.cuda.synchronize()
+    for outs, refs in (period, rollout):
+        for out, ref in zip(outs, refs):
+            assert torch.isfinite(out).all()
+            assert _error(out, ref, dtype) < TOL[dtype][1]
+    # extras: [a | lam | bound active], then the rollout's command and carry
+    for extras in (period[0][2], rollout[0][2]):
+        lam, active = extras[:, 1], extras[:, 2]
+        if rows == "none":  # inside the +-100 rad bounds: the row never activates
+            assert bool((lam == 0).all()) and bool((active == 0).all())
+    if rows == "all":  # past the bound: the row is active, and pushes back in some envs
+        lam, active = period[0][2][:, 1], period[0][2][:, 2]
+        assert bool((active == 1).all()) and bool((lam > 0).any())
+
+
+@pytest.mark.cuda
+def test_pendulum_steps_through_the_constrained_kernels(cuda_device):
+    env = make("pendulum", device=cuda_device, dtype=torch.float64)
+    cdyn.reset_launch_counts()
+    st, _ = env.reset(batch_size=3, generator=torch.Generator(cuda_device).manual_seed(0))
+    st, *_ = env.step(st, torch.zeros(1, dtype=torch.float64, device=cuda_device))
+    env.use_fused_rollout = False
+    st, *_ = env.step(st, torch.zeros(1, dtype=torch.float64, device=cuda_device))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    assert launches == {"cdyn_accel": 0, "cdyn_period": 0, "cdyn_rollout": 0,
+                        "cdyn_period_cm": env.n_ctrl_per_step, "cdyn_rollout_cm": 1}
     assert torch.isfinite(st.sim.q).all()
