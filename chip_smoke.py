@@ -105,10 +105,35 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    env short, every column within TOL; a zeroed acceleration and zeroed
    multipliers refused; shared memory and envs an SM; records join the
    kernels line with `"model": "pendulum"`.
+15. PPO on anymal-pid at full width (jiminy_tpu's benchmarks/ppo_train.py
+   shape at 4096 envs): FlattenObservation(make("anymal-pid", horizon=1000)),
+   float32, PPO_ANYMAL, a warm-up iteration, launch counts to 0,
+   N_ITERS_PPO iterations, counts read: exactly one cdyn_rollout an env step
+   and one cdyn_accel an auto-reset (the whole batch is reset every step),
+   nothing else. Training env-steps/s (host clock), the iteration's split
+   into rollout, GAE and update and a rollout step's into the policy, the
+   env step, the auto-reset's reset and pick (CUDA events on make_train's
+   spans in the timed iterations), the auto-reset's and the policy
+   forward's shares of a rollout step; parameters and metrics
+   finite, parameters moved, approx_kl_pos in [0, 1), no env diverged.
+16. PPO learns the cartpole (jiminy_tpu's test_ppo_learns_cartpole whole,
+   float64 as that test runs, seed 42): late mean_done below early, the
+   episode return tracking its length within 5, lengths growing, 5 greedy
+   episodes averaging over 100 steps. It runs first, while nvcc builds the
+   kernels (phase 2): the cartpole's generic path launches none of them.
+17. One train_step on the card against the CPU at float64, from the same
+   parameters, initial states and draws: the cartpole (8 envs x 8 steps,
+   every env auto-reset inside the rollout) and anymal-pid (16 envs x 2
+   steps, horizon 1 so every env auto-resets at every step, through
+   cdyn_rollout and cdyn_accel); the auto-reset's states drawn on the CPU
+   and given to both; the trajectory, the metrics and the carried state
+   within PPO_F64_TOL of their scale, parameters and Adam moments within
+   PPO_PARAM_ULPS float32 ulps.
 
 The last two lines are the `{"kernels": [...]}` record and the device line.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -328,10 +353,11 @@ def plain_op_counts(env_cpu, prune_zeros):
 # --------------------------------------------------------------------------- #
 
 
-def phase_build():
+def phase_build(res):
+    """The kernels' build `res` (`kernels.build()`): its ptxas summary; then
+    the library is bound."""
     from jiminy_torch.ops import kernels
 
-    res = kernels.build()
     log(f"[build] {res.path.name}: {'reused' if res.reused else f'nvcc {res.seconds:.1f} s'}")
     entry = None
     for line in res.ptxas_log.splitlines():
@@ -1920,8 +1946,295 @@ def phase_pendulum_records(toys, smi):
     return records
 
 
-def main():
+# --------------------------------------------------------------------------- #
+# PPO training (phases 15-17)
+# --------------------------------------------------------------------------- #
+
+PPO_ANYMAL = dict(n_envs=4096, n_steps=16, n_epochs=2, n_minibatches=4, hidden=(256, 256))
+N_ITERS_PPO = 25  # timed iterations, after one warm-up
+PPO_CARTPOLE = dict(n_envs=32, n_steps=64, n_epochs=4, n_minibatches=4, total_iterations=35,
+                    lr=3e-4, ent_coef=0.01)
+PPO_F64_TOL = 1e-9  # card against CPU at float64: trajectory and metrics, of their scale
+PPO_PARAM_ULPS = 16  # parameters and Adam moments (float32): ulps of their scale
+
+
+class _CudaSpans:
+    """`span(name)` for `make_train`: CUDA events around every entry of a
+    span, while `on`."""
+
+    def __init__(self):
+        self.events, self.on = {}, False
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        import torch
+
+        if not self.on:
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        yield
+        end.record()
+        self.events.setdefault(name, []).append((start, end))
+
+    def total_ms(self):
+        """Each span's summed ms (call after a synchronize)."""
+        return {k: sum(s.elapsed_time(e) for s, e in ev) for k, ev in self.events.items()}
+
+
+def phase_ppo_anymal(device, smi):
+    """PPO on anymal-pid at full width (phase 15): the shape of jiminy_tpu's
+    training benchmark (`benchmarks/ppo_train.py:59-91`) at 4096 envs,
+    float32. One warm-up iteration, then N_ITERS_PPO timed ones with the
+    launch counts set to 0 just before and read just after: every rollout
+    step is one cdyn_rollout launch and one cdyn_accel launch (the auto-reset
+    resets the whole batch every step, as jiminy_tpu's does, and the reset's
+    one dynamics evaluation is cdyn_accel), and nothing else launches."""
     import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.gym import FlattenObservation
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.rl import PPOConfig, make_train
+
+    t_phase = time.perf_counter()
+    env = FlattenObservation(make("anymal-pid", horizon=1000, device=device))
+    cfg = PPOConfig(**PPO_ANYMAL)
+    spans = _CudaSpans()
+    init_fn, train_step = make_train(env, cfg, span=spans)
+    state = init_fn(torch.Generator(device).manual_seed(0))
+    params0 = {k: p.clone() for k, p in state.params.items()}
+    state, _ = train_step(state)  # warm-up
+    torch.cuda.synchronize()
+
+    history = []
+    cdyn.reset_launch_counts()
+    spans.on = True
+    t0 = time.perf_counter()
+    for _ in range(N_ITERS_PPO):
+        state, metrics = train_step(state)
+        history.append(metrics)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    spans.on = False
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    n_env_steps = cfg.n_steps * N_ITERS_PPO
+    expected = {k: 0 for k in launches}
+    expected.update(cdyn_rollout=n_env_steps, cdyn_accel=n_env_steps)
+    log(f"[ppo anymal] {N_ITERS_PPO} iterations of {cfg.n_envs} envs x {cfg.n_steps} steps: "
+        f"launches {launches} (expected {expected}: one cdyn_rollout an env step, one "
+        f"cdyn_accel an auto-reset, which resets the batch every step)")
+    check(launches == expected,
+          "PPO's rollout did not run through cdyn_rollout and cdyn_accel alone")
+    steps_per_s = cfg.n_envs * n_env_steps / elapsed
+    total = spans.total_ms()
+    split = {k: total[k] / N_ITERS_PPO for k in ("rollout", "gae", "update")}
+    iter_ms = elapsed / N_ITERS_PPO * 1e3
+    log(f"[ppo anymal] training env-steps/s {steps_per_s:.1f} ({iter_ms:.1f} ms an iteration, host "
+        f"clock around synchronised iterations, CUDA events on the spans) on {smi}")
+    log(f"[ppo anymal] an iteration (CUDA events): rollout {split['rollout']:.2f} ms, GAE "
+        f"{split['gae']:.3f} ms, update {split['update']:.2f} ms, the rest "
+        f"{iter_ms - sum(split.values()):.2f} ms")
+    # A rollout step's pieces, from the same iterations: the policy forward
+    # and sample, the env step, the auto-reset's batched reset and its pick
+    step_ms = split["rollout"] / cfg.n_steps
+    pieces = {k: total[k] / n_env_steps for k in ("policy", "env_step", "reset", "pick")}
+    pieces["rest"] = step_ms - sum(pieces.values())
+    auto_reset_ms = pieces["reset"] + pieces["pick"]
+    log(f"[ppo anymal] a rollout step {step_ms:.3f} ms (CUDA events inside the timed rollouts): "
+        + ", ".join(f"{k} {v:.3f} ms ({v / step_ms:.1%})" for k, v in pieces.items())
+        + f"; the auto-reset (reset and pick) {auto_reset_ms:.3f} ms, "
+        f"{auto_reset_ms / step_ms:.1%} of the step; the policy forward "
+        f"{pieces['policy'] / step_ms:.1%}; on {smi}")
+
+    # Checks on the trained state
+    for k, p in state.params.items():
+        check(bool(torch.isfinite(p).all()), f"non-finite parameter {k}")
+    check(any(not torch.equal(p, params0[k]) for k, p in state.params.items()),
+          "the parameters did not move")
+    for i, m in enumerate(history):
+        for k, v in m.items():
+            check(bool(torch.isfinite(v).all()), f"non-finite metric {k} at iteration {i}")
+        kl = float(m["approx_kl_pos"])
+        check(0.0 <= kl < 1.0, f"approx_kl_pos {kl} at iteration {i} outside [0, 1)")
+    sim = state.env_state.sim
+    check(bool(torch.isfinite(sim.q).all() and torch.isfinite(sim.v).all()),
+          "non-finite env state after training")
+    check(not bool(sim.stepper.diverged.any()), "an env diverged during training")
+    last = {k: float(v) for k, v in history[-1].items()}
+    log("[ppo anymal] last iteration: " + ", ".join(f"{k} {v:.4g}" for k, v in last.items()))
+    log(f"[ppo anymal] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"steps_per_s": steps_per_s, "launches": launches, "split": split, "pieces": pieces}
+
+
+def phase_ppo_cartpole(device, smi):
+    """PPO learns the cartpole on the card (phase 16): jiminy_tpu's
+    `tests/test_training.py::test_ppo_learns_cartpole` whole, at float64 as
+    that test runs (its conftest enables x64), seed 42, and its bars; the 5
+    greedy episodes as one batch of envs."""
+    import numpy as np
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.rl import PPOConfig, evaluate_batch, policy_from_params, train
+    from jiminy_torch.rl.networks import ActorCritic
+
+    t_phase = time.perf_counter()
+    cfg = PPOConfig(**PPO_CARTPOLE)
+    state, hist = train(make("cartpole", device=device, dtype=torch.float64), cfg,
+                        generator=torch.Generator(device).manual_seed(42))
+    train_s = time.perf_counter() - t_phase
+    early = np.mean([h["mean_done"] for h in hist[:5]])
+    late = np.mean([h["mean_done"] for h in hist[-5:]])
+    lens = [h["episode_length_mean"] for h in hist]
+    log(f"[ppo cartpole] {cfg.total_iterations} iterations in {train_s:.1f} s "
+        f"({cfg.n_envs * cfg.n_steps * cfg.total_iterations / train_s:.1f} env-steps/s with the "
+        f"updates) on {smi}; mean_done early {early:.4f} late {late:.4f}; episode length mean "
+        f"first {lens[0]:.1f} last {lens[-1]:.1f}")
+    check(late < early, "the cartpole's episodes did not get longer")
+    check(hist[0]["episodes"] > 0, "no episode finished in the first iteration")
+    for i, h in enumerate(hist):
+        if h["episodes"] > 0:
+            check(h["episode_length_mean"] > 0 and np.isfinite(h["episode_return_mean"]),
+                  f"episode stats at iteration {i}")
+            check(abs(h["episode_return_mean"] - h["episode_length_mean"]) < 5.0,
+                  f"episode return does not track its length at iteration {i}")
+    early_len = np.mean(lens[:5])
+    late_lens = [h["episode_length_mean"] for h in hist[-5:] if h["episodes"] > 0]
+    check(not late_lens or np.mean(late_lens) > early_len, "episode lengths did not grow")
+    net = ActorCritic(4, 1, cfg.hidden, device=device)
+    t0 = time.perf_counter()
+    stats = evaluate_batch(make("cartpole", device=device, dtype=torch.float64),
+                           policy_from_params(net, state.params),
+                           n_episodes=5, n_steps=500,
+                           generator=torch.Generator(device).manual_seed(100))
+    log(f"[ppo cartpole] 5 greedy episodes: lengths {stats['episodes']['length'].tolist()}, mean "
+        f"{stats['length_mean']:.1f} (bar > 100; untrained about 25), "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(stats["length_mean"] > 100, "the greedy cartpole policy does not balance")
+    log(f"[ppo cartpole] phase {time.perf_counter() - t_phase:.1f} s")
+    return {"train_s": train_s, "length_mean": stats["length_mean"]}
+
+
+def _ppo_step_on(env, cfg, params, q0, v0, draws):
+    """One train_step of `env` (its device) from the given parameters, initial
+    states and draws (the auto-reset's among them). Returns (new state,
+    metrics, trajectory, launches)."""
+    import torch
+
+    from jiminy_torch.gym import flatten_pytree
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.rl import make_train
+
+    dev, dt = env.device, env.dtype
+    init_fn, train_step = make_train(env, cfg)
+    state = init_fn(torch.Generator(dev).manual_seed(0))
+    env_state, obs = env.reset_at(q0.to(dev, dt), v0.to(dev, dt))
+    state = state.replace(params={k: p.to(dev) for k, p in params.items()}, env_state=env_state,
+                          last_obs=flatten_pytree(obs, 1))
+    record = {}
+    cdyn.reset_launch_counts()
+    new, metrics = train_step(state, {k: x.to(dev) for k, x in draws.items()}, record)
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items() if c.launches}
+    return new, metrics, record["traj"], launches
+
+
+def phase_ppo_card_vs_cpu(device, smi):
+    """One train_step on the card against the CPU at float64 (phase 17), from
+    the same parameters, initial states and draws: the cartpole (8 envs x 8
+    steps, 2 x 2, horizon 5 so every env auto-resets inside the rollout) on
+    the generic path, and anymal-pid (16 envs x 2 steps, 1 x 1, horizon 1 so
+    every env auto-resets at every step and the fresh states feed the next
+    step) through cdyn_rollout and cdyn_accel on the card against the plain
+    versions on the CPU. The trajectory, the metrics and the carried
+    observations within PPO_F64_TOL of their scale (max(1, |x|));
+    parameters and Adam moments, stored in float32, within PPO_PARAM_ULPS
+    float32 ulps of their scale (the first moment at the gradients' RMS,
+    which it sums), as the CPU tests hold the port to jiminy_tpu."""
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.gym import FlattenObservation
+    from jiminy_torch.rl import PPOConfig, make_train
+
+    t_phase = time.perf_counter()
+    f32_eps = float(torch.finfo(torch.float32).eps)
+    cases = (
+        ("cartpole", 5, dict(n_envs=8, n_steps=8, n_epochs=2, n_minibatches=2), 0),
+        ("anymal-pid", 1, dict(n_envs=16, n_steps=2, n_epochs=1, n_minibatches=1), 2),
+    )
+    for env_id, horizon, sizes, n_launch in cases:
+        cfg = PPOConfig(**sizes)
+        cpu_env = FlattenObservation(make(env_id, device="cpu", dtype=torch.float64,
+                                          horizon=horizon))
+        gpu_env = FlattenObservation(make(env_id, device=device, dtype=torch.float64,
+                                          horizon=horizon))
+        # Parameters, initial states and draws made once on the CPU
+        gen = torch.Generator().manual_seed(17)
+        init_fn, _ = make_train(cpu_env, cfg)
+        state = init_fn(gen)
+        q0, v0 = state.env_state.sim.q, state.env_state.sim.v
+        n_total = cfg.n_envs * cfg.n_steps
+        reset_q, reset_v = cpu_env._sample_state((cfg.n_steps, cfg.n_envs), gen)
+        draws = {
+            "action": torch.randn((cfg.n_steps, cfg.n_envs, cpu_env.action_size),
+                                  dtype=torch.float64, generator=gen),
+            "perm": torch.stack([torch.randperm(n_total, generator=gen)
+                                 for _ in range(cfg.n_epochs)]),
+            "reset_q": reset_q.contiguous(),
+            "reset_v": reset_v.contiguous(),
+        }
+        t0 = time.perf_counter()
+        c_new, c_met, c_traj, _ = _ppo_step_on(cpu_env, cfg, state.params, q0, v0, draws)
+        cpu_s = time.perf_counter() - t0
+        g_new, g_met, g_traj, launches = _ppo_step_on(gpu_env, cfg, state.params, q0, v0, draws)
+        torch.cuda.synchronize()
+        want = {"cdyn_rollout": n_launch, "cdyn_accel": n_launch} if n_launch else {}
+        check(launches == want, f"{env_id}: card step launches {launches}, expected {want}")
+
+        def err(a, b):
+            a, b = a.double().cpu(), b.double().cpu()
+            return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+        worst_traj = max(err(g_traj[k], c_traj[k]) for k in c_traj)
+        worst_met = max(err(g_met[k], c_met[k]) for k in c_met)
+        worst_carry = max(err(g_new.last_obs, c_new.last_obs),
+                          err(g_new.env_state.sim.q, c_new.env_state.sim.q),
+                          err(g_new.env_state.sim.v, c_new.env_state.sim.v))
+        worst_ulps = 0.0
+        count = int(c_new.opt_state["count"])
+        for k, p in c_new.params.items():
+            nu = c_new.opt_state["nu"][k].double()
+            rms = float((nu.max() / (1 - 0.999**count)).sqrt())
+            for out, ref, scale in ((g_new.params[k], p, float(p.abs().max())),
+                                    (g_new.opt_state["mu"][k], c_new.opt_state["mu"][k], rms),
+                                    (g_new.opt_state["nu"][k], nu, float(nu.abs().max()))):
+                e = float((out.double().cpu() - ref.double()).abs().max())
+                worst_ulps = max(worst_ulps, e / (f32_eps * scale) if scale > 0 else e)
+        dones = int(c_traj["done"].sum())
+        want_dones = cfg.n_envs * (cfg.n_steps // horizon)
+        log(f"[ppo card-vs-cpu] {env_id} float64 {cfg.n_envs} envs x {cfg.n_steps} steps, "
+            f"{cfg.n_epochs} x {cfg.n_minibatches}, horizon {horizon}: trajectory "
+            f"{worst_traj:.3e}, metrics {worst_met:.3e}, carried state {worst_carry:.3e} of their "
+            f"scale (tol {PPO_F64_TOL:g}); parameters and Adam moments {worst_ulps:.2f} float32 "
+            f"ulps of their scale (tol {PPO_PARAM_ULPS}); {dones} auto-resets (expected "
+            f"{want_dones}); card launches {launches}; CPU step {cpu_s:.1f} s")
+        check(torch.equal(g_traj["done"].cpu(), c_traj["done"]), f"{env_id}: done differs")
+        check(dones == want_dones, f"{env_id}: {dones} auto-resets, expected {want_dones}")
+        check(max(worst_traj, worst_met, worst_carry) <= PPO_F64_TOL,
+              f"{env_id}: the card's PPO step disagrees with the CPU's")
+        check(worst_ulps <= PPO_PARAM_ULPS, f"{env_id}: the card's parameters disagree")
+    log(f"[ppo card-vs-cpu] phase {time.perf_counter() - t_phase:.1f} s on {smi}")
+
+
+def main():
+    import concurrent.futures
+
+    import torch
+
+    from jiminy_torch.ops import kernels
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU", file=sys.stderr)
@@ -1934,35 +2247,56 @@ def main():
     log(smi)
 
     t_start = time.perf_counter()
-    phase_build()
-    phase_kernels_vs_plain(device)
-    env, fused_launches, period_launches, steps_per_s, st, st2 = phase_main_path(device, smi)
-    dopri = phase_dopri(device, smi)
+
+    def timed(name, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    # nvcc builds the kernels while phase 16 trains the cartpole, which runs
+    # the generic path and launches none of them
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        building = pool.submit(kernels.build)
+        timed("PPO cartpole learns (beside the kernels' build)", phase_ppo_cartpole, device, smi)
+        built = timed("the build's rest", building.result)
+    timed("build", phase_build, built)
+    timed("kernels vs plain", phase_kernels_vs_plain, device)
+    env, fused_launches, period_launches, steps_per_s, st, st2 = timed(
+        "main path", phase_main_path, device, smi)
+    dopri = timed("DOPRI", phase_dopri, device, smi)
     launches = {"cdyn_accel": dopri["launches"], "cdyn_period": period_launches["cdyn_period"],
                 "cdyn_rollout": fused_launches["cdyn_rollout"]}
-    records = phase_kernel_records("anymal-pid", env, launches, smi, st, st2, dopri=dopri)
+    records = timed("anymal-pid kernel records", phase_kernel_records, "anymal-pid", env,
+                    launches, smi, st, st2, dopri=dopri)
     del env, st, st2
-    cm = phase_constrained_main_path(device, smi)
+    cm = timed("constrained main path", phase_constrained_main_path, device, smi)
     cm_env, cm_launches, cm_period_launches, cm_steps_per_s, _, cm_reset_ms, cm_st, cm_st2 = cm
-    records += phase_constrained_records(cm_env, cm_launches, cm_period_launches, smi, cm_st,
-                                         cm_st2)
+    records += timed("constrained kernel records", phase_constrained_records, cm_env,
+                     cm_launches, cm_period_launches, smi, cm_st, cm_st2)
     del cm_env, cm_st, cm_st2
-    phase_atlas_golden(device)
-    atlas = phase_atlas_main_path(device, smi)
+    timed("atlas golden", phase_atlas_golden, device)
+    atlas = timed("atlas main path", phase_atlas_main_path, device, smi)
     at_env, at_launches, at_period_launches, at_steps_per_s, at_st, at_st2 = atlas
     launches = {"cdyn_accel": at_launches["cdyn_accel"],
                 "cdyn_period": at_period_launches["cdyn_period"],
                 "cdyn_rollout": at_launches["cdyn_rollout"]}
-    records += phase_kernel_records("atlas-pid", at_env, launches, smi, at_st, at_st2,
-                                    check_ticks=ATLAS_CHECK_TICKS)
+    records += timed("atlas-pid kernel records", phase_kernel_records, "atlas-pid", at_env,
+                     launches, smi, at_st, at_st2, check_ticks=ATLAS_CHECK_TICKS)
     del at_env, at_st, at_st2
-    phase_toy_golden(device)
-    toys = phase_toy_main_path(device, smi)
-    records += phase_pendulum_records(toys, smi)
+    timed("toy golden", phase_toy_golden, device)
+    toys = timed("toy main path", phase_toy_main_path, device, smi)
+    records += timed("pendulum kernel records", phase_pendulum_records, toys, smi)
     toy_rates = ", ".join(f"{k} {toys[k]['steps_per_s']:.1f}" for k in TOYS)
+    del toys
+    t_ppo = time.perf_counter()
+    ppo_anymal = timed("PPO anymal-pid", phase_ppo_anymal, device, smi)
+    timed("PPO card against CPU", phase_ppo_card_vs_cpu, device, smi)
+    log(f"[ppo] phases 15 and 17 {time.perf_counter() - t_ppo:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s; anymal-pid env-steps/s {steps_per_s:.1f}, "
         f"DOPRI {dopri['steps_per_s']:.1f}, constraint mode {cm_steps_per_s:.1f} (reset "
-        f"{cm_reset_ms:.1f} ms), atlas-pid {at_steps_per_s:.1f}, toys {toy_rates} on {smi}")
+        f"{cm_reset_ms:.1f} ms), atlas-pid {at_steps_per_s:.1f}, toys {toy_rates}, PPO training "
+        f"(anymal-pid, 4096 envs) {ppo_anymal['steps_per_s']:.1f} on {smi}")
     log(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,7 @@
 """Carry a simulator's "weights" across: the model arrays (every joint type:
 free-flyer, revolute, continuous, prismatic, spherical), the motor bank, a
-motorized robot assembled from both, and the PD block constants, given as
-plain numpy dictionaries.
+motorized robot assembled from both, the PD block constants, and a trained
+policy's parameters, given as plain numpy dictionaries.
 
 A caller dumps the fields of a `jiminy_tpu` RobotModel / MotorBank /
 PDController to numpy (this package imports nothing of jiminy_tpu) and
@@ -85,3 +85,22 @@ def pd_components_from_arrays(arrays: dict) -> PDComponents:
         v_indices=tuple(int(i) for i in arrays["v_indices"]),
         joint_side=tuple(bool(b) for b in arrays["joint_side"]),
     )
+
+
+def actor_critic_from_flax(params: dict) -> dict:
+    """The `rl.networks.ActorCritic` state dict of a jiminy_tpu
+    `ActorCritic.init(...)` pytree given as numpy arrays (with or without
+    its top `"params"` level). Flax kernels are (in, out) and are
+    transposed; every parameter keeps its dtype."""
+    params = params.get("params", params)
+    out = {}
+    for torso in ("actor", "critic"):
+        layers = params[torso]
+        n_hidden = sum(1 for k in layers if k.startswith("dense_"))
+        names = [(f"dense_{i}", f"hidden.{i}") for i in range(n_hidden)] + [("out", "out")]
+        for flax_name, name in names:
+            kernel, bias = layers[flax_name]["kernel"], layers[flax_name]["bias"]
+            out[f"{torso}.{name}.weight"] = torch.from_numpy(np.array(kernel).T.copy())
+            out[f"{torso}.{name}.bias"] = torch.from_numpy(np.array(bias))
+    out["log_std"] = torch.from_numpy(np.array(params["log_std"]))
+    return out

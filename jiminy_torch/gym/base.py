@@ -8,11 +8,13 @@ with `batch_size=B` gives q of shape (B, nq).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from jiminy_torch import pytree
 from jiminy_torch.engine.config import EngineOptions
 from jiminy_torch.engine.engine import Engine
 from jiminy_torch.engine.robot import Robot
@@ -190,3 +192,59 @@ class BaseEnv:
         )
         block_state = carry.reshape(block_state.shape)
         return (*self._finalize_step(state, action, sim), block_state)
+
+
+def no_span(name: str):
+    """A `span(name)` that observes nothing (see `rl.ppo.make_train`)."""
+    return contextlib.nullcontext()
+
+
+class AutoResetWrapper:
+    """Vectorized auto-reset (port of `jiminy_tpu.gym.base.AutoResetWrapper`):
+    on termination or truncation an env restarts from a fresh sample, so a
+    batched rollout keeps its shape. As jiminy_tpu does, every step resets
+    the whole batch and then picks, leaf by leaf, the fresh state where an
+    env is done: no host sync. The fresh initial states are drawn with the
+    `generator` given to `step` (the port's `EnvState` carries no key), or
+    given as the states to reset at."""
+
+    def __init__(self, env):
+        self.env = env
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def observe(self, state):
+        return self.env.observe(state)
+
+    def reset(self, batch_size=None, generator=None):
+        return self.env.reset(batch_size, generator)
+
+    def reset_at(self, q0, v0):
+        return self.env.reset_at(q0, v0)
+
+    def step(self, state, action, generator: Optional[torch.Generator] = None,
+             reset_state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+             span=None):
+        """One step; a done env restarts from a fresh sample drawn with
+        `generator`, or from `reset_state`, a pair (q0, v0) for the whole
+        batch. `span(name)` is entered around the "env_step", the "reset"
+        and the "pick"."""
+        span = span or no_span
+        with span("env_step"):
+            state, obs, reward, terminated, truncated, info = self.env.step(state, action)
+        done = terminated | truncated
+        with span("reset"):
+            if reset_state is None:
+                fresh, fresh_obs = self.env.reset(done.shape[0] if done.ndim else None, generator)
+            else:
+                fresh, fresh_obs = self.env.reset_at(*reset_state)
+
+        def sel(x, y):
+            d = done.reshape(done.shape + (1,) * (x.ndim - done.ndim))
+            return torch.where(d, y, x)
+
+        with span("pick"):
+            state = pytree.map(sel, state, fresh)
+            obs = pytree.map(sel, obs, fresh_obs)
+        return state, obs, reward, terminated, truncated, dict(info, done=done)

@@ -1,5 +1,5 @@
 """Configuration-space Lie-group operations (port of `jiminy_tpu.ops.integrate`,
-`integrate`, `difference` and `normalize`)."""
+`integrate`, `difference`, `normalize` and `interpolate`)."""
 
 from __future__ import annotations
 
@@ -36,3 +36,8 @@ def normalize(model: RobotModel, q: torch.Tensor) -> torch.Tensor:
         for i in range(model.njoints)
     ]
     return torch.cat(segs, dim=-1) if segs else q
+
+
+def interpolate(model: RobotModel, q0: torch.Tensor, q1: torch.Tensor, alpha) -> torch.Tensor:
+    """Geodesic interpolation between configurations."""
+    return integrate(model, q0, difference(model, q0, q1) * alpha)

@@ -47,6 +47,9 @@ def test_port_imports_neither_jax_nor_jiminy_tpu():
     assert "jiminy_torch.engine.solver" in mods and "jiminy_torch.engine.constraints" in mods
     assert "jiminy_torch.envs.bipeds" in mods and "jiminy_torch.envs.builders_bipeds" in mods
     assert "jiminy_torch.engine.contact" in mods and "jiminy_torch.envs.toys" in mods
+    for m in ("rl.ppo", "rl.evaluate", "rl.checkpoint", "rl.networks", "gym.wrappers",
+              "telemetry.trajectory"):
+        assert f"jiminy_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -83,6 +86,18 @@ def test_make_without_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(kernels, "_LIBRARY", None)
     with pytest.raises(RuntimeError, match="CUDA device"):
         kernels.load()
+
+
+def test_unported_training_options_raise_not_implemented():
+    from jiminy_torch.rl import PPOConfig, make_train, train
+
+    toy = make("cartpole", device="cpu", dtype=torch.float64)
+    cfg = PPOConfig(n_envs=2, n_steps=2, total_iterations=1)
+    for fn in (make_train, train):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
+            fn(toy, cfg, mesh=object())
+        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
+            fn(toy, cfg, curriculum=object())
 
 
 def test_kernel_wrappers_raise_instead_of_falling_back(env):
