@@ -129,6 +129,30 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and given to both; the trajectory, the metrics and the carried state
    within PPO_F64_TOL of their scale, parameters and Adam moments within
    PPO_PARAM_ULPS float32 ulps.
+18. Terrain: anymal-pid on rough ground (`testing.rough_ground`, jiminy_tpu's
+   own fused-terrain case: 4-octave Perlin plus stairs, summed), every
+   kernel's terrain instance (the ground's packed program evaluated per
+   contact in device code). (a) The five kernels against their plain
+   versions on states spread over a 20 m x 20 m square: cdyn_accel and the
+   constrained pair at B=4096 (the pair at phase 8's 2 ticks x 2 substeps),
+   the spring period and rollout at phase 3's B=64 and cut; float64 within
+   1e-9 on every column, float32 within TOL. (b) Witnesses that the check
+   can fail: the flat cdyn_accel on the same states misses the rough plain
+   version beyond TOL, and at least ROUGH_TILT_SHARE of the touching
+   contacts meet a ground more than ROUGH_TILT_RAD off vertical. (c) The
+   main path on the ground at float32, B=131072, in both contact modes:
+   reset, the bases spread over the square from a seeded torch.Generator and
+   lifted by the largest ground height under their feet plus 1 mm, reset
+   there, launch counts set to 0, N_STEPS_ROUGH steps through cdyn_rollout
+   and N_STEPS_ROUGH_CM through cdyn_rollout_cm (one launch a step, nothing
+   else), counts read, env-steps/s, all finite, the terminated share
+   reported (not gated); then each mode's per-period path one step. (d)
+   Records with `"ground": "rough"`: each kernel timed (CUDA events) on the
+   rough main path's states beside its flat time, its plain version
+   (host clock; the rollouts' from 2 ticks and the period's, one tick's
+   ops but the controller's), the bound
+   from the flat plain version's ops plus the terrain branch's, counted on
+   the plain version, for every contact evaluation.
 
 The last two lines are the `{"kernels": [...]}` record and the device line.
 """
@@ -2229,6 +2253,369 @@ def phase_ppo_card_vs_cpu(device, smi):
     log(f"[ppo card-vs-cpu] phase {time.perf_counter() - t_phase:.1f} s on {smi}")
 
 
+# --------------------------------------------------------------------------- #
+# Terrain (phase 18): the five kernels' terrain instances on rough ground,
+# and anymal-pid on it in both contact modes
+# --------------------------------------------------------------------------- #
+
+N_STEPS_ROUGH = 25  # spring-damper main path on rough ground
+N_STEPS_ROUGH_CM = 5  # constraint-mode main path on rough ground
+B_ROUGH_CHECK = 4096  # cdyn_accel and the constrained pair held to their plain versions
+ROUGH_HALF_WIDTH = 10.0  # the envs spread over a 20 m x 20 m square
+ROUGH_TILT_RAD = 1e-3  # a contact normal "off vertical" beyond this
+ROUGH_TILT_SHARE = 0.25  # at least this share of touching contacts is off vertical
+
+
+def _rough_make(device, dtype, constraint=False):
+    from jiminy_torch.envs import make
+    from jiminy_torch.testing import constraint_mode_options, ground_options, rough_ground
+
+    options = ground_options(make("anymal-pid", device=device, dtype=dtype).engine.options,
+                             rough_ground())
+    if constraint:
+        options = constraint_mode_options(options)
+    return make("anymal-pid", device=device, dtype=dtype, options=options)
+
+
+def _rough_checks(device, envs, witness):
+    """(a) and (b): the five kernels against their plain versions on states
+    spread over the ground, at phase 3's and phase 8's cut sizes; then the
+    witnesses that this check can fail."""
+    import torch
+
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.testing import constrained_inputs, contact_points, perturbed_states
+    from jiminy_torch.testing import spread_on_ground
+
+    errs = {}
+    for dtype in (torch.float64, torch.float32):
+        name_t = str(dtype).split(".")[1]
+        env, cm_env = envs[dtype]
+        eng, cm_eng = env.engine, cm_env.engine
+        ground = eng.ground_fn
+        nm = env.robot.nmotors
+
+        def held(kernel, outs, refs, integrated, what):
+            e, where = output_error(outs, refs, name_t)
+            tol = TOL[name_t][integrated]
+            log(f"[terrain] {kernel} {name_t} {what}: {ERR_NAME[name_t]} {e:.3e} at {where} "
+                f"(tol {tol:g})")
+            check(all(bool(torch.isfinite(o).all()) for o in outs) and e < tol,
+                  f"{kernel} on rough ground {name_t} disagrees: {e}")
+            errs.setdefault(kernel, {})[name_t] = e
+
+        q, v, tau = perturbed_states(env, B_ROUGH_CHECK, seed=0)
+        q = spread_on_ground(q, ground, seed=0, half_width=ROUGH_HALF_WIDTH)
+        out = eng._cdyn.accel_kernel(q, v, tau)
+        ref = eng._cdyn.accel_plain(q, v, tau)
+        held("cdyn_accel", (out,), (ref,), False, f"B={B_ROUGH_CHECK}")
+        if dtype == torch.float64:  # (b) the flat instance misses the terrain
+            cd = eng._cdyn
+            flat = cdyn.ComponentDynamics(env.robot.model, cd.gravity, contact_opts=cd.contact_opts,
+                                          contact_frames=cd.contact_frames,
+                                          contact_radii=cd.contact_radii,
+                                          bound_gains=cd.bound_gains)
+            e_flat, _ = output_error((flat.accel_kernel(q, v, tau),), (ref,), "float64")
+            witness["flat_kernel_vs_rough_plain_f64"] = e_flat
+            log(f"[terrain] witness: the flat cdyn_accel on the same states against the rough "
+                f"plain version: {ERR_NAME['float64']} {e_flat:.3e} (must exceed "
+                f"{TOL['float64'][0]:g})")
+            check(e_flat > TOL["float64"][0], "the flat kernel passes the terrain check")
+
+        q, v, _ = perturbed_states(env, 64, seed=1)
+        q = spread_on_ground(q, ground, seed=1, half_width=ROUGH_HALF_WIDTH)
+        cmd = _commands(64, nm, dtype, device, seed=1)
+        run = eng._get_period_run("rk4")
+        held("cdyn_period", run.kernel(q, v, cmd), run.plain(q, v, cmd), True,
+             "B=64 (5 substeps)")
+        ctrl, action, carry = _rollout_inputs(env, q, dtype, device, "pd", 2)
+        run = eng._get_rollout_run("rough-check", ctrl, env.env.n_ctrl_per_step)
+        outs = run.kernel(q, v, action, carry, n_ticks=2, n_substeps=2)
+        refs = run.plain(q, v, action, carry, n_ticks=2, n_substeps=2)
+        held("cdyn_rollout", outs, refs, True, "B=64 (2 ticks x 2 substeps)")
+        if dtype == torch.float64:  # (b) the contacts meet the terrain off vertical
+            nv, nc = env.robot.nv, len(env.robot.contact_frame_indices)
+            depth = refs[2][:, nv + 9 * nc:nv + 10 * nc]
+            feet = contact_points(env, refs[0])
+            h, (nx, ny, nz) = ground.height_components(feet[..., 0], feet[..., 1])
+            tilt = torch.atan2(torch.hypot(nx, ny), nz)
+            touching = depth < 0.0
+            share = float((tilt[touching] > ROUGH_TILT_RAD).double().mean())
+            witness["touching_contacts"] = int(touching.sum())
+            witness["share_off_vertical"] = share
+            log(f"[terrain] witness: {int(touching.sum())} touching contacts, "
+                f"{share:.3f} of them more than {ROUGH_TILT_RAD:g} rad off vertical "
+                f"(at least {ROUGH_TILT_SHARE:g})")
+            check(share >= ROUGH_TILT_SHARE, "too few touching contacts meet a tilted ground")
+
+        nm = cm_env.robot.nmotors
+        qa, va, cmda, sola = constrained_inputs(cm_env, B_ROUGH_CHECK, seed=0)
+        qa = spread_on_ground(qa, ground, seed=2, half_width=ROUGH_HALF_WIDTH)
+        run = cm_eng._get_period_run("rk4")
+        cc = torch.cat([cmda, sola], -1)
+        held("cdyn_period_cm", run.kernel(qa, va, cc, n_substeps=CM_SUBSTEPS),
+             run.plain(qa, va, cc, n_substeps=CM_SUBSTEPS), True,
+             f"B={B_ROUGH_CHECK} ({CM_SUBSTEPS} substeps)")
+        ctrl = cm_env.block.component_controller(cm_env.env)
+        run = cm_eng._get_rollout_run("rough-check", ctrl, cm_env.env.n_ctrl_per_step)
+        blk = torch.zeros((B_ROUGH_CHECK, 3 * nm), dtype=dtype, device=device)
+        blk[:, :nm] = qa[:, 7:]
+        xs = (qa, va, cmda * 2.5, torch.cat([blk, sola], -1))
+        held("cdyn_rollout_cm", run.kernel(*xs, n_ticks=CM_TICKS, n_substeps=CM_SUBSTEPS),
+             run.plain(*xs, n_ticks=CM_TICKS, n_substeps=CM_SUBSTEPS), True,
+             f"B={B_ROUGH_CHECK} ({CM_TICKS} ticks x {CM_SUBSTEPS} substeps)")
+    return errs
+
+
+def _rough_main_path(env, n_steps, rollout, period, smi, label):
+    """(c) one mode's main path on rough ground: reset, the envs placed on
+    the ground (`place_on_ground`) and reset there, one warm-up step (its
+    launches checked apart), the launch counts set to 0, n_steps steps of
+    zero actions, counts read; then the per-period path one step. Returns
+    (state, per-period state, launches, env-steps/s, reset launches,
+    per-period launches)."""
+    import torch
+
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.testing import place_on_ground
+
+    device = env.device
+    action = torch.zeros(env.action_size, device=device)
+    cdyn.reset_launch_counts()
+    st, _ = env.reset(batch_size=B_MAIN)
+    gen = torch.Generator(device).manual_seed(18)
+    q0 = place_on_ground(env, st.sim.q, env.engine.ground_fn, gen, half_width=ROUGH_HALF_WIDTH)
+    st, _ = env.reset_at(q0, st.sim.v)
+    torch.cuda.synchronize()
+    reset_launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    cdyn.reset_launch_counts()
+    st, *_ = env.step(st, action)  # warm-up: builds the block's rollout run
+    torch.cuda.synchronize()
+    warm = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    check(warm[rollout] == 1 and sum(warm.values()) == 1,
+          f"the warm-up step on rough ground did not run {rollout} once ({label}): {warm}")
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        st, obs, reward, term, trunc, _ = env.step(st, action)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    log(f"[terrain-main] {label} float32 B={B_MAIN}, {n_steps} steps on rough ground: launches "
+        f"{launches}")
+    check(launches[rollout] == n_steps and sum(launches.values()) == n_steps,
+          f"{rollout} did not run once a step on rough ground (and nothing else)")
+    for name, x in (("q", st.sim.q), ("v", st.sim.v), ("reward", reward),
+                    ("contact_forces", st.sim.contact_forces)):
+        check(bool(torch.isfinite(x).all()), f"non-finite {name} on rough ground ({label})")
+    steps_per_s = B_MAIN * n_steps / elapsed
+    log(f"[terrain-main] {label} env-steps/s {steps_per_s:.1f} ({elapsed:.4f} s, host clock); "
+        f"terminated share {float(term.float().mean()):.4f} (reported, not gated); base height "
+        f"mean {float(st.sim.q[:, 2].mean()):.4f} m on {smi}")
+
+    env.use_fused_rollout = False
+    cdyn.reset_launch_counts()
+    st2, *_ = env.step(st, action)
+    torch.cuda.synchronize()
+    period_launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    n_periods = env.env.n_ctrl_per_step
+    log(f"[terrain-main] {label} per-period path, one step: launches {period_launches}")
+    check(period_launches[period] == n_periods and sum(period_launches.values()) == n_periods,
+          f"{period} did not run once a controller period on rough ground")
+    check(bool(torch.isfinite(st2.sim.q).all()), f"non-finite q on the per-period path ({label})")
+    env.use_fused_rollout = True
+    return st, st2, launches, steps_per_s, reset_launches, period_launches
+
+
+# Multiplies of one lattice hash as the device computes it (native uint32
+# products, `terrain_hash2`); xors and shifts are not counted on either side
+HASH_DEVICE_OPS = {"_hash2": 3, "_hash3": 4}
+
+
+def _terrain_ops(env_cpu):
+    """Scalar operations of one contact's terrain branch on the plain
+    version (`ground_components`, the normal's normalization, the depth),
+    counted per element at B=1 as `count_elem_ops` counts. The plain
+    version emulates each lattice hash's uint32 products on int64 (16-bit
+    halves and masks); each hash counts as its device multiplies instead:
+    the calls are recorded, and each one's emulated count is replaced."""
+    from unittest import mock
+
+    import torch
+
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.utils import terrain
+
+    ground = env_cpu.engine.ground_fn
+    x, y, z = (torch.tensor([val], dtype=torch.float64) for val in (0.37, -1.21, 0.01))
+
+    def branch():
+        h, n = cdyn.ground_components(ground, x, y)
+        nn = torch.sqrt(torch.clamp(cdyn.v_dot(n, n), min=1e-24))
+        n = cdyn.v_scale(n, 1.0 / nn)
+        return (z - h) * n[2]
+
+    calls = []
+
+    def recorded(name):
+        fn = getattr(terrain, name)
+
+        def hashed(*args):
+            calls.append((fn, HASH_DEVICE_OPS[name], args))
+            return fn(*args)
+        return hashed
+
+    with mock.patch.object(terrain, "_hash2", recorded("_hash2")), \
+            mock.patch.object(terrain, "_hash3", recorded("_hash3")):
+        total = count_elem_ops(branch, fold_zeros=True)
+    emulated = sum(count_elem_ops(lambda: fn(*args), fold_zeros=True) for fn, _, args in calls)
+    device = sum(n for _, n, _ in calls)
+    return total - emulated + device, len(calls), emulated, device
+
+
+def phase_terrain(device, smi, records):
+    """Phase 18: the ground evaluated per contact inside the five kernels.
+    `records` are the kernel records of the earlier phases (the flat
+    kernels' times and op counts of anymal-pid)."""
+    import torch
+
+    from jiminy_torch.ops import cdyn, kernels
+
+    flat = {r["name"]: r for r in records if r.get("model") == "anymal-pid"}
+    envs = {dt: (_rough_make(device, dt), _rough_make(device, dt, constraint=True))
+            for dt in (torch.float64, torch.float32)}
+    witness = {}
+    errs = _rough_checks(device, envs, witness)
+
+    env, cm_env = envs[torch.float32]
+    del envs
+    st, st2, launches, sps, reset_launches, p_launches = _rough_main_path(
+        env, N_STEPS_ROUGH, "cdyn_rollout", "cdyn_period", smi, "spring-damper")
+    cst, cst2, cm_launches, cm_sps, _, cm_p_launches = _rough_main_path(
+        cm_env, N_STEPS_ROUGH_CM, "cdyn_rollout_cm", "cdyn_period_cm", smi, "constraint mode")
+
+    # (d) records: each kernel timed at B_MAIN on the rough main path's states
+    nm = env.robot.nmotors
+    eng, cm_eng = env.engine, cm_env.engine
+    block = env.block.name
+    n_ticks = env.env.n_ctrl_per_step
+    run = eng._get_rollout_run(block, env.env._component_controllers[block], n_ticks)
+    prun = eng._get_period_run("rk4")
+    cm_block = cm_env.block.name
+    cm_run = cm_eng._get_rollout_run(cm_block, cm_env.env._component_controllers[cm_block],
+                                     n_ticks)
+    cm_prun = cm_eng._get_period_run("rk4")
+    zeros = torch.zeros((B_MAIN, nm), device=device)
+    inputs = {
+        "cdyn_accel": (eng._cdyn.accel_kernel, eng._cdyn.accel_plain,
+                       (st.sim.q, st.sim.v, eng._compute_efforts(st.sim.command, st.sim.v)[1])),
+        "cdyn_period": (prun.kernel, prun.plain, (st2.sim.q, st2.sim.v, st2.sim.command)),
+        "cdyn_rollout": (run.kernel, run.plain,
+                         (st.sim.q, st.sim.v, zeros, st.blocks[block].reshape(B_MAIN, -1))),
+        "cdyn_period_cm": (cm_prun.kernel, cm_prun.plain,
+                           (cst2.sim.q, cst2.sim.v, torch.cat(
+                               [cst2.sim.command, _cm_solver_row(cst2.sim, torch.float32)], -1))),
+        "cdyn_rollout_cm": (cm_run.kernel, cm_run.plain,
+                            (cst.sim.q, cst.sim.v, zeros, torch.cat(
+                                [cst.blocks[cm_block].reshape(B_MAIN, -1),
+                                 _cm_solver_row(cst.sim, torch.float32)], -1))),
+    }
+    n_time = {"cdyn_accel": 20, "cdyn_period": 5, "cdyn_rollout": 3, "cdyn_period_cm": 3,
+              "cdyn_rollout_cm": 2}
+    main_launches = {"cdyn_accel": reset_launches["cdyn_accel"],
+                     "cdyn_period": p_launches["cdyn_period"],
+                     "cdyn_rollout": launches["cdyn_rollout"],
+                     "cdyn_period_cm": cm_p_launches["cdyn_period_cm"],
+                     "cdyn_rollout_cm": cm_launches["cdyn_rollout_cm"]}
+    # Ops: the flat plain version's count (earlier phases) plus the terrain
+    # branch's, counted on the plain version, for every contact evaluation
+    nc = len(env.robot.contact_frame_indices)
+    terrain_ops, n_hash, hash_emulated, hash_device = _terrain_ops(
+        _rough_make("cpu", torch.float64))
+    n_sub = prun.n_substeps
+    evals = {"cdyn_accel": 1, "cdyn_period": 4 * n_sub + 1,
+             "cdyn_rollout": n_ticks * 4 * n_sub + 1,
+             "cdyn_period_cm": 4 * n_sub + 1,
+             "cdyn_rollout_cm": n_ticks * 4 * n_sub + (n_ticks - 1) + 1}
+    log(f"[ops] the terrain branch on the plain version: {terrain_ops} ops a contact evaluation, "
+        f"its {n_hash} lattice hashes counted as the device's {hash_device} multiplies (the "
+        f"plain version's int64 emulation counts {hash_emulated}) ({nc} contacts; evaluations "
+        f"a launch {evals})")
+    lib = kernels.load()
+    out = []
+    for name, (kern, plain, xs) in inputs.items():
+        xs = tuple(x.contiguous() for x in xs)
+        ms = _time_cuda(lambda: kern(*xs), n_time[name])
+        outs = kern(*xs)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = plain(*xs)  # the same work as the timed launch: a rollout's every tick
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        refs = refs if isinstance(refs, tuple) else (refs,)
+        e_abs = abs_err(outs, refs)
+        e32, at32 = output_error(outs, refs, "float32")
+        check(all(bool(torch.isfinite(o).all()) for o in outs), f"{name}: non-finite output")
+        ops = flat[name]["ops_per_env"] + terrain_ops * nc * evals[name]
+        t_ops = ops * B_MAIN / PEAK_F32_FLOPS * 1e3
+        t_bytes = flat[name]["bytes_per_env"] * B_MAIN / PEAK_BYTES * 1e3
+        if name.endswith("_cm"):
+            c = cm_prun.cd.pack(cm_prun.tau_c, cm_prun.dt, cm_prun.imu_frames, device,
+                                torch.float32).counts
+            k = cm_prun.pack(device, torch.float32).counts
+            smem = {elt: lib.cm_smem_bytes(c["nj"], c["nq"], c["nv"], k["n_rows"], k["nc_rows"],
+                                           k["nb_rows"], k["support_width"], elt)
+                    for elt in (4, 8)}
+            per_sm = lib.cm_envs_per_sm(name, 4, smem[4], terrain=True)
+            per_sm_flat = lib.cm_envs_per_sm(name, 4, flat[name]["smem_per_env"])
+        else:
+            per_sm = lib.sp_envs_per_sm(name, 4, flat[name]["smem_per_env"], terrain=True)
+            per_sm_flat = lib.sp_envs_per_sm(name, 4, flat[name]["smem_per_env"])
+            smem = {4: flat[name]["smem_per_env"]}
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": flat[name]["source"],
+            "replaces": flat[name]["replaces"],
+            "launches": main_launches[name],
+            "max_abs_err": e_abs,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+            "model": "anymal-pid",
+            "ground": "rough",
+            "plain_ms_basis": "measured",
+            "check_ticks": None,
+            "ops_per_env": ops,
+            "terrain_ops_per_contact": terrain_ops,
+            "bytes_per_env": flat[name]["bytes_per_env"],
+            "f32_q90_err_main": e32,
+            "f64_err_check": errs[name]["float64"],
+            "f32_q90_err_check": errs[name]["float32"],
+            "smem_per_env": smem[4],
+            "envs_per_sm": per_sm,
+            "envs_per_sm_flat": per_sm_flat,
+            "ms_flat": flat[name]["ms"],
+            **({"env_steps_per_s": sps} if name == "cdyn_rollout" else {}),
+            **({"env_steps_per_s": cm_sps} if name == "cdyn_rollout_cm" else {}),
+            **({"witness": witness} if name == "cdyn_accel" else {}),
+        }
+        log(f"[kernel] anymal-pid rough {name} B={B_MAIN} float32: {ms:.4f} ms (CUDA events; "
+            f"flat {flat[name]['ms']:.4f} ms, {ms / flat[name]['ms']:.2f}x), plain {plain_ms:.1f} "
+            f"ms (measured), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+            f"{rec['bound_ms'] / ms:.2%} of it; {smem[4]} B an env, {per_sm} envs an SM (flat "
+            f"instance {per_sm_flat}); |kernel-plain| on the main path's states {e_abs:.3e}, {ERR_NAME['float32']} {e32:.3e} at "
+            f"{at32}; launches {main_launches[name]} on {smi}")
+        out.append(rec)
+        del outs, refs
+    log(f"[terrain] rough ground: spring-damper {sps:.1f} env-steps/s, constraint mode "
+        f"{cm_sps:.1f} env-steps/s (flat: phase 4 and phase 7) on {smi}")
+    return out, sps, cm_sps
+
+
 def main():
     import concurrent.futures
 
@@ -2275,6 +2662,8 @@ def main():
     records += timed("constrained kernel records", phase_constrained_records, cm_env,
                      cm_launches, cm_period_launches, smi, cm_st, cm_st2)
     del cm_env, cm_st, cm_st2
+    rough, rough_sps, rough_cm_sps = timed("terrain", phase_terrain, device, smi, records)
+    records += rough
     timed("atlas golden", phase_atlas_golden, device)
     atlas = timed("atlas main path", phase_atlas_main_path, device, smi)
     at_env, at_launches, at_period_launches, at_steps_per_s, at_st, at_st2 = atlas
@@ -2295,7 +2684,8 @@ def main():
     log(f"[ppo] phases 15 and 17 {time.perf_counter() - t_ppo:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s; anymal-pid env-steps/s {steps_per_s:.1f}, "
         f"DOPRI {dopri['steps_per_s']:.1f}, constraint mode {cm_steps_per_s:.1f} (reset "
-        f"{cm_reset_ms:.1f} ms), atlas-pid {at_steps_per_s:.1f}, toys {toy_rates}, PPO training "
+        f"{cm_reset_ms:.1f} ms), on rough ground {rough_sps:.1f} and {rough_cm_sps:.1f}, "
+        f"atlas-pid {at_steps_per_s:.1f}, toys {toy_rates}, PPO training "
         f"(anymal-pid, 4096 envs) {ppo_anymal['steps_per_s']:.1f} on {smi}")
     log(smi)
     print(json.dumps({"kernels": records}))

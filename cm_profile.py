@@ -2,7 +2,7 @@
 """Launch geometry and phase split of the constrained (PGS) kernels on one
 NVIDIA GPU.
 
-    python3 cm_profile.py [--steps N] [--against DIR]
+    python3 cm_profile.py [--steps N] [--against DIR] [--default-only]
 
 Builds csrc/cdyn.cu at once for each candidate launch geometry of the
 constrained kernels (CDYN_CM_LANES lanes per env x CDYN_CM_ENVS envs per
@@ -17,6 +17,8 @@ lane 0. The default build also times cdyn_period_cm on the same states. With
 --against DIR, another checkout of the repo (for example the parent commit,
 unpacked with `git archive`) has its cdyn_rollout_cm and cdyn_period_cm
 timed the same way in the same call, before the builds here and after them.
+With --default-only, only the default build runs (with --against, an A/B of
+the default geometry: the other checkout, this one, the other again).
 Prints a line per build and, last, one JSON object of them all.
 Needs one card; chip_smoke.py holds the kernels against their plain versions,
 this script only times them.
@@ -93,11 +95,14 @@ def child(defines, steps, root=None):
     print(json.dumps(rec), flush=True)
 
 
-def ptxas_line(res, kernel):
-    """Registers and stack of `kernel` (float32) from a build's ptxas log."""
+def ptxas_line(res, kernel, terrain=False):
+    """Registers and stack of `kernel` (float32; its flat-ground instance,
+    or with `terrain` its terrain instance) from a build's ptxas log."""
+    marks = ("IfLb1E",) if terrain else ("IfE", "IfLb0E")
     lines = res.ptxas_log.splitlines()
     for i, line in enumerate(lines):
-        if "Compiling entry function" in line and kernel in line and "IfE" in line:
+        if ("Compiling entry function" in line and kernel in line
+                and any(m in line for m in marks)):
             for nxt in lines[i + 1:i + 6]:
                 if "registers" in nxt:
                     return nxt.split("info    :")[-1].strip()
@@ -137,7 +142,8 @@ def main(argv):
         print("cm_profile: no CUDA device", file=sys.stderr)
         return 2
     smi = cs.nvidia_smi_line()
-    builds = [()] + [defines_of(*g) for g in CANDIDATES[1:]] + [PROFILE]
+    builds = [()] if "--default-only" in argv else (
+        [()] + [defines_of(*g) for g in CANDIDATES[1:]] + [PROFILE])
     with ThreadPoolExecutor(len(builds) + 1) as pool:
         done = pool.submit(build_against, against) if against else None
         results = list(pool.map(lambda d: kernels.build(defines=d), builds))
@@ -165,6 +171,7 @@ def main(argv):
             tuple(int(d.split("=")[1]) for d in defines) if defines != PROFILE else CANDIDATES[0])
         rec["lanes"], rec["envs_per_block"] = geom
         rec["ptxas_rollout_cm_f32"] = ptxas_line(res, "cdyn_rollout_cm")
+        rec["ptxas_rollout_cm_f32_terrain"] = ptxas_line(res, "cdyn_rollout_cm", terrain=True)
         records.append(rec)
         extra = ""
         if "ms_one_sweep" in rec:

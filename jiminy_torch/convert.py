@@ -104,3 +104,12 @@ def actor_critic_from_flax(params: dict) -> dict:
             out[f"{torso}.{name}.bias"] = torch.from_numpy(np.array(bias))
     out["log_std"] = torch.from_numpy(np.array(params["log_std"]))
     return out
+
+
+def fourier_process_from_jax(a, b, freqs, period: float):
+    """`utils.terrain.PeriodicFourierProcess` from a jiminy_tpu process's
+    arrays (`proc.a`, `proc.b`, `proc.freqs`, `proc.period`): its threefry
+    draws, carried across as numbers."""
+    from jiminy_torch.utils.terrain import PeriodicFourierProcess
+
+    return PeriodicFourierProcess.from_coefficients(a, b, freqs, period)

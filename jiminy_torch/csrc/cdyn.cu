@@ -26,6 +26,7 @@
 #include <cuda_runtime.h>
 
 #include <cfloat>
+#include <type_traits>
 
 #include "cdyn.cuh"
 
@@ -315,11 +316,42 @@ __device__ void world_placements(const Model<T>& M, const T (*R)[9], const T (*P
   }
 }
 
-// One spring-damper ground contact on flat ground (`_contact_fext`), from
-// the world placement (rw, pw) and LOCAL velocity (w, v) of its parent joint:
-// world force fw, LOCAL parent-joint wrench (nj, fj), depth, and with `wl`
-// the LOCAL contact-frame wrench [n(3), f(3)].
-template <typename T>
+// c ? a : b, kept a select: a chain of them over a register array would
+// otherwise become an indexed load, which moves the array to local memory.
+__device__ __forceinline__ float select_if(bool c, float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("{.reg .pred p; setp.ne.u32 p, %3, 0; selp.f32 %0, %1, %2, p;}"
+      : "=f"(r) : "f"(a), "f"(b), "r"(static_cast<unsigned>(c)));
+  return r;
+#else
+  return c ? a : b;
+#endif
+}
+__device__ __forceinline__ double select_if(bool c, double a, double b) {
+#ifdef __CUDA_ARCH__
+  double r;
+  asm("{.reg .pred p; setp.ne.u32 p, %3, 0; selp.f64 %0, %1, %2, p;}"
+      : "=d"(r) : "d"(a), "d"(b), "r"(static_cast<unsigned>(c)));
+  return r;
+#else
+  return c ? a : b;
+#endif
+}
+
+}  // namespace cdyn
+
+#include "terrain.cuh"
+
+namespace cdyn {
+
+// One spring-damper ground contact (`_contact_fext`), from the world
+// placement (rw, pw) and LOCAL velocity (w, v) of its parent joint: world
+// force fw, LOCAL parent-joint wrench (nj, fj), depth, and with `wl` the
+// LOCAL contact-frame wrench [n(3), f(3)]. With kTerrain the ground's height
+// and normal at the contact point come from the model's terrain section
+// (`terrain_eval`); without, the ground is flat (z = 0, normal +z).
+template <bool kTerrain, typename T>
 __device__ __forceinline__ void contact_eval_at(const Model<T>& M, int k, const T* rw, const T* pw,
                                                 const T* vel, T* fw, T* fj, T* nj, T* depth_out,
                                                 T* wl) {
@@ -334,9 +366,18 @@ __device__ __forceinline__ void contact_eval_at(const Model<T>& M, int k, const 
   for (int i = 0; i < 3; ++i) vpt[i] = v_l[i] + tmp[i];
   T v_w[3];
   mv3(rw, vpt, v_w);
-  const T n[3] = {T(0), T(0), T(1)};
+  T n[3] = {T(0), T(0), T(1)};
   T depth = pc[2];
   T v_depth = v_w[2];
+  if constexpr (kTerrain) {
+    const GroundPoint<T> g = terrain_eval(M.ci, M.cf, pc[0], pc[1]);
+    n[0] = g.nx; n[1] = g.ny; n[2] = g.nz;
+    const T nn = sqrt(tmax(dot3(n, n), T(1e-24)));
+    const T inv = T(1) / nn;
+    for (int i = 0; i < 3; ++i) n[i] = n[i] * inv;
+    depth = (pc[2] - g.h) * n[2];
+    v_depth = dot3(v_w, n);
+  }
   const bool has_r = M.chas_radius(k) != 0;
   T d_off[3] = {T(0), T(0), T(0)};
   if (has_r) {
@@ -595,25 +636,25 @@ int prepare_sp(K kernel, int smem_per_env) {
                                                smem_per_env * ENVS));
 }
 
-template <typename T>
+template <typename T, bool kTerrain>
 int launch_accel(const void* ci, const void* cf, const void* q, const void* v, const void* tau,
                  void* out, int B, int smem_per_env, void* stream) {
-  const int rc = prepare_sp<SPA_ENVS>(cdyn_accel_kernel<T>, smem_per_env);
+  const int rc = prepare_sp<SPA_ENVS>(cdyn_accel_kernel<T, kTerrain>, smem_per_env);
   if (rc != 0) return rc;
-  cdyn_accel_kernel<T><<<(B + SPA_ENVS - 1) / SPA_ENVS, SP_LANES * SPA_ENVS,
+  cdyn_accel_kernel<T, kTerrain><<<(B + SPA_ENVS - 1) / SPA_ENVS, SP_LANES * SPA_ENVS,
                          (size_t)smem_per_env * SPA_ENVS, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const T*>(q),
       static_cast<const T*>(v), static_cast<const T*>(tau), static_cast<T*>(out), B);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kTerrain>
 int launch_period(const void* ci, const void* cf, const void* q, const void* v, const void* cmd,
                   void* qo, void* vo, void* eo, int B, int n_cmd, int n_substeps, int integrator,
                   int smem_per_env, void* stream) {
-  const int rc = prepare_sp(cdyn_period_kernel<T>, smem_per_env);
+  const int rc = prepare_sp(cdyn_period_kernel<T, kTerrain>, smem_per_env);
   if (rc != 0) return rc;
-  cdyn_period_kernel<T><<<(B + SP_ENVS - 1) / SP_ENVS, SP_LANES * SP_ENVS,
+  cdyn_period_kernel<T, kTerrain><<<(B + SP_ENVS - 1) / SP_ENVS, SP_LANES * SP_ENVS,
                           (size_t)smem_per_env * SP_ENVS, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const T*>(q),
       static_cast<const T*>(v), static_cast<const T*>(cmd), static_cast<T*>(qo),
@@ -621,14 +662,14 @@ int launch_period(const void* ci, const void* cf, const void* q, const void* v, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kTerrain>
 int launch_rollout(const void* ci, const void* cf, const void* pi, const void* pf, int controller,
                    const void* q, const void* v, const void* action, const void* carry, void* qo,
                    void* vo, void* eo, int B, int n_action, int n_carry, int n_cmd, int n_ticks,
                    int n_substeps, int integrator, int smem_per_env, void* stream) {
-  const int rc = prepare_sp(cdyn_rollout_kernel<T>, smem_per_env);
+  const int rc = prepare_sp(cdyn_rollout_kernel<T, kTerrain>, smem_per_env);
   if (rc != 0) return rc;
-  cdyn_rollout_kernel<T><<<(B + SP_ENVS - 1) / SP_ENVS, SP_LANES * SP_ENVS,
+  cdyn_rollout_kernel<T, kTerrain><<<(B + SP_ENVS - 1) / SP_ENVS, SP_LANES * SP_ENVS,
                            (size_t)smem_per_env * SP_ENVS, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const int*>(pi),
       static_cast<const T*>(pf), controller, static_cast<const T*>(q), static_cast<const T*>(v),
@@ -648,13 +689,13 @@ int prepare_cm(K kernel, int smem_per_env) {
                                                smem_per_env * CM_ENVS));
 }
 
-template <typename T>
+template <typename T, bool kTerrain>
 int launch_period_cm(const void* ci, const void* cf, const void* si, const void* sf, const void* q,
                      const void* v, const void* cc, void* qo, void* vo, void* eo, int B, int n_cmd,
                      int n_substeps, int integrator, int smem_per_env, void* stream) {
-  const int rc = prepare_cm(cdyn_period_cm_kernel<T>, smem_per_env);
+  const int rc = prepare_cm(cdyn_period_cm_kernel<T, kTerrain>, smem_per_env);
   if (rc != 0) return rc;
-  cdyn_period_cm_kernel<T><<<(B + CM_ENVS - 1) / CM_ENVS, CM_LANES * CM_ENVS,
+  cdyn_period_cm_kernel<T, kTerrain><<<(B + CM_ENVS - 1) / CM_ENVS, CM_LANES * CM_ENVS,
                              (size_t)smem_per_env * CM_ENVS, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const int*>(si),
       static_cast<const T*>(sf), static_cast<const T*>(q), static_cast<const T*>(v),
@@ -663,15 +704,15 @@ int launch_period_cm(const void* ci, const void* cf, const void* si, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool kTerrain>
 int launch_rollout_cm(const void* ci, const void* cf, const void* si, const void* sf,
                       const void* pi, const void* pf, int controller, const void* q, const void* v,
                       const void* action, const void* carry, void* qo, void* vo, void* eo, int B,
                       int n_action, int n_block, int n_cmd, int n_ticks, int n_substeps,
                       int integrator, int smem_per_env, void* stream) {
-  const int rc = prepare_cm(cdyn_rollout_cm_kernel<T>, smem_per_env);
+  const int rc = prepare_cm(cdyn_rollout_cm_kernel<T, kTerrain>, smem_per_env);
   if (rc != 0) return rc;
-  cdyn_rollout_cm_kernel<T><<<(B + CM_ENVS - 1) / CM_ENVS, CM_LANES * CM_ENVS,
+  cdyn_rollout_cm_kernel<T, kTerrain><<<(B + CM_ENVS - 1) / CM_ENVS, CM_LANES * CM_ENVS,
                               (size_t)smem_per_env * CM_ENVS, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const int*>(si),
       static_cast<const T*>(sf), static_cast<const int*>(pi), static_cast<const T*>(pf), controller,
@@ -729,12 +770,13 @@ int cdyn_accel_smem_bytes(int nj, int nq, int nv, int nc, int elt, int* geometry
   return cdyn::sp_env_stride(cdyn::SpAccelLayout(nj, nq, nv, nc).elems, elt);
 }
 
-// Blocks of a spring kernel (0 cdyn_accel, 1 cdyn_period, 2 cdyn_rollout)
-// the runtime would keep on one SM with smem_per_env bytes of dynamic shared
-// memory an env, at elt bytes a float, the kernel's shared-memory limit
-// raised to that block's share first, as a launch raises it; a negative CUDA
-// error code on failure (a block past what the card grants).
-int cdyn_sp_blocks_per_sm(int kernel, int elt, int smem_per_env) {
+// Blocks of a spring kernel (0 cdyn_accel, 1 cdyn_period, 2 cdyn_rollout;
+// its terrain instance with `terrain`) the runtime would keep on one SM with
+// smem_per_env bytes of dynamic shared memory an env, at elt bytes a float,
+// the kernel's shared-memory limit raised to that block's share first, as a
+// launch raises it; a negative CUDA error code on failure (a block past what
+// the card grants).
+int cdyn_sp_blocks_per_sm(int kernel, int elt, int smem_per_env, int terrain) {
   const int threads = cdyn::SP_LANES * (kernel == 0 ? cdyn::SPA_ENVS : cdyn::SP_ENVS);
   const int smem = smem_per_env * (kernel == 0 ? cdyn::SPA_ENVS : cdyn::SP_ENVS);
   auto occupancy = [&](auto k) {
@@ -744,21 +786,24 @@ int cdyn_sp_blocks_per_sm(int kernel, int elt, int smem_per_env) {
     cudaGetLastError();
     return e == cudaSuccess ? blocks : -static_cast<int>(e);
   };
+  auto of_type = [&](auto zero, auto flag) {
+    using T = decltype(zero);
+    constexpr bool kTerrain = decltype(flag)::value;
+    return kernel == 0 ? occupancy(cdyn::cdyn_accel_kernel<T, kTerrain>)
+         : kernel == 1 ? occupancy(cdyn::cdyn_period_kernel<T, kTerrain>)
+                       : occupancy(cdyn::cdyn_rollout_kernel<T, kTerrain>);
+  };
   if (elt == 4)
-    return kernel == 0 ? occupancy(cdyn::cdyn_accel_kernel<float>)
-         : kernel == 1 ? occupancy(cdyn::cdyn_period_kernel<float>)
-                       : occupancy(cdyn::cdyn_rollout_kernel<float>);
-  return kernel == 0 ? occupancy(cdyn::cdyn_accel_kernel<double>)
-       : kernel == 1 ? occupancy(cdyn::cdyn_period_kernel<double>)
-                     : occupancy(cdyn::cdyn_rollout_kernel<double>);
+    return terrain ? of_type(0.0f, std::true_type{}) : of_type(0.0f, std::false_type{});
+  return terrain ? of_type(0.0, std::true_type{}) : of_type(0.0, std::false_type{});
 }
 
-// Envs of a constrained kernel (0 cdyn_period_cm, 1 cdyn_rollout_cm) the
-// runtime would keep on one SM (its blocks there x CM_ENVS) with
-// smem_per_env bytes of dynamic shared memory an env, at elt bytes a float,
-// as `cdyn_sp_blocks_per_sm` counts blocks of the spring kernels; a negative
-// CUDA error code on failure.
-int cdyn_cm_envs_per_sm(int kernel, int elt, int smem_per_env) {
+// Envs of a constrained kernel (0 cdyn_period_cm, 1 cdyn_rollout_cm; its
+// terrain instance with `terrain`) the runtime would keep on one SM (its
+// blocks there x CM_ENVS) with smem_per_env bytes of dynamic shared memory an
+// env, at elt bytes a float, as `cdyn_sp_blocks_per_sm` counts blocks of the
+// spring kernels; a negative CUDA error code on failure.
+int cdyn_cm_envs_per_sm(int kernel, int elt, int smem_per_env, int terrain) {
   const int threads = cdyn::CM_LANES * cdyn::CM_ENVS;
   const int smem = smem_per_env * cdyn::CM_ENVS;
   auto occupancy = [&](auto k) {
@@ -768,11 +813,15 @@ int cdyn_cm_envs_per_sm(int kernel, int elt, int smem_per_env) {
     cudaGetLastError();
     return e == cudaSuccess ? blocks * cdyn::CM_ENVS : -static_cast<int>(e);
   };
+  auto of_type = [&](auto zero, auto flag) {
+    using T = decltype(zero);
+    constexpr bool kTerrain = decltype(flag)::value;
+    return kernel == 0 ? occupancy(cdyn::cdyn_period_cm_kernel<T, kTerrain>)
+                       : occupancy(cdyn::cdyn_rollout_cm_kernel<T, kTerrain>);
+  };
   if (elt == 4)
-    return kernel == 0 ? occupancy(cdyn::cdyn_period_cm_kernel<float>)
-                       : occupancy(cdyn::cdyn_rollout_cm_kernel<float>);
-  return kernel == 0 ? occupancy(cdyn::cdyn_period_cm_kernel<double>)
-                     : occupancy(cdyn::cdyn_rollout_cm_kernel<double>);
+    return terrain ? of_type(0.0f, std::true_type{}) : of_type(0.0f, std::false_type{});
+  return terrain ? of_type(0.0, std::true_type{}) : of_type(0.0, std::false_type{});
 }
 
 #ifdef CDYN_CM_PROFILE
@@ -791,47 +840,54 @@ const char* cdyn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// Each entry launches the flat-ground instance of its kernel, or with
+// `terrain` the instance that evaluates the model's terrain section.
+#define CDYN_LAUNCH(NAME, T, ...) \
+  (terrain ? cdyn::NAME<T, true>(__VA_ARGS__) : cdyn::NAME<T, false>(__VA_ARGS__))
 #define CDYN_ENTRIES(SUFFIX, T)                                                                  \
   int cdyn_accel_##SUFFIX(const void* ci, const void* cf, const void* q, const void* v,          \
-                          const void* tau, void* out, int B, int smem_per_env, void* stream) {   \
-    return cdyn::launch_accel<T>(ci, cf, q, v, tau, out, B, smem_per_env, stream);               \
+                          const void* tau, void* out, int B, int smem_per_env, int terrain,      \
+                          void* stream) {                                                        \
+    return CDYN_LAUNCH(launch_accel, T, ci, cf, q, v, tau, out, B, smem_per_env, stream);        \
   }                                                                                              \
   int cdyn_period_##SUFFIX(const void* ci, const void* cf, const void* q, const void* v,         \
                            const void* cmd, void* qo, void* vo, void* eo, int B, int n_cmd,      \
-                           int n_substeps, int integrator, int smem_per_env, void* stream) {     \
-    return cdyn::launch_period<T>(ci, cf, q, v, cmd, qo, vo, eo, B, n_cmd, n_substeps,           \
-                                  integrator, smem_per_env, stream);                             \
+                           int n_substeps, int integrator, int smem_per_env, int terrain,         \
+                           void* stream) {                                                       \
+    return CDYN_LAUNCH(launch_period, T, ci, cf, q, v, cmd, qo, vo, eo, B, n_cmd, n_substeps,    \
+                       integrator, smem_per_env, stream);                                        \
   }                                                                                              \
   int cdyn_rollout_##SUFFIX(const void* ci, const void* cf, const void* pi, const void* pf,      \
                             int controller, const void* q, const void* v, const void* action,    \
                             const void* carry, void* qo, void* vo, void* eo, int B,              \
                             int n_action, int n_carry, int n_cmd, int n_ticks, int n_substeps,   \
-                            int integrator, int smem_per_env, void* stream) {                    \
-    return cdyn::launch_rollout<T>(ci, cf, pi, pf, controller, q, v, action, carry, qo, vo, eo,  \
-                                   B, n_action, n_carry, n_cmd, n_ticks, n_substeps, integrator, \
-                                   smem_per_env, stream);                                        \
+                            int integrator, int smem_per_env, int terrain, void* stream) {       \
+    return CDYN_LAUNCH(launch_rollout, T, ci, cf, pi, pf, controller, q, v, action, carry, qo,   \
+                       vo, eo, B, n_action, n_carry, n_cmd, n_ticks, n_substeps, integrator,     \
+                       smem_per_env, stream);                                                    \
   }                                                                                              \
   int cdyn_period_cm_##SUFFIX(const void* ci, const void* cf, const void* si, const void* sf,    \
                               const void* q, const void* v, const void* cc, void* qo, void* vo,  \
                               void* eo, int B, int n_cmd, int n_substeps, int integrator,        \
-                              int smem_per_env, void* stream) {                                  \
-    return cdyn::launch_period_cm<T>(ci, cf, si, sf, q, v, cc, qo, vo, eo, B, n_cmd, n_substeps, \
-                                     integrator, smem_per_env, stream);                          \
+                              int smem_per_env, int terrain, void* stream) {                     \
+    return CDYN_LAUNCH(launch_period_cm, T, ci, cf, si, sf, q, v, cc, qo, vo, eo, B, n_cmd,      \
+                       n_substeps, integrator, smem_per_env, stream);                            \
   }                                                                                              \
   int cdyn_rollout_cm_##SUFFIX(const void* ci, const void* cf, const void* si, const void* sf,   \
                                const void* pi, const void* pf, int controller, const void* q,    \
                                const void* v, const void* action, const void* carry, void* qo,   \
                                void* vo, void* eo, int B, int n_action, int n_block, int n_cmd,  \
                                int n_ticks, int n_substeps, int integrator, int smem_per_env,    \
-                               void* stream) {                                                   \
-    return cdyn::launch_rollout_cm<T>(ci, cf, si, sf, pi, pf, controller, q, v, action, carry,  \
-                                      qo, vo, eo, B, n_action, n_block, n_cmd, n_ticks,          \
-                                      n_substeps, integrator, smem_per_env, stream);             \
+                               int terrain, void* stream) {                                      \
+    return CDYN_LAUNCH(launch_rollout_cm, T, ci, cf, si, sf, pi, pf, controller, q, v, action,   \
+                       carry, qo, vo, eo, B, n_action, n_block, n_cmd, n_ticks, n_substeps,      \
+                       integrator, smem_per_env, stream);                                        \
   }
 
 CDYN_ENTRIES(f32, float)
 CDYN_ENTRIES(f64, double)
 
+#undef CDYN_LAUNCH
 #undef CDYN_ENTRIES
 
 }  // extern "C"

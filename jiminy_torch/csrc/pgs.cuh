@@ -317,29 +317,6 @@ __device__ __forceinline__ Work<T> env_work(const Model<T>& M, const CModel<T>& 
   return Work<T>(dynamic_smem() + (size_t)slot * cm_env_stride(lo.bytes, sizeof(T)), M, C);
 }
 
-// c ? a : b, kept a select: a chain of them over a register array would
-// otherwise become an indexed load, which moves the array to local memory.
-__device__ __forceinline__ float select_if(bool c, float a, float b) {
-#ifdef __CUDA_ARCH__
-  float r;
-  asm("{.reg .pred p; setp.ne.u32 p, %3, 0; selp.f32 %0, %1, %2, p;}"
-      : "=f"(r) : "f"(a), "f"(b), "r"(static_cast<unsigned>(c)));
-  return r;
-#else
-  return c ? a : b;
-#endif
-}
-__device__ __forceinline__ double select_if(bool c, double a, double b) {
-#ifdef __CUDA_ARCH__
-  double r;
-  asm("{.reg .pred p; setp.ne.u32 p, %3, 0; selp.f64 %0, %1, %2, p;}"
-      : "=d"(r) : "d"(a), "d"(b), "r"(static_cast<unsigned>(c)));
-  return r;
-#else
-  return c ? a : b;
-#endif
-}
-
 // --------------------------------------------------------------------------
 // Pieces of one solve
 // --------------------------------------------------------------------------
@@ -620,15 +597,33 @@ __device__ __forceinline__ bool bound_active(const CModel<T>& C, int b, const T*
   return raw || (was && !inside);
 }
 
-// World contact point of contact k; returns its depth on flat ground.
+// World position pc of contact k.
 template <typename T>
-__device__ __forceinline__ T contact_point(const CModel<T>& C, int k, const T (*RW)[9],
-                                           const T (*PW)[3], T* pc) {
+__device__ __forceinline__ void contact_pos(const CModel<T>& C, int k, const T (*RW)[9],
+                                            const T (*PW)[3], T* pc) {
   const int parent = C.cparent(k);
   T tmp[3];
   mv3(RW[parent], C.cfpos(k), tmp);
   for (int i = 0; i < 3; ++i) pc[i] = tmp[i] + PW[parent][i];
-  return (pc[2] - T(0)) * T(1);  // height 0, unit normal
+}
+
+// World contact point of contact k; returns its depth. On flat ground the
+// height is 0 and the normal +z; with kTerrain the model's terrain gives
+// both, the unit normal into n (`constraint_system_components`).
+template <bool kTerrain, typename T>
+__device__ __forceinline__ T contact_point(const Model<T>& M, const CModel<T>& C, int k,
+                                           const T (*RW)[9], const T (*PW)[3], T* pc, T* n) {
+  contact_pos(C, k, RW, PW, pc);
+  if constexpr (kTerrain) {
+    const GroundPoint<T> g = terrain_eval(M.ci, M.cf, pc[0], pc[1]);
+    n[0] = g.nx; n[1] = g.ny; n[2] = g.nz;
+    const T nn = tmax(sqrt(dot3(n, n)), T(1e-12));
+    const T inv = T(1) / nn;
+    for (int i = 0; i < 3; ++i) n[i] = n[i] * inv;
+    return (pc[2] - g.h) * n[2];
+  } else {
+    return (pc[2] - T(0)) * T(1);  // height 0, unit normal
+  }
 }
 
 // The row and drift of active bound b at position p; J holds each row over
@@ -647,11 +642,12 @@ __device__ void bound_row(const CModel<T>& C, int b, int p, const T* q, const T*
 
 // The four rows and drifts of active contact k (tangent c0, tangent c1,
 // normal, torsion) at positions p[0..3], each row over the contact's
-// support dofs.
-template <typename T>
+// support dofs; with kTerrain about the unit ground normal nrm[3k..3k+3)
+// the active-set pass stored, else about +z.
+template <bool kTerrain, typename T>
 __device__ void contact_rows(const Model<T>& M, const CModel<T>& C, int k, const int* p,
                              const T (*RW)[9], const T (*PW)[3], const T (*VEL)[6],
-                             const T (*ACC)[6], const T* depth, T* J, T* drift) {
+                             const T (*ACC)[6], const T* depth, const T* nrm, T* J, T* drift) {
   const T kp = C.kp(), kd = C.kd();
   const int parent = C.cparent(k);
   const int* sd = C.si + C.csup(k);
@@ -659,8 +655,10 @@ __device__ void contact_rows(const Model<T>& M, const CModel<T>& C, int k, const
   const T* fp = C.cfpos(k);
   const T* rw = RW[parent];
   T pc[3], tmp[3];
-  contact_point(C, k, RW, PW, pc);
-  const T n[3] = {T(0), T(0), T(1)};
+  contact_pos(C, k, RW, PW, pc);
+  T n[3] = {T(0), T(0), T(1)};
+  if constexpr (kTerrain)
+    for (int i = 0; i < 3; ++i) n[i] = nrm[3 * k + i];
   T c0[3], c1[3];
   normal_basis(n, c0, c1);
   // Jacobian columns over the support dofs (the ancestors' dofs)
@@ -847,8 +845,11 @@ __device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nba, 
 // the stage inputs w.qs, w.vs and the motor torques w.tc (written by lane 0
 // before the call), the multipliers and the new active sets into solver
 // state `s_out` from the carried ones in `s_in`; they may be the same
-// (stage-chained warm start). Depths into w.depth.
-template <typename T>
+// (stage-chained warm start). Depths into w.depth. With kTerrain the unit
+// ground normals ride in w.b from the active sets to the rows: b is written
+// only after the rows (n >= 4 nc of it, 3 nc needed), so the slice keeps
+// its size on terrain.
+template <bool kTerrain, typename T>
 __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CModel<T>& C_in,
                                                int s_in, int s_out) {
   const Lanes L;
@@ -877,9 +878,11 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
       out.bact[t] = bound_active(C, t, q, in.bact[t] != 0);
     } else {
       const int k = t - nb;
-      T pc[3];
-      const T depth = contact_point(C, k, w.RW, w.PW, pc);
+      T pc[3], n[3];
+      const T depth = contact_point<kTerrain>(M, C, k, w.RW, w.PW, pc, n);
       w.depth[k] = depth;
+      if constexpr (kTerrain)
+        for (int i = 0; i < 3; ++i) w.b[3 * k + i] = n[i];
       out.cact[k] = (depth < T(0)) || (in.cact[k] && depth <= C.eps());
     }
   }
@@ -928,7 +931,8 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
       const int m = t - nba;
       const int p[4] = {nba + 2 * nca + 2 * m, nba + 2 * nca + 2 * m + 1, nba + m,
                         nba + nca + m};
-      contact_rows(M, C, w.clist[m], p, w.RW, w.PW, w.VEL, w.ACC, w.depth, w.J, w.drift);
+      contact_rows<kTerrain>(M, C, w.clist[m], p, w.RW, w.PW, w.VEL, w.ACC, w.depth, w.b, w.J,
+                             w.drift);
     }
   }
   L.sync();  // IC, F and FT take the place of RW, PW, VEL and ACC
@@ -1038,7 +1042,7 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
 
 // One stage: lane 0 publishes (q, v) and the motor torques, the group
 // solves, lane 0 reads the accelerations into qdd.
-template <typename T>
+template <bool kTerrain, typename T>
 __device__ __forceinline__ void solve(const Lanes& L, const Model<T>& M, const CModel<T>& C,
                                       const Work<T>& w, const T* q, const T* v, const T* cmd,
                                       int s_in, int s_out, T* qdd) {
@@ -1047,7 +1051,7 @@ __device__ __forceinline__ void solve(const Lanes& L, const Model<T>& M, const C
     for (int i = 0; i < M.nv; ++i) w.vs[i] = v[i];
     tau_c(M, v, cmd, w.tc);
   }
-  constrained_accel(M, C, s_in, s_out);
+  constrained_accel<kTerrain>(M, C, s_in, s_out);
   if (L.leader())
     for (int i = 0; i < M.nv; ++i) qdd[i] = w.qdd[i];
 }
@@ -1055,7 +1059,7 @@ __device__ __forceinline__ void solve(const Lanes& L, const Model<T>& M, const C
 // One substep (`_ConstrainedCore.substep`), q and v (lane 0's) updated in
 // place, the solver state `s` too when stages are chained (else the stage
 // outputs go to ST_TMP).
-template <typename T>
+template <bool kTerrain, typename T>
 __device__ __noinline__ void substep_cm(const Model<T>& M_in, const CModel<T>& C_in, T* q, T* v,
                                         const T* cmd, int s, int integrator) {
   const Lanes L;
@@ -1067,7 +1071,7 @@ __device__ __noinline__ void substep_cm(const Model<T>& M_in, const CModel<T>& C
   const int nv = M.nv;
   const bool lead = L.leader();
   const T dt = M.dt(), hdt = M.half_dt();
-  solve(L, M, C, w, q, v, cmd, s, out, k1);
+  solve<kTerrain>(L, M, C, w, q, v, cmd, s, out, k1);
   if (integrator == EULER) {
     if (lead) {
       for (int k = 0; k < nv; ++k) dq[k] = dt * v[k];
@@ -1083,19 +1087,19 @@ __device__ __noinline__ void substep_cm(const Model<T>& M_in, const CModel<T>& C
     integrate(M, q, dq, qt);
     for (int k = 0; k < nv; ++k) v2[k] = v[k] + hdt * k1[k];
   }
-  solve(L, M, C, w, qt, v2, cmd, s, out, k2);
+  solve<kTerrain>(L, M, C, w, qt, v2, cmd, s, out, k2);
   if (lead) {
     for (int k = 0; k < nv; ++k) dq[k] = hdt * v2[k];
     integrate(M, q, dq, qt);
     for (int k = 0; k < nv; ++k) v3[k] = v[k] + hdt * k2[k];
   }
-  solve(L, M, C, w, qt, v3, cmd, s, out, k3);
+  solve<kTerrain>(L, M, C, w, qt, v3, cmd, s, out, k3);
   if (lead) {
     for (int k = 0; k < nv; ++k) dq[k] = dt * v3[k];
     integrate(M, q, dq, qt);
     for (int k = 0; k < nv; ++k) v4[k] = v[k] + dt * k3[k];
   }
-  solve(L, M, C, w, qt, v4, cmd, s, out, k4);
+  solve<kTerrain>(L, M, C, w, qt, v4, cmd, s, out, k4);
   if (lead) {
     const T dt6 = M.dt6();
     for (int k = 0; k < nv; ++k) dq[k] = dt6 * (v[k] + T(2) * v2[k] + T(2) * v3[k] + v4[k]);
@@ -1108,7 +1112,7 @@ __device__ __noinline__ void substep_cm(const Model<T>& M_in, const CModel<T>& C
 // End-of-period outputs `[a | f_world | w_local | depth | imu | lam | cact |
 // bact]` (`_ConstrainedCore.final_outputs`), rows of the (n_extra, B) array,
 // written by lane 0; the solve's state outputs go to solver state `s_out`.
-template <typename T>
+template <bool kTerrain, typename T>
 __device__ __noinline__ void final_outputs_cm(const Model<T>& M_in, const CModel<T>& C_in,
                                               const T* q, const T* v, const T* cmd, int s,
                                               int s_out, T* eo, int B, int b) {
@@ -1118,7 +1122,7 @@ __device__ __noinline__ void final_outputs_cm(const Model<T>& M_in, const CModel
   const Work<T> w = env_work(M, C);
   const SolverState<T> out = w.state(s_out);
   T a[NV_MAX];
-  solve(L, M, C, w, q, v, cmd, s, s_out, a);
+  solve<kTerrain>(L, M, C, w, q, v, cmd, s, s_out, a);
   if (!L.leader()) return;
   // The tree arrays are free again once the solve is done
   joint_x(M, q, w.R, w.P);
@@ -1132,7 +1136,11 @@ __device__ __noinline__ void final_outputs_cm(const Model<T>& M_in, const CModel
   const int o_fw = nv, o_wl = nv + 3 * nc, o_d = nv + 9 * nc, o_imu = nv + 10 * nc;
 #pragma unroll 1
   for (int k = 0; k < nc; ++k) {
-    const T n[3] = {T(0), T(0), T(1)};
+    T n[3] = {T(0), T(0), T(1)};
+    if constexpr (kTerrain) {  // the final solve's normal, from the same placements
+      T pc[3];
+      contact_point<kTerrain>(M, C, k, w.RW, w.PW, pc, n);
+    }
     T c0[3], c1[3], f_w[3], n_w[3], t1[3], f_l[3], n_l[3];
     normal_basis(n, c0, c1);
     const T* lb = out.lam + C.nb + 4 * k;
@@ -1219,8 +1227,9 @@ __device__ void copy_solver_state(const CModel<T>& C, const SolverState<T>& src,
 // one CmLayout slice of dynamic shared memory per env.
 // --------------------------------------------------------------------------
 
-// One controller period: cc = [cmd (n_cmd) | lam | cact | bact].
-template <typename T>
+// One controller period: cc = [cmd (n_cmd) | lam | cact | bact]. An
+// instance on flat ground and one on the model's terrain (kTerrain).
+template <typename T, bool kTerrain>
 __global__ void cdyn_period_cm_kernel(const int* ci, const T* cf, const int* si, const T* sf,
                                       const T* __restrict__ q_g, const T* __restrict__ v_g,
                                       const T* __restrict__ cc_g, T* __restrict__ qo,
@@ -1242,17 +1251,18 @@ __global__ void cdyn_period_cm_kernel(const int* ci, const T* cf, const int* si,
     load_solver_state(C, cc_g, n_cmd, B, b, w.state(ST_CARRY));
   }
 #pragma unroll 1
-  for (int k = 0; k < n_substeps; ++k) substep_cm(M, C, q, v, cmd, ST_CARRY, integrator);
+  for (int k = 0; k < n_substeps; ++k)
+    substep_cm<kTerrain>(M, C, q, v, cmd, ST_CARRY, integrator);
   if (L.leader()) {
     for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = q[i];
     for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = v[i];
   }
-  final_outputs_cm(M, C, q, v, cmd, ST_CARRY, ST_TMP, eo, B, b);
+  final_outputs_cm<kTerrain>(M, C, q, v, cmd, ST_CARRY, ST_TMP, eo, B, b);
 }
 
 // One env step: carry = [block carry (n_block) | lam | cact | bact]; extras
 // = period extras + [cc_last | carry'].
-template <typename T>
+template <typename T, bool kTerrain>
 __global__ void cdyn_rollout_cm_kernel(const int* ci, const T* cf, const int* si, const T* sf,
                                        const int* pi, const T* pf, int controller,
                                        const T* __restrict__ q_g, const T* __restrict__ v_g,
@@ -1292,17 +1302,18 @@ __global__ void cdyn_rollout_cm_kernel(const int* ci, const T* cf, const int* si
       copy_solver_state(C, carry, cc);
     }
 #pragma unroll 1
-    for (int k = 0; k < n_substeps; ++k) substep_cm(M, C, q, v, cmd, ST_CC, integrator);
+    for (int k = 0; k < n_substeps; ++k)
+      substep_cm<kTerrain>(M, C, q, v, cmd, ST_CC, integrator);
     if (t < n_ticks - 1) {  // end-of-tick refresh of the carried warm start
       T a[NV_MAX];
-      solve(L, M, C, w, q, v, cmd, ST_CC, ST_CARRY, a);
+      solve<kTerrain>(L, M, C, w, q, v, cmd, ST_CC, ST_CARRY, a);
     }
   }
   if (lead) {
     for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = q[i];
     for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = v[i];
   }
-  final_outputs_cm(M, C, q, v, cmd, ST_CC, ST_TMP, eo, B, b);
+  final_outputs_cm<kTerrain>(M, C, q, v, cmd, ST_CC, ST_TMP, eo, B, b);
   if (!lead) return;
   const int n_std = M.nv + 10 * C.nc + 6 * M.ni + C.n + C.nc + C.nb;
   const int n_ccrow = n_cmd + C.n + C.nc + C.nb;

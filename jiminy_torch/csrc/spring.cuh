@@ -780,8 +780,9 @@ __device__ __forceinline__ void sp_pass(const Model<T>& M, const SpTree& tr, con
 
 // One evaluation of `_accel_core` by the group, at (w.qs, w.vs): the joint
 // accelerations into w.qdd. With MOTORS the motor efforts under the command
-// w.cc first become the torques w.tc; without, w.tc holds the torques.
-template <bool MOTORS = true, typename T>
+// w.cc first become the torques w.tc; without, w.tc holds the torques. With
+// kTerrain the contacts meet the model's terrain, else flat ground.
+template <bool kTerrain, bool MOTORS = true, typename T>
 __device__ __forceinline__ void sp_evaluate(const SpLanes& L, const Model<T>& M, const SpTree& tr,
                                             const SpWork<T>& w) {
   const int lane = L.lane, G = SP_LANES, nlev = tr.nlev;
@@ -799,8 +800,8 @@ __device__ __forceinline__ void sp_evaluate(const SpLanes& L, const Model<T>& M,
     if (t < nc) {
       const T* pr = w.rec(tr.slot(M.cparent(t)));
       T fw[3], fj[3], nj[3], depth;
-      contact_eval_at(M, t, pr + J_RW, pr + J_PW, pr + J_VEL, fw, fj, nj, &depth,
-                      static_cast<T*>(nullptr));
+      contact_eval_at<kTerrain>(M, t, pr + J_RW, pr + J_PW, pr + J_VEL, fw, fj, nj, &depth,
+                                static_cast<T*>(nullptr));
       T* f = w.fext + 6 * t;
 #pragma unroll
       for (int c = 0; c < 3; ++c) { f[c] = nj[c]; f[3 + c] = fj[c]; }
@@ -901,7 +902,7 @@ __device__ __forceinline__ void sp_stage(const SpLanes& L, const Model<T>& M, co
 // evaluation at (w.qs, w.vs) (`_build_final_outputs`): the world placements
 // and the gravity-free accelerations outward, depth after depth, then a
 // contact or IMU per lane, rows of the (n_extra, B) array.
-template <typename T>
+template <bool kTerrain, typename T>
 __device__ __forceinline__ void sp_final(const SpLanes& L, const Model<T>& M, const SpTree& tr,
                                          const SpWork<T>& w, T* eo, int B, int b) {
   const int lane = L.lane, G = SP_LANES;
@@ -920,7 +921,7 @@ __device__ __forceinline__ void sp_final(const SpLanes& L, const Model<T>& M, co
     if (t < nc) {
       const T* pr = w.rec(tr.slot(M.cparent(t)));
       T fw[3], fj[3], nj[3], depth, wl[6];
-      contact_eval_at(M, t, pr + J_RW, pr + J_PW, pr + J_VEL, fw, fj, nj, &depth, wl);
+      contact_eval_at<kTerrain>(M, t, pr + J_RW, pr + J_PW, pr + J_VEL, fw, fj, nj, &depth, wl);
 #pragma unroll
       for (int c = 0; c < 3; ++c) eo[(size_t)(o_fw + 3 * t + c) * B + b] = fw[c];
 #pragma unroll
@@ -992,10 +993,11 @@ __device__ __forceinline__ void sp_load_state(const SpLanes& L, const Model<T>& 
 
 // --------------------------------------------------------------------------
 // The two entry kernels: SP_LANES lanes per env, SP_ENVS envs per block, one
-// SpLayout slice of dynamic shared memory per env.
+// SpLayout slice of dynamic shared memory per env; an instance on flat
+// ground and one on the model's terrain (kTerrain).
 // --------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, bool kTerrain>
 __global__ void __launch_bounds__(SP_LANES * SP_ENVS)
     cdyn_period_kernel(const int* ci, const T* cf, const T* __restrict__ q_g,
                        const T* __restrict__ v_g, const T* __restrict__ cmd_g, T* __restrict__ qo,
@@ -1014,16 +1016,16 @@ __global__ void __launch_bounds__(SP_LANES * SP_ENVS)
   const int n_eval = n_substeps * n_stage + 1;
 #pragma unroll 1
   for (int e = 0;; ++e) {
-    sp_evaluate(L, M, tr, w);
+    sp_evaluate<kTerrain>(L, M, tr, w);
     if (e == n_eval - 1) break;
     sp_stage(L, M, w, e % n_stage, integrator);
   }
   store_rows(L, w.q, M.nq, qo, B, b);
   store_rows(L, w.v, M.nv, vo, B, b);
-  sp_final(L, M, tr, w, eo, B, b);
+  sp_final<kTerrain>(L, M, tr, w, eo, B, b);
 }
 
-template <typename T>
+template <typename T, bool kTerrain>
 __global__ void __launch_bounds__(SP_LANES * SP_ENVS)
     cdyn_rollout_kernel(const int* ci, const T* cf, const int* pi, const T* pf, int controller,
                         const T* __restrict__ q_g, const T* __restrict__ v_g,
@@ -1062,13 +1064,13 @@ __global__ void __launch_bounds__(SP_LANES * SP_ENVS)
 #pragma unroll 1
   for (int e = 0;; ++e) {
     if (per_tick > 0 && e < n_eval - 1 && e % per_tick == 0) tick();
-    sp_evaluate(L, M, tr, w);
+    sp_evaluate<kTerrain>(L, M, tr, w);
     if (e == n_eval - 1) break;
     sp_stage(L, M, w, e % n_stage, integrator);
   }
   store_rows(L, w.q, M.nq, qo, B, b);
   store_rows(L, w.v, M.nv, vo, B, b);
-  sp_final(L, M, tr, w, eo, B, b);
+  sp_final<kTerrain>(L, M, tr, w, eo, B, b);
   const int n_std = M.nv + 10 * (M.has_contacts ? M.nc : 0) + 6 * M.ni;
   store_rows(L, w.cc, n_cmd, eo + (size_t)n_std * B, B, b);
   store_rows(L, w.bc, n_carry, eo + (size_t)(n_std + n_cmd) * B, B, b);
@@ -1121,7 +1123,7 @@ __device__ __forceinline__ SpWork<T> sp_accel_work(const Model<T>& M, const T* t
           nullptr,    nullptr,     tc,       b + lo.fext, nullptr, nullptr, nullptr};
 }
 
-template <typename T>
+template <typename T, bool kTerrain>
 __global__ void __launch_bounds__(SP_LANES * SPA_ENVS)
     cdyn_accel_kernel(const int* ci, const T* cf, const T* __restrict__ q_g,
                       const T* __restrict__ v_g, const T* __restrict__ tau_g, T* __restrict__ out,
@@ -1139,7 +1141,7 @@ __global__ void __launch_bounds__(SP_LANES * SPA_ENVS)
 #pragma unroll 1
   for (int i = L.lane; i < M.nv; i += SP_LANES) w.vs[i] = v[i];
   L.sync();
-  sp_evaluate<false>(L, M, tr, w);
+  sp_evaluate<kTerrain, false>(L, M, tr, w);
 }
 
 }  // namespace cdyn

@@ -26,8 +26,11 @@ kinematics, spring-damper contact forces, penalty bounds, then ABA or the
 array-form PGS solve), plain torch on every device, as jiminy_tpu runs it in
 XLA. Unlike jiminy_tpu, which takes its component core only off the CPU, the
 port takes it on the CPU too (its plain version there), so the CPU tests
-exercise the card's control flow. Options whose code paths are not ported
-raise `NotImplementedError` naming the ROADMAP.md item that will port them.
+exercise the card's control flow. The world's ground profile
+(`utils.terrain`) reaches every path: the kernels evaluate its packed form
+per contact; one without a packed form runs on the CPU only
+(`terrain.ground_route`). Options whose code paths are not ported raise
+`NotImplementedError` naming the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ from jiminy_torch.ops import dynamics as dyn
 from jiminy_torch.ops import integrate as integ
 from jiminy_torch.ops import lie
 from jiminy_torch.ops.kinematics import forward_kinematics, frame_placement, joint_space_jacobian
+from jiminy_torch.utils import terrain
 
 _FIXED_STEP = {
     IntegratorType.EULER_EXPLICIT: "euler",
@@ -60,12 +64,10 @@ _FIXED_STEP = {
 _PGS_KEYS = ("lam", "contact_active", "bound_active")
 
 
-def _refuse_unported(robot: Robot, opts: EngineOptions) -> None:
-    if opts.world.ground_profile is not None:
-        raise NotImplementedError(
-            "ground profiles (terrain) are not ported yet (ROADMAP.md queue 1 item 13 "
-            "and queue 2, terrain height_components)"
-        )
+def _refuse_unported(robot: Robot, opts: EngineOptions, device: torch.device) -> None:
+    # A ground profile runs on every path; off the CPU only through its
+    # packed form, which the kernels evaluate
+    terrain.ground_route(opts.world.ground_profile, device)
     if opts.joint_bounds_mode not in ("constraint", "penalty", "none"):
         raise ValueError(f"unknown joint_bounds_mode {opts.joint_bounds_mode!r}")
     for name, g in robot.sensors.groups():
@@ -98,7 +100,8 @@ class Engine:
         self.options = opts = options or EngineOptions()
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
-        _refuse_unported(robot, opts)
+        _refuse_unported(robot, opts, self.device)
+        self.ground_fn = opts.world.ground_profile
         self.sensor_period = opts.sensor_update_period or opts.controller_update_period
         self.control_period = opts.controller_update_period or self.sensor_period
         if self.control_period <= 0:
@@ -159,7 +162,9 @@ class Engine:
                 )
             # Component CRBA/NLE for the PGS path; penalty bounds are not
             # applied beside PGS rows (as in jiminy_tpu)
-            self._cdyn_cm = cdyn.ComponentDynamics(robot.model, gravity)
+            self._cdyn_cm = cdyn.ComponentDynamics(
+                robot.model, gravity, ground_fn=self.ground_fn if self.constraint_mode else None
+            )
         elif core and not self.constraint_mode:
             self._cdyn = cdyn.ComponentDynamics(
                 robot.model,
@@ -168,6 +173,7 @@ class Engine:
                 contact_frames=robot.contact_frame_indices,
                 contact_radii=robot.contact_radii,
                 bound_gains=self._bound_gains,
+                ground_fn=self.ground_fn,
             )
         # (constraint contact mode with no row builds no core, as in jiminy_tpu)
         self._tau_c = self._build_tau_c()
@@ -411,8 +417,8 @@ class Engine:
                                            self._zeros(batch + (0,)))
             else:
                 fext, f_world, w_local, depth = compute_contact_forces(
-                    model, self.options.contacts, None, kin, robot.contact_frame_indices,
-                    robot.contact_radii,
+                    model, self.options.contacts, self.ground_fn, kin,
+                    robot.contact_frame_indices, robot.contact_radii,
                 )
             if fext_user is not None:
                 fext = fext_user if fext is None else fext + fext_user
@@ -457,8 +463,9 @@ class Engine:
         if carry is None:
             carry = self._zero_carry(torch.broadcast_shapes(q.shape[:-1], v.shape[:-1]))
         csys = compute_constraint_system(
-            model, cset, self.options.contacts, None, kin, joint_space_jacobian(model, kin), q, v,
-            carry["contact_active"], carry["bound_active"],
+            model, cset, self.options.contacts, self.ground_fn, kin,
+            joint_space_jacobian(model, kin), q, v, carry["contact_active"],
+            carry["bound_active"],
         )
         o = self._solver_opts
         res = solver.constrained_forward_dynamics(

@@ -37,9 +37,10 @@ memory, solving the active rows alone over each row's support dofs;
 `pack_constraints` packs those supports and `cm_smem_per_env` sizes each
 env's shared memory.
 
-Only flat ground, point contacts, joint bounds and ground contacts are
-ported; distance-loop and rolling rows raise `NotImplementedError` naming
-ROADMAP.md queue 1 item 10.
+Point contacts, joint bounds and ground contacts are ported, on flat ground
+or on a ground profile (`cd.ground_fn`; the kernels evaluate its packed
+form, `utils.terrain`); distance-loop and rolling rows raise
+`NotImplementedError` naming ROADMAP.md queue 1 item 10.
 """
 
 from __future__ import annotations
@@ -330,8 +331,9 @@ def _flat_ground_normal(like: torch.Tensor):
 
 def constraint_system_components(cd, cset, qc, vc, xs, world, vel, acc, kp: float, kd: float,
                                  transition_eps: float, prev_cact, prev_bact):
-    """Joint-bound and ground-contact rows on flat ground (jiminy_tpu's
-    `constraint_system_components` without its distance and rolling rows).
+    """Joint-bound and ground-contact rows (jiminy_tpu's
+    `constraint_system_components` without its distance and rolling rows),
+    on flat ground or on the ground `cd.ground_fn`.
 
     Returns `(rows [N][nv], drifts [N], basis [nc] (c0, c1, n), depth [nc],
     cact [nc], bact [nb])`, rows and drifts already masked by activity; a
@@ -368,12 +370,20 @@ def constraint_system_components(cd, cset, qc, vc, xs, world, vel, acc, kp: floa
         fp = c.fpos[fidx]
         rw, pw = world[parent]
         pc = v_add(m_mv(rw, fp), pw)
-        n = [0.0, 0.0, 1.0]  # flat ground: height 0, unit normal
-        depth = (pc[2] - 0.0) * n[2]
+        if cd.ground_fn is None:
+            n = [0.0, 0.0, 1.0]  # flat ground: height 0, unit normal
+            depth = (pc[2] - 0.0) * n[2]
+            basis = _normal_basis_components(_flat_ground_normal(depth))
+        else:
+            h, n = cdyn.ground_components(cd.ground_fn, pc[0], pc[1])
+            nn = torch.clamp(torch.sqrt(v_dot(n, n)), min=1e-12)
+            n = v_scale(n, 1.0 / nn)
+            depth = (pc[2] - h) * n[2]
+            basis = _normal_basis_components(n)
         act = (depth < 0.0) | (prev_cact[k] & (depth <= transition_eps))
         cact.append(act)
         depth_all.append(depth)
-        c0, c1, n_col = _normal_basis_components(_flat_ground_normal(depth))
+        c0, c1, n_col = basis
         basis_all.append((c0, c1, n_col))
 
         ang_cols, lin_cols = cd._frame_jacobian_cols(world, parent, pc)
@@ -744,7 +754,8 @@ def pack_constraints(cd, cset: ConstraintSet, opts: SolverOptions, device,
     """Pack the row layout, bound limits, contact frames and support dofs,
     solver constants and the relaxation weights of every sweep. Floats are
     computed in float64 on the host, as the plain version computes its
-    Python-float constants, then rounded once to `dtype`."""
+    Python-float constants, then rounded once to `dtype`. The ground's
+    program travels in the model's buffers (`cdyn.pack_model`)."""
     _unported_rows(cset)
     model, c = cd.model, cd.c
     nb, nc, n = cset.n_bounds, cset.n_contacts, cset.total_rows
@@ -824,7 +835,7 @@ def _launch_period_cm(packed, cpk: PackedConstraints, q, v, cc, n_substeps: int,
         cdyn._launch("cdyn_period_cm", q.dtype, packed.ci.data_ptr(), packed.cf.data_ptr(),
                      cpk.si.data_ptr(), cpk.sf.data_ptr(), qs.data_ptr(), vs.data_ptr(),
                      cs.data_ptr(), qo.data_ptr(), vo.data_ptr(), eo.data_ptr(), b, n_cmd,
-                     int(n_substeps), int(integrator), smem)
+                     int(n_substeps), int(integrator), smem, packed.terrain)
     return (
         qo.t().reshape(tuple(batch) + (nq,)),
         vo.t().reshape(tuple(batch) + (nv,)),
@@ -863,7 +874,7 @@ def _launch_rollout_cm(packed, cpk: PackedConstraints, ctrl, kind: int, q, v, ac
                      cpk.si.data_ptr(), cpk.sf.data_ptr(), pi.data_ptr(), pf.data_ptr(),
                      int(kind), qs.data_ptr(), vs.data_ptr(), as_.data_ptr(), bs.data_ptr(),
                      qo.data_ptr(), vo.data_ptr(), eo.data_ptr(), b, na, n_block, int(n_cmd),
-                     int(n_ticks), int(n_substeps), int(integrator), smem)
+                     int(n_ticks), int(n_substeps), int(integrator), smem, packed.terrain)
     return (
         qo.t().reshape(tuple(batch) + (nq,)),
         vo.t().reshape(tuple(batch) + (nv,)),

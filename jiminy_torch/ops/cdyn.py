@@ -51,6 +51,7 @@ import torch
 
 from jiminy_torch.models import joints as jt
 from jiminy_torch.models.model import RobotModel
+from jiminy_torch.utils import terrain
 
 # --------------------------------------------------------------------------- #
 # Scalar-component linear algebra: V3 = [x, y, z], M3 = 3x3 nested list.
@@ -304,12 +305,26 @@ class _Consts:
         self.fpos = [np.asarray(p, np.float64).tolist() for p in model.fplacement_pos]
 
 
+def ground_components(ground_fn, x, y):
+    """(h, [nx, ny, nz]) of a ground at (x, y): its elementwise
+    `height_components` (normal not normalized), else `ground_fn(xy)`."""
+    cfn = getattr(ground_fn, "height_components", None)
+    if cfn is not None:
+        h, n = cfn(x, y)
+        return h, list(n)
+    h, n = ground_fn(torch.stack(torch.broadcast_tensors(x, y), dim=-1))
+    return h, [n[..., 0], n[..., 1], n[..., 2]]
+
+
 class ComponentDynamics:
     """Fused spring-damper forward dynamics for one robot model.
 
     `accel(q, v, tau)`: (..., nq), (..., nv), (..., nv) -> (..., nv), the
     ABA of the model with armature, joint damping, penalty joint bounds and
-    spring-damper contact on flat ground.
+    spring-damper contact on the ground `ground_fn` (None: flat, z = 0). A
+    ground's height and normal come from its `height_components` (the
+    kernels evaluate its packed form, `utils.terrain.pack_ground`), else from
+    `ground_fn(xy)` (the CPU only).
     """
 
     def __init__(
@@ -320,6 +335,7 @@ class ComponentDynamics:
         contact_frames: tuple = (),
         contact_radii: tuple = (),
         bound_gains: Optional[dict] = None,
+        ground_fn=None,
     ):
         check_model(model)
         self.model = model
@@ -330,6 +346,8 @@ class ComponentDynamics:
         self.contact_radii = tuple(float(r) for r in contact_radii) or (0.0,) * len(
             self.contact_frames
         )
+        # The ground profile (`utils.terrain`; None: flat ground z = 0)
+        self.ground_fn = ground_fn
         # Penalty bounds: {vidx: (lo, hi, kp, kd, qidx)}
         self.bound_gains = {
             int(k): tuple(float(x) for x in val[:4]) + (int(val[4]),)
@@ -378,9 +396,9 @@ class ComponentDynamics:
 
     # ---------------- contact ----------------
     def _contact_fext(self, world, vel, want_aux: bool = False):
-        """Spring-damper ground forces on flat ground -> per-joint LOCAL
-        wrenches, world forces per contact and, with `want_aux`, per-contact
-        (depth, LOCAL contact-frame wrench [n(3), f(3)])."""
+        """Spring-damper ground forces -> per-joint LOCAL wrenches, world
+        forces per contact and, with `want_aux`, per-contact (depth, LOCAL
+        contact-frame wrench [n(3), f(3)])."""
         c = self.c
         opts = self.contact_opts
         fext = [None] * c.nj
@@ -393,9 +411,16 @@ class ComponentDynamics:
             pc = v_add(m_mv(rw, fp), pw)
             w_l, v_l = vel[parent]
             v_w = m_mv(rw, v_add(v_l, v_cross(w_l, fp)))
-            n = [0.0, 0.0, 1.0]
-            depth = pc[2]
-            v_depth = v_w[2]
+            if self.ground_fn is None:
+                n = [0.0, 0.0, 1.0]
+                depth = pc[2]
+                v_depth = v_w[2]
+            else:
+                h, n = ground_components(self.ground_fn, pc[0], pc[1])
+                nn = torch.sqrt(torch.clamp(v_dot(n, n), min=1e-24))
+                n = v_scale(n, 1.0 / nn)
+                depth = (pc[2] - h) * n[2]
+                v_depth = v_dot(v_w, n)
             d_off = None
             if radius > 0.0:
                 depth = depth - radius
@@ -1363,8 +1388,11 @@ class PDComponents:
 # Constant packing (layout read by csrc/cdyn.cu, `struct Model`)
 # --------------------------------------------------------------------------- #
 
-CI_HEADER = 16  # NJ NQ NV NC NI NM NB has_contacts blend, spring offset, then reserved
+CI_HEADER = 16  # NJ NQ NV NC NI NM NB has_contacts blend, spring offset, terrain offsets
 CI_SPRING = 9  # header slot: where the spring section (`spring_section`) starts
+# header slots: where the terrain section (`utils.terrain.pack_ground`) starts
+# in ci and in cf; 0 on flat ground
+CI_TERRAIN = 10
 AX_X, AX_Y, AX_Z, AX_GENERAL = 0, 1, 2, 3  # axis classes of a 1-dof joint (-1 FREE)
 CF_HEADER = 16  # g(3) stiffness damping friction v_trans eps_trans dt dt/2 dt/6
 CI_JOINT, CI_CONTACT, CI_IMU, CI_MOTOR, CI_BOUND = 4, 2, 1, 3, 2
@@ -1376,6 +1404,7 @@ class PackedModel:
     ci: torch.Tensor  # int32
     cf: torch.Tensor  # the run's float dtype
     counts: dict  # nj, nq, nv, nc, ni, nm, nb
+    terrain: int = 0  # 1: the ground's program is packed (the kernels' terrain instance)
 
 
 def axis_class(joint_type, axis) -> int:
@@ -1425,9 +1454,11 @@ def spring_section(cd: ComponentDynamics, tau_c: Optional[MotorTransmission]) ->
 def pack_model(cd: ComponentDynamics, tau_c: Optional[MotorTransmission], dt: float,
                imu_frames: tuple, device, dtype) -> PackedModel:
     """Pack the model, contact, bound, IMU and motor constants of one
-    component core into an int buffer and a float buffer on `device`.
-    Floats are computed in float64 on the host, exactly as the plain version
-    computes its Python-float constants, then rounded once to `dtype`."""
+    component core into an int buffer and a float buffer on `device`, and
+    the ground's program (`utils.terrain.pack_ground`) as their terrain
+    section when the core has a ground. Floats are computed in float64 on
+    the host, exactly as the plain version computes its Python-float
+    constants, then rounded once to `dtype`."""
     c, model = cd.c, cd.model
     nc, ni = len(cd.contact_frames), len(imu_frames)
     nm = tau_c.nmotors if tau_c is not None else 0
@@ -1465,12 +1496,19 @@ def pack_model(cd: ComponentDynamics, tau_c: Optional[MotorTransmission], dt: fl
         cf += [lo, hi, kp, kd]
     ci[CI_SPRING] = len(ci)
     ci += spring_section(cd, tau_c)
+    terrain_on = cd.ground_fn is not None
+    if terrain_on:
+        ti, tf = terrain.pack_ground(cd.ground_fn)
+        ci[CI_TERRAIN], ci[CI_TERRAIN + 1] = len(ci), len(cf)
+        ci += ti.tolist()
+        cf += tf.tolist()
     counts = dict(nj=model.njoints, nq=model.nq, nv=model.nv, nc=nc, ni=ni, nm=nm,
                   nb=len(bounds))
     return PackedModel(
         ci=torch.tensor(ci, dtype=torch.int32, device=device),
         cf=torch.tensor(cf, dtype=torch.float64).to(device=device, dtype=dtype),
         counts=counts,
+        terrain=int(terrain_on),
     )
 
 
@@ -1576,7 +1614,7 @@ def _launch_accel(packed: PackedModel, q, v, tau):
     out = torch.empty((b, nv), dtype=q.dtype, device=q.device)
     if b:
         _launch("cdyn_accel", q.dtype, packed.ci.data_ptr(), packed.cf.data_ptr(), qs.data_ptr(),
-                vs.data_ptr(), ts.data_ptr(), out.data_ptr(), b, smem)
+                vs.data_ptr(), ts.data_ptr(), out.data_ptr(), b, smem, packed.terrain)
     return out.reshape(tuple(batch) + (nv,))
 
 
@@ -1608,7 +1646,8 @@ def _launch_period(packed: PackedModel, q, v, cmd, n_substeps: int, integrator: 
     if b:
         _launch("cdyn_period", q.dtype, packed.ci.data_ptr(), packed.cf.data_ptr(),
                 qs.data_ptr(), vs.data_ptr(), cs.data_ptr(), qo.data_ptr(), vo.data_ptr(),
-                eo.data_ptr(), b, nm, int(n_substeps), int(integrator), smem)
+                eo.data_ptr(), b, nm, int(n_substeps), int(integrator), smem,
+                packed.terrain)
     return (
         qo.t().reshape(tuple(batch) + (nq,)),
         vo.t().reshape(tuple(batch) + (nv,)),
@@ -1639,7 +1678,8 @@ def _launch_rollout(packed: PackedModel, ctrl, kind: int, q, v, action, carry,
         _launch("cdyn_rollout", q.dtype, packed.ci.data_ptr(), packed.cf.data_ptr(),
                 pi.data_ptr(), pf.data_ptr(), int(kind), qs.data_ptr(), vs.data_ptr(),
                 as_.data_ptr(), bs.data_ptr(), qo.data_ptr(), vo.data_ptr(), eo.data_ptr(),
-                b, na, nb, int(n_cmd), int(n_ticks), int(n_substeps), int(integrator), smem)
+                b, na, nb, int(n_cmd), int(n_ticks), int(n_substeps), int(integrator), smem,
+                packed.terrain)
     return (
         qo.t().reshape(tuple(batch) + (nq,)),
         vo.t().reshape(tuple(batch) + (nv,)),

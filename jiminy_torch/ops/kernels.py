@@ -25,7 +25,8 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "jiminy_torch"
 SOURCE = CSRC_DIR / "cdyn.cu"
-HEADERS = (CSRC_DIR / "cdyn.cuh", CSRC_DIR / "pgs.cuh", CSRC_DIR / "spring.cuh")
+HEADERS = (CSRC_DIR / "cdyn.cuh", CSRC_DIR / "pgs.cuh", CSRC_DIR / "spring.cuh",
+           CSRC_DIR / "terrain.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -34,14 +35,16 @@ CM_PHASES = 8  # phases of a constrained solve timed by a CDYN_CM_PROFILE build
 CAP_NAMES = ("nj", "nq", "nv", "nc", "ni", "nm", "nb", "n_cmd", "n_action", "n_carry")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# Each entry's last two arguments: the terrain flag (the instance that
+# evaluates the model's terrain section) and the stream.
 _SIGNATURES = {
-    "cdyn_accel": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
-    "cdyn_period": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "cdyn_accel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "cdyn_period": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cdyn_rollout": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                     _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "cdyn_period_cm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+                     _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "cdyn_period_cm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cdyn_rollout_cm": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -128,10 +131,10 @@ class Library:
         self._accel_smem.argtypes = [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
         self._accel_smem.restype = ctypes.c_int
         self._sp_blocks = self._dll.cdyn_sp_blocks_per_sm
-        self._sp_blocks.argtypes = [_I] * 3
+        self._sp_blocks.argtypes = [_I] * 4
         self._sp_blocks.restype = ctypes.c_int
         self._cm_envs = self._dll.cdyn_cm_envs_per_sm
-        self._cm_envs.argtypes = [_I] * 3
+        self._cm_envs.argtypes = [_I] * 4
         self._cm_envs.restype = ctypes.c_int
         self._phases = getattr(self._dll, "cdyn_cm_phase_cycles", None)
         if self._phases is not None:
@@ -169,12 +172,13 @@ class Library:
         per_env = self._accel_smem(nj, nq, nv, nc, elt, geometry)
         return int(per_env), int(geometry[0]), int(geometry[1])
 
-    def sp_envs_per_sm(self, kernel: str, elt: int, smem_per_env: int) -> int:
+    def sp_envs_per_sm(self, kernel: str, elt: int, smem_per_env: int, terrain=False) -> int:
         """Envs of a spring kernel ("cdyn_accel", "cdyn_period" or
-        "cdyn_rollout") that the runtime keeps on one SM
-        (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` x envs a block)."""
+        "cdyn_rollout"; its terrain instance with `terrain`) that the runtime
+        keeps on one SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` x
+        envs a block)."""
         which = ("cdyn_accel", "cdyn_period", "cdyn_rollout").index(kernel)
-        blocks = self._sp_blocks(which, elt, smem_per_env)
+        blocks = self._sp_blocks(which, elt, smem_per_env, int(terrain))
         if blocks < 0:
             raise RuntimeError(f"cdyn_sp_blocks_per_sm: CUDA error {-blocks} "
                                f"({self.error_string(-blocks)})")
@@ -182,11 +186,12 @@ class Library:
                     self.sp_smem_bytes(1, 1, 1, 0, 0, 0, 0, elt))
         return blocks * geometry[2]
 
-    def cm_envs_per_sm(self, kernel: str, elt: int, smem_per_env: int) -> int:
-        """Envs of a constrained kernel ("cdyn_period_cm" or "cdyn_rollout_cm")
-        that the runtime keeps on one SM, as `sp_envs_per_sm`."""
+    def cm_envs_per_sm(self, kernel: str, elt: int, smem_per_env: int, terrain=False) -> int:
+        """Envs of a constrained kernel ("cdyn_period_cm" or "cdyn_rollout_cm";
+        its terrain instance with `terrain`) that the runtime keeps on one
+        SM, as `sp_envs_per_sm`."""
         which = ("cdyn_period_cm", "cdyn_rollout_cm").index(kernel)
-        envs = self._cm_envs(which, elt, smem_per_env)
+        envs = self._cm_envs(which, elt, smem_per_env, int(terrain))
         if envs < 0:
             raise RuntimeError(f"cdyn_cm_envs_per_sm: CUDA error {-envs} "
                                f"({self.error_string(-envs)})")

@@ -14,7 +14,9 @@ hold a kernel's outputs against its plain version column by column. The
 card tests and `chip_smoke.py` use them. `constraint_mode_options` turns an
 env's engine options into constraint contact mode, as `bench.py` does with
 `BENCH_CONTACT=constraint`; `dopri_options` turns them to adaptive DOPRI
-5(4), every other option kept.
+5(4), every other option kept. `rough_ground` is the terrain cell's ground
+(`ground_options` sets a ground); `spread_on_ground` and `place_on_ground`
+put states on it at distinct (x, y).
 """
 
 from __future__ import annotations
@@ -51,6 +53,68 @@ def perturbed_states(env, batch: int, seed: int, device=None, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
     return t(q), t(v), t(tau)
+
+
+def rough_ground():
+    """The rough ground of the terrain cell: jiminy_tpu's own fused-terrain
+    case (its tests/test_cdyn.py::test_cdyn_terrain_matches_generic), a
+    4-octave Perlin ground (1.5 m wavelength, 5 cm) plus stairs (3 steps of
+    3 cm up and 3 down, 0.4 m wide, turned 0.5 rad), summed."""
+    from jiminy_torch.utils import terrain
+
+    return terrain.sum_heightmaps([
+        terrain.random_perlin_ground(wavelength=1.5, height_max=0.05, seed=3),
+        terrain.periodic_stairs_ground(0.4, 0.03, 3, orientation=0.5),
+    ])
+
+
+def ground_options(options, ground):
+    """The options with `ground` as the world's ground profile."""
+    return options.replace(world=dataclasses.replace(options.world, ground_profile=ground))
+
+
+def spread_on_ground(q: torch.Tensor, ground, seed: int, half_width: float = 10.0):
+    """States spread over a ground: each env's base (x, y) drawn uniformly
+    over a square of side 2 half_width (numpy, from `seed`), its height
+    raised by the ground's height under the base, so feet meet the terrain
+    at the depths they met flat ground."""
+    q = q.clone()
+    rng = np.random.default_rng(seed)
+    q[:, :2] = torch.as_tensor(rng.uniform(-half_width, half_width, size=(q.shape[0], 2)),
+                               dtype=q.dtype, device=q.device)
+    h, _ = ground(q[:, :2])
+    q[:, 2] = q[:, 2] + h
+    return q
+
+
+def contact_points(env, q: torch.Tensor) -> torch.Tensor:
+    """(B, nc, 3) world positions of the env's contact points at q (the
+    component core's plain kinematics, on q's device)."""
+    eng = env.engine
+    cd = eng._cdyn if eng._cdyn is not None else eng._cdyn_cm
+    world = cd._world_placements(cd._joint_x([q[:, i] for i in range(q.shape[1])]))
+    points = []
+    for f in env.robot.contact_frame_indices:
+        rw, pw = world[cd.c.frame_parents[f]]
+        fp = cd.c.fpos[f]
+        points.append(torch.stack(
+            [sum(rw[i][k] * fp[k] for k in range(3)) + pw[i] for i in range(3)], -1))
+    return torch.stack(points, -2)
+
+
+def place_on_ground(env, q: torch.Tensor, ground, generator: torch.Generator,
+                    half_width: float = 10.0) -> torch.Tensor:
+    """States placed on a ground: each env's base (x, y) drawn uniformly
+    over a square of side 2 half_width from `generator`, then lifted by the
+    largest ground height under its contact points plus 1 mm."""
+    q = q.clone()
+    xy = (torch.rand((q.shape[0], 2), generator=generator, dtype=torch.float64,
+                     device=generator.device) * 2.0 - 1.0) * half_width
+    q[:, :2] = xy.to(device=q.device, dtype=q.dtype)
+    feet = contact_points(env, q)
+    h, _ = ground(feet[..., :2])
+    q[:, 2] = q[:, 2] + h.amax(-1) + 1e-3
+    return q
 
 
 def dopri_options(options):

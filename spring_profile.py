@@ -206,14 +206,21 @@ def child(defines, steps, root=None):
 
 
 def ptxas_lines(log, kernels=("cdyn_rollout", "cdyn_period", "cdyn_accel")):
-    """{kernel (float32): registers / stack line} from a build's ptxas log."""
+    """{kernel (float32): registers / stack line} from a build's ptxas log:
+    the flat-ground instance under the kernel's name (a build before the
+    terrain instances has only that one), the terrain instance under
+    "<kernel> (terrain)"."""
     lines, out = log.splitlines(), {}
     for i, line in enumerate(lines):
-        if "Compiling entry function" not in line or "IfE" not in line:
+        if "Compiling entry function" not in line:
+            continue
+        terrain = "IfLb1E" in line
+        if not terrain and "IfE" not in line and "IfLb0E" not in line:
             continue
         name = next((k for k in kernels if k + "_kernel" in line), None)
         if name is None or "_cm" in line:
             continue
+        name = name + " (terrain)" if terrain else name
         for nxt in lines[i + 1:i + 6]:
             if "registers" in nxt or "stack frame" in nxt:
                 out.setdefault(name, []).append(nxt.split("info    :")[-1].strip())

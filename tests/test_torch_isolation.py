@@ -21,9 +21,11 @@ from jiminy_torch.engine.config import (
     StepperOptions,
     WorldOptions,
 )
+from jiminy_torch.engine import engine as engine_mod
 from jiminy_torch.engine import solver
 from jiminy_torch.envs import make
 from jiminy_torch.ops import cdyn, kernels
+from jiminy_torch.utils import terrain
 from jiminy_torch.testing import (
     column_errors,
     column_quantile_errors,
@@ -48,7 +50,7 @@ def test_port_imports_neither_jax_nor_jiminy_tpu():
     assert "jiminy_torch.envs.bipeds" in mods and "jiminy_torch.envs.builders_bipeds" in mods
     assert "jiminy_torch.engine.contact" in mods and "jiminy_torch.envs.toys" in mods
     for m in ("rl.ppo", "rl.evaluate", "rl.checkpoint", "rl.networks", "gym.wrappers",
-              "telemetry.trajectory"):
+              "telemetry.trajectory", "utils", "utils.terrain"):
         assert f"jiminy_torch.{m}" in mods, m
     code = (
         "import importlib, sys\n"
@@ -119,6 +121,12 @@ def test_kernel_wrappers_raise_instead_of_falling_back(env):
     assert all(k.launches == 0 for k in cdyn.KERNELS.values())
 
 
+def _user_ground(xy):
+    """A ground profile as a plain callable: no packed form."""
+    return xy[..., 0] * 0.0, torch.tensor([0.0, 0.0, 1.0], dtype=xy.dtype).expand(
+        xy.shape[:-1] + (3,))
+
+
 def test_unported_options_raise_not_implemented(env):
     robot = env.robot
     stepper = StepperOptions(integrator=IntegratorType.RUNGE_KUTTA_DOPRI)
@@ -131,10 +139,25 @@ def test_unported_options_raise_not_implemented(env):
         EngineOptions(stepper=stepper, contacts=ContactOptions(model=ContactModel.CONSTRAINT),
                       joint_bounds_mode="constraint"),
         EngineOptions(joint_bounds_mode="constraint"),
-        EngineOptions(world=WorldOptions(ground_profile=lambda xy: (0.0, (0.0, 0.0, 1.0))), **base),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             type(env.env.engine)(robot, opts, device="cpu")
+    # A ground profile builds on every path; one without a packed form runs
+    # on the CPU only, and is refused for the card (the routing decision,
+    # taken before any tensor reaches a device)
+    packed = terrain.random_perlin_ground(1.5, 0.05, seed=3)
+    for ground in (packed, _user_ground):
+        for extra in ({}, dict(use_fast_dynamics=False)):
+            opts = EngineOptions(world=WorldOptions(ground_profile=ground), **base, **extra)
+            eng = type(env.env.engine)(robot, opts, device="cpu")
+            assert eng.ground_fn is ground
+            assert eng._cdyn is None or eng._cdyn.ground_fn is ground
+    card = torch.device("cuda", 0)
+    user = EngineOptions(world=WorldOptions(ground_profile=_user_ground), **base)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 item 6"):
+        engine_mod._refuse_unported(robot, user, card)
+    engine_mod._refuse_unported(robot, user.replace(world=WorldOptions(ground_profile=packed)),
+                                card)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         make("anymal-pid", device="cpu", std_ratio=0.5)
 
@@ -170,6 +193,40 @@ def test_packed_constants_match_model(env):
     assert set(motors[:, 1]) == {cdyn.MOTOR_ENVELOPE}
     assert packed.counts == dict(nj=nj, nq=model.nq, nv=nv, nc=nc, ni=ni, nm=nm,
                                  nb=len(eng._bound_gains))
+
+
+def test_packed_terrain_section_matches_pack_ground(env):
+    """The model's buffers carry the ground's program after the spring
+    section (header slots CI_TERRAIN, CI_TERRAIN + 1: its offsets in ci and
+    cf), the buffers otherwise as on flat ground; flat ground has none."""
+    eng = env.env.engine
+    flat = eng._cdyn.pack(eng._tau_c, 1e-3, eng._imu_frames, "cpu", torch.float64)
+    ground = terrain.sum_heightmaps([terrain.random_perlin_ground(1.5, 0.05, seed=3),
+                                     terrain.periodic_stairs_ground(0.4, 0.03, 3, 0.5)])
+    cd = cdyn.ComponentDynamics(
+        env.robot.model, eng._cdyn.gravity, contact_opts=eng._cdyn.contact_opts,
+        contact_frames=eng._cdyn.contact_frames, contact_radii=eng._cdyn.contact_radii,
+        bound_gains=eng._cdyn.bound_gains, ground_fn=ground,
+    )
+    for dtype in (torch.float64, torch.float32):
+        packed = cd.pack(eng._tau_c, 1e-3, eng._imu_frames, "cpu", dtype)
+        ci, cf = packed.ci.numpy(), packed.cf.numpy()
+        ti, tf = terrain.pack_ground(ground, dtype=dtype)
+        oi, of = ci[cdyn.CI_TERRAIN], ci[cdyn.CI_TERRAIN + 1]
+        assert packed.terrain == 1 and flat.terrain == 0
+        assert oi == len(flat.ci) and of == len(flat.cf)
+        np.testing.assert_array_equal(ci[oi:], ti.numpy())
+        np.testing.assert_array_equal(cf[of:], tf.numpy())
+        head = np.concatenate([ci[:cdyn.CI_TERRAIN], ci[cdyn.CI_TERRAIN + 2:oi]])
+        flat_ci = flat.ci.numpy()
+        np.testing.assert_array_equal(
+            head, np.concatenate([flat_ci[:cdyn.CI_TERRAIN], flat_ci[cdyn.CI_TERRAIN + 2:]]))
+        np.testing.assert_array_equal(cf[:of], flat.cf.numpy().astype(cf.dtype))
+        assert list(flat_ci[cdyn.CI_TERRAIN:cdyn.CI_TERRAIN + 2]) == [0, 0]
+        assert packed.counts == flat.counts
+    # the program: [n_ops, depth, (opcode, float offset, octaves, seed) x 3]
+    assert list(ti[:2]) == [3, 2]
+    assert list(ti[2::4]) == [terrain.T_PERLIN, terrain.T_STAIRS, terrain.T_SUM]
 
 
 def test_kernel_build_is_sm90a_without_fast_math():
@@ -247,10 +304,13 @@ def test_constrained_wrappers_raise_instead_of_falling_back(cm_env):
 
 
 def test_unported_constraint_rows_and_terrain_raise_not_implemented(cm_env):
-    """Distance-loop and rolling rows (ROADMAP item 10), sphere contacts and
-    terrain (item 13) are refused, on every path that would assemble them."""
+    """Distance-loop and rolling rows (ROADMAP item 10) and sphere contacts
+    (item 3) are refused, on every path that would assemble them; terrain
+    builds, and a ground without a packed form is refused for the card
+    (queue 2 item 6)."""
     eng = cm_env.engine
     cd, opts = eng._cdyn_cm, eng._solver_opts
+    opts_s = opts
     for cset in (
         dataclasses.replace(eng.cset, distance_pairs=((89, 123),)),
         dataclasses.replace(eng.cset, sphere_specs=((89, 0.02),)),
@@ -263,11 +323,24 @@ def test_unported_constraint_rows_and_terrain_raise_not_implemented(cm_env):
     spheres = dataclasses.replace(eng.cset, contact_radii=(0.02,) * 4)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
         solver.constraint_system_components(cd, spheres, *([None] * 6), 1.0, 1.0, 1e-3, [], [])
-    terrain = cm_env.engine.options.replace(
-        world=WorldOptions(ground_profile=lambda xy: (0.0, (0.0, 0.0, 1.0)))
-    )
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 13"):
-        type(eng)(cm_env.robot, terrain, device="cpu")
+    # Terrain builds in constraint mode; a ground without a packed form runs
+    # on the CPU (the plain solve) and is refused for the card and by the
+    # kernels' packing (the model's buffers carry the ground's program)
+    packed = terrain.random_perlin_ground(1.5, 0.05, seed=3)
+    for ground in (packed, _user_ground):
+        opts = cm_env.engine.options.replace(world=WorldOptions(ground_profile=ground))
+        eng_t = type(eng)(cm_env.robot, opts, device="cpu")
+        cd_t = eng_t._cdyn_cm
+        assert cd_t.ground_fn is ground
+        solver.pack_constraints(cd_t, eng_t.cset, opts_s, "cpu", torch.float64)
+        if ground is _user_ground:
+            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 item 6"):
+                engine_mod._refuse_unported(cm_env.robot, opts, torch.device("cuda", 0))
+            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 item 6"):
+                cd_t.pack(eng_t._tau_c, 1e-3, eng_t._imu_frames, "cpu", torch.float64)
+        else:
+            assert cd_t.pack(eng_t._tau_c, 1e-3, eng_t._imu_frames, "cpu",
+                             torch.float64).terrain == 1
 
 
 def test_packed_constraint_constants_match_model(cm_env):

@@ -3,7 +3,9 @@ version on the card, at a small batch, for the ANYmal constants (the
 constrained kernels for `anymal-pid` in constraint contact mode, on states
 with active contact and bound rows, and for the pendulum: a fixed root, no
 contact, one bound row, 50 ticks behind a ZOH controller) and, for the
-spring kernels, for the full Atlas (`atlas-pid`).
+spring kernels, for the full Atlas (`atlas-pid`); and all five for the
+ANYmal on rough ground (`testing.rough_ground`), each env at its own (x, y),
+their terrain instances evaluating the ground per contact.
 
 Marked `cuda`; they skip where no CUDA device is present (the check runs in a
 fixture, never at import). On a machine with a card, run them with:
@@ -41,7 +43,10 @@ from jiminy_torch.testing import (
     column_quantile_errors,
     constrained_inputs,
     constraint_mode_options,
+    ground_options,
     perturbed_states,
+    rough_ground,
+    spread_on_ground,
 )
 
 TOL = {torch.float64: (1e-9, 1e-9), torch.float32: (2e-3, 1e-2)}
@@ -504,3 +509,73 @@ def test_pendulum_steps_through_the_constrained_kernels(cuda_device):
     assert launches == {"cdyn_accel": 0, "cdyn_period": 0, "cdyn_rollout": 0,
                         "cdyn_period_cm": env.n_ctrl_per_step, "cdyn_rollout_cm": 1}
     assert torch.isfinite(st.sim.q).all()
+
+
+# --------------------------------------------------------------------------- #
+# Terrain: the five kernels' terrain instances on rough ground
+# --------------------------------------------------------------------------- #
+
+
+def _rough_env(device, dtype, constraint=False):
+    env = _env(device, dtype)
+    opts = ground_options(env.engine.options, rough_ground())
+    if constraint:
+        opts = constraint_mode_options(opts)
+    return make("anymal-pid", device=device, dtype=dtype, options=opts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["cdyn_accel", "cdyn_period", "cdyn_rollout",
+                                    "cdyn_period_cm", "cdyn_rollout_cm"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_terrain_kernels_match_plain(cuda_device, dtype, kernel):
+    cm = kernel.endswith("_cm")
+    env = _rough_env(cuda_device, dtype, constraint=cm)
+    eng, ground = env.engine, env.engine.ground_fn
+    nm = env.robot.nmotors
+    cdyn.reset_launch_counts()
+    if cm:
+        q, v, cmd, sol = constrained_inputs(env, 256, seed=7)
+    else:
+        q, v, tau = perturbed_states(env, 512, seed=7)
+        cmd = torch.randn((512, nm), dtype=dtype, device=cuda_device,
+                          generator=torch.Generator(cuda_device).manual_seed(7)) * 20.0
+    q = spread_on_ground(q, ground, seed=7)
+    if kernel == "cdyn_accel":
+        outs, refs = (eng._cdyn.accel_kernel(q, v, tau),), (eng._cdyn.accel_plain(q, v, tau),)
+    elif kernel == "cdyn_period":
+        run = eng._get_period_run("rk4")
+        outs, refs = run.kernel(q, v, cmd, n_substeps=2), run.plain(q, v, cmd, n_substeps=2)
+    elif kernel == "cdyn_period_cm":
+        run = eng._get_period_run("rk4")
+        cc = torch.cat([cmd, sol], dim=-1)
+        outs, refs = run.kernel(q, v, cc, n_substeps=1), run.plain(q, v, cc, n_substeps=1)
+    else:
+        ctrl = env.block.component_controller(env.env)
+        block = torch.zeros((q.shape[0], 3 * nm), dtype=dtype, device=cuda_device)
+        block[:, :nm] = q[:, 7:]
+        carry = torch.cat([block, sol], dim=-1) if cm else block
+        run = eng._get_rollout_run("test-terrain", ctrl, 8)
+        outs = run.kernel(q, v, cmd * 2.5, carry, n_ticks=2, n_substeps=1)
+        refs = run.plain(q, v, cmd * 2.5, carry, n_ticks=2, n_substeps=1)
+    torch.cuda.synchronize()
+    assert cdyn.KERNELS[kernel].launches == 1
+    for out, ref in zip(outs, refs):
+        assert torch.isfinite(out).all()
+        assert _error(out, ref, dtype) < TOL[dtype][1]
+
+
+@pytest.mark.cuda
+def test_flat_kernel_misses_the_terrain(cuda_device):
+    """The witness: the flat instance on the same states disagrees with the
+    terrain's plain version, and the terrain's normals are off vertical."""
+    env = _rough_env(cuda_device, torch.float64)
+    cd = env.engine._cdyn
+    q, v, tau = perturbed_states(env, 512, seed=8)
+    q = spread_on_ground(q, cd.ground_fn, seed=8)
+    flat = cdyn.ComponentDynamics(env.robot.model, cd.gravity, contact_opts=cd.contact_opts,
+                                  contact_frames=cd.contact_frames, bound_gains=cd.bound_gains)
+    ref = cd.accel_plain(q, v, tau)
+    assert _error(cd.accel_kernel(q, v, tau), ref, torch.float64) < TOL[torch.float64][0]
+    assert _error(flat.accel_kernel(q, v, tau), ref, torch.float64) > 1e-3
+
