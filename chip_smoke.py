@@ -48,7 +48,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 7. Constrained path (anymal-pid in constraint contact mode, ground contacts
    and joint bounds through the PGS solver, as bench.py builds it with
    BENCH_CONTACT=constraint), float32 on the card: batched reset at B=131072
-   (the plain constrained solve, timed), 25 steps with zero actions through
+   (the plain constrained solve, timed), N_STEPS_CM steps with zero actions through
    cdyn_rollout_cm (launch counts set to 0 before, read after), then the
    per-period path through cdyn_period_cm; physics checks on the final
    state (all finite, none terminated, the feet carry the robot's weight
@@ -81,9 +81,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 11. The three spring kernels on atlas-pid's path states, as in phase 6 at
    B=131072, each rollout held to its plain version over ATLAS_CHECK_TICKS
    controller ticks (one-ulp differences grow tenfold a tick on the standing
-   humanoid), the plain rollout's whole-step time extrapolated from its
-   times over 1 and ATLAS_CHECK_TICKS ticks. Their records join the kernel
-   line with `"model": "atlas-pid"`.
+   humanoid); a whole plain step is not run: the rollout's record has
+   `plain_ms` null, and the kernel and the plain version timed over those
+   ticks. Their records join the kernel line with `"model": "atlas-pid"`.
 12. Toy golden rows: make("cartpole"), "acrobot" and "pendulum" at float64,
    B=1, on the card, every row of tests/goldens/<toy>.csv from jiminy_tpu's
    initial states (tests/goldens_torch/toy_initial_states.json) with the
@@ -149,11 +149,44 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    reported (not gated); then each mode's per-period path one step. (d)
    Records with `"ground": "rough"`: each kernel timed (CUDA events) on the
    rough main path's states beside its flat time, its plain version
-   (host clock; the rollouts' from 2 ticks and the period's, one tick's
-   ops but the controller's), the bound
+   (host clock; the rollouts' whole step, as the timed launch), the bound
    from the flat plain version's ops plus the terrain branch's, counted on
    the plain version, for every contact evaluation.
+19. Digit main path: make("digit-pid") (nq 27, nv 26, 20 motors, 2 pushrod
+   loop rows beside 8 spring-damper toe contacts and 20 penalty bounds; 16
+   ticks of 5 RK4 substeps a step) at float32, B=131072: reset, a warm-up
+   step, launch counts to 0, N_STEPS_DIGIT steps of zero actions, counts
+   read (one cdyn_rollout_cm a step and nothing else): env-steps/s, every
+   pushrod within PUSHROD_TOL of its length, all finite, no standing env
+   below base_height_min; then one step of the per-period path (one
+   cdyn_period_cm a period). The two kernels on the main path's states:
+   float32 timed (CUDA events) beside the plain version (host clock; the
+   period whole, the rollout over DIGIT_PLAIN_TICKS tick and its record's
+   `plain_ms` null: a whole plain step is minutes of eager launches), their
+   distance printed beside a one-ulp witness; the whole period at float64
+   one env short, every column within 1e-9, zeroed loop multipliers and one
+   PGS sweep refused; ops counted on the plain version (in a worker process),
+   bytes, bound, registers, shared memory and envs an SM; records join the
+   kernels line with `"model": "digit-pid"`.
+20. The constrained kernels at B_LOOP_CHECK on `testing.loop_inputs`
+   states: digit-pid and jiminy_tpu's Cassie-shaped four-bar with a foot
+   and a bound, each on flat and rough ground (both instances), both
+   kernels; float64 within 1e-9, the four-bar over a whole period and
+   LOOP_TICKS whole ticks, the flat Digit's rollout over LOOP_TICKS whole
+   ticks (zeroed loop multipliers and one PGS sweep refused), the rest at
+   LOOP_TICKS x LOOP_SUBSTEPS (on rough ground the flat plain outputs must
+   differ); float32 within TOL at LOOP_TICKS x LOOP_SUBSTEPS.
+21. Cassie: every row of tests/goldens/cassie-pid.csv at float64, B=1, on
+   the generic path (continuous ankles; a CUDA graph a tick, no kernel)
+   within CASSIE_GOLDEN_ATOL (run by a second process on the card beside
+   phase 16: it launches no kernel and times nothing); cassie-pid at float32, B=131072, a warm-up
+   and N_STEPS_CASSIE steps (env-steps/s; no kernel runs), the pushrods
+   within PUSHROD_TOL.
 
+The op and call counts (phases 5, 6, 8, 11, 18 and 19) and phase 17's CPU
+train_steps run on the CPU in three worker processes beside the card's
+phases (those that need no main path's state from the start). Every
+process the script starts ends before it exits.
 The last two lines are the `{"kernels": [...]}` record and the device line.
 """
 
@@ -178,10 +211,10 @@ F64_CHAOS_SHARE = 0.01
 GOLDEN_ATOL = 1e-9
 GOLDEN_REACH = 5.0  # atlas golden rows: times the one-ulp witnesses' spread
 ATLAS_GOLDEN_ROWS = 10
-N_STEPS_ATLAS = 10  # atlas-pid main path
+N_STEPS_ATLAS = 3  # atlas-pid main path
 ATLAS_CHECK_TICKS = 2  # atlas rollouts held to their plain version: controller ticks
-N_STEPS_CM = 25  # constrained main path
-N_STEPS_DOPRI = 5  # DOPRI main path
+N_STEPS_CM = 10  # constrained main path (the robot settles within some 10 steps)
+N_STEPS_DOPRI = 2  # DOPRI main path
 B_DOPRI_F64 = 256  # DOPRI kernel-vs-plain periods
 CM_TICKS, CM_SUBSTEPS = 2, 2  # cut of the constrained kernel-vs-plain checks
 CM_WEIGHT_TOL = 0.05  # feet carry m g within this share at rest
@@ -370,6 +403,30 @@ def plain_op_counts(env_cpu, prune_zeros):
     aux = count(lambda: eng._cdyn.aux_outputs(q, v, tau, imu_frames=eng._imu_frames))
     return {"cdyn_accel": accel, "cdyn_period": period, "cdyn_rollout": rollout,
             "aux_outputs (plain torch at reset)": aux}
+
+
+# The op counts run on the CPU at B=1, in worker processes (spawned: no CUDA
+# there) beside the card's phases: main() hands them those that need no main
+# path's state at the start, the constrained and the Digit's once their main
+# paths ran; a phase takes its counts when it builds its records.
+
+
+def counting_worker():
+    """Initializer of the counting workers: one thread each."""
+    import torch
+
+    torch.set_num_threads(1)
+
+
+def spring_op_counts(model):
+    """`plain_op_counts` of env id `model` on the CPU, structural zeros folded
+    away and not: (ops, ops_generic)."""
+    import torch
+
+    from jiminy_torch.envs import make
+
+    env_cpu = make(model, device="cpu", dtype=torch.float64)
+    return plain_op_counts(env_cpu, prune_zeros=True), plain_op_counts(env_cpu, prune_zeros=False)
 
 
 # --------------------------------------------------------------------------- #
@@ -603,7 +660,7 @@ def dopri_glue_calls():
     return per_trial, n0 - per_trial * t0
 
 
-def phase_dopri(device, smi):
+def phase_dopri(device, smi, glue=None):
     """Adaptive DOPRI on the card (phase 5): the main path, its launches and
     trials, the kernel/glue split, and the kernel against the plain version
     over two periods at float64."""
@@ -673,7 +730,7 @@ def phase_dopri(device, smi):
     stage_inputs = tuple(x.contiguous() for x in stage[len(stage) // 2])
     launch_ms = _time_cuda(lambda: cd.accel(*stage_inputs), 20)
     kernel_ms = len(events) * launch_ms
-    per_trial, per_period = dopri_glue_calls()
+    per_trial, per_period = glue.result() if glue is not None else dopri_glue_calls()
     n_periods = env.env.n_ctrl_per_step
     calls = per_period * n_periods + per_trial * (len(events) - 2 * n_periods) / 6
     log(f"[dopri] glue: {per_trial:.0f} torch calls a trial and {per_period:.0f} a period outside "
@@ -763,7 +820,8 @@ def _spring_geometry(eng, nm, n_carry):
     return geometry
 
 
-def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, dopri=None):
+def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, dopri=None,
+                         counts=None):
     """The three spring kernels at the main path's shapes (B = B_MAIN) for
     `model` (the env id of `env`, float32 on the card), `launches` each
     kernel's count in its main path's run.
@@ -790,9 +848,10 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
 
     With `check_ticks`, every rollout held against its plain version runs
     that many controller ticks (a humanoid's 16 ticks carry a one-ulp
-    difference far), and the plain rollout's time over a whole step is
-    extrapolated from its times over 1 and `check_ticks` ticks (every tick
-    runs the same ops).
+    difference far); a whole plain step is not run, so the record's
+    `plain_ms` is null and the kernel and the plain version are timed over
+    those ticks (`ms_part`, `plain_ms_part`). `counts` is a future of `spring_op_counts(model)`
+    (counted here without it).
     """
     import torch
 
@@ -805,10 +864,7 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
     engines = {torch.float32: env.env.engine, torch.float64: env64.env.engine}
     elt = 4
     nq, nv, nm = env.robot.nq, env.robot.nv, env.robot.nmotors
-    env_cpu = make(model, device="cpu", dtype=torch.float64)
-    ops = plain_op_counts(env_cpu, prune_zeros=True)
-    ops_generic = plain_op_counts(env_cpu, prune_zeros=False)
-    del env_cpu
+    ops, ops_generic = counts.result() if counts is not None else spring_op_counts(model)
     log(f"[ops] {model} plain-version ops per env, structural zeros folded away: {ops}")
     log(f"[ops] {model} plain-version ops per env, generic formulation (what the kernels run): "
         f"{ops_generic}")
@@ -893,11 +949,11 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
         kern_c, plain_c = fns(name, torch.float32, ticks)
         outs = as_tuple(kern_c(*xs))
         refs, plain_ms = plain_time(plain_c, xs)
-        plain_basis = "measured"
-        if ticks:
-            _, ms_one = plain_time(fns(name, torch.float32, 1)[1], xs)
-            plain_ms = ms_one + (n_ticks - 1) * (plain_ms - ms_one) / (ticks - 1)
-            plain_basis = f"extrapolated to {n_ticks} ticks from 1 and {ticks}"
+        plain_basis, ms_part, plain_part = "measured", None, None
+        if ticks:  # a whole plain step is not run: both timed over the ticks held
+            ms_part, plain_part, plain_ms = _time_cuda(lambda: kern_c(*xs), 1), plain_ms, None
+            plain_basis = (f"not measured: the plain version's whole step was not run; over "
+                           f"{ticks} of {n_ticks} ticks it took plain_ms_part, the kernel ms_part")
         e_abs = abs_err(outs, refs)
         e32_path, at32_path = output_error(outs, refs, "float32")
         nudged = (torch.nextafter(xs[0], torch.full_like(xs[0], math.inf)),) + xs[1:]
@@ -974,6 +1030,8 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
             "model": model,
             "check_ticks": ticks,
             "plain_ms_basis": plain_basis,
+            "ms_part": ms_part,
+            "plain_ms_part": plain_part,
             "ops_per_env": ops[name],
             "ops_per_env_generic": ops_generic[name],
             "bound_ms_generic": max(t_ops_generic, t_bytes),
@@ -992,8 +1050,12 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
             **geometry[name],
         }
         stage_note = f" ({ms_stage:.4f} ms on DOPRI stage states)" if ms_stage else ""
+        plain_txt = (f"plain {plain_ms:.1f} ms (host clock, measured)" if not ticks else
+                     f"plain not timed over the whole step; over {ticks} ticks the kernel "
+                     f"{ms_part:.3f} ms (CUDA events), the plain version {plain_part:.1f} ms "
+                     f"(host clock)")
         log(f"[kernel] {model} {name} B={B_MAIN} float32: {ms:.4f} ms{stage_note} (CUDA events), "
-            f"plain {plain_ms:.1f} ms (host clock, {plain_basis}), bound {rec['bound_ms']:.4f} ms "
+            f"{plain_txt}, bound {rec['bound_ms']:.4f} ms "
             f"({rec['bound_by']}; generic formulation {rec['bound_ms_generic']:.4f} ms), "
             f"{rec['bound_ms'] / ms:.2%} of it; |kernel-plain| on the main path's states"
             f"{span} {e_abs:.3e}; launches {rec['launches']} on {smi}")
@@ -1333,8 +1395,31 @@ def constrained_op_counts(env_cpu, st, fold_zeros):
     }
 
 
-def phase_constrained_records(env, launches, period_launches, smi, st, st2):
-    """The two constrained kernels at B = B_MAIN, records for the kernels line."""
+def _slim_state(st, block):
+    """Env 0 of a constrained main path's state on the CPU, with what
+    `constrained_op_counts` reads (picklable, for a counting worker)."""
+    from types import SimpleNamespace
+
+    sim = st.sim
+    fields = ("q", "v", "command", "lam", "contact_active", "bound_active")
+    return SimpleNamespace(sim=SimpleNamespace(**{k: getattr(sim, k)[:1].cpu() for k in fields}),
+                           blocks={block: st.blocks[block][:1].cpu()})
+
+
+def cm_op_counts(st):
+    """`constrained_op_counts` of anymal-pid in constraint mode on the CPU at
+    state `st` (`_slim_state`), zero operands folded away and not."""
+    import torch
+
+    env_cpu = _cm_make("cpu", torch.float64)
+    return (constrained_op_counts(env_cpu, st, fold_zeros=True),
+            constrained_op_counts(env_cpu, st, fold_zeros=False))
+
+
+def phase_constrained_records(env, launches, period_launches, smi, st, st2, counters=None):
+    """The two constrained kernels at B = B_MAIN, records for the kernels
+    line; the ops counted on the CPU meanwhile, by `counters` (an executor)
+    where given."""
     import dataclasses
     import torch
 
@@ -1350,12 +1435,9 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2):
     ctrl = env.env._component_controllers[block]
     n_ticks = env.env.n_ctrl_per_step
 
-    env_cpu = _cm_make("cpu", torch.float64)
-    ops = constrained_op_counts(env_cpu, st, fold_zeros=True)
-    ops_generic = constrained_op_counts(env_cpu, st, fold_zeros=False)
-    log(f"[cm-ops] plain-version scalar ops per env at the main path's state, zero operands "
-        f"folded away: {ops}")
-    log(f"[cm-ops] the same, every element op: {ops_generic}")
+    slim = _slim_state(st, block)
+    counting = counters.submit(cm_op_counts, slim) if counters else None
+    ops = ops_generic = None
 
     def run_of(name, eng, opts=None):
         if name == "cdyn_period_cm":
@@ -1519,6 +1601,11 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2):
                 f"q90 {e32x:.3e} at {at32x}")
             extreme_errs[rows] = (e64x, share_x, e32x)
 
+        if ops is None:
+            ops, ops_generic = counting.result() if counting else cm_op_counts(slim)
+            log(f"[cm-ops] plain-version scalar ops per env at the main path's state, zero "
+                f"operands folded away: {ops}")
+            log(f"[cm-ops] the same, every element op: {ops_generic}")
         t_ops = ops[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
         t_ops_generic = ops_generic[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
         t_bytes = io_per_env[name] * 4 * B_MAIN / PEAK_BYTES * 1e3
@@ -1565,7 +1652,7 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2):
 
 TOYS = ("cartpole", "acrobot", "pendulum")
 TOY_GOLDEN_ATOL = 1e-10  # the CPU tests hold the toys' goldens to 1e-10 (measured 5.6e-16)
-N_STEPS_TOYS = {"cartpole": 5, "acrobot": 2, "pendulum": 5}  # toy main path, after a warm-up
+N_STEPS_TOYS = {"cartpole": 3, "acrobot": 1, "pendulum": 3}  # toy main path, after a warm-up
 B_GENERIC_F64 = 2048  # anymal-pid generic-path cross-check against the kernels
 GENERIC_TOL = 1e-9
 
@@ -1975,7 +2062,7 @@ def phase_pendulum_records(toys, smi):
 # --------------------------------------------------------------------------- #
 
 PPO_ANYMAL = dict(n_envs=4096, n_steps=16, n_epochs=2, n_minibatches=4, hidden=(256, 256))
-N_ITERS_PPO = 25  # timed iterations, after one warm-up
+N_ITERS_PPO = 5  # timed iterations, after one warm-up
 PPO_CARTPOLE = dict(n_envs=32, n_steps=64, n_epochs=4, n_minibatches=4, total_iterations=35,
                     lr=3e-4, ent_coef=0.01)
 PPO_F64_TOL = 1e-9  # card against CPU at float64: trajectory and metrics, of their scale
@@ -2165,7 +2252,60 @@ def _ppo_step_on(env, cfg, params, q0, v0, draws):
     return new, metrics, record["traj"], launches
 
 
-def phase_ppo_card_vs_cpu(device, smi):
+PPO_CASES = (  # phase 17: env id, horizon, PPOConfig sizes, launches of each kernel
+    ("cartpole", 5, dict(n_envs=8, n_steps=8, n_epochs=2, n_minibatches=2), 0),
+    ("anymal-pid", 1, dict(n_envs=16, n_steps=2, n_epochs=1, n_minibatches=1), 2),
+)
+
+
+def _ppo_case(env_id, horizon, sizes, device):
+    """(env on `device`, config, parameters, initial q and v, draws) of a
+    phase 17 case: the parameters, initial states and draws made on the CPU
+    from one seed, the same in every process."""
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.gym import FlattenObservation
+    from jiminy_torch.rl import PPOConfig, make_train
+
+    cfg = PPOConfig(**sizes)
+    cpu_env = FlattenObservation(make(env_id, device="cpu", dtype=torch.float64,
+                                      horizon=horizon))
+    gen = torch.Generator().manual_seed(17)
+    init_fn, _ = make_train(cpu_env, cfg)
+    state = init_fn(gen)
+    q0, v0 = state.env_state.sim.q, state.env_state.sim.v
+    n_total = cfg.n_envs * cfg.n_steps
+    reset_q, reset_v = cpu_env._sample_state((cfg.n_steps, cfg.n_envs), gen)
+    draws = {
+        "action": torch.randn((cfg.n_steps, cfg.n_envs, cpu_env.action_size),
+                              dtype=torch.float64, generator=gen),
+        "perm": torch.stack([torch.randperm(n_total, generator=gen)
+                             for _ in range(cfg.n_epochs)]),
+        "reset_q": reset_q.contiguous(),
+        "reset_v": reset_v.contiguous(),
+    }
+    env = cpu_env if str(device) == "cpu" else FlattenObservation(
+        make(env_id, device=device, dtype=torch.float64, horizon=horizon))
+    return env, cfg, state.params, q0, v0, draws
+
+
+def ppo_cpu_step(env_id, horizon, sizes):
+    """Phase 17's CPU side of a case: one train_step on the CPU. Returns what
+    the card's step is held to (new parameters, Adam moments and count,
+    carried observation and state), the metrics, the trajectory and the
+    step's seconds."""
+    env, cfg, params, q0, v0, draws = _ppo_case(env_id, horizon, sizes, "cpu")
+    t0 = time.perf_counter()
+    new, metrics, traj, _ = _ppo_step_on(env, cfg, params, q0, v0, draws)
+    seconds = time.perf_counter() - t0
+    out = {"params": new.params, "mu": new.opt_state["mu"], "nu": new.opt_state["nu"],
+           "count": int(new.opt_state["count"]), "last_obs": new.last_obs,
+           "q": new.env_state.sim.q, "v": new.env_state.sim.v}
+    return out, metrics, traj, seconds
+
+
+def phase_ppo_card_vs_cpu(device, smi, cpu_steps=None):
     """One train_step on the card against the CPU at float64 (phase 17), from
     the same parameters, initial states and draws: the cartpole (8 envs x 8
     steps, 2 x 2, horizon 5 so every env auto-resets inside the rollout) on
@@ -2176,44 +2316,18 @@ def phase_ppo_card_vs_cpu(device, smi):
     observations within PPO_F64_TOL of their scale (max(1, |x|));
     parameters and Adam moments, stored in float32, within PPO_PARAM_ULPS
     float32 ulps of their scale (the first moment at the gradients' RMS,
-    which it sums), as the CPU tests hold the port to jiminy_tpu."""
+    which it sums), as the CPU tests hold the port to jiminy_tpu.
+    `cpu_steps` maps an env id to a future of its `ppo_cpu_step` (a worker
+    process runs the CPU side); without it the CPU side runs here."""
     import torch
-
-    from jiminy_torch.envs import make
-    from jiminy_torch.gym import FlattenObservation
-    from jiminy_torch.rl import PPOConfig, make_train
 
     t_phase = time.perf_counter()
     f32_eps = float(torch.finfo(torch.float32).eps)
-    cases = (
-        ("cartpole", 5, dict(n_envs=8, n_steps=8, n_epochs=2, n_minibatches=2), 0),
-        ("anymal-pid", 1, dict(n_envs=16, n_steps=2, n_epochs=1, n_minibatches=1), 2),
-    )
-    for env_id, horizon, sizes, n_launch in cases:
-        cfg = PPOConfig(**sizes)
-        cpu_env = FlattenObservation(make(env_id, device="cpu", dtype=torch.float64,
-                                          horizon=horizon))
-        gpu_env = FlattenObservation(make(env_id, device=device, dtype=torch.float64,
-                                          horizon=horizon))
-        # Parameters, initial states and draws made once on the CPU
-        gen = torch.Generator().manual_seed(17)
-        init_fn, _ = make_train(cpu_env, cfg)
-        state = init_fn(gen)
-        q0, v0 = state.env_state.sim.q, state.env_state.sim.v
-        n_total = cfg.n_envs * cfg.n_steps
-        reset_q, reset_v = cpu_env._sample_state((cfg.n_steps, cfg.n_envs), gen)
-        draws = {
-            "action": torch.randn((cfg.n_steps, cfg.n_envs, cpu_env.action_size),
-                                  dtype=torch.float64, generator=gen),
-            "perm": torch.stack([torch.randperm(n_total, generator=gen)
-                                 for _ in range(cfg.n_epochs)]),
-            "reset_q": reset_q.contiguous(),
-            "reset_v": reset_v.contiguous(),
-        }
-        t0 = time.perf_counter()
-        c_new, c_met, c_traj, _ = _ppo_step_on(cpu_env, cfg, state.params, q0, v0, draws)
-        cpu_s = time.perf_counter() - t0
-        g_new, g_met, g_traj, launches = _ppo_step_on(gpu_env, cfg, state.params, q0, v0, draws)
+    for env_id, horizon, sizes, n_launch in PPO_CASES:
+        gpu_env, cfg, params, q0, v0, draws = _ppo_case(env_id, horizon, sizes, device)
+        c_new, c_met, c_traj, cpu_s = (cpu_steps[env_id].result() if cpu_steps else
+                                       ppo_cpu_step(env_id, horizon, sizes))
+        g_new, g_met, g_traj, launches = _ppo_step_on(gpu_env, cfg, params, q0, v0, draws)
         torch.cuda.synchronize()
         want = {"cdyn_rollout": n_launch, "cdyn_accel": n_launch} if n_launch else {}
         check(launches == want, f"{env_id}: card step launches {launches}, expected {want}")
@@ -2224,16 +2338,16 @@ def phase_ppo_card_vs_cpu(device, smi):
 
         worst_traj = max(err(g_traj[k], c_traj[k]) for k in c_traj)
         worst_met = max(err(g_met[k], c_met[k]) for k in c_met)
-        worst_carry = max(err(g_new.last_obs, c_new.last_obs),
-                          err(g_new.env_state.sim.q, c_new.env_state.sim.q),
-                          err(g_new.env_state.sim.v, c_new.env_state.sim.v))
+        worst_carry = max(err(g_new.last_obs, c_new["last_obs"]),
+                          err(g_new.env_state.sim.q, c_new["q"]),
+                          err(g_new.env_state.sim.v, c_new["v"]))
         worst_ulps = 0.0
-        count = int(c_new.opt_state["count"])
-        for k, p in c_new.params.items():
-            nu = c_new.opt_state["nu"][k].double()
+        count = c_new["count"]
+        for k, p in c_new["params"].items():
+            nu = c_new["nu"][k].double()
             rms = float((nu.max() / (1 - 0.999**count)).sqrt())
             for out, ref, scale in ((g_new.params[k], p, float(p.abs().max())),
-                                    (g_new.opt_state["mu"][k], c_new.opt_state["mu"][k], rms),
+                                    (g_new.opt_state["mu"][k], c_new["mu"][k], rms),
                                     (g_new.opt_state["nu"][k], nu, float(nu.abs().max()))):
                 e = float((out.double().cpu() - ref.double()).abs().max())
                 worst_ulps = max(worst_ulps, e / (f32_eps * scale) if scale > 0 else e)
@@ -2259,7 +2373,7 @@ def phase_ppo_card_vs_cpu(device, smi):
 # --------------------------------------------------------------------------- #
 
 N_STEPS_ROUGH = 25  # spring-damper main path on rough ground
-N_STEPS_ROUGH_CM = 5  # constraint-mode main path on rough ground
+N_STEPS_ROUGH_CM = 2  # constraint-mode main path on rough ground
 B_ROUGH_CHECK = 4096  # cdyn_accel and the constrained pair held to their plain versions
 ROUGH_HALF_WIDTH = 10.0  # the envs spread over a 20 m x 20 m square
 ROUGH_TILT_RAD = 1e-3  # a contact normal "off vertical" beyond this
@@ -2473,10 +2587,18 @@ def _terrain_ops(env_cpu):
     return total - emulated + device, len(calls), emulated, device
 
 
-def phase_terrain(device, smi, records):
+def rough_terrain_ops():
+    """`_terrain_ops` of anymal-pid on the rough ground, on the CPU."""
+    import torch
+
+    return _terrain_ops(_rough_make("cpu", torch.float64))
+
+
+def phase_terrain(device, smi, records, counts=None):
     """Phase 18: the ground evaluated per contact inside the five kernels.
     `records` are the kernel records of the earlier phases (the flat
-    kernels' times and op counts of anymal-pid)."""
+    kernels' times and op counts of anymal-pid); `counts` a future of
+    `rough_terrain_ops()` (counted here without it)."""
     import torch
 
     from jiminy_torch.ops import cdyn, kernels
@@ -2530,8 +2652,8 @@ def phase_terrain(device, smi, records):
     # Ops: the flat plain version's count (earlier phases) plus the terrain
     # branch's, counted on the plain version, for every contact evaluation
     nc = len(env.robot.contact_frame_indices)
-    terrain_ops, n_hash, hash_emulated, hash_device = _terrain_ops(
-        _rough_make("cpu", torch.float64))
+    terrain_ops, n_hash, hash_emulated, hash_device = (
+        counts.result() if counts is not None else rough_terrain_ops())
     n_sub = prun.n_substeps
     evals = {"cdyn_accel": 1, "cdyn_period": 4 * n_sub + 1,
              "cdyn_rollout": n_ticks * 4 * n_sub + 1,
@@ -2565,7 +2687,8 @@ def phase_terrain(device, smi, records):
                                 torch.float32).counts
             k = cm_prun.pack(device, torch.float32).counts
             smem = {elt: lib.cm_smem_bytes(c["nj"], c["nq"], c["nv"], k["n_rows"], k["nc_rows"],
-                                           k["nb_rows"], k["support_width"], elt)
+                                           k["nb_rows"], k["support_width"], k["nd_rows"],
+                                           c["nc"], elt)
                     for elt in (4, 8)}
             per_sm = lib.cm_envs_per_sm(name, 4, smem[4], terrain=True)
             per_sm_flat = lib.cm_envs_per_sm(name, 4, flat[name]["smem_per_env"])
@@ -2616,12 +2739,546 @@ def phase_terrain(device, smi, records):
     return out, sps, cm_sps
 
 
-def main():
-    import concurrent.futures
+# --------------------------------------------------------------------------- #
+# Loop closures: Digit through the constrained kernels' extended body, Cassie
+# on the generic path
+# --------------------------------------------------------------------------- #
+
+N_STEPS_DIGIT = 2  # digit-pid main path, after a warm-up
+DIGIT_PLAIN_TICKS = 1  # digit-pid's rollout held to its plain version on the main path's states
+B_LOOP_CHECK = 1024  # the loop robots' kernels held to their plain versions, small batch
+LOOP_TICKS = 2  # rollout checks: whole ticks, the refresh solve between them
+LOOP_SUBSTEPS = 1  # the cut checks: substeps a tick
+PUSHROD_TOL = 0.02  # [m] |d - d_ref| of a pushrod (jiminy_tpu's tests/test_bipeds.py:28-46)
+CASSIE_GOLDEN_ATOL = 1e-10  # the CPU test's tolerance of tests/goldens/cassie-pid.csv
+N_STEPS_CASSIE = 1  # cassie-pid main path, after a warm-up
+
+
+def _digit_make(device, dtype, base=None):
+    """digit-pid; with `base` (a digit-pid env) on the rough ground, with
+    base's options otherwise."""
+    from jiminy_torch.envs import make
+    from jiminy_torch.testing import ground_options, rough_ground
+
+    if base is None:
+        return make("digit-pid", device=device, dtype=dtype)
+    return make("digit-pid", device=device, dtype=dtype,
+                options=ground_options(base.engine.options, rough_ground()))
+
+
+def _loop_row(sim, dtype):
+    """[distance_ref | lam | cact | bact] of a state: the tail of the command row."""
+    import torch
+
+    return torch.cat([sim.distance_ref, _cm_solver_row(sim, dtype)], dim=-1)
+
+
+def _pushrod_error(env, sim):
+    """Largest |d - d_ref| of a pushrod in each env (float64, forward
+    kinematics of the port on the card)."""
+    import torch
+
+    from jiminy_torch.ops.kinematics import forward_kinematics, frame_placement
+
+    model, cset = env.robot.model, env.engine.cset
+    kin = forward_kinematics(model, sim.q.double())
+    errs = []
+    for k, (fa, fb) in enumerate(cset.distance_pairs):
+        d = torch.linalg.norm(frame_placement(model, kin, fa)[1] - frame_placement(model, kin, fb)[1],
+                              dim=-1)
+        errs.append((d - sim.distance_ref[..., k].double()).abs())
+    return torch.stack(errs, -1).amax(-1)
+
+
+def _cm_registers(log_text, kernel, dtype_char, terrain, ext):
+    """Registers of a constrained kernel instance from nvcc's -Xptxas -v log."""
+    import re
+
+    tag = f"{len(kernel) + 7}{kernel}_kernelI{dtype_char}Lb{int(terrain)}ELb{int(ext)}E"
+    name = None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'|Function properties for (\S+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and tag in name:
+            return int(m.group(1))
+    return None
+
+
+def phase_digit_main_path(device, smi):
+    """digit-pid at float32, B_MAIN: reset, a warm-up step, launch counts to
+    0, N_STEPS_DIGIT steps of zero actions, counts read; the pushrods, the
+    finite state and the standing envs' base height; then one step of the
+    per-period path."""
+    import torch
+
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.pytree import leaves
+
+    env = _digit_make(device, torch.float32)
+    action = torch.zeros(env.action_size, device=device)
+    t0 = time.perf_counter()
+    st, _ = env.reset(batch_size=B_MAIN)
+    torch.cuda.synchronize()
+    reset_ms = (time.perf_counter() - t0) * 1e3
+    st, *_ = env.step(st, action)  # warm-up
+    torch.cuda.synchronize()
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(N_STEPS_DIGIT):
+        st, obs, reward, term, trunc, _ = env.step(st, action)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    steps_per_s = B_MAIN * N_STEPS_DIGIT / elapsed
+    log(f"[digit] digit-pid float32 B={B_MAIN}: reset {reset_ms:.1f} ms, {N_STEPS_DIGIT} steps "
+        f"after a warm-up: {steps_per_s:.1f} env-steps/s ({elapsed / N_STEPS_DIGIT * 1e3:.1f} ms a "
+        f"step, host clock), launches {launches} on {smi}")
+    check(launches["cdyn_rollout_cm"] == N_STEPS_DIGIT and sum(launches.values()) == N_STEPS_DIGIT,
+          "digit-pid did not run cdyn_rollout_cm once a step (and nothing else)")
+    sim = st.sim
+    for name, x in (("q", sim.q), ("v", sim.v), ("reward", reward), ("lam", sim.lam),
+                    ("contact_forces", sim.contact_forces), *enumerate(leaves(obs))):
+        check(bool(torch.isfinite(x).all()), f"digit-pid: non-finite {name} on its main path")
+    rod = _pushrod_error(env, sim)
+    fell = term.bool()
+    low = (sim.q[:, 2] <= env.env.base_height_min) & ~fell
+    log(f"[digit] pushrods: max |d - d_ref| {float(rod.max()):.3e} m (tol {PUSHROD_TOL:g}); "
+        f"terminated share {float(fell.float().mean()):.4f}; standing envs below base_height_min "
+        f"{int(low.sum())}; base height {float(sim.q[:, 2].min()):.4f} .. "
+        f"{float(sim.q[:, 2].max()):.4f} m; loop multipliers |lam| <= "
+        f"{float(sim.lam.abs().max()):.3e}")
+    check(float(rod.max()) < PUSHROD_TOL, "a Digit pushrod drifted from its length")
+    check(not bool(low.any()), "a standing Digit env is below base_height_min")
+
+    env.use_fused_rollout = False
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    st2, *_ = env.step(st, action)
+    torch.cuda.synchronize()
+    pp_ms = (time.perf_counter() - t0) * 1e3
+    period_launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    n_periods = env.env.n_ctrl_per_step
+    log(f"[digit] per-period path, 1 step from the main path's state: {B_MAIN / pp_ms * 1e3:.1f} "
+        f"env-steps/s, launches {period_launches}")
+    check(period_launches["cdyn_period_cm"] == n_periods and sum(period_launches.values()) == n_periods,
+          "digit-pid's per-period path did not run cdyn_period_cm once a period")
+    check(bool(torch.isfinite(st2.sim.q).all()), "non-finite q on digit-pid's per-period path")
+    check(float(_pushrod_error(env, st2.sim).max()) < PUSHROD_TOL, "a pushrod drifted (per period)")
+    env.use_fused_rollout = True
+    return env, launches, period_launches, steps_per_s, reset_ms, st, st2
+
+
+def loop_op_counts(env_cpu, q, v, cc, bc, fold_zeros):
+    """Ops per env of one constrained period and one env step of a robot with
+    loop rows, counted on the plain version at B=1: period = substeps + the
+    final solve; step = ticks x (controller + substeps) + the refreshes + the
+    final solve."""
+    import torch
+
+    eng = env_cpu.engine
+    qc, vc = [q[..., i] for i in range(q.shape[-1])], [v[..., i] for i in range(v.shape[-1])]
+    ccl, bcl = [cc[..., i] for i in range(cc.shape[-1])], [bc[..., i] for i in range(bc.shape[-1])]
+    run = eng._get_period_run("rk4")
+    ctrl = env_cpu.block.component_controller(env_cpu.env)
+    rrun = eng._get_rollout_run("count", ctrl, env_cpu.env.n_ctrl_per_step)
+    acl = [torch.zeros(1, dtype=torch.float64)] * (env_cpu.action_size + eng.cset.n_distance)
+
+    def count(fn):
+        return count_elem_ops(fn, fold_zeros)
+
+    sub = count(lambda: run.substep(qc, vc, ccl))
+    fin = count(lambda: run.final_outputs(qc, vc, ccl))
+    ctl = count(lambda: rrun.controller_fn(qc, vc, bcl, acl))
+    post = count(lambda: rrun.post_tick_fn(qc, vc, ccl, bcl))
+    n_sub, n_ticks = run.n_substeps, rrun.n_ticks
+    return {
+        "cdyn_period_cm": n_sub * sub + fin,
+        "cdyn_rollout_cm": n_ticks * (ctl + n_sub * sub) + (n_ticks - 1) * post + fin,
+        "one constrained solve (final outputs)": fin,
+    }
+
+
+def digit_op_counts(q1, v1, cc1, bc1):
+    """`loop_op_counts` of digit-pid on the CPU at one state, zero operands
+    folded away."""
+    import torch
+
+    return loop_op_counts(_digit_make("cpu", torch.float64), q1, v1, cc1, bc1, fold_zeros=True)
+
+
+def phase_digit_records(env, env64, launches, period_launches, smi, st, st2, counters=None):
+    """The two constrained kernels on digit-pid's main path states at
+    B_MAIN, float32: each timed (CUDA events) beside its plain version (host
+    clock): the period whole; the rollout over DIGIT_PLAIN_TICKS of its
+    ticks, the kernel timed over the same ticks too (the plain version's
+    whole step, some 16 x 8 s of eager launches, is not timed: its record's
+    `plain_ms` is null); their distance on those states printed beside a
+    one-ulp witness (the kernel against itself with q moved one ulp). The
+    whole period at float64 one env short (the last block part-filled),
+    every column within 1e-9, with zeroed loop multipliers and one PGS sweep
+    refused. Records for the kernels line. (Phase 20
+    holds the rollout at float64 over 2 whole ticks.)
+    The ops are counted on the CPU meanwhile, by `counters` (an executor)
+    where given."""
+    import dataclasses
 
     import torch
 
-    from jiminy_torch.ops import kernels
+    from jiminy_torch.engine import solver
+    from jiminy_torch.ops import cdyn, kernels
+    from jiminy_torch.testing import column_errors
+
+    device = env.device
+    eng32 = env.engine
+    nm, nq, nv = env.robot.nmotors, env.robot.nq, env.robot.nv
+    cset = eng32.cset
+    nd = cset.n_distance
+    block = env.block.name
+    ctrl = env.env._component_controllers[block]
+    n_ticks = env.env.n_ctrl_per_step
+
+    def run_of(name, eng, opts=None):
+        if name == "cdyn_period_cm":
+            run = eng._get_period_run("rk4")
+            if opts is not None:
+                run = solver.ConstrainedPeriodIntegrator(run.cd, run.tau_c, run.cset, opts, run.dt,
+                                                         run.n_substeps, run.integrator,
+                                                         run.n_cmd, run.imu_frames)
+            return run
+        return eng._get_rollout_run(block, ctrl, n_ticks)
+
+    main_inputs = {
+        "cdyn_period_cm": (st2.sim.q, st2.sim.v,
+                           torch.cat([st2.sim.command, _loop_row(st2.sim, torch.float32)], -1)),
+        "cdyn_rollout_cm": (st.sim.q, st.sim.v,
+                            torch.cat([torch.zeros((B_MAIN, nm), device=device),
+                                       st.sim.distance_ref], -1),
+                            torch.cat([st.blocks[block].reshape(B_MAIN, -1),
+                                       _cm_solver_row(st.sim, torch.float32)], -1)),
+    }
+    part = {"cdyn_period_cm": {}, "cdyn_rollout_cm": dict(n_ticks=DIGIT_PLAIN_TICKS)}
+    xs = main_inputs["cdyn_rollout_cm"]
+    q1, v1 = xs[0][:1].double().cpu(), xs[1][:1].double().cpu()
+    cc1 = torch.cat([st.sim.command[:1], _loop_row(st.sim, torch.float32)[:1]], -1).double().cpu()
+    bc1 = xs[3][:1].double().cpu()
+    counting = counters.submit(digit_op_counts, q1, v1, cc1, bc1) if counters else None
+    ops = None
+    n_solver = cset.total_rows + cset.n_contacts + cset.n_bounds
+    nc_out = len(env.robot.contact_frame_indices)
+    n_extra = nv + 10 * nc_out + 6 * len(eng32._imu_frames) + n_solver
+    n_cc, n_carry, n_act = nm + nd + n_solver, 3 * nm + n_solver, nm + nd
+    io_per_env = {
+        "cdyn_period_cm": 2 * nq + 2 * nv + n_cc + n_extra,
+        "cdyn_rollout_cm": 2 * nq + 2 * nv + n_act + n_carry + n_extra + n_cc + n_carry,
+    }
+    lam_cols = slice(n_extra - n_solver, n_extra - n_solver + cset.total_rows)
+    n_launch = {"cdyn_period_cm": period_launches["cdyn_period_cm"],
+                "cdyn_rollout_cm": launches["cdyn_rollout_cm"]}
+    lib = kernels.load()
+    tol64 = TOL["float64"][1]
+    records = []
+    for name in ("cdyn_period_cm", "cdyn_rollout_cm"):
+        run32 = run_of(name, eng32)
+        xs = main_inputs[name]
+        cut = part[name]
+        ms = _time_cuda(lambda: run32.kernel(*xs), 5 if name == "cdyn_period_cm" else 1)
+        ms_part = _time_cuda(lambda: run32.kernel(*xs, **cut), 5) if cut else ms
+        outs = run32.kernel(*xs, **cut)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = run32.plain(*xs, **cut)
+        torch.cuda.synchronize()
+        plain_part_ms = (time.perf_counter() - t0) * 1e3
+        e_abs = abs_err(outs, refs)
+        e32_main, at32_main = output_error(outs, refs, "float32")
+        nudged = (torch.nextafter(xs[0], torch.full_like(xs[0], math.inf)),) + xs[1:]
+        e32_ulp, at32_ulp = output_error(run32.kernel(*nudged, **cut), outs, "float32")
+        span = f" over {cut['n_ticks']} of its {n_ticks} ticks" if cut else ", a whole period"
+        log(f"[digit-check] {name} float32 B={B_MAIN}{span}, main path states (printed, not "
+            f"held): {ERR_NAME['float32']} {e32_main:.3e} at {at32_main}, max abs err "
+            f"{e_abs:.3e}; the kernel against itself with q moved one ulp {e32_ulp:.3e} at "
+            f"{at32_ulp}")
+        del outs, refs
+
+        e64 = None
+        if name == "cdyn_period_cm":  # float64, one env short: the last block part-filled
+            run64 = run_of(name, env64.engine)
+            xs64 = tuple(x[: B_MAIN - 1].double() for x in xs)
+            outs, refs = run64.kernel(*xs64), run64.plain(*xs64)
+            torch.cuda.synchronize()
+            e64, at64 = output_error(outs, refs, "float64")
+            zeroed = outs[2].clone()
+            zeroed[:, lam_cols] = 0.0
+            e_zero = float(column_errors(zeroed, refs[2]).max())
+            one_sweep = run_of(name, env64.engine, dataclasses.replace(run64.opts, iter_max=1))
+            e_sweep, at_sweep = output_error(one_sweep.kernel(*xs64), refs, "float64")
+            log(f"[digit-check] {name} float64 B={B_MAIN - 1} (ragged, a whole period), main path states: "
+                f"column max rel err {e64:.3e} at {at64} (tol {tol64:g}); witnesses: loop "
+                f"multipliers zeroed {e_zero:.3e}, one PGS sweep {e_sweep:.3e} at {at_sweep}")
+            check(all(bool(torch.isfinite(o).all()) for o in outs) and e64 < tol64,
+                  f"digit {name} float64 disagrees on the main path's states: {e64}")
+            check(e_zero > tol64 and e_sweep > tol64,
+                  f"digit {name}: the float64 check misses a wrong solver")
+            del outs, refs
+
+        if ops is None:
+            ops = counting.result() if counting else digit_op_counts(q1, v1, cc1, bc1)
+            log(f"[digit-ops] plain-version scalar ops per env at the main path's state, zero "
+                f"operands folded away: {ops}")
+        packed = run32.cd.pack(run32.tau_c, run32.dt, run32.imu_frames, device, torch.float32)
+        cpk = run32.pack(device, torch.float32)
+        smem = {dt: solver.cm_smem_per_env(packed, cpk, dt) for dt in (torch.float32, torch.float64)}
+        per_sm = {dt: lib.cm_envs_per_sm(name, torch.empty((), dtype=dt).element_size(), smem[dt],
+                                         ext=True) for dt in smem}
+        regs = _cm_registers(lib.build.ptxas_log, name, "f", False, True)
+        regs_terrain = _cm_registers(lib.build.ptxas_log, name, "f", True, True)
+        t_ops = ops[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
+        t_bytes = io_per_env[name] * 4 * B_MAIN / PEAK_BYTES * 1e3
+        plain_ms = plain_part_ms if not cut else None
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": "jiminy_torch/csrc/pgs.cuh",
+            "replaces": cdyn.KERNELS[name].replaces.split()[0],
+            "launches": n_launch[name],
+            "max_abs_err": e_abs,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+            "model": "digit-pid",
+            "plain_ms_basis": ("measured" if not cut else
+                               f"not measured: the plain version's whole step was not run; "
+                               f"over {cut['n_ticks']} of {n_ticks} ticks it took "
+                               f"plain_ms_part, the kernel ms_part"),
+            "ticks_compared": cut.get("n_ticks", None),
+            "ms_part": ms_part if cut else None,
+            "plain_ms_part": plain_part_ms if cut else None,
+            "ops_per_env": ops[name],
+            "bytes_per_env": io_per_env[name] * 4,
+            "f32_q90_err_main": e32_main,
+            "f32_q90_one_ulp_witness": e32_ulp,
+            "f64_err_ragged": e64,
+            "smem_per_env": smem[torch.float32],
+            "smem_per_env_f64": smem[torch.float64],
+            "envs_per_sm": per_sm[torch.float32],
+            "envs_per_sm_f64": per_sm[torch.float64],
+            "registers": regs,
+            "registers_terrain": regs_terrain,
+        }
+        plain_txt = (f"plain {plain_ms:.1f} ms (host clock, measured)" if not cut else
+                     f"plain not timed over the whole step; over {cut['n_ticks']} tick(s) the "
+                     f"kernel {ms_part:.3f} ms (CUDA events), the plain version "
+                     f"{plain_part_ms:.1f} ms (host clock)")
+        log(f"[kernel] digit-pid {name} B={B_MAIN} float32: {ms:.3f} ms (CUDA events), "
+            f"{plain_txt}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; {ops[name]} ops and "
+            f"{rec['bytes_per_env']} B an env), {rec['bound_ms'] / ms:.2%} of it; {regs} registers "
+            f"({regs_terrain} on terrain), {smem[torch.float32]} B an env ({smem[torch.float64]} at "
+            f"float64), {per_sm[torch.float32]} envs an SM ({per_sm[torch.float64]}); "
+            f"|kernel-plain| on the main path's states{span} {e_abs:.3e}; launches "
+            f"{rec['launches']} on {smi}")
+        records.append(rec)
+    return records
+
+
+def phase_loop_checks(device, envs):
+    """The constrained kernels against their plain versions at B_LOOP_CHECK
+    on states from `testing.loop_inputs` (bases lowered 0-3 cm, joints and
+    loop lengths perturbed, random warm starts and masks): digit-pid and
+    jiminy_tpu's Cassie-shaped four-bar with a spring-damper foot and a
+    penalty bound, each on flat and on rough ground (the flat and the
+    terrain instances), both kernels. Float64 every column within 1e-9: the
+    four-bar over a whole period and LOOP_TICKS whole ticks, the flat
+    Digit's rollout over LOOP_TICKS whole ticks (its whole period is held in
+    phase 19), with zeroed loop multipliers and one PGS sweep refused, the
+    rest at LOOP_TICKS x LOOP_SUBSTEPS; float32 within TOL at LOOP_TICKS x
+    LOOP_SUBSTEPS; at float64 the rough cases' plain outputs
+    must differ from the flat ones'. `envs` maps a dtype to its flat
+    digit-pid env."""
+    import dataclasses
+
+    import torch
+
+    from jiminy_torch.engine import solver
+    from jiminy_torch.engine.engine import Engine
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.testing import column_errors, fourbar_options, fourbar_robot
+    from jiminy_torch.testing import ground_options, loop_inputs, rough_ground
+
+    t_phase = time.perf_counter()
+    cases = []
+    for dtype in (torch.float64, torch.float32):
+        flat = envs[dtype]
+        q0 = flat.env.nominal_q.cpu().numpy()
+        rough = _digit_make(device, dtype, base=flat)
+        cases += [("digit flat", dtype, flat.engine, flat, q0),
+                  ("digit rough", dtype, rough.engine, rough, q0)]
+        for label, opts in (("four-bar flat", fourbar_options(True)),
+                            ("four-bar rough", ground_options(fourbar_options(True),
+                                                              rough_ground()))):
+            eng = Engine(fourbar_robot(True), opts, device=device, dtype=dtype)
+            cases.append((label, dtype, eng, None, [0.4, -0.3, 0.2]))
+    errs, plain_refs = {}, {}
+    for label, dtype, eng, env, q0 in cases:
+        dname = "float64" if dtype == torch.float64 else "float32"
+        q, v, cmd, tail = loop_inputs(eng, q0, B_LOOP_CHECK, seed=21, dtype=dtype)
+        nd, nm = eng.cset.n_distance, eng.robot.nmotors
+        n_solver = eng.cset.total_rows + eng.cset.n_contacts + eng.cset.n_bounds
+        for name in ("cdyn_period_cm", "cdyn_rollout_cm"):
+            before = cdyn.KERNELS[name].launches
+            # float64: the four-bar and the flat Digit's rollout whole (the
+            # Digit's whole period is held in phase 19), the rest at the cut
+            whole = dtype == torch.float64 and (env is None or (label == "digit flat" and
+                                                                name == "cdyn_rollout_cm"))
+            if name == "cdyn_period_cm":
+                run = eng._get_period_run("rk4")
+                args = (q, v, torch.cat([cmd, tail], -1))
+                cut = {} if whole else dict(n_substeps=LOOP_SUBSTEPS)
+            else:
+                if env is not None:
+                    ctrl = env.block.component_controller(env.env)
+                    block = torch.cat([q[:, 7:], torch.zeros((B_LOOP_CHECK, 2 * nm), dtype=dtype,
+                                                             device=device)], -1)
+                else:
+                    ctrl = cdyn.ZOHPassThrough(nm)
+                    block = torch.zeros((B_LOOP_CHECK, 0), dtype=dtype, device=device)
+                run = eng._get_rollout_run("check", ctrl, 16)
+                args = (q, v, torch.cat([cmd * 0.01, tail[:, :nd]], -1),
+                        torch.cat([block, tail[:, nd:]], -1))
+                cut = (dict(n_ticks=LOOP_TICKS) if whole else
+                       dict(n_ticks=LOOP_TICKS, n_substeps=LOOP_SUBSTEPS))
+            outs, refs = run.kernel(*args, **cut), run.plain(*args, **cut)
+            torch.cuda.synchronize()
+            check(cdyn.KERNELS[name].launches == before + 1, f"{label} {name} did not launch once")
+            e, at = output_error(outs, refs, dname)
+            tol = TOL[dname][1]
+            depth = {"n_substeps": run.n_substeps, **cut}
+            witness = ""
+            if label == "digit flat" and dtype == torch.float64:
+                # the check refuses loop multipliers zeroed and a one-sweep solver
+                n_extra = refs[2].shape[-1] - (0 if name == "cdyn_period_cm" else
+                                               run.n_cmd + nd + 2 * n_solver + block.shape[-1])
+                lam_cols = slice(n_extra - n_solver, n_extra - n_solver + nd)
+                zeroed = outs[2].clone()
+                zeroed[:, lam_cols] = 0.0
+                e_zero = float(column_errors(zeroed, refs[2]).max())
+                opts1 = dataclasses.replace(run.opts, iter_max=1)
+                if name == "cdyn_period_cm":
+                    one = solver.ConstrainedPeriodIntegrator(run.cd, run.tau_c, run.cset, opts1,
+                                                             run.dt, run.n_substeps,
+                                                             run.integrator, run.n_cmd,
+                                                             run.imu_frames)
+                else:
+                    one = solver.ConstrainedRolloutIntegrator(run.cd, run.tau_c, run.cset, opts1,
+                                                              run.dt, run.n_substeps, run.n_ticks,
+                                                              ctrl, run.integrator,
+                                                              run.imu_frames)
+                e_sweep, _ = output_error(one.kernel(*args, **cut), refs, dname)
+                witness = f"; witnesses: loop multipliers zeroed {e_zero:.3e}, one PGS sweep {e_sweep:.3e}"
+                check(e_zero > tol and e_sweep > tol, f"digit {name}: the float64 check misses a wrong solver")
+            flat_refs = plain_refs.setdefault((label.split()[0], name, dname), refs)
+            if label.endswith("rough") and dtype == torch.float64:
+                # the rough ground moves the outputs: the flat plain version's differ
+                e_ground, _ = output_error(refs, flat_refs, dname)
+                witness += f"; witness: the flat ground's plain outputs {e_ground:.3e} off"
+                check(e_ground > tol, f"{label} {name}: the ground makes no difference")
+            log(f"[loop-check] {label} {name} {dname} B={B_LOOP_CHECK} ({depth}): "
+                f"{ERR_NAME[dname]} {e:.3e} at {at} (tol {tol:g}); max abs err "
+                f"{abs_err(outs, refs):.3e}{witness}")
+            check(all(bool(torch.isfinite(o).all()) for o in outs), f"{label} {name}: non-finite")
+            check(e < tol, f"{label} {name} {dname} disagrees with its plain version: {e}")
+            errs[(label, name, dname)] = e
+    log(f"[loop-check] phase {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
+def cassie_golden(device):
+    """Every row of tests/goldens/cassie-pid.csv through cassie-pid on the
+    card at float64, B=1, on the generic path (a CUDA graph a tick): (row
+    count, largest |port - golden|, kernel launches, whether the env took the
+    generic path, seconds). It launches no kernel and times nothing, so
+    main() runs it in a process of its own beside phase 16."""
+    import numpy as np
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.ops import cdyn
+
+    golden = np.loadtxt(os.path.join(ROOT, "tests", "goldens", "cassie-pid.csv"), delimiter=",",
+                        skiprows=1)
+    env = make("cassie-pid", device=device, dtype=torch.float64)
+    generic = env.engine._cdyn is None and env.engine._cdyn_cm is None
+    st, _ = env.reset(batch_size=1)
+    action = torch.zeros(env.action_size, dtype=torch.float64, device=device)
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    worst = 0.0
+    for k in range(len(golden)):
+        st, _, rew, *_ = env.step(st, action)
+        worst = max(worst, float(np.abs(_golden_row(st.sim, rew, 0) - golden[k]).max()))
+    elapsed = time.perf_counter() - t0
+    launches = sum(c.launches for c in cdyn.KERNELS.values())
+    return len(golden), worst, launches, generic, elapsed
+
+
+def phase_cassie(device, smi, golden=None):
+    """cassie-pid on the generic path (its ankles are continuous joints: no
+    kernel covers them), a CUDA graph a tick: every row of
+    tests/goldens/cassie-pid.csv at float64, B=1, within the CPU test's
+    tolerance (`golden`, a future of `cassie_golden()`; run here without
+    it); then the throughput at float32, B_MAIN, a warm-up and
+    N_STEPS_CASSIE steps. It runs no kernel, and the line says so."""
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.pytree import leaves
+
+    n_rows, worst, launches, generic, elapsed = (golden.result() if golden is not None else
+                                                 cassie_golden(device))
+    log(f"[cassie golden] cassie-pid float64 B=1, generic path (a CUDA graph a tick; in a process "
+        f"of its own beside phase 16): {n_rows} rows, max abs err {worst:.3e} (tol "
+        f"{CASSIE_GOLDEN_ATOL:g}), kernel launches {launches}, {elapsed:.1f} s")
+    check(generic, "cassie-pid left the generic path")
+    check(worst < CASSIE_GOLDEN_ATOL, "cassie-pid golden rows not reproduced on the card")
+    check(launches == 0, "cassie-pid launched a kernel on the generic path")
+
+    env32 = make("cassie-pid", device=device)
+    action = torch.zeros(env32.action_size, device=device)
+    st, _ = env32.reset(batch_size=B_MAIN)
+    st, *_ = env32.step(st, action)  # warm-up (the tick's CUDA graph is captured here)
+    torch.cuda.synchronize()
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(N_STEPS_CASSIE):
+        st, obs, reward, term, *_ = env32.step(st, action)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = sum(c.launches for c in cdyn.KERNELS.values())
+    steps_per_s = B_MAIN * N_STEPS_CASSIE / elapsed
+    rod = _pushrod_error(env32, st.sim)
+    log(f"[cassie] cassie-pid float32 B={B_MAIN}, generic path (no kernel: continuous ankles), "
+        f"{N_STEPS_CASSIE} steps after a warm-up: {steps_per_s:.1f} env-steps/s "
+        f"({elapsed / N_STEPS_CASSIE * 1e3:.1f} ms a step, host clock), kernel launches "
+        f"{launches}, terminated share {float(term.float().mean()):.4f}, pushrods max |d - d_ref| "
+        f"{float(rod.max()):.3e} m on {smi}")
+    for name, x in (("q", st.sim.q), ("v", st.sim.v), ("reward", reward), *enumerate(leaves(obs))):
+        check(bool(torch.isfinite(x).all()), f"cassie-pid: non-finite {name}")
+    check(launches == 0, "cassie-pid launched a kernel")
+    check(float(rod.max()) < PUSHROD_TOL, "a Cassie pushrod drifted from its length")
+    return steps_per_s
+
+
+
+
+def main():
+    import concurrent.futures
+    import multiprocessing
+
+    import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU", file=sys.stderr)
@@ -2641,6 +3298,35 @@ def main():
         log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
         return out
 
+    # Worker processes count ops, and run phase 17's CPU side, on the CPU
+    # beside the card's phases
+    counters = concurrent.futures.ProcessPoolExecutor(
+        max_workers=3, mp_context=multiprocessing.get_context("spawn"),
+        initializer=counting_worker)
+    # A second process on the card runs the Cassie golden (untimed, no
+    # kernel) beside phase 16
+    card_lane = concurrent.futures.ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        return run_phases(device, smi, kind, t_start, timed, counters, card_lane)
+    finally:
+        card_lane.shutdown(wait=True, cancel_futures=True)
+        counters.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
+    import concurrent.futures
+
+    import torch
+
+    from jiminy_torch.ops import kernels
+
+    counts = {m: counters.submit(spring_op_counts, m) for m in ("anymal-pid", "atlas-pid")}
+    counts["terrain"] = counters.submit(rough_terrain_ops)
+    counts["dopri"] = counters.submit(dopri_glue_calls)
+    ppo_cpu = {env_id: counters.submit(ppo_cpu_step, env_id, horizon, sizes)
+               for env_id, horizon, sizes, _ in PPO_CASES}
+    cassie_rows = card_lane.submit(cassie_golden, device)
     # nvcc builds the kernels while phase 16 trains the cartpole, which runs
     # the generic path and launches none of them
     with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
@@ -2651,18 +3337,19 @@ def main():
     timed("kernels vs plain", phase_kernels_vs_plain, device)
     env, fused_launches, period_launches, steps_per_s, st, st2 = timed(
         "main path", phase_main_path, device, smi)
-    dopri = timed("DOPRI", phase_dopri, device, smi)
+    dopri = timed("DOPRI", phase_dopri, device, smi, counts["dopri"])
     launches = {"cdyn_accel": dopri["launches"], "cdyn_period": period_launches["cdyn_period"],
                 "cdyn_rollout": fused_launches["cdyn_rollout"]}
     records = timed("anymal-pid kernel records", phase_kernel_records, "anymal-pid", env,
-                    launches, smi, st, st2, dopri=dopri)
+                    launches, smi, st, st2, dopri=dopri, counts=counts["anymal-pid"])
     del env, st, st2
     cm = timed("constrained main path", phase_constrained_main_path, device, smi)
     cm_env, cm_launches, cm_period_launches, cm_steps_per_s, _, cm_reset_ms, cm_st, cm_st2 = cm
     records += timed("constrained kernel records", phase_constrained_records, cm_env,
-                     cm_launches, cm_period_launches, smi, cm_st, cm_st2)
+                     cm_launches, cm_period_launches, smi, cm_st, cm_st2, counters)
     del cm_env, cm_st, cm_st2
-    rough, rough_sps, rough_cm_sps = timed("terrain", phase_terrain, device, smi, records)
+    rough, rough_sps, rough_cm_sps = timed("terrain", phase_terrain, device, smi, records,
+                                           counts["terrain"])
     records += rough
     timed("atlas golden", phase_atlas_golden, device)
     atlas = timed("atlas main path", phase_atlas_main_path, device, smi)
@@ -2671,21 +3358,33 @@ def main():
                 "cdyn_period": at_period_launches["cdyn_period"],
                 "cdyn_rollout": at_launches["cdyn_rollout"]}
     records += timed("atlas-pid kernel records", phase_kernel_records, "atlas-pid", at_env,
-                     launches, smi, at_st, at_st2, check_ticks=ATLAS_CHECK_TICKS)
+                     launches, smi, at_st, at_st2, check_ticks=ATLAS_CHECK_TICKS,
+                     counts=counts["atlas-pid"])
     del at_env, at_st, at_st2
     timed("toy golden", phase_toy_golden, device)
     toys = timed("toy main path", phase_toy_main_path, device, smi)
     records += timed("pendulum kernel records", phase_pendulum_records, toys, smi)
     toy_rates = ", ".join(f"{k} {toys[k]['steps_per_s']:.1f}" for k in TOYS)
     del toys
+    digit = timed("digit main path", phase_digit_main_path, device, smi)
+    dg_env, dg_launches, dg_period_launches, dg_steps_per_s, dg_reset_ms, dg_st, dg_st2 = digit
+    dg_env64 = _digit_make(device, torch.float64)
+    records += timed("digit-pid kernel records", phase_digit_records, dg_env, dg_env64,
+                     dg_launches, dg_period_launches, smi, dg_st, dg_st2, counters)
+    del dg_st, dg_st2
+    timed("loop kernels vs plain", phase_loop_checks, device,
+          {torch.float64: dg_env64, torch.float32: dg_env})
+    del dg_env, dg_env64
+    cassie_sps = timed("cassie", phase_cassie, device, smi, cassie_rows)
     t_ppo = time.perf_counter()
     ppo_anymal = timed("PPO anymal-pid", phase_ppo_anymal, device, smi)
-    timed("PPO card against CPU", phase_ppo_card_vs_cpu, device, smi)
+    timed("PPO card against CPU", phase_ppo_card_vs_cpu, device, smi, ppo_cpu)
     log(f"[ppo] phases 15 and 17 {time.perf_counter() - t_ppo:.1f} s")
     log(f"[done] {time.perf_counter() - t_start:.1f} s; anymal-pid env-steps/s {steps_per_s:.1f}, "
         f"DOPRI {dopri['steps_per_s']:.1f}, constraint mode {cm_steps_per_s:.1f} (reset "
         f"{cm_reset_ms:.1f} ms), on rough ground {rough_sps:.1f} and {rough_cm_sps:.1f}, "
-        f"atlas-pid {at_steps_per_s:.1f}, toys {toy_rates}, PPO training "
+        f"atlas-pid {at_steps_per_s:.1f}, digit-pid {dg_steps_per_s:.1f} (reset {dg_reset_ms:.1f} "
+        f"ms), cassie-pid {cassie_sps:.1f} (generic path), toys {toy_rates}, PPO training "
         f"(anymal-pid, 4096 envs) {ppo_anymal['steps_per_s']:.1f} on {smi}")
     log(smi)
     print(json.dumps({"kernels": records}))

@@ -96,9 +96,10 @@ def child(defines, steps, root=None):
 
 
 def ptxas_line(res, kernel, terrain=False):
-    """Registers and stack of `kernel` (float32; its flat-ground instance,
-    or with `terrain` its terrain instance) from a build's ptxas log."""
-    marks = ("IfLb1E",) if terrain else ("IfE", "IfLb0E")
+    """Registers and stack of `kernel` (float32, the bound and contact rows'
+    instance; its flat-ground instance, or with `terrain` its terrain
+    instance) from a build's ptxas log."""
+    marks = ("IfLb1ELb0E",) if terrain else ("IfE", "IfLb0ELb0E")
     lines = res.ptxas_log.splitlines()
     for i, line in enumerate(lines):
         if ("Compiling entry function" in line and kernel in line

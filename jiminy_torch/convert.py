@@ -54,14 +54,20 @@ def motor_bank_from_arrays(arrays: dict) -> MotorBank:
     return MotorBank(**kw)
 
 
-def robot_from_arrays(model_arrays: dict, motor_arrays=None, name=None) -> Robot:
+def robot_from_arrays(model_arrays: dict, motor_arrays=None, name=None, contact_frames=(),
+                      loop_pairs=()) -> Robot:
     """A sensor-free Robot from a motorized model's arrays and its motor
     bank's (a robot built with `Robot.build(model, motors=...)`, as the toys
-    build theirs). The model's arrays already hold the motors' armature, so
-    nothing is folded again."""
+    build theirs), with its radius-0 contact frames (indices or names: a
+    Cassie's or Digit's collision points are frames of the model) and its
+    loop closures ((frame_a, frame_b) pairs). The model's arrays already
+    hold the motors' armature, so nothing is folded again."""
     model = model_from_arrays(model_arrays)
     bank = motor_bank_from_arrays(motor_arrays) if motor_arrays is not None else None
-    return Robot(name=name or model.name, model=model, motors=bank)
+    contacts = tuple(model.frame_index(f) if isinstance(f, str) else int(f) for f in contact_frames)
+    return Robot(name=name or model.name, model=model, motors=bank,
+                 contact_frame_indices=contacts, contact_radii=(0.0,) * len(contacts),
+                 loop_pairs=tuple(tuple(p) for p in loop_pairs))
 
 
 def pd_components_from_arrays(arrays: dict) -> PDComponents:

@@ -689,13 +689,13 @@ int prepare_cm(K kernel, int smem_per_env) {
                                                smem_per_env * CM_ENVS));
 }
 
-template <typename T, bool kTerrain>
+template <typename T, bool kTerrain, bool kExt>
 int launch_period_cm(const void* ci, const void* cf, const void* si, const void* sf, const void* q,
                      const void* v, const void* cc, void* qo, void* vo, void* eo, int B, int n_cmd,
                      int n_substeps, int integrator, int smem_per_env, void* stream) {
-  const int rc = prepare_cm(cdyn_period_cm_kernel<T, kTerrain>, smem_per_env);
+  const int rc = prepare_cm(cdyn_period_cm_kernel<T, kTerrain, kExt>, smem_per_env);
   if (rc != 0) return rc;
-  cdyn_period_cm_kernel<T, kTerrain><<<(B + CM_ENVS - 1) / CM_ENVS, CM_LANES * CM_ENVS,
+  cdyn_period_cm_kernel<T, kTerrain, kExt><<<(B + CM_ENVS - 1) / CM_ENVS, CM_LANES * CM_ENVS,
                              (size_t)smem_per_env * CM_ENVS, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const int*>(si),
       static_cast<const T*>(sf), static_cast<const T*>(q), static_cast<const T*>(v),
@@ -704,15 +704,15 @@ int launch_period_cm(const void* ci, const void* cf, const void* si, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool kTerrain>
+template <typename T, bool kTerrain, bool kExt>
 int launch_rollout_cm(const void* ci, const void* cf, const void* si, const void* sf,
                       const void* pi, const void* pf, int controller, const void* q, const void* v,
                       const void* action, const void* carry, void* qo, void* vo, void* eo, int B,
                       int n_action, int n_block, int n_cmd, int n_ticks, int n_substeps,
                       int integrator, int smem_per_env, void* stream) {
-  const int rc = prepare_cm(cdyn_rollout_cm_kernel<T, kTerrain>, smem_per_env);
+  const int rc = prepare_cm(cdyn_rollout_cm_kernel<T, kTerrain, kExt>, smem_per_env);
   if (rc != 0) return rc;
-  cdyn_rollout_cm_kernel<T, kTerrain><<<(B + CM_ENVS - 1) / CM_ENVS, CM_LANES * CM_ENVS,
+  cdyn_rollout_cm_kernel<T, kTerrain, kExt><<<(B + CM_ENVS - 1) / CM_ENVS, CM_LANES * CM_ENVS,
                               (size_t)smem_per_env * CM_ENVS, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const int*>(si),
       static_cast<const T*>(sf), static_cast<const int*>(pi), static_cast<const T*>(pf), controller,
@@ -741,11 +741,13 @@ int cdyn_caps(int* out, int n) {
 
 // Bytes of dynamic shared memory one env of the constrained kernels takes
 // (its slice and the padding to the next one) for a model of nj joints, nq
-// and nv coordinates, n rows (nc contacts, nb bounds) and supports of up to
-// ns dofs, at elt bytes a float; -1 past the rows the kernels take.
-int cdyn_cm_smem_bytes(int nj, int nq, int nv, int n, int nc, int nb, int ns, int elt) {
+// and nv coordinates, n rows (nc contacts, nb bounds, nd loop closures) and
+// supports of up to ns dofs, with ncs spring-damper contacts beside them, at
+// elt bytes a float; -1 past the rows the kernels take.
+int cdyn_cm_smem_bytes(int nj, int nq, int nv, int n, int nc, int nb, int ns, int nd, int ncs,
+                       int elt) {
   if (n > cdyn::CM_ROWS_MAX) return -1;
-  return cdyn::cm_env_stride(cdyn::CmLayout(nj, nq, nv, n, nc, nb, ns, elt).bytes, elt);
+  return cdyn::cm_env_stride(cdyn::CmLayout(nj, nq, nv, n, nc, nb, ns, nd, ncs, elt).bytes, elt);
 }
 
 // Bytes of dynamic shared memory one env of the spring kernels takes (its
@@ -799,11 +801,12 @@ int cdyn_sp_blocks_per_sm(int kernel, int elt, int smem_per_env, int terrain) {
 }
 
 // Envs of a constrained kernel (0 cdyn_period_cm, 1 cdyn_rollout_cm; its
-// terrain instance with `terrain`) the runtime would keep on one SM (its
-// blocks there x CM_ENVS) with smem_per_env bytes of dynamic shared memory an
-// env, at elt bytes a float, as `cdyn_sp_blocks_per_sm` counts blocks of the
-// spring kernels; a negative CUDA error code on failure.
-int cdyn_cm_envs_per_sm(int kernel, int elt, int smem_per_env, int terrain) {
+// terrain instance with `terrain`, its extended body with `ext`) the runtime
+// would keep on one SM (its blocks there x CM_ENVS) with smem_per_env bytes
+// of dynamic shared memory an env, at elt bytes a float, as
+// `cdyn_sp_blocks_per_sm` counts blocks of the spring kernels; a negative
+// CUDA error code on failure.
+int cdyn_cm_envs_per_sm(int kernel, int elt, int smem_per_env, int terrain, int ext) {
   const int threads = cdyn::CM_LANES * cdyn::CM_ENVS;
   const int smem = smem_per_env * cdyn::CM_ENVS;
   auto occupancy = [&](auto k) {
@@ -813,15 +816,18 @@ int cdyn_cm_envs_per_sm(int kernel, int elt, int smem_per_env, int terrain) {
     cudaGetLastError();
     return e == cudaSuccess ? blocks * cdyn::CM_ENVS : -static_cast<int>(e);
   };
-  auto of_type = [&](auto zero, auto flag) {
+  auto of_type = [&](auto zero, auto flag, auto ext_flag) {
     using T = decltype(zero);
-    constexpr bool kTerrain = decltype(flag)::value;
-    return kernel == 0 ? occupancy(cdyn::cdyn_period_cm_kernel<T, kTerrain>)
-                       : occupancy(cdyn::cdyn_rollout_cm_kernel<T, kTerrain>);
+    constexpr bool kTerrain = decltype(flag)::value, kExt = decltype(ext_flag)::value;
+    return kernel == 0 ? occupancy(cdyn::cdyn_period_cm_kernel<T, kTerrain, kExt>)
+                       : occupancy(cdyn::cdyn_rollout_cm_kernel<T, kTerrain, kExt>);
+  };
+  auto of_ext = [&](auto zero, auto flag) {
+    return ext ? of_type(zero, flag, std::true_type{}) : of_type(zero, flag, std::false_type{});
   };
   if (elt == 4)
-    return terrain ? of_type(0.0f, std::true_type{}) : of_type(0.0f, std::false_type{});
-  return terrain ? of_type(0.0, std::true_type{}) : of_type(0.0, std::false_type{});
+    return terrain ? of_ext(0.0f, std::true_type{}) : of_ext(0.0f, std::false_type{});
+  return terrain ? of_ext(0.0, std::true_type{}) : of_ext(0.0, std::false_type{});
 }
 
 #ifdef CDYN_CM_PROFILE
@@ -844,6 +850,13 @@ const char* cdyn_error_string(int code) {
 // `terrain` the instance that evaluates the model's terrain section.
 #define CDYN_LAUNCH(NAME, T, ...) \
   (terrain ? cdyn::NAME<T, true>(__VA_ARGS__) : cdyn::NAME<T, false>(__VA_ARGS__))
+// The constrained kernels also take `ext`: the instance of the extended body
+// (loop closures, spring-damper contacts and penalty bounds beside the rows).
+#define CDYN_LAUNCH_CM(NAME, T, ...)                                                    \
+  (ext ? (terrain ? cdyn::NAME<T, true, true>(__VA_ARGS__)                              \
+                  : cdyn::NAME<T, false, true>(__VA_ARGS__))                            \
+       : (terrain ? cdyn::NAME<T, true, false>(__VA_ARGS__)                             \
+                  : cdyn::NAME<T, false, false>(__VA_ARGS__)))
 #define CDYN_ENTRIES(SUFFIX, T)                                                                  \
   int cdyn_accel_##SUFFIX(const void* ci, const void* cf, const void* q, const void* v,          \
                           const void* tau, void* out, int B, int smem_per_env, int terrain,      \
@@ -869,8 +882,8 @@ const char* cdyn_error_string(int code) {
   int cdyn_period_cm_##SUFFIX(const void* ci, const void* cf, const void* si, const void* sf,    \
                               const void* q, const void* v, const void* cc, void* qo, void* vo,  \
                               void* eo, int B, int n_cmd, int n_substeps, int integrator,        \
-                              int smem_per_env, int terrain, void* stream) {                     \
-    return CDYN_LAUNCH(launch_period_cm, T, ci, cf, si, sf, q, v, cc, qo, vo, eo, B, n_cmd,      \
+                              int smem_per_env, int terrain, int ext, void* stream) {            \
+    return CDYN_LAUNCH_CM(launch_period_cm, T, ci, cf, si, sf, q, v, cc, qo, vo, eo, B, n_cmd,      \
                        n_substeps, integrator, smem_per_env, stream);                            \
   }                                                                                              \
   int cdyn_rollout_cm_##SUFFIX(const void* ci, const void* cf, const void* si, const void* sf,   \
@@ -878,8 +891,8 @@ const char* cdyn_error_string(int code) {
                                const void* v, const void* action, const void* carry, void* qo,   \
                                void* vo, void* eo, int B, int n_action, int n_block, int n_cmd,  \
                                int n_ticks, int n_substeps, int integrator, int smem_per_env,    \
-                               int terrain, void* stream) {                                      \
-    return CDYN_LAUNCH(launch_rollout_cm, T, ci, cf, si, sf, pi, pf, controller, q, v, action,   \
+                               int terrain, int ext, void* stream) {                             \
+    return CDYN_LAUNCH_CM(launch_rollout_cm, T, ci, cf, si, sf, pi, pf, controller, q, v, action,   \
                        carry, qo, vo, eo, B, n_action, n_block, n_cmd, n_ticks, n_substeps,      \
                        integrator, smem_per_env, stream);                                        \
   }
@@ -888,6 +901,7 @@ CDYN_ENTRIES(f32, float)
 CDYN_ENTRIES(f64, double)
 
 #undef CDYN_LAUNCH
+#undef CDYN_LAUNCH_CM
 #undef CDYN_ENTRIES
 
 }  // extern "C"

@@ -52,20 +52,30 @@
 // agree with the plain version to rounding (the residual is updated rather
 // than recomputed, and sums run in another order than the plain version's);
 // float32 also by FMA contraction.
+//
+// The extended body (`kExt`, an instance of its own so that the bound and
+// contact rows' instances keep their code): loop closures as distance rows
+// (always active and unbounded, swept first with a plain Gauss-Seidel
+// update, their lengths riding the command or action row), the core's
+// spring-damper ground contacts as external forces in the RNEA (evaluated
+// per contact by the spring kernels' `contact_eval_at`, the end-of-period
+// forces into the extras) and its penalty joint bounds in the torques.
 #pragma once
 
 namespace cdyn {
 
-// Int buffer `si`: header [N nb nc iter_max stage_warm_start support_width
+// Int buffer `si`: header [N nb nc iter_max stage_warm_start support_width nd
 // ...], then per bound (q index, v index), per contact (parent joint,
-// support size, offset of its support dofs in `si`), then the support dof
-// lists (ascending); support_width is the largest support size (1 for a
-// bound).
+// support size, offset of its support dofs in `si`), per loop closure (the
+// parent joints of its two frames, support size, offset), then the support
+// dof lists (ascending; a loop's the union of its two chains');
+// support_width is the largest support size (1 for a bound).
 // Float buffer `sf`: header [kp kd friction torsion regularization
 // min_regularizer transition_eps ...], the relaxation weight of every sweep,
-// then per bound (lo hi lo+eps hi-eps), per contact fpos(3) frot(9).
-constexpr int SI_HEADER = 8, SF_HEADER = 8, SI_BOUND = 2, SI_CONTACT = 3, SF_BOUND = 4,
-              SF_CONTACT = 12;
+// then per bound (lo hi lo+eps hi-eps), per contact fpos(3) frot(9), per
+// loop closure the two frames' fpos(3).
+constexpr int SI_HEADER = 8, SF_HEADER = 8, SI_BOUND = 2, SI_CONTACT = 3, SI_DISTANCE = 4,
+              SF_BOUND = 4, SF_CONTACT = 12, SF_DISTANCE = 6;
 
 template <typename T>
 struct CModel {
@@ -98,6 +108,12 @@ struct CModel {
   __device__ const T* boundf(int b) const { return sf + fb + SF_BOUND * b; }
   __device__ const T* cfpos(int k) const { return sf + fc + SF_CONTACT * k; }
   __device__ const T* cfrot(int k) const { return cfpos(k) + 3; }
+  // loop closures (read by the kExt instances only)
+  __device__ int nd() const { return si[6]; }
+  __device__ const int* dinfo(int k) const { return cinfo(nc) + SI_DISTANCE * k; }
+  __device__ int dsup(int k) const { return dinfo(k)[3]; }
+  __device__ int dsup_n(int k) const { return dinfo(k)[2]; }
+  __device__ const T* dfpos(int k) const { return cfpos(nc) + SF_DISTANCE * k; }
 };
 
 // --------------------------------------------------------------------------
@@ -138,13 +154,16 @@ __device__ __forceinline__ int upper_at(int na, int r, int c) {
 }
 
 // Byte offsets of one env's slice of dynamic shared memory, from the model's
-// joints, dofs, rows, contacts, bounds and support width (the same on host
-// and device).
+// joints, dofs, rows, contacts, bounds and support width, and for the kExt
+// body its loop closures (nd) and spring-damper contacts (ncs), whose
+// regions come last and take no space without them (the same on host and
+// device).
 struct CmLayout {
   int tree, wmat, amat, jmat, mmat, dinv, d, tau, tc, qs, vs, qdd, drift, b, x, depth, lam;
-  int rows, pos, soff, scnt, cnt, clist, jorder, lstart, masks, bytes;
+  int rows, pos, soff, scnt, cnt, clist, jorder, lstart, masks, dref, fx, bytes;
 
-  __host__ __device__ CmLayout(int nj, int nq, int nv, int n, int nc, int nb, int ns, int elt) {
+  __host__ __device__ CmLayout(int nj, int nq, int nv, int n, int nc, int nb, int ns, int nd,
+                               int ncs, int elt) {
     int off = 0;
     auto take = [&](int count, int size) {
       const int at = off;
@@ -181,6 +200,8 @@ struct CmLayout {
     jorder = take(nj, 4);
     lstart = take(nj + 1, 4);
     masks = take(3 * (nc + nb), 1);
+    dref = take(nd, elt);
+    fx = take(6 * ncs, elt);  // the spring contacts' LOCAL wrenches on their joints
     bytes = off;
   }
 };
@@ -225,10 +246,13 @@ struct Work {
   int *jorder, *lstart;  // joints by tree depth; where each depth starts in jorder
   T* lam;                // the three solver states, one after another
   unsigned char* masks;
+  T* dref;               // the loops' lengths (kExt)
+  T (*FX)[6];            // the spring contacts' wrenches (n, f) on their joints (kExt)
   int n, nc, nmask;
 
-  __device__ Work(unsigned char* base, const Model<T>& M, const CModel<T>& C) {
-    const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, static_cast<int>(sizeof(T)));
+  __device__ Work(unsigned char* base, const Model<T>& M, const CModel<T>& C, int nd, int ncs) {
+    const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, nd, ncs,
+                      static_cast<int>(sizeof(T)));
     T* t = reinterpret_cast<T*>(base + lo.tree);
     const int nj = M.nj;
     R = reinterpret_cast<T(*)[9]>(t);
@@ -269,6 +293,8 @@ struct Work {
     lstart = reinterpret_cast<int*>(base + lo.lstart);
     lam = reinterpret_cast<T*>(base + lo.lam);
     masks = base + lo.masks;
+    dref = reinterpret_cast<T*>(base + lo.dref);
+    FX = reinterpret_cast<T(*)[6]>(base + lo.fx);
     n = C.n;
     nc = C.nc;
     nmask = C.nc + C.nb;
@@ -309,12 +335,16 @@ __device__ __forceinline__ unsigned char* dynamic_smem() {
 // This thread's env slice. Each function builds it from the shared-memory
 // symbol rather than taking it by reference: the compiler then sees shared
 // memory behind the pointers, and keeps them and the model's constants in
-// registers (a reference to the stack is reloaded after every store).
-template <typename T>
+// registers (a reference to the stack is reloaded after every store). Only
+// the kExt instances read the loops and the spring contacts.
+template <bool kExt, typename T>
 __device__ __forceinline__ Work<T> env_work(const Model<T>& M, const CModel<T>& C) {
-  const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, static_cast<int>(sizeof(T)));
+  const int nd = kExt ? C.nd() : 0, ncs = kExt ? M.nc : 0;
+  const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, nd, ncs,
+                    static_cast<int>(sizeof(T)));
   const int slot = threadIdx.x / CM_LANES;
-  return Work<T>(dynamic_smem() + (size_t)slot * cm_env_stride(lo.bytes, sizeof(T)), M, C);
+  return Work<T>(dynamic_smem() + (size_t)slot * cm_env_stride(lo.bytes, sizeof(T)), M, C, nd,
+                 ncs);
 }
 
 // --------------------------------------------------------------------------
@@ -473,7 +503,7 @@ __device__ void forward_joint(const Model<T>& M, int i, const T* q, const T* v, 
 // its dofs (armature included) with its composite inertia moved into the
 // parent frame in place, and its RNEA force with tau[vi] and the force in
 // the parent frame (FT).
-template <typename T>
+template <bool kExt, typename T>
 __device__ void backward_joint(const Model<T>& M, int i, Work<T>& w) {
   const int nv = M.nv;
   const int vi = M.iv(i);
@@ -529,6 +559,18 @@ __device__ void backward_joint(const Model<T>& M, int i, Work<T>& w) {
   for (int k = 0; k < 3; ++k) f_a[k] = ia_av[k] + (c1[k] + c2[k]);
   cross3(w_i, iv + 3, c1);
   for (int k = 0; k < 3; ++k) f_l[k] = ia_av[3 + k] + c1[k];
+  if constexpr (kExt) {  // the joint's spring contacts, summed in contact order
+    T e[6];
+    bool any = false;
+#pragma unroll 1
+    for (int k = 0; k < M.nc; ++k) {
+      if (M.cparent(k) != i) continue;
+      for (int c = 0; c < 6; ++c) e[c] = any ? e[c] + w.FX[k][c] : w.FX[k][c];
+      any = true;
+    }
+    if (any)
+      for (int k = 0; k < 3; ++k) { f_a[k] = f_a[k] - e[k]; f_l[k] = f_l[k] - e[3 + k]; }
+  }
   bool has_child = false;
   for (int c = i + 1; c < M.nj; ++c) has_child = has_child || M.parent(c) == i;
   if (has_child)
@@ -721,6 +763,105 @@ __device__ void contact_rows(const Model<T>& M, const CModel<T>& C, int k, const
   drift[p[3]] = dot3(n, g_ang);
 }
 
+// The row and drift of loop closure k at position p (`distance_rows_components`):
+// the two frames' point Jacobians over the union of their chains' dofs
+// projected on the unit direction between them (chain a added, chain b
+// taken off), and the Baumgarte drift from the frames' bias kinematics and
+// the loop's length dref[k].
+template <typename T>
+__device__ void distance_row(const Model<T>& M, const CModel<T>& C, int k, int p,
+                             const T (*RW)[9], const T (*PW)[3], const T (*VEL)[6],
+                             const T (*ACC)[6], const T* dref, T* J, T* drift) {
+  const int* di = C.dinfo(k);
+  const int* sd = C.si + di[3];
+  const int ns = di[2];
+  T pf[2][3], vl[2][3], al[2][3];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int parent = di[e];
+    const T* fp = C.dfpos(k) + 3 * e;
+    const T* rw = RW[parent];
+    const T* w_l = VEL[parent];
+    const T* v_l = VEL[parent] + 3;
+    const T* a_a = ACC[parent];
+    const T* a_l = ACC[parent] + 3;
+    T tmp[3], t2[3], vw_ang[3];
+    mv3(rw, fp, tmp);
+    for (int i = 0; i < 3; ++i) pf[e][i] = tmp[i] + PW[parent][i];
+    cross3(w_l, fp, tmp);
+    for (int i = 0; i < 3; ++i) t2[i] = v_l[i] + tmp[i];
+    mv3(rw, t2, vl[e]);
+    mv3(rw, w_l, vw_ang);
+    cross3(fp, a_a, tmp);
+    for (int i = 0; i < 3; ++i) t2[i] = a_l[i] - tmp[i];
+    mv3(rw, t2, al[e]);
+    cross3(vw_ang, vl[e], tmp);
+    for (int i = 0; i < 3; ++i) al[e][i] = al[e][i] + tmp[i];
+  }
+  T dp[3], dir[3];
+  for (int i = 0; i < 3; ++i) dp[i] = pf[0][i] - pf[1][i];
+  const T dist = sqrt(tmax(dot3(dp, dp), T(1e-24)));
+  const T inv = T(1) / dist;
+  for (int i = 0; i < 3; ++i) dir[i] = dp[i] * inv;
+  T* jr = J + C.ns * p;
+  for (int s = 0; s < ns; ++s) jr[s] = T(0);
+#pragma unroll 1
+  for (int e = 0; e < 2; ++e) {
+#pragma unroll 1
+    for (int j = di[e]; j >= 0; j = M.parent(j)) {
+      const T* rj = RW[j];
+      T lever[3];
+      for (int i = 0; i < 3; ++i) lever[i] = pf[e][i] - PW[j][i];
+      const int vi = M.iv(j);
+      const int t = M.type(j);
+      const int ndof = (t == FREE) ? 6 : 1;
+      for (int m = 0; m < ndof; ++m) {
+        T ang[3], lin[3];
+        if (t == FREE && m < 3) {  // translational dofs: R e_m
+          for (int i = 0; i < 3; ++i) lin[i] = rj[3 * i + m];
+        } else if (t == FREE || t == REVOLUTE) {
+          if (t == FREE) {
+            for (int i = 0; i < 3; ++i) ang[i] = rj[3 * i + m - 3];
+          } else {
+            mv3(rj, M.axis(j), ang);
+          }
+          cross3(ang, lever, lin);
+        } else {  // PRISMATIC
+          mv3(rj, M.axis(j), lin);
+        }
+        const int d = vi + m;
+        int s = 0;  // d's place in the support list
+        while (s < ns - 1 && sd[s] != d) ++s;
+        const T val = dot3(dir, lin);
+        jr[s] = (e == 0) ? jr[s] + val : jr[s] - val;
+      }
+    }
+  }
+  T dv[3], da[3];
+  for (int i = 0; i < 3; ++i) { dv[i] = vl[0][i] - vl[1][i]; da[i] = al[0][i] - al[1][i]; }
+  const T dv_proj = dot3(dv, dir);
+  T g = dot3(dir, da);
+  g = g + (dot3(dv, dv) - dv_proj * dv_proj) / dist;
+  drift[p] = g + C.kp() * (dist - dref[k]) + C.kd() * dv_proj;
+}
+
+// tc plus the penalty torques of the core's bounds on dof i (`u_c`).
+template <typename T>
+__device__ __forceinline__ T penalty_torque(const Model<T>& M, int i, const T* q, const T* v,
+                                            T tc) {
+#pragma unroll 1
+  for (int b = 0; b < M.nb; ++b) {
+    if (M.bound(b)[0] != i) continue;
+    const T* bf = M.boundf(b);  // lo hi kp kd
+    const T qb = q[M.bound(b)[1]];
+    const T over = tmax(qb - bf[1], T(0));
+    const T under = tmax(bf[0] - qb, T(0));
+    const bool active = (over > T(0)) || (under > T(0));
+    tc = tc + (bf[2] * (under - over) - (active ? bf[3] * v[i] : T(0)));
+  }
+  return tc;
+}
+
 // Sum of j[m] * a[sd[m]] over a row's support dofs sd[0..ns) (ascending; j
 // the row over them), in the plain version's order with its exact zeros
 // left out.
@@ -733,18 +874,20 @@ __device__ __forceinline__ T support_dot(const int* sd, int ns, const T* j, cons
 }
 
 // The boxed/cone Gauss-Seidel sweeps (`_pgs_sweep_components`) over the
-// active rows, x in place: positions [0, nba) bounds, [nba, nba + nca)
-// normals, then nca torsion rows, then nca tangent pairs. Lane l keeps the
+// active rows, x in place: positions [0, nda) the loop closures (kExt; a
+// plain Gauss-Seidel update), then nba bounds, nca normals, nca torsion
+// rows, nca tangent pairs. Lane l keeps the
 // multipliers x and the residual y = b - A x of rows l, l + CM_LANES, ... in
 // registers. A row's update takes its x and y from that lane (shuffles);
 // every lane computes the new multiplier, the lane of the row keeps it, and
 // every lane takes the change times A's column off the y of its rows. The
 // lanes share nothing in memory until x is written back at the end.
-template <typename T>
-__device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nba, int nca,
+template <bool kExt, typename T>
+__device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nda, int nba, int nca,
                            const T* __restrict__ A, const T* __restrict__ b, T* __restrict__ x) {
   const T friction = C.friction(), torsion = C.torsion();
-  const int p_tor = nba + nca, p_tan = nba + 2 * nca;
+  const int o = kExt ? nda : 0;  // the bounds' first position
+  const int p_tor = o + nba + nca, p_tan = o + nba + 2 * nca;
   // Entry (j, i) of A for this lane's row j = lane + CM_LANES m: at ro[m] + i
   // when j <= i, else at (upper_at(na, i, i) - i) + j.
   T xr[CM_SLOTS], y[CM_SLOTS];
@@ -793,16 +936,23 @@ __device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nba, 
 #pragma unroll 1
   for (int it = 0; it < C.iter_max; ++it) {
     const T w = C.relax(it);
+    if constexpr (kExt) {  // the loop closures: unbounded, unrelaxed
+#pragma unroll 1
+      for (int i = 0; i < o; ++i) {
+        const T xi = fetch(xr, i), yi = fetch(y, i), aii = A[upper_at(na, i, i)];
+        set(i, xi, xi + yi / aii);
+      }
+    }
     // bounds, then the contact normals
 #pragma unroll 1
-    for (int i = 0; i < p_tor; ++i) {
+    for (int i = o; i < p_tor; ++i) {
       const T xi = fetch(xr, i), yi = fetch(y, i), aii = A[upper_at(na, i, i)];
       set(i, xi, tmax(xi + w * yi / aii, T(0)));
     }
     // level 1: torsional friction |lam_rz| <= torsion * lam_z
 #pragma unroll 1
     for (int m = 0; m < nca; ++m) {
-      const int i = p_tor + m, iz = nba + m;
+      const int i = p_tor + m, iz = o + nba + m;
       const T xi = fetch(xr, i);
       T xn = T(0);
       if (torsion > T(0)) {
@@ -814,7 +964,7 @@ __device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nba, 
     // level 2: tangential friction cone ||lam_xy|| <= mu lam_z
 #pragma unroll 1
     for (int m = 0; m < nca; ++m) {
-      const int i0 = p_tan + 2 * m, i1 = i0 + 1, iz = nba + m;
+      const int i0 = p_tan + 2 * m, i1 = i0 + 1, iz = o + nba + m;
       const T x0_old = fetch(xr, i0), x1_old = fetch(xr, i1);
       T x0 = T(0), x1 = T(0);
       if (friction > T(0)) {
@@ -848,14 +998,16 @@ __device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nba, 
 // (stage-chained warm start). Depths into w.depth. With kTerrain the unit
 // ground normals ride in w.b from the active sets to the rows: b is written
 // only after the rows (n >= 4 nc of it, 3 nc needed), so the slice keeps
-// its size on terrain.
-template <bool kTerrain, typename T>
+// its size on terrain. With kExt the loop rows come first in the sweep
+// order, the spring contacts' wrenches (w.FX, from the active-set pass) go
+// into the RNEA, and the penalty bounds into the torques.
+template <bool kTerrain, bool kExt, typename T>
 __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CModel<T>& C_in,
                                                int s_in, int s_out) {
   const Lanes L;
   const Model<T> M = M_in;
   const CModel<T> C = C_in;
-  Work<T> w = env_work(M, C);
+  Work<T> w = env_work<kExt>(M, C);
   const SolverState<T> in = w.state(s_in), out = w.state(s_out);
   const int nv = M.nv, n = C.n, nb = C.nb, nc = C.nc, G = CM_LANES, lane = L.lane;
   const T* q = w.qs;
@@ -871,9 +1023,21 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
     L.sync();
   }
   CM_PROFILE_PHASE(L, 0, t_prof);
-  // Active sets and depths, one bound or contact per lane
+  // Active sets and depths, one bound or contact per lane; with kExt the
+  // spring contacts' wrenches on their joints
+  const int nd = kExt ? C.nd() : 0, ncs = kExt ? M.nc : 0;
 #pragma unroll 1
-  for (int t = lane; t < nb + nc; t += G) {
+  for (int t = lane; t < nb + nc + ncs; t += G) {
+    if constexpr (kExt) {
+      if (t >= nb + nc) {
+        const int k = t - nb - nc, parent = M.cparent(k);
+        T fw[3], fj[3], nj[3], depth;
+        contact_eval_at<kTerrain>(M, k, w.RW[parent], w.PW[parent], w.VEL[parent], fw, fj, nj,
+                                  &depth, static_cast<T*>(nullptr));
+        for (int i = 0; i < 3; ++i) { w.FX[k][i] = nj[i]; w.FX[k][3 + i] = fj[i]; }
+        continue;
+      }
+    }
     if (t < nb) {
       out.bact[t] = bound_active(C, t, q, in.bact[t] != 0);
     } else {
@@ -887,17 +1051,20 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
     }
   }
   L.sync();
-  // The active rows in sweep order: positions of bounds, normals, torsion,
-  // tangent pairs; their rows, support dofs, and each row's position (-1)
+  // The active rows in sweep order: positions of loop closures (kExt),
+  // bounds, normals, torsion, tangent pairs; their rows, support dofs, and
+  // each row's position (-1)
   if (L.leader()) {
     for (int r = 0; r < n; ++r) w.pos[r] = -1;
     int p = 0;
     auto add = [&](int r, int soff, int scnt) {
       w.rows[p] = r; w.soff[p] = soff; w.scnt[p] = scnt; w.pos[r] = p; ++p;
     };
+    if constexpr (kExt)
+      for (int k = 0; k < nd; ++k) add(nb + 4 * nc + k, C.dsup(k), C.dsup_n(k));
     for (int b = 0; b < nb; ++b)
       if (out.bact[b]) add(b, C.bsup(b), 1);
-    const int nba = p;
+    const int nba = p - nd;
     int nca = 0;
     for (int k = 0; k < nc; ++k)
       if (out.cact[k]) w.clist[nca++] = k;
@@ -921,16 +1088,22 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
   L.sync();
   const int na = w.cnt[0], nba = w.cnt[1], nca = w.cnt[2];
   CM_PROFILE_PHASE(L, 1, t_prof);
-  // The active rows, a bound or contact per lane; the mass matrix and the
-  // nonlinear effects, depth after depth from the leaves, a joint per lane
+  // The active rows, a loop, bound or contact per lane; the mass matrix and
+  // the nonlinear effects, depth after depth from the leaves, a joint per
+  // lane
 #pragma unroll 1
-  for (int t = lane; t < nba + nca; t += G) {
-    if (t < nba) {
+  for (int t = lane; t < nd + nba + nca; t += G) {
+    if constexpr (kExt) {
+      if (t < nd) {
+        distance_row(M, C, t, t, w.RW, w.PW, w.VEL, w.ACC, w.dref, w.J, w.drift);
+        continue;
+      }
+    }
+    if (t < nd + nba) {
       bound_row(C, w.rows[t], t, q, v, w.J, w.drift);
     } else {
-      const int m = t - nba;
-      const int p[4] = {nba + 2 * nca + 2 * m, nba + 2 * nca + 2 * m + 1, nba + m,
-                        nba + nca + m};
+      const int m = t - nd - nba, o = nd + nba;
+      const int p[4] = {o + 2 * nca + 2 * m, o + 2 * nca + 2 * m + 1, o + m, o + nca + m};
       contact_rows<kTerrain>(M, C, w.clist[m], p, w.RW, w.PW, w.VEL, w.ACC, w.depth, w.b, w.J,
                              w.drift);
     }
@@ -944,7 +1117,8 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
 #pragma unroll 1
   for (int d = nlev - 1; d >= 0; --d) {
 #pragma unroll 1
-    for (int t = w.lstart[d] + lane; t < w.lstart[d + 1]; t += G) backward_joint(M, w.jorder[t], w);
+    for (int t = w.lstart[d] + lane; t < w.lstart[d + 1]; t += G)
+      backward_joint<kExt>(M, w.jorder[t], w);
     L.sync();
     if (d == 0) break;
 #pragma unroll 1
@@ -956,7 +1130,8 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
 #pragma unroll 1
   for (int i = lane; i < nv; i += G) {
     const T damp = M.damping(i);
-    const T tc = (damp != T(0)) ? w.tc[i] - damp * v[i] : w.tc[i];
+    T tc = (damp != T(0)) ? w.tc[i] - damp * v[i] : w.tc[i];
+    if constexpr (kExt) tc = penalty_torque(M, i, q, v, tc);
     w.tau[i] = tc - w.tau[i];
   }
   T* Mm = w.Mm;
@@ -1018,7 +1193,7 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
   }
   L.sync();
   CM_PROFILE_PHASE(L, 5, t_prof);
-  pgs_sweeps(L, C, na, nba, nca, w.A, w.b, w.x);
+  pgs_sweeps<kExt>(L, C, na, nd, nba, nca, w.A, w.b, w.x);
   CM_PROFILE_PHASE(L, 6, t_prof);
   // qdd = tau_res + sum over the active rows, in row order, of lam_r (M^-1 J^T)_r
 #pragma unroll 1
@@ -1042,7 +1217,7 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
 
 // One stage: lane 0 publishes (q, v) and the motor torques, the group
 // solves, lane 0 reads the accelerations into qdd.
-template <bool kTerrain, typename T>
+template <bool kTerrain, bool kExt, typename T>
 __device__ __forceinline__ void solve(const Lanes& L, const Model<T>& M, const CModel<T>& C,
                                       const Work<T>& w, const T* q, const T* v, const T* cmd,
                                       int s_in, int s_out, T* qdd) {
@@ -1051,7 +1226,7 @@ __device__ __forceinline__ void solve(const Lanes& L, const Model<T>& M, const C
     for (int i = 0; i < M.nv; ++i) w.vs[i] = v[i];
     tau_c(M, v, cmd, w.tc);
   }
-  constrained_accel<kTerrain>(M, C, s_in, s_out);
+  constrained_accel<kTerrain, kExt>(M, C, s_in, s_out);
   if (L.leader())
     for (int i = 0; i < M.nv; ++i) qdd[i] = w.qdd[i];
 }
@@ -1059,19 +1234,19 @@ __device__ __forceinline__ void solve(const Lanes& L, const Model<T>& M, const C
 // One substep (`_ConstrainedCore.substep`), q and v (lane 0's) updated in
 // place, the solver state `s` too when stages are chained (else the stage
 // outputs go to ST_TMP).
-template <bool kTerrain, typename T>
+template <bool kTerrain, bool kExt, typename T>
 __device__ __noinline__ void substep_cm(const Model<T>& M_in, const CModel<T>& C_in, T* q, T* v,
                                         const T* cmd, int s, int integrator) {
   const Lanes L;
   const Model<T> M = M_in;
   const CModel<T> C = C_in;
-  const Work<T> w = env_work(M, C);
+  const Work<T> w = env_work<kExt>(M, C);
   T k1[NV_MAX], dq[NV_MAX], qt[NQ_MAX];
   const int out = C.stage_warm ? s : ST_TMP;
   const int nv = M.nv;
   const bool lead = L.leader();
   const T dt = M.dt(), hdt = M.half_dt();
-  solve<kTerrain>(L, M, C, w, q, v, cmd, s, out, k1);
+  solve<kTerrain, kExt>(L, M, C, w, q, v, cmd, s, out, k1);
   if (integrator == EULER) {
     if (lead) {
       for (int k = 0; k < nv; ++k) dq[k] = dt * v[k];
@@ -1087,19 +1262,19 @@ __device__ __noinline__ void substep_cm(const Model<T>& M_in, const CModel<T>& C
     integrate(M, q, dq, qt);
     for (int k = 0; k < nv; ++k) v2[k] = v[k] + hdt * k1[k];
   }
-  solve<kTerrain>(L, M, C, w, qt, v2, cmd, s, out, k2);
+  solve<kTerrain, kExt>(L, M, C, w, qt, v2, cmd, s, out, k2);
   if (lead) {
     for (int k = 0; k < nv; ++k) dq[k] = hdt * v2[k];
     integrate(M, q, dq, qt);
     for (int k = 0; k < nv; ++k) v3[k] = v[k] + hdt * k2[k];
   }
-  solve<kTerrain>(L, M, C, w, qt, v3, cmd, s, out, k3);
+  solve<kTerrain, kExt>(L, M, C, w, qt, v3, cmd, s, out, k3);
   if (lead) {
     for (int k = 0; k < nv; ++k) dq[k] = dt * v3[k];
     integrate(M, q, dq, qt);
     for (int k = 0; k < nv; ++k) v4[k] = v[k] + dt * k3[k];
   }
-  solve<kTerrain>(L, M, C, w, qt, v4, cmd, s, out, k4);
+  solve<kTerrain, kExt>(L, M, C, w, qt, v4, cmd, s, out, k4);
   if (lead) {
     const T dt6 = M.dt6();
     for (int k = 0; k < nv; ++k) dq[k] = dt6 * (v[k] + T(2) * v2[k] + T(2) * v3[k] + v4[k]);
@@ -1112,17 +1287,19 @@ __device__ __noinline__ void substep_cm(const Model<T>& M_in, const CModel<T>& C
 // End-of-period outputs `[a | f_world | w_local | depth | imu | lam | cact |
 // bact]` (`_ConstrainedCore.final_outputs`), rows of the (n_extra, B) array,
 // written by lane 0; the solve's state outputs go to solver state `s_out`.
-template <bool kTerrain, typename T>
+// The contact block holds the constraint contacts' forces from the
+// multipliers, then with kExt the spring contacts' (one of them is empty).
+template <bool kTerrain, bool kExt, typename T>
 __device__ __noinline__ void final_outputs_cm(const Model<T>& M_in, const CModel<T>& C_in,
                                               const T* q, const T* v, const T* cmd, int s,
                                               int s_out, T* eo, int B, int b) {
   const Lanes L;
   const Model<T> M = M_in;
   const CModel<T> C = C_in;
-  const Work<T> w = env_work(M, C);
+  const Work<T> w = env_work<kExt>(M, C);
   const SolverState<T> out = w.state(s_out);
   T a[NV_MAX];
-  solve<kTerrain>(L, M, C, w, q, v, cmd, s, s_out, a);
+  solve<kTerrain, kExt>(L, M, C, w, q, v, cmd, s, s_out, a);
   if (!L.leader()) return;
   // The tree arrays are free again once the solve is done
   joint_x(M, q, w.R, w.P);
@@ -1131,9 +1308,9 @@ __device__ __noinline__ void final_outputs_cm(const Model<T>& M_in, const CModel
   const T (*RW)[9] = w.RW;
   const T (*VEL)[6] = w.VEL;
   const T (*ACC)[6] = w.ACC;
-  const int nv = M.nv, nc = C.nc;
+  const int nv = M.nv, nc = C.nc, nco = nc + (kExt ? M.nc : 0);
   for (int k = 0; k < nv; ++k) eo[(size_t)k * B + b] = a[k];
-  const int o_fw = nv, o_wl = nv + 3 * nc, o_d = nv + 9 * nc, o_imu = nv + 10 * nc;
+  const int o_fw = nv, o_wl = nv + 3 * nco, o_d = nv + 9 * nco, o_imu = nv + 10 * nco;
 #pragma unroll 1
   for (int k = 0; k < nc; ++k) {
     T n[3] = {T(0), T(0), T(1)};
@@ -1160,6 +1337,18 @@ __device__ __noinline__ void final_outputs_cm(const Model<T>& M_in, const CModel
       eo[(size_t)(o_wl + 6 * k + 3 + i) * B + b] = f_l[i];
     }
     eo[(size_t)(o_d + k) * B + b] = w.depth[k];
+  }
+  if constexpr (kExt) {
+#pragma unroll 1
+    for (int k = 0; k < M.nc; ++k) {
+      const int parent = M.cparent(k);
+      T fw[3], fj[3], nj[3], depth, wl[6];
+      contact_eval_at<kTerrain>(M, k, RW[parent], w.PW[parent], VEL[parent], fw, fj, nj, &depth,
+                                wl);
+      for (int i = 0; i < 3; ++i) eo[(size_t)(o_fw + 3 * (nc + k) + i) * B + b] = fw[i];
+      for (int i = 0; i < 6; ++i) eo[(size_t)(o_wl + 6 * (nc + k) + i) * B + b] = wl[i];
+      eo[(size_t)(o_d + nc + k) * B + b] = depth;
+    }
   }
 #pragma unroll 1
   for (int k = 0; k < M.ni; ++k) {
@@ -1227,9 +1416,11 @@ __device__ void copy_solver_state(const CModel<T>& C, const SolverState<T>& src,
 // one CmLayout slice of dynamic shared memory per env.
 // --------------------------------------------------------------------------
 
-// One controller period: cc = [cmd (n_cmd) | lam | cact | bact]. An
-// instance on flat ground and one on the model's terrain (kTerrain).
-template <typename T, bool kTerrain>
+// One controller period: cc = [cmd (n_cmd) | dref (nd, kExt) | lam | cact |
+// bact]. An instance on flat ground and one on the model's terrain
+// (kTerrain), each with the bound and contact rows or the extended body
+// (kExt).
+template <typename T, bool kTerrain, bool kExt>
 __global__ void cdyn_period_cm_kernel(const int* ci, const T* cf, const int* si, const T* sf,
                                       const T* __restrict__ q_g, const T* __restrict__ v_g,
                                       const T* __restrict__ cc_g, T* __restrict__ qo,
@@ -1241,28 +1432,31 @@ __global__ void cdyn_period_cm_kernel(const int* ci, const T* cf, const int* si,
   if (b >= B) return;  // the whole group
   const Model<T> M(ci, cf);
   const CModel<T> C(si, sf);
-  const Work<T> w = env_work(M, C);
+  const Work<T> w = env_work<kExt>(M, C);
   T q[NQ_MAX], v[NV_MAX], cmd[NCMD_MAX];
   if (L.leader()) {
+    const int nd = kExt ? C.nd() : 0;
     tree_levels(M, w.jorder, w.lstart, w.cnt + 3);
     for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
     for (int i = 0; i < M.nv; ++i) v[i] = v_g[(size_t)i * B + b];
     for (int i = 0; i < n_cmd; ++i) cmd[i] = cc_g[(size_t)i * B + b];
-    load_solver_state(C, cc_g, n_cmd, B, b, w.state(ST_CARRY));
+    for (int k = 0; k < nd; ++k) w.dref[k] = cc_g[(size_t)(n_cmd + k) * B + b];
+    load_solver_state(C, cc_g, n_cmd + nd, B, b, w.state(ST_CARRY));
   }
 #pragma unroll 1
   for (int k = 0; k < n_substeps; ++k)
-    substep_cm<kTerrain>(M, C, q, v, cmd, ST_CARRY, integrator);
+    substep_cm<kTerrain, kExt>(M, C, q, v, cmd, ST_CARRY, integrator);
   if (L.leader()) {
     for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = q[i];
     for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = v[i];
   }
-  final_outputs_cm<kTerrain>(M, C, q, v, cmd, ST_CARRY, ST_TMP, eo, B, b);
+  final_outputs_cm<kTerrain, kExt>(M, C, q, v, cmd, ST_CARRY, ST_TMP, eo, B, b);
 }
 
-// One env step: carry = [block carry (n_block) | lam | cact | bact]; extras
-// = period extras + [cc_last | carry'].
-template <typename T, bool kTerrain>
+// One env step: action = [env action | dref (nd, kExt)], carry = [block
+// carry (n_block) | lam | cact | bact]; extras = period extras + [cc_last |
+// carry'].
+template <typename T, bool kTerrain, bool kExt>
 __global__ void cdyn_rollout_cm_kernel(const int* ci, const T* cf, const int* si, const T* sf,
                                        const int* pi, const T* pf, int controller,
                                        const T* __restrict__ q_g, const T* __restrict__ v_g,
@@ -1276,13 +1470,15 @@ __global__ void cdyn_rollout_cm_kernel(const int* ci, const T* cf, const int* si
   if (b >= B) return;  // the whole group
   const Model<T> M(ci, cf);
   const CModel<T> C(si, sf);
-  const Work<T> w = env_work(M, C);
+  const Work<T> w = env_work<kExt>(M, C);
   // the carry's solver channels and the command row's (ST_TMP for the stages)
   const SolverState<T> carry = w.state(ST_CARRY), cc = w.state(ST_CC);
   const bool lead = L.leader();
+  const int nd = kExt ? C.nd() : 0;
   T q[NQ_MAX], v[NV_MAX], ac[NACT_MAX], bc[NCARRY_MAX], bc_new[NCARRY_MAX], cmd[NCMD_MAX];
   if (lead) {
     tree_levels(M, w.jorder, w.lstart, w.cnt + 3);
+    for (int k = 0; k < nd; ++k) w.dref[k] = a_g[(size_t)(n_action - nd + k) * B + b];
     for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
     for (int i = 0; i < M.nv; ++i) v[i] = v_g[(size_t)i * B + b];
     for (int i = 0; i < n_action; ++i) ac[i] = a_g[(size_t)i * B + b];
@@ -1303,22 +1499,24 @@ __global__ void cdyn_rollout_cm_kernel(const int* ci, const T* cf, const int* si
     }
 #pragma unroll 1
     for (int k = 0; k < n_substeps; ++k)
-      substep_cm<kTerrain>(M, C, q, v, cmd, ST_CC, integrator);
+      substep_cm<kTerrain, kExt>(M, C, q, v, cmd, ST_CC, integrator);
     if (t < n_ticks - 1) {  // end-of-tick refresh of the carried warm start
       T a[NV_MAX];
-      solve<kTerrain>(L, M, C, w, q, v, cmd, ST_CC, ST_CARRY, a);
+      solve<kTerrain, kExt>(L, M, C, w, q, v, cmd, ST_CC, ST_CARRY, a);
     }
   }
   if (lead) {
     for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = q[i];
     for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = v[i];
   }
-  final_outputs_cm<kTerrain>(M, C, q, v, cmd, ST_CC, ST_TMP, eo, B, b);
+  final_outputs_cm<kTerrain, kExt>(M, C, q, v, cmd, ST_CC, ST_TMP, eo, B, b);
   if (!lead) return;
-  const int n_std = M.nv + 10 * C.nc + 6 * M.ni + C.n + C.nc + C.nb;
-  const int n_ccrow = n_cmd + C.n + C.nc + C.nb;
+  const int nco = C.nc + (kExt ? M.nc : 0);
+  const int n_std = M.nv + 10 * nco + 6 * M.ni + C.n + C.nc + C.nb;
+  const int n_ccrow = n_cmd + nd + C.n + C.nc + C.nb;
   for (int i = 0; i < n_cmd; ++i) eo[(size_t)(n_std + i) * B + b] = cmd[i];
-  store_solver_state(C, cc, eo, n_std + n_cmd, B, b);
+  for (int k = 0; k < nd; ++k) eo[(size_t)(n_std + n_cmd + k) * B + b] = w.dref[k];
+  store_solver_state(C, cc, eo, n_std + n_cmd + nd, B, b);
   for (int i = 0; i < n_block; ++i) eo[(size_t)(n_std + n_ccrow + i) * B + b] = bc[i];
   store_solver_state(C, carry, eo, n_std + n_ccrow + n_block, B, b);
 }

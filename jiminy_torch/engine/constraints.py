@@ -14,7 +14,7 @@ solution depends on this order. Row conventions:
 - distance (1 row) and rolling (3 rows per sphere or wheel): unbounded.
 
 The component solver (`engine/solver.py`) and `compute_constraint_system`
-assemble bound and contact rows; distance and rolling rows are ROADMAP.md
+assemble bound, contact and distance rows; rolling rows are ROADMAP.md
 queue 1 item 10.
 """
 
@@ -50,8 +50,10 @@ class ConstraintSet:
     contact_frame_indices: tuple = ()
     # Per-contact sphere radius, 0.0 = point
     contact_radii: tuple = ()
-    # Closed loops: ((frame_a, frame_b), ...)
+    # Closed loops: ((frame_a, frame_b), ...) and their lengths (zeros here:
+    # the engine computes them at the reset pose, `compute_distance_refs`)
     distance_pairs: tuple = ()
+    distance_ref: tuple = ()
     # Rolling without slip: spheres ((frame, radius), ...) and wheels
     # ((frame, radius, (ax, ay, az)), ...), 3 unbounded rows each
     sphere_specs: tuple = ()
@@ -122,9 +124,22 @@ def build_constraint_set(robot, loop_pairs=(), include_contacts=True,
             else ()
         ),
         distance_pairs=pairs,
+        distance_ref=(0.0,) * len(pairs),
         sphere_specs=tuple(spheres),
         wheel_specs=tuple(wheels),
     )
+
+
+def compute_distance_refs(model: RobotModel, cset: ConstraintSet, kin: KinData) -> torch.Tensor:
+    """The loop closures' lengths at a configuration: (..., nd)."""
+    refs = [
+        torch.linalg.norm(frame_placement(model, kin, fa)[1] - frame_placement(model, kin, fb)[1],
+                          dim=-1)
+        for fa, fb in cset.distance_pairs
+    ]
+    if refs:
+        return torch.stack(refs, dim=-1)
+    return kin.vel.new_zeros(kin.vel.shape[:-2] + (0,))
 
 
 class ConstraintSystem(NamedTuple):
@@ -160,14 +175,16 @@ def compute_constraint_system(model: RobotModel, cset: ConstraintSet, opts: Cont
                               ground_fn: Optional[Callable], kin_bias: KinData,
                               jac_world: torch.Tensor, q: torch.Tensor, v: torch.Tensor,
                               prev_contact_active: torch.Tensor,
-                              prev_bound_active: torch.Tensor) -> ConstraintSystem:
-    """(J, drift, active) of the bound and contact rows, with the reference's
-    hysteresis on the active sets. `kin_bias` is forward kinematics at zero
-    acceleration, so its accelerations are the velocity-bias terms."""
-    if cset.n_distance or cset.n_rolling:
+                              prev_bound_active: torch.Tensor,
+                              distance_ref: Optional[torch.Tensor] = None) -> ConstraintSystem:
+    """(J, drift, active) of the bound, contact and distance rows, with the
+    reference's hysteresis on the active sets. `kin_bias` is forward
+    kinematics at zero acceleration, so its accelerations are the
+    velocity-bias terms; `distance_ref` (..., nd) the loops' lengths (None:
+    the set's own)."""
+    if cset.n_rolling:
         raise NotImplementedError(
-            "distance-loop and rolling constraint rows are not ported yet "
-            "(ROADMAP.md queue 1 item 10)"
+            "rolling constraint rows are not ported yet (ROADMAP.md queue 1 item 10)"
         )
     if ground_fn is None:
         ground_fn = flat_ground
@@ -180,7 +197,7 @@ def compute_constraint_system(model: RobotModel, cset: ConstraintSet, opts: Cont
 
     omega = 2.0 * math.pi * opts.stabilization_freq
     kp, kd = omega * omega, 2.0 * omega
-    off_b, off_c, _, _ = cset.row_offsets()
+    off_b, off_c, off_d, _ = cset.row_offsets()
     lo_all = np.asarray(model.position_limit_lower, np.float64)
     hi_all = np.asarray(model.position_limit_upper, np.float64)
 
@@ -268,6 +285,37 @@ def compute_constraint_system(model: RobotModel, cset: ConstraintSet, opts: Cont
                       else torch.zeros(batch + (0,), dtype=torch.bool, device=q.device))
     contact_depth = (torch.stack(depth_list, dim=-1) if depth_list
                      else q.new_zeros(batch + (0,)))
+
+    # Distance loops: the frames' relative velocity and bias acceleration
+    # along their direction, unbounded and always active
+    def frame_lin(fidx):
+        rot, pos = frame_placement(model, kin_bias, fidx)
+        v_local = frame_velocity_local(model, kin_bias, fidx)
+        parent = model.frame_parents[fidx]
+        a_sp = lie.motion_act_inv(fplace_rot[fidx], fplace_pos[fidx],
+                                  kin_bias.acc[..., parent, :])
+        v_ang_w = lie.mv(rot, v_local[..., 0:3])
+        v_lin_w = lie.mv(rot, v_local[..., 3:6])
+        a_lin_w = lie.mv(rot, a_sp[..., 3:6]) + lie.cross(v_ang_w, v_lin_w)
+        jf = frame_jacobian_world_aligned(model, kin_bias, jac_world, fidx)
+        return pos, v_lin_w, a_lin_w, jf[..., 3:6, :]
+
+    for k, (fa, fb) in enumerate(cset.distance_pairs):
+        pa, va, aa, ja = frame_lin(fa)
+        pb, vb, ab, jb = frame_lin(fb)
+        dp = pa - pb
+        dist = torch.clamp(torch.linalg.norm(dp, dim=-1), min=1e-12)
+        direction = dp / dist[..., None]
+        dv = va - vb
+        dv_proj = (dv * direction).sum(-1)
+        g = (direction * (aa - ab)).sum(-1)
+        g = g + ((dv * dv).sum(-1) - dv_proj**2) / dist
+        ref = (q.new_tensor(cset.distance_ref) if distance_ref is None else distance_ref)[..., k]
+        g = g + kp * (dist - ref) + kd * dv_proj
+        row = off_d + k
+        jac[..., row, :] = lie.mv((ja - jb).transpose(-1, -2), direction)
+        drift[..., row] = g
+        active[..., row] = True
     return ConstraintSystem(jac=jac, drift=drift, active=active, contact_basis=contact_basis,
                             contact_active=contact_active, bound_active=bound_active,
                             contact_depth=contact_depth)

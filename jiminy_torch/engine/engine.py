@@ -1,7 +1,8 @@
 """The simulation engine (port of `jiminy_tpu.engine.engine`): the component
 core (spring-damper contacts, or PGS joint bounds and ground contacts with
-`ContactModel.CONSTRAINT`, `joint_bounds_mode="constraint"`), and the
-generic dynamics path.
+`ContactModel.CONSTRAINT`, `joint_bounds_mode="constraint"`, and PGS loop
+closures beside spring-damper contacts and penalty bounds), and the generic
+dynamics path.
 
 - `Engine.reset(q0, v0)` builds the initial state; its dynamics evaluation
   goes through `cdyn_accel` on the card (spring-damper core), the plain
@@ -44,7 +45,11 @@ import torch
 from jiminy_torch.devices import resolve_device, resolve_dtype
 from jiminy_torch.engine import solver, steppers
 from jiminy_torch.engine.config import ContactModel, EngineOptions, IntegratorType
-from jiminy_torch.engine.constraints import build_constraint_set, compute_constraint_system
+from jiminy_torch.engine.constraints import (
+    build_constraint_set,
+    compute_constraint_system,
+    compute_distance_refs,
+)
 from jiminy_torch.engine.contact import compute_contact_forces
 from jiminy_torch.engine.hardware import ImuSensorGroup
 from jiminy_torch.engine.robot import Robot
@@ -61,7 +66,7 @@ _FIXED_STEP = {
     IntegratorType.EULER_EXPLICIT: "euler",
     IntegratorType.RUNGE_KUTTA_4: "rk4",
 }
-_PGS_KEYS = ("lam", "contact_active", "bound_active")
+_PGS_KEYS = ("lam", "contact_active", "bound_active")  # what the solve's stages refresh
 
 
 def _refuse_unported(robot: Robot, opts: EngineOptions, device: torch.device) -> None:
@@ -133,6 +138,7 @@ class Engine:
         self.constraint_mode = opts.contacts.model == ContactModel.CONSTRAINT
         self.cset = build_constraint_set(
             robot,
+            loop_pairs=robot.loop_pairs,
             include_contacts=self.constraint_mode,
             include_bounds=opts.joint_bounds_mode == "constraint",
         )
@@ -154,16 +160,19 @@ class Engine:
         self._cdyn = self._cdyn_cm = None
         core = opts.use_fast_dynamics is not False and cdyn.supports_model(robot.model)
         if core and self.has_constraints:
-            if not self.constraint_mode and robot.contact_frame_indices:
-                raise NotImplementedError(
-                    "joint bounds through the PGS solver beside spring-damper contacts "
-                    "are not ported yet (ROADMAP.md queue 1 item 9); use 'penalty', or "
-                    "constraint contacts"
-                )
-            # Component CRBA/NLE for the PGS path; penalty bounds are not
-            # applied beside PGS rows (as in jiminy_tpu)
+            # Component CRBA/NLE for the PGS path; out of constraint contact
+            # mode with the spring-damper contacts and the penalty bounds
+            # beside the rows (jiminy_tpu hands its integrators no bound
+            # gains in constraint contact mode)
+            spring = not self.constraint_mode
             self._cdyn_cm = cdyn.ComponentDynamics(
-                robot.model, gravity, ground_fn=self.ground_fn if self.constraint_mode else None
+                robot.model,
+                gravity,
+                contact_opts=opts.contacts if spring else None,
+                contact_frames=robot.contact_frame_indices if spring else (),
+                contact_radii=robot.contact_radii if spring else (),
+                bound_gains=self._bound_gains if spring else {},
+                ground_fn=self.ground_fn,
             )
         elif core and not self.constraint_mode:
             self._cdyn = cdyn.ComponentDynamics(
@@ -301,7 +310,9 @@ class Engine:
             return self.dynamics_full(t, q, v, command, carry)
         u_motor, u = self._compute_efforts(command, v)
         if self._cdyn_cm is not None:
-            return self._constrained_eval(q, v, u, u_motor)
+            if carry is None:
+                carry = self._zero_carry(torch.broadcast_shapes(q.shape[:-1], v.shape[:-1]))
+            return self._constrained_eval(q, v, u, u_motor, carry["distance_ref"])
         a = self._cdyn.accel(q, v, u)
         auxc = self._cdyn.aux_outputs(q, v, a, imu_frames=self._imu_frames)
         imu_raw = auxc.pop("imu_raw")
@@ -374,20 +385,25 @@ class Engine:
     # ------------------------------------------------------------------ #
     # The generic path
     # ------------------------------------------------------------------ #
-    def _zero_carry(self, batch) -> dict:
-        """A cold PGS carry: no multiplier, no active row."""
+    def _zero_carry(self, batch, distance_ref=None) -> dict:
+        """A cold PGS carry: no multiplier, no active row; the loops' lengths
+        `distance_ref` (the set's own if None)."""
         cset = self.cset
+        if distance_ref is None:
+            distance_ref = torch.as_tensor(cset.distance_ref, dtype=self.dtype,
+                                           device=self.device).expand(batch + (cset.n_distance,))
         return {"lam": self._zeros(batch + (cset.total_rows,)),
                 "contact_active": self._zeros(batch + (cset.n_contacts,), torch.bool),
-                "bound_active": self._zeros(batch + (cset.n_bounds,), torch.bool)}
+                "bound_active": self._zeros(batch + (cset.n_bounds,), torch.bool),
+                "distance_ref": distance_ref}
 
     def _carry_of(self, state: SimState) -> dict:
-        """The PGS warm start and active sets a state carries (a cold,
-        zero-width carry on a state without rows)."""
+        """The PGS warm start, active sets and loop lengths a state carries
+        (a cold, zero-width carry on a state without rows)."""
         if state.lam is None:
             return self._zero_carry(state.q.shape[:-1])
         return {"lam": state.lam, "contact_active": state.contact_active,
-                "bound_active": state.bound_active}
+                "bound_active": state.bound_active, "distance_ref": state.distance_ref}
 
     def dynamics_full(self, t, q, v, command, carry=None):
         """One generic dynamics evaluation (reference
@@ -465,7 +481,7 @@ class Engine:
         csys = compute_constraint_system(
             model, cset, self.options.contacts, self.ground_fn, kin,
             joint_space_jacobian(model, kin), q, v, carry["contact_active"],
-            carry["bound_active"],
+            carry["bound_active"], distance_ref=carry["distance_ref"],
         )
         o = self._solver_opts
         res = solver.constrained_forward_dynamics(
@@ -481,7 +497,8 @@ class Engine:
         input shape as a CUDA graph and replayed: the same kernels, without
         their launch overhead."""
         carry = self._carry_of(state)
-        args = (state.t, state.q, state.v, command, [carry[k] for k in _PGS_KEYS])
+        args = (state.t, state.q, state.v, command,
+                [carry[k] for k in _PGS_KEYS + ("distance_ref",)])
         if self.device.type == "cuda" and self.external_force_fn is None:
             q, v, a, aux = self._replay_generic_period(kind, *args)
         else:
@@ -496,12 +513,13 @@ class Engine:
         Returns (q', v', a, aux), q' normalized, a and aux at the tick's end."""
         model = self.robot.model
         carry = dict(zip(_PGS_KEYS, carry_list))
+        dref = carry_list[len(_PGS_KEYS)]
         dt = self._dt_tick
         if self.has_constraints and self.options.stepper.pgs_stage_warm_start:
             step = steppers.euler_step_stateful if kind == "euler" else steppers.rk4_step_stateful
 
             def f2(t, q, v, pgs):
-                a, aux = self.dynamics_full(t, q, v, command, pgs)
+                a, aux = self.dynamics_full(t, q, v, command, {**pgs, "distance_ref": dref})
                 return a, {k: aux[k] for k in _PGS_KEYS}
 
             for _ in range(self.n_substeps):
@@ -509,11 +527,11 @@ class Engine:
                 t = t + dt
         else:
             step = steppers.euler_step if kind == "euler" else steppers.rk4_step
-            f = self._accel_fn(command, carry)
+            f = self._accel_fn(command, {**carry, "distance_ref": dref})
             for _ in range(self.n_substeps):
                 q, v, _ = step(model, f, t, q, v, dt)
                 t = t + dt
-        a, aux = self.dynamics_full(t, q, v, command, carry)
+        a, aux = self.dynamics_full(t, q, v, command, {**carry, "distance_ref": dref})
         return integ.normalize(model, q), v, a, aux
 
     def _replay_generic_period(self, kind: str, t, q, v, command, carry_list):
@@ -548,16 +566,20 @@ class Engine:
         graph.replay()
         return q2.clone(), v2.clone(), a.clone(), {k: x.clone() for k, x in aux.items()}
 
-    def _constrained_eval(self, q, v, u, u_motor):
-        """The constrained dynamics at one state, plain torch on any device
-        (jiminy_tpu's `dynamics_full` in constraint mode): acceleration,
-        contact forces from the multipliers, and the solver carry."""
+    def _constrained_eval(self, q, v, u, u_motor, distance_ref):
+        """The constrained dynamics at one state from a cold start, plain
+        torch on any device (jiminy_tpu's `dynamics_full` on its component
+        path): acceleration, contact forces (from the multipliers in
+        constraint contact mode, else the spring-damper ones), and the solver
+        carry."""
         cd, cset, o = self._cdyn_cm, self.cset, self._solver_opts
         model = self.robot.model
         batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1])
         damping = np.asarray(model.damping, np.float64)
         if np.any(damping != 0.0):
             u = u - torch.as_tensor(damping, dtype=self.dtype, device=self.device) * v
+        if cd.bound_gains:
+            u = u + penalty_bounds_torque(cd.bound_gains, model.nv, q, v)
         qc = [q[..., i] for i in range(model.nq)]
         vc = [v[..., i] for i in range(model.nv)]
         no = self._zeros(batch, torch.bool)
@@ -566,8 +588,9 @@ class Engine:
             o.transition_eps, o.friction, o.torsion, o.regularization, o.iter_max,
             [no] * cset.n_contacts, [no] * cset.n_bounds,
             [self._zeros(batch)] * cset.total_rows,
+            [distance_ref[..., k] for k in range(cset.n_distance)],
         )
-        fw, wl = solver.contact_outputs(cd, cset, qc, lam, basis)
+        a = cdyn._stack(qdd, batch, q)
 
         def rows(comps, width):
             if not comps:
@@ -579,11 +602,16 @@ class Engine:
                 return self._zeros(batch + (0,), torch.bool)
             return torch.stack([x.expand(batch) for x in comps], dim=-1)
 
-        return cdyn._stack(qdd, batch, q), {
+        if cset.n_contacts:
+            fw, wl = solver.contact_outputs(cd, cset, qc, lam, basis)
+            contacts = {"contact_f_world": rows(fw, 3), "contact_w_local": rows(wl, 6),
+                        "contact_depth": cdyn._stack(depth, batch, q)}
+        else:
+            contacts = cd.aux_outputs(q, v, a)
+            contacts.pop("imu_raw")
+        return a, {
             "u_motor": u_motor,
-            "contact_f_world": rows(fw, 3),
-            "contact_w_local": rows(wl, 6),
-            "contact_depth": cdyn._stack(depth, batch, q),
+            **contacts,
             "lam": torch.movedim(lam, 0, -1),
             "contact_active": masks(cact),
             "bound_active": masks(bact),
@@ -594,7 +622,8 @@ class Engine:
 
     # ------------------------------------------------------------------ #
     def reset(self, q0, v0=None) -> SimState:
-        """Initial state; `q0` is (nq,) or (B, nq) for B environments."""
+        """Initial state; `q0` is (nq,) or (B, nq) for B environments. The
+        loop closures' lengths are those of the reset pose."""
         model = self.robot.model
         q0 = torch.as_tensor(q0, dtype=self.dtype, device=self.device)
         batch = q0.shape[:-1]
@@ -606,7 +635,10 @@ class Engine:
         q0 = integ.normalize(model, q0)
         command = self._zeros(batch + (self.robot.nmotors,))
         t0 = self._zeros(batch)
-        a0, aux = self._final_eval(t0, q0, v0, command)
+        dist_ref = self._zeros(batch + (0,))
+        if self.cset.n_distance:
+            dist_ref = compute_distance_refs(model, self.cset, forward_kinematics(model, q0))
+        a0, aux = self._final_eval(t0, q0, v0, command, self._zero_carry(batch, dist_ref))
         st = SimState(
             t=t0,
             q=q0,
@@ -632,7 +664,7 @@ class Engine:
                 contact_active=aux["contact_active"],
                 bound_active=aux["bound_active"],
                 lam=aux["lam"],
-                distance_ref=self._zeros(batch + (0,)),
+                distance_ref=dist_ref,
             )
         return self._update_sensors(st, a0, aux)
 
@@ -674,10 +706,11 @@ class Engine:
             return self._integrate_period_generic(state, command, kind)
         cc = command
         if self._cdyn_cm is not None:
-            # Warm-start multipliers and active sets ride the command row
+            # The loops' lengths, warm-start multipliers and active sets ride
+            # the command row
             batch = state.q.shape[:-1]
-            cc = torch.cat([command.expand(batch + command.shape[-1:]), state.lam,
-                            state.contact_active.to(self.dtype),
+            cc = torch.cat([command.expand(batch + command.shape[-1:]), state.distance_ref,
+                            state.lam, state.contact_active.to(self.dtype),
                             state.bound_active.to(self.dtype)], dim=-1)
         q, v, extras = self._get_period_run(kind)(state.q, state.v, cc)
         a, aux = self._unpack_period_extras(extras, command, v, *self._solver_widths())
@@ -790,6 +823,10 @@ class Engine:
         n_lam, n_cact, n_bact = widths = self._solver_widths()
         carry_ext = carry
         if self._cdyn_cm is not None:
+            # The loops' lengths ride the action row, the solver's carry
+            # behind the controller's
+            action = torch.cat([action.expand(state.q.shape[:-1] + action.shape[-1:]),
+                                state.distance_ref], dim=-1)
             carry_ext = torch.cat([carry, state.lam, state.contact_active.to(self.dtype),
                                    state.bound_active.to(self.dtype)], dim=-1)
         run = self._get_rollout_run(cache_key, controller, n_periods)

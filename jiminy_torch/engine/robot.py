@@ -3,10 +3,11 @@
 
 This slice assembles motors (armature folded onto the model diagonal),
 encoder, effort, IMU and force sensors, point contact frames, and collision
-bodies expanded into radius-0 contact points (boxes, point clouds).
+bodies expanded into radius-0 contact points (boxes, point clouds), and
+loop closures (distance constraints between two frames, `loop_pairs`).
 Flexibility and backlash joints, the other collision primitives (spheres,
-capsules, cylinders), collision pairs and loop closures are refused with
-the ROADMAP.md item that will port them.
+capsules, cylinders) and collision pairs are refused with the ROADMAP.md
+item that will port them.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ class Robot:
     sensors: SensorSuite = dataclasses.field(default_factory=SensorSuite)
     contact_frame_indices: tuple = ()
     contact_radii: tuple = ()
+    # Closed kinematic loops: ((frame_a, frame_b), ...) distance constraints
+    loop_pairs: tuple = ()
 
     @property
     def nq(self):
@@ -72,10 +75,6 @@ class Robot:
         if collision_pairs:
             raise NotImplementedError(
                 "collision pairs are not ported yet (ROADMAP.md queue 1 item 10)"
-            )
-        if loop_constraints:
-            raise NotImplementedError(
-                "loop closures are not ported yet (ROADMAP.md queue 1 item 10)"
             )
         if isinstance(model_or_urdf, RobotModel):
             model = model_or_urdf
@@ -122,6 +121,7 @@ class Robot:
             sensors=suite,
             contact_frame_indices=contact_idx,
             contact_radii=(0.0,) * len(contact_idx),
+            loop_pairs=tuple(tuple(p) for p in loop_constraints),
         )
 
 

@@ -12,13 +12,15 @@ matrix. It is the generic path's solve (`Engine.dynamics_full`), plain
 torch on every device.
 
 Plain versions. `constrained_accel_full_components` mirrors jiminy_tpu's
-function of the same name: component CRBA and RNEA, an LDL^T factor of the
-mass matrix, the bound and ground-contact rows with their Baumgarte drifts
-and active-set hysteresis, A with its diagonal regularization, and a fixed
-number of boxed/cone Gauss-Seidel sweeps warm-started from the carried
-multipliers. The right-hand sides of the N constraint rows are solved
-together: each component of them is one (N, *batch) tensor, and A, b and
-the multipliers are (N, N, *batch) and (N, *batch) tensors. Every sum runs
+function of the same name: component CRBA and RNEA (with the spring-damper
+ground forces of the core's contacts, if it has any, as external forces),
+an LDL^T factor of the mass matrix, the bound, ground-contact and
+distance-loop rows with their Baumgarte drifts and active-set hysteresis, A
+with its diagonal regularization, and a fixed number of boxed/cone
+Gauss-Seidel sweeps warm-started from the carried multipliers. The
+right-hand sides of the N constraint rows are solved together: each
+component of them is one (N, *batch) tensor, and A, b and the multipliers
+are (N, N, *batch) and (N, *batch) tensors. Every sum runs
 in jiminy_tpu's order, except the Gauss-Seidel row dot, one reduction per
 row here and a sequential sum in jiminy_tpu and the kernels (they differ in
 rounding). `ConstrainedPeriodIntegrator` and `ConstrainedRolloutIntegrator`
@@ -37,10 +39,11 @@ memory, solving the active rows alone over each row's support dofs;
 `pack_constraints` packs those supports and `cm_smem_per_env` sizes each
 env's shared memory.
 
-Point contacts, joint bounds and ground contacts are ported, on flat ground
-or on a ground profile (`cd.ground_fn`; the kernels evaluate its packed
-form, `utils.terrain`); distance-loop and rolling rows raise
-`NotImplementedError` naming ROADMAP.md queue 1 item 10.
+Joint bounds, ground contacts and distance loops are ported, beside
+spring-damper ground contacts and penalty joint bounds, on flat ground or
+on a ground profile (`cd.ground_fn`; the kernels evaluate its packed form,
+`utils.terrain`); rolling rows raise `NotImplementedError` naming
+ROADMAP.md queue 1 item 10, sphere contact primitives item 9.
 """
 
 from __future__ import annotations
@@ -89,15 +92,14 @@ def _relaxation(iter_idx: int, iter_max: int) -> float:
 
 
 def _unported_rows(cset: ConstraintSet) -> None:
-    if cset.n_distance or cset.n_rolling:
+    if cset.n_rolling:
         raise NotImplementedError(
-            "distance-loop and rolling constraint rows are not ported yet "
-            "(ROADMAP.md queue 1 item 10)"
+            "rolling constraint rows are not ported yet (ROADMAP.md queue 1 item 10)"
         )
     if any(r > 0.0 for r in cset.contact_radii):
         raise NotImplementedError(
             "sphere contact primitives (radius > 0) are not ported yet "
-            "(ROADMAP.md queue 1 item 3, collision bodies)"
+            "(ROADMAP.md queue 1 item 9)"
         )
 
 
@@ -330,10 +332,10 @@ def _flat_ground_normal(like: torch.Tensor):
 
 
 def constraint_system_components(cd, cset, qc, vc, xs, world, vel, acc, kp: float, kd: float,
-                                 transition_eps: float, prev_cact, prev_bact):
-    """Joint-bound and ground-contact rows (jiminy_tpu's
-    `constraint_system_components` without its distance and rolling rows),
-    on flat ground or on the ground `cd.ground_fn`.
+                                 transition_eps: float, prev_cact, prev_bact, drefc=()):
+    """Joint-bound, ground-contact and distance-loop rows (jiminy_tpu's
+    `constraint_system_components` without its rolling rows), on flat ground
+    or on the ground `cd.ground_fn`; `drefc` the loops' lengths.
 
     Returns `(rows [N][nv], drifts [N], basis [nc] (c0, c1, n), depth [nc],
     cact [nc], bact [nb])`, rows and drifts already masked by activity; a
@@ -411,6 +413,11 @@ def constraint_system_components(cd, cset, qc, vc, xs, world, vel, acc, kp: floa
             row[d] = mask(v_dot(n_col, col))
         rows.append(row)
         drifts.append(mask(v_dot(n_col, g_ang)))
+    if cset.n_distance:
+        d_rows, d_drifts = cd.distance_rows_components(world, vel, acc, cset.distance_pairs,
+                                                       drefc, kp, kd)
+        rows += d_rows
+        drifts += d_drifts
     return rows, drifts, basis_all, depth_all, cact, bact
 
 
@@ -426,11 +433,12 @@ def _stack_rows(comps, batch, like: torch.Tensor) -> torch.Tensor:
 def constrained_accel_full_components(cd, cset, qc, vc, tc, kp: float, kd: float,
                                       transition_eps: float, friction: float, torsion: float,
                                       regularization: float, iter_max: int, prev_cact,
-                                      prev_bact, lamc):
-    """Component-wise constrained forward dynamics for bound and ground
-    contact rows: qdd = M^-1 (tau - nle + J^T lam), lam from PGS over
-    A = J M^-1 J^T + reg. Returns `(qdd [nv], lam (N, *batch), basis,
-    depth, cact, bact)`."""
+                                      prev_bact, lamc, drefc=()):
+    """Component-wise constrained forward dynamics for bound, ground
+    contact and distance rows: qdd = M^-1 (tau - nle + J^T lam), lam from
+    PGS over A = J M^-1 J^T + reg; nle takes the core's spring-damper
+    ground forces, if it has contacts. Returns `(qdd [nv], lam (N, *batch),
+    basis, depth, cact, bact)`."""
     nv = cd.model.nv
     n = cset.total_rows
     like = qc[0]
@@ -439,10 +447,11 @@ def constrained_accel_full_components(cd, cset, qc, vc, tc, kp: float, kd: float
     world = cd._world_placements(xs)
     vel, acc = cd._vel_bias_components(xs, vc)
     rows, drifts, basis, depth, cact, bact = constraint_system_components(
-        cd, cset, qc, vc, xs, world, vel, acc, kp, kd, transition_eps, prev_cact, prev_bact
+        cd, cset, qc, vc, xs, world, vel, acc, kp, kd, transition_eps, prev_cact, prev_bact, drefc
     )
     mass = cd.mass_matrix_components(qc, xs=xs)
-    nle = cd.nle_components(qc, vc, xs=xs)
+    fext = cd._contact_fext(world, vel)[0] if cd.has_contacts else None
+    nle = cd.nle_components(qc, vc, xs=xs, fext=fext)
     l, dinv = _ldl_factor_components(mass)
     tau_res = _ldl_solve_components(l, dinv, [tc[i] - nle[i] for i in range(nv)])
 
@@ -463,8 +472,10 @@ def constrained_accel_full_components(cd, cset, qc, vc, tc, kp: float, kd: float
         t = jac[d] * tau_res[d]
         jt_tau = t if jt_tau is None else jt_tau + t
     b = -_stack_rows(drifts, batch, like) - jt_tau
-    # Warm start masked by row activity (inactive rows: zero force)
-    act_of_row = list(bact) + [x for x in cact for _ in range(4)]
+    # Warm start masked by row activity (inactive rows: zero force; the
+    # distance rows are always active)
+    always = torch.ones(batch, dtype=torch.bool, device=like.device)
+    act_of_row = list(bact) + [x for x in cact for _ in range(4)] + [always] * cset.n_distance
     lam0 = torch.where(torch.stack([x.expand(batch) for x in act_of_row]),
                        torch.stack([x.to(like.dtype).expand(batch) for x in lamc]), 0.0)
     lam = _pgs_sweep_components(cset, a, b, lam0, friction, torsion, iter_max)
@@ -515,76 +526,93 @@ class SolverOptions:
     stage_warm_start: bool
 
 
+def penalty_bound_torques(bound_gains: dict, qc, vc, tc):
+    """`tc` with the penalty joint-bound torques added, {vidx: (lo, hi, kp,
+    kd, qidx)}: kp (under - over) - kd v while a bound is passed."""
+    tc = list(tc)
+    for vi, (lo, hi, kp_b, kd_b, qi) in bound_gains.items():
+        qj, vj = qc[qi], vc[vi]
+        over = torch.clamp(qj - hi, min=0.0)
+        under = torch.clamp(lo - qj, min=0.0)
+        active = (over > 0.0) | (under > 0.0)
+        tc[vi] = tc[vi] + (kp_b * (under - over) - torch.where(active, kd_b * vj, 0.0))
+    return tc
+
+
+def solver_channels(lam, cact, bact) -> list:
+    """The warm-start and hysteresis channels `[lam (N) | cact (nc) | bact
+    (nb)]` of a solve's outputs, as components."""
+    return (list(lam.unbind(0)) + [torch.where(x, 1.0, 0.0) for x in cact]
+            + [torch.where(x, 1.0, 0.0) for x in bact])
+
+
 class _ConstrainedCore:
     """The closures of `make_constrained_period_integrator`: command row
-    `[motor command (n_cmd) | lam (N) | contact active (nc) | bound active
-    (nb)]`, extras `[a | f_world | w_local | depth | imu | lam | cact |
-    bact]`."""
+    `[motor command (n_cmd) | distance_ref (nd) | lam (N) | contact active
+    (nc) | bound active (nb)]`, extras `[a | f_world | w_local | depth | imu
+    | lam | cact | bact]`. The contact block of the extras comes from the
+    multipliers in constraint contact mode, else from the core's
+    spring-damper contacts (one of the two has none); the core's penalty
+    bounds (`cd.bound_gains`, empty in constraint contact mode) add to the
+    motor torques."""
 
     def __init__(self, cd, tau_c, cset: ConstraintSet, opts: SolverOptions, dt: float,
                  n_substeps: int, integrator: str, n_cmd: int, imu_frames: tuple):
         _unported_rows(cset)
         if integrator not in cdyn._INTEGRATORS:
             raise ValueError(f"unknown fixed-step integrator {integrator!r}")
-        if cd.has_contacts or cd.bound_gains:
-            raise NotImplementedError(
-                "spring-damper contacts or penalty bounds beside PGS rows are not "
-                "ported yet (ROADMAP.md queue 1 item 9)"
-            )
         self.cd, self.tau_c, self.cset, self.opts = cd, tau_c, cset, opts
         self.dt, self.n_substeps, self.integrator = float(dt), int(n_substeps), integrator
         self.n_cmd, self.imu_frames = int(n_cmd), tuple(imu_frames)
-        nc, nb, n = cset.n_contacts, cset.n_bounds, cset.total_rows
-        self.n_cc = self.n_cmd + n + nc + nb
+        nc, nb, n, nd = cset.n_contacts, cset.n_bounds, cset.total_rows, cset.n_distance
+        self.n_cc = self.n_cmd + nd + n + nc + nb
         self._packed = {}
-        self.n_extra = cd.model.nv + 10 * nc + 6 * len(self.imu_frames) + n + nc + nb
+        nc_out = nc + (len(cd.contact_frames) if cd.has_contacts else 0)
+        self.n_extra = cd.model.nv + 10 * nc_out + 6 * len(self.imu_frames) + n + nc + nb
 
     def u_c(self, qc, vc, cmd):
         damping = self.cd.c.damping
         tc = self.tau_c(qc, vc, cmd)
-        return [tc[i] - damping[i] * vc[i] if damping[i] != 0.0 else tc[i]
-                for i in range(len(tc))]
+        tc = [tc[i] - damping[i] * vc[i] if damping[i] != 0.0 else tc[i]
+              for i in range(len(tc))]
+        return penalty_bound_torques(self.cd.bound_gains, qc, vc, tc)
 
     def split_cc(self, cc):
         cset = self.cset
-        n, nc = cset.total_rows, cset.n_contacts
-        off = self.n_cmd
+        n, nc, nd = cset.total_rows, cset.n_contacts, cset.n_distance
+        off = self.n_cmd + nd
         lamc = cc[off : off + n]
         cactc = [x > 0.5 for x in cc[off + n : off + n + nc]]
         bactc = [x > 0.5 for x in cc[off + n + nc :]]
-        return cc[: self.n_cmd], lamc, cactc, bactc
+        return cc[: self.n_cmd], cc[self.n_cmd : off], lamc, cactc, bactc
 
     def accel(self, qc, vc, cc):
-        cmd, lamc, cactc, bactc = self.split_cc(cc)
+        cmd, drefc, lamc, cactc, bactc = self.split_cc(cc)
         o = self.opts
         return constrained_accel_full_components(
             self.cd, self.cset, qc, vc, self.u_c(qc, vc, cmd), o.kp, o.kd, o.transition_eps,
-            o.friction, o.torsion, o.regularization, o.iter_max, cactc, bactc, lamc,
+            o.friction, o.torsion, o.regularization, o.iter_max, cactc, bactc, lamc, drefc,
         )
 
     def cc_with(self, cc, lam, cact, bact):
         """The command row with its warm-start and hysteresis channels
         replaced by a solver stage's outputs (stage-chained warm start)."""
-        return (
-            list(cc[: self.n_cmd]) + list(lam.unbind(0))
-            + [torch.where(x, 1.0, 0.0) for x in cact]
-            + [torch.where(x, 1.0, 0.0) for x in bact]
-        )
+        return list(cc[: self.n_cmd + self.cset.n_distance]) + solver_channels(lam, cact, bact)
 
     def final_outputs(self, qc, vc, cc):
         ac, lam, basis, depth, cact, bact = self.accel(qc, vc, cc)
-        _, _, _, imu = self.cd._aux_components(qc, vc, ac, self.imu_frames)
+        fw_aux, wl_aux, depth_aux, imu = self.cd._aux_components(qc, vc, ac, self.imu_frames)
         extras = list(ac)
-        fw_rows, wl_rows = contact_outputs(self.cd, self.cset, qc, lam, basis)
+        if self.cset.n_contacts:
+            fw_rows, wl_rows = contact_outputs(self.cd, self.cset, qc, lam, basis)
+        else:
+            fw_rows, wl_rows, depth = fw_aux, wl_aux, depth_aux
         for r in fw_rows + wl_rows:
             extras.extend(r)
         extras.extend(depth)
         for r in imu:
             extras.extend(r)
-        extras.extend(lam.unbind(0))
-        extras.extend([torch.where(x, 1.0, 0.0) for x in cact])
-        extras.extend([torch.where(x, 1.0, 0.0) for x in bact])
-        return extras
+        return extras + solver_channels(lam, cact, bact)
 
     def substep(self, qc, vc, cc):
         """One integrator substep: `(q', v', cc')`, cc' carrying the last
@@ -653,7 +681,8 @@ class ConstrainedPeriodIntegrator(_ConstrainedCore):
 class ConstrainedRolloutIntegrator(_ConstrainedCore):
     """One whole env step (the closures of
     `make_constrained_rollout_integrator` on `make_generic_rollout`):
-    action row `[env action]`, carry `[block carry | lam | cact | bact]`,
+    action row `[env action | distance_ref (nd)]`, carry `[block carry |
+    lam | cact | bact]`,
     extras = period extras + `[cc_last | carry']`. Each tick runs the
     controller, then the substeps with the command row threaded through
     them, then an end-of-tick solve that refreshes the carried multipliers
@@ -674,15 +703,17 @@ class ConstrainedRolloutIntegrator(_ConstrainedCore):
 
     def controller_fn(self, qc, vc, bc, ac):
         n_block = len(bc) - self.n_solver
-        cmd, bs2 = self.controller(qc, vc, bc[:n_block], ac)
-        return list(cmd) + list(bc[n_block:]), list(bs2) + list(bc[n_block:])
+        n_action = len(ac) - self.cset.n_distance
+        cmd, bs2 = self.controller(qc, vc, bc[:n_block], ac[:n_action])
+        return (list(cmd) + list(ac[n_action:]) + list(bc[n_block:]),
+                list(bs2) + list(bc[n_block:]))
 
     def post_tick_fn(self, qc, vc, cc, bc):
         """End-of-tick solve: refresh the warm-start multipliers and the
         hysteresis masks of the carry."""
         _, lam, _, _, cact, bact = self.accel(qc, vc, cc)
         n_block = len(bc) - self.n_solver
-        return list(bc[:n_block]) + self.cc_with([], lam, cact, bact)
+        return list(bc[:n_block]) + solver_channels(lam, cact, bact)
 
     def plain(self, q, v, action, carry, n_ticks: Optional[int] = None,
               n_substeps: Optional[int] = None):
@@ -725,10 +756,11 @@ class ConstrainedRolloutIntegrator(_ConstrainedCore):
 # Constant packing (layout read by csrc/pgs.cuh, `struct CModel`)
 # --------------------------------------------------------------------------- #
 
-SI_HEADER, SF_HEADER = 8, 8  # [N nb nc iter_max stage_warm support_width ...],
+SI_HEADER, SF_HEADER = 8, 8  # [N nb nc iter_max stage_warm support_width nd ...],
 #                               [kp kd friction torsion reg min_reg transition_eps ...]
 SI_BOUND, SI_CONTACT = 2, 3  # (q index, v index); (parent joint, support size, support offset)
-SF_BOUND, SF_CONTACT = 4, 12  # (lo hi lo+eps hi-eps); fpos(3) frot(9)
+SI_DISTANCE = 4  # (parent joint a, parent joint b, support size, support offset)
+SF_BOUND, SF_CONTACT, SF_DISTANCE = 4, 12, 6  # (lo hi lo+eps hi-eps); fpos(3) frot(9); fpos a, b
 
 
 @dataclasses.dataclass(eq=False)
@@ -751,20 +783,24 @@ def support_dofs(cd, joint: int) -> list:
 
 def pack_constraints(cd, cset: ConstraintSet, opts: SolverOptions, device,
                      dtype) -> PackedConstraints:
-    """Pack the row layout, bound limits, contact frames and support dofs,
+    """Pack the row layout, bound limits, contact frames, loop closures'
+    frames and support dofs (a loop's: the union of both frames' chains),
     solver constants and the relaxation weights of every sweep. Floats are
     computed in float64 on the host, as the plain version computes its
     Python-float constants, then rounded once to `dtype`. The ground's
     program travels in the model's buffers (`cdyn.pack_model`)."""
     _unported_rows(cset)
     model, c = cd.model, cd.c
-    nb, nc, n = cset.n_bounds, cset.n_contacts, cset.total_rows
+    nb, nc, n, nd = cset.n_bounds, cset.n_contacts, cset.total_rows, cset.n_distance
     lo_all = np.asarray(model.position_limit_lower, dtype=np.float64)
     hi_all = np.asarray(model.position_limit_upper, dtype=np.float64)
     eps = opts.transition_eps
-    supports = [support_dofs(cd, c.frame_parents[f]) for f in cset.contact_frame_indices]
+    fp = c.frame_parents
+    supports = [support_dofs(cd, fp[f]) for f in cset.contact_frame_indices]
+    supports += [sorted(set(support_dofs(cd, fp[fa])) | set(support_dofs(cd, fp[fb])))
+                 for fa, fb in cset.distance_pairs]
     width = max([1 if nb else 0] + [len(sup) for sup in supports])
-    si = [n, nb, nc, opts.iter_max, int(opts.stage_warm_start), width]
+    si = [n, nb, nc, opts.iter_max, int(opts.stage_warm_start), width, nd]
     si += [0] * (SI_HEADER - len(si))
     sf = [opts.kp, opts.kd, opts.friction, opts.torsion, opts.regularization, _MIN_REGULARIZER,
           eps]
@@ -775,17 +811,21 @@ def pack_constraints(cd, cset: ConstraintSet, opts: SolverOptions, device,
         lo, hi = float(lo_all[qi]), float(hi_all[qi])
         si += [qi, model.idx_v[j]]
         sf += [lo, hi, lo + eps, hi - eps]
-    off = len(si) + SI_CONTACT * nc
+    off = len(si) + SI_CONTACT * nc + SI_DISTANCE * nd
     for fidx, sup in zip(cset.contact_frame_indices, supports):
-        si += [c.frame_parents[fidx], len(sup), off]
+        si += [fp[fidx], len(sup), off]
         off += len(sup)
         sf += list(c.fpos[fidx]) + [x for row in c.frot[fidx] for x in row]
+    for (fa, fb), sup in zip(cset.distance_pairs, supports[nc:]):
+        si += [fp[fa], fp[fb], len(sup), off]
+        off += len(sup)
+        sf += list(c.fpos[fa]) + list(c.fpos[fb])
     for sup in supports:
         si += sup
     return PackedConstraints(
         si=torch.tensor(si, dtype=torch.int32, device=device),
         sf=torch.tensor(sf, dtype=torch.float64).to(device=device, dtype=dtype),
-        counts=dict(n_rows=n, nb_rows=nb, nc_rows=nc, iter_max=opts.iter_max,
+        counts=dict(n_rows=n, nb_rows=nb, nc_rows=nc, nd_rows=nd, iter_max=opts.iter_max,
                     support_width=width),
     )
 
@@ -799,6 +839,12 @@ def _n_solver(cpk: PackedConstraints) -> int:
     return cpk.counts["n_rows"] + cpk.counts["nc_rows"] + cpk.counts["nb_rows"]
 
 
+def cm_ext(packed, cpk: PackedConstraints) -> int:
+    """1 when a constrained launch takes the kernels' extended body: loop
+    closures, or spring-damper contacts or penalty bounds in the core."""
+    return int(cpk.counts["nd_rows"] > 0 or packed.counts["nc"] > 0 or packed.counts["nb"] > 0)
+
+
 def cm_smem_per_env(packed, cpk: PackedConstraints, dtype) -> int:
     """Bytes of dynamic shared memory one env of a constrained launch
     takes; raises for more rows than the kernels take (a block's share past
@@ -808,7 +854,8 @@ def cm_smem_per_env(packed, cpk: PackedConstraints, dtype) -> int:
     c, k = packed.counts, cpk.counts
     elt = torch.empty((), dtype=dtype).element_size()
     per_env = kernels.load().cm_smem_bytes(c["nj"], c["nq"], c["nv"], k["n_rows"], k["nc_rows"],
-                                           k["nb_rows"], k["support_width"], elt)
+                                           k["nb_rows"], k["support_width"], k["nd_rows"],
+                                           c["nc"], elt)
     if per_env < 0:
         raise ValueError(f"constrained kernels: {k['n_rows']} rows exceed the compiled cap")
     return per_env
@@ -821,8 +868,9 @@ def _launch_period_cm(packed, cpk: PackedConstraints, q, v, cc, n_substeps: int,
     nq, nv, n_cc = packed.counts["nq"], packed.counts["nv"], cc.shape[-1]
     cdyn._check_caps(packed, n_cmd=n_cmd)
     smem = cm_smem_per_env(packed, cpk, q.dtype)
-    if n_cc != n_cmd + _n_solver(cpk):
-        raise ValueError(f"cdyn_period_cm: command row width {n_cc} != {n_cmd} + solver channels")
+    if n_cc != n_cmd + cpk.counts["nd_rows"] + _n_solver(cpk):
+        raise ValueError(f"cdyn_period_cm: command row width {n_cc} != {n_cmd} + loop lengths "
+                         "+ solver channels")
     if n_cmd < packed.counts["nm"]:
         raise ValueError(f"cdyn_period_cm: command width {n_cmd} < {packed.counts['nm']} motors")
     batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1], cc.shape[:-1])
@@ -835,7 +883,7 @@ def _launch_period_cm(packed, cpk: PackedConstraints, q, v, cc, n_substeps: int,
         cdyn._launch("cdyn_period_cm", q.dtype, packed.ci.data_ptr(), packed.cf.data_ptr(),
                      cpk.si.data_ptr(), cpk.sf.data_ptr(), qs.data_ptr(), vs.data_ptr(),
                      cs.data_ptr(), qo.data_ptr(), vo.data_ptr(), eo.data_ptr(), b, n_cmd,
-                     int(n_substeps), int(integrator), smem, packed.terrain)
+                     int(n_substeps), int(integrator), smem, packed.terrain, cm_ext(packed, cpk))
     return (
         qo.t().reshape(tuple(batch) + (nq,)),
         vo.t().reshape(tuple(batch) + (nv,)),
@@ -858,7 +906,7 @@ def _launch_rollout_cm(packed, cpk: PackedConstraints, ctrl, kind: int, q, v, ac
                          "and the solver channels")
     if n_cmd < packed.counts["nm"]:
         raise ValueError(f"cdyn_rollout_cm: command width {n_cmd} < {packed.counts['nm']} motors")
-    if kind == cdyn.CONTROLLER_ZOH and na < n_cmd:
+    if kind == cdyn.CONTROLLER_ZOH and na - cpk.counts["nd_rows"] < n_cmd:
         raise ValueError(f"cdyn_rollout_cm: pass-through needs >= {n_cmd} action channels")
     batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1], action.shape[:-1],
                                    carry.shape[:-1])
@@ -874,7 +922,8 @@ def _launch_rollout_cm(packed, cpk: PackedConstraints, ctrl, kind: int, q, v, ac
                      cpk.si.data_ptr(), cpk.sf.data_ptr(), pi.data_ptr(), pf.data_ptr(),
                      int(kind), qs.data_ptr(), vs.data_ptr(), as_.data_ptr(), bs.data_ptr(),
                      qo.data_ptr(), vo.data_ptr(), eo.data_ptr(), b, na, n_block, int(n_cmd),
-                     int(n_ticks), int(n_substeps), int(integrator), smem, packed.terrain)
+                     int(n_ticks), int(n_substeps), int(integrator), smem, packed.terrain,
+                     cm_ext(packed, cpk))
     return (
         qo.t().reshape(tuple(batch) + (nq,)),
         vo.t().reshape(tuple(batch) + (nv,)),

@@ -1,5 +1,5 @@
 """Preconfigured environments (port of `jiminy_tpu.envs`: the toys, the
-ANYmal and the Atlas entries).
+ANYmal, Cassie, Digit and the Atlas entries).
 
 `make(env_id, device=None, dtype=None)` builds an env on the card unless
 `device` says otherwise; with no device and no card it raises. The ids of
@@ -13,6 +13,10 @@ from jiminy_torch.envs.bipeds import (
     AtlasPDControlEnv,
     AtlasReducedEnv,
     AtlasReducedPDControlEnv,
+    CassieEnv,
+    CassiePDControlEnv,
+    DigitEnv,
+    DigitPDControlEnv,
 )
 from jiminy_torch.envs.locomotion import WalkerEnv
 from jiminy_torch.envs.toys import AcrobotEnv, CartPoleEnv, PendulumEnv
@@ -27,12 +31,14 @@ _REGISTRY = {
     "atlas-reduced": AtlasReducedEnv,
     "atlas-pid": AtlasPDControlEnv,
     "atlas-reduced-pid": AtlasReducedPDControlEnv,
+    "cassie": CassieEnv,
+    "cassie-pid": CassiePDControlEnv,
+    "digit": DigitEnv,
+    "digit-pid": DigitPDControlEnv,
 }
 
 # jiminy_tpu's other ids and the ROADMAP.md queue 1 item that ports them
-_NOT_PORTED = {
-    "ant": 10, "cassie": 10, "cassie-pid": 10, "digit": 10, "digit-pid": 10,
-}
+_NOT_PORTED = {"ant": 10}
 
 
 def make(name: str, device=None, dtype=None, **kwargs):
@@ -57,6 +63,10 @@ __all__ = [
     "AtlasPDControlEnv",
     "AtlasReducedEnv",
     "AtlasReducedPDControlEnv",
+    "CassieEnv",
+    "CassiePDControlEnv",
+    "DigitEnv",
+    "DigitPDControlEnv",
     "WalkerEnv",
     "make",
 ]

@@ -15,7 +15,7 @@ class ANYmalEnv(WalkerEnv):
         if procedural or flexible:
             raise NotImplementedError(
                 "the procedural and flexible ANYmal builders are not ported yet "
-                "(ROADMAP.md queue 1 items 8 and 11)"
+                "(ROADMAP.md queue 1 items 10 and 11)"
             )
         robot = assets.load_robot("anymal")
         super().__init__(robot, builders.anymal_standing_pose(robot.model), step_dt=step_dt,

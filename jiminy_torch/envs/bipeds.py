@@ -1,9 +1,11 @@
-"""Atlas humanoid environments (port of `jiminy_tpu.envs.bipeds`, the Atlas
-entries): the reference's URDF and hardware file, the foot boxes' corner
-contact points pruned to the support hull (`envs.assets.load_robot`), and the
-reduced variant with every non-leg joint locked at the posed configuration.
-Cassie and Digit (pushrod loop closures) and the procedural builders are
-not ported yet (ROADMAP.md queue 1 item 10).
+"""Biped and humanoid environments (port of `jiminy_tpu.envs.bipeds`): the
+reference's URDF and hardware files (`envs.assets.load_robot`). Cassie and
+Digit with the passive shin joints locked and the pushrod loop closures as
+distance constraints, the toe meshes' lowest box corners as contact points;
+Atlas with the foot boxes' corner contact points pruned to the support hull,
+and its reduced variant with every non-leg joint locked at the posed
+configuration. The procedural builders are not ported yet (ROADMAP.md queue
+1 item 10).
 """
 
 from __future__ import annotations
@@ -17,15 +19,46 @@ from jiminy_torch.gym.blocks import PDController
 from jiminy_torch.gym.pipeline import ControlledEnv
 
 
+def _refuse_procedural(procedural: bool, name: str) -> None:
+    if procedural:
+        raise NotImplementedError(
+            f"the procedural {name} builder is not ported yet (ROADMAP.md queue 1 item 10)"
+        )
+
+
+class CassieEnv(WalkerEnv):
+    """Cassie biped with the pushrod loop closures (reference
+    `CassieJiminyEnv`, `cassie.py:67-140`)."""
+
+    def __init__(self, step_dt: float = 0.04, horizon: int = 500, procedural: bool = False,
+                 **kw):
+        _refuse_procedural(procedural, "Cassie")
+        robot = assets.load_robot("cassie")
+        kw.setdefault("base_height_min", 0.5)
+        kw.setdefault("simulation_dt", 5.0e-4)
+        super().__init__(robot, assets.nominal_pose("cassie", robot.model), step_dt=step_dt,
+                         horizon=horizon, **kw)
+
+
+class DigitEnv(WalkerEnv):
+    """Digit biped (reference `DigitJiminyEnv`, `digit.py:85`)."""
+
+    def __init__(self, step_dt: float = 0.04, horizon: int = 500, procedural: bool = False,
+                 **kw):
+        _refuse_procedural(procedural, "Digit")
+        robot = assets.load_robot("digit")
+        kw.setdefault("base_height_min", 0.55)
+        kw.setdefault("simulation_dt", 5.0e-4)
+        super().__init__(robot, assets.nominal_pose("digit", robot.model), step_dt=step_dt,
+                         horizon=horizon, **kw)
+
+
 class AtlasEnv(WalkerEnv):
     """Atlas humanoid (reference `AtlasJiminyEnv`, `atlas.py:113`)."""
 
     def __init__(self, step_dt: float = 0.04, horizon: int = 500,
                  reduced: bool = False, procedural: bool = False, **kw):
-        if procedural:
-            raise NotImplementedError(
-                "the procedural Atlas builder is not ported yet (ROADMAP.md queue 1 item 10)"
-            )
+        _refuse_procedural(procedural, "Atlas")
         robot = assets.load_robot("atlas", lock_joints=_atlas_lock_angles() if reduced else ())
         q0 = assets.nominal_pose("atlas", robot.model)
         kw.setdefault("base_height_min", 0.55)
@@ -53,9 +86,9 @@ class AtlasReducedEnv(AtlasEnv):
         super().__init__(**kw)
 
 
-def _pd_env(env, kp, kd, table):
+def _pd_env(env, kp, kd, table, default=None):
     if kp is None or kd is None:
-        kp_t, kd_t = bb.pd_gains(env.robot, table)
+        kp_t, kd_t = bb.pd_gains(env.robot, table, default=default)
         kp = kp_t if kp is None else kp
         kd = kd_t if kd is None else kd
     return ControlledEnv(env, PDController(kp=kp, kd=kd).setup(env))
@@ -75,3 +108,17 @@ def AtlasReducedPDControlEnv(step_dt: float = 0.04, horizon: int = 500, kp=None,
     kw["reduced"] = True
     return _pd_env(AtlasEnv(step_dt=step_dt, horizon=horizon, **kw), kp, kd,
                    bb.ATLAS_PD_EFFECTIVE)
+
+
+def CassiePDControlEnv(step_dt: float = 0.04, horizon: int = 500, kp=None, kd=None, **kw):
+    """Reference `CassiePDControlJiminyEnv`; default gains from
+    `CASSIE_PD_EFFECTIVE`."""
+    return _pd_env(CassieEnv(step_dt=step_dt, horizon=horizon, **kw), kp, kd,
+                   bb.CASSIE_PD_EFFECTIVE, bb.REFERENCE_DEFAULT_GAINS)
+
+
+def DigitPDControlEnv(step_dt: float = 0.04, horizon: int = 500, kp=None, kd=None, **kw):
+    """Reference `DigitPDControlJiminyEnv`; default gains from
+    `DIGIT_PD_EFFECTIVE`, the toes' from `REFERENCE_DEFAULT_GAINS`."""
+    return _pd_env(DigitEnv(step_dt=step_dt, horizon=horizon, **kw), kp, kd,
+                   bb.DIGIT_PD_EFFECTIVE, bb.REFERENCE_DEFAULT_GAINS)

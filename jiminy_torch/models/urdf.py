@@ -4,9 +4,12 @@ numpy float64).
 Parses the kinematic tree, optionally roots it on a free-flyer joint, folds
 fixed (and locked) joints away by merging their link inertias into the
 supporting movable link, and records an operational frame for every link and
-fixed joint. `parse_collision_geometries` reads the links' primitive
-`<collision>` geometries; meshes and visual geometry are not ported yet
-(ROADMAP.md queue 1 item 10, collision meshes; item 14, viewer).
+fixed joint. `parse_collision_geometries` reads the links' `<collision>`
+geometries, a mesh as its vertex cloud (`load_mesh_vertices`, OBJ or STL);
+`parse_visual_geometries` reads the `<visual>` ones for the collision-mesh
+fallback, and `oriented_bounding_box` turns a cloud into its box's corners.
+The visual geometry of the viewer is not ported yet (ROADMAP.md queue 1
+item 14).
 """
 
 from __future__ import annotations
@@ -230,18 +233,157 @@ def build_model_from_urdf(
     return build_model(name, joint_specs, frame_specs)
 
 
-def parse_collision_geometries(path_or_str: str, links=None) -> dict[str, list[dict]]:
-    """Per-link ``<collision>`` primitives of a URDF: ``{link: [spec, ...]}``,
+def load_mesh_vertices(path: str, scale=None) -> np.ndarray:
+    """The vertex cloud of an OBJ or STL mesh file, (N, 3) float64: OBJ `v`
+    records, STL binary (84-byte header and 50-byte triangles, vertices
+    deduplicated) or ASCII `vertex` lines. `scale` is an optional scalar or
+    (3,) factor (URDF `<mesh scale=...>`)."""
+    ext = os.path.splitext(path)[1].lower()
+    verts: list = []
+    if ext == ".obj":
+        with open(path, "r", errors="ignore") as f:
+            for line in f:
+                if line.startswith("v "):
+                    parts = line.split()
+                    verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+        out = np.asarray(verts, dtype=np.float64)
+    elif ext == ".stl":
+        with open(path, "rb") as f:
+            data = f.read()
+        if data[:5] == b"solid" and b"facet" in data[:500]:
+            for line in data.decode(errors="ignore").splitlines():
+                parts = line.split()
+                if parts[:1] == ["vertex"]:
+                    verts.append([float(parts[1]), float(parts[2]), float(parts[3])])
+            out = np.asarray(verts, dtype=np.float64)
+        else:
+            (ntri,) = np.frombuffer(data[80:84], dtype="<u4")
+            tri = np.frombuffer(data[84 : 84 + 50 * int(ntri)], dtype=np.uint8).reshape(
+                int(ntri), 50)
+            # each record: normal (3 floats), 3 vertices (9 floats), 2 bytes
+            floats = tri[:, :48].copy().view("<f4").reshape(int(ntri), 4, 3)
+            out = floats[:, 1:, :].reshape(-1, 3).astype(np.float64)
+        if out.size:
+            out = np.unique(out, axis=0)
+    else:
+        raise ValueError(f"unsupported mesh format '{ext}' ({path})")
+    if out.size == 0:
+        raise ValueError(f"no vertices found in mesh {path}")
+    if scale is not None:
+        out = out * np.asarray(scale, dtype=np.float64)
+    return out
+
+
+def oriented_bounding_box(points: np.ndarray) -> np.ndarray:
+    """The 8 corners of a near-minimum-volume oriented bounding box of a
+    point cloud: over the orientations with a face flush to a facet of the
+    convex hull, the in-plane rotation by the minimum-area rectangle of the
+    projected hull (rotating calipers). (8, 3), ordered by the sign pattern
+    (-/-/-, -/-/+, ..., +/+/+) of the box axes, sorted so that the shortest
+    extent is the last axis."""
+    from scipy.spatial import ConvexHull
+
+    pts = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+    hull = ConvexHull(pts)
+    hp = pts[np.unique(hull.vertices)]
+
+    def min_area_rect(xy: np.ndarray) -> np.ndarray:
+        poly = xy[ConvexHull(xy).vertices]
+        edges = np.roll(poly, -1, axis=0) - poly
+        angles = np.unique(np.mod(np.arctan2(edges[:, 1], edges[:, 0]), np.pi / 2))
+        best_area, best = np.inf, np.eye(2)
+        for a in angles:
+            c, s = np.cos(a), np.sin(a)
+            r = np.array([[c, s], [-s, c]])
+            proj = poly @ r.T
+            ext = proj.max(axis=0) - proj.min(axis=0)
+            area = float(ext[0] * ext[1])
+            if area < best_area:
+                best_area, best = area, r
+        return best
+
+    best_vol, best_rot = np.inf, np.eye(3)
+    normals = np.unique(np.round(hull.equations[:, :3], 9), axis=0)
+    for n in normals:
+        n = n / np.linalg.norm(n)
+        ref = np.array([1.0, 0.0, 0.0]) if abs(n[0]) < 0.9 else np.array([0.0, 1.0, 0.0])
+        u = np.cross(n, ref)
+        u /= np.linalg.norm(u)
+        w = np.cross(n, u)
+        r2 = min_area_rect(hp @ np.stack([u, w], axis=1))
+        axes = np.vstack([r2 @ np.vstack([u, w]), n[None]])  # rows: the box axes
+        proj = hp @ axes.T
+        vol = float(np.prod(proj.max(axis=0) - proj.min(axis=0)))
+        if vol < best_vol:
+            best_vol, best_rot = vol, axes
+    proj = hp @ best_rot.T
+    lo, hi = proj.min(axis=0), proj.max(axis=0)
+    order = np.argsort(-(hi - lo))
+    rot, lo, hi = best_rot[order], lo[order], hi[order]
+    corners = np.array([
+        [hi[0] if i & 4 else lo[0], hi[1] if i & 2 else lo[1], hi[2] if i & 1 else lo[2]]
+        for i in range(8)
+    ])
+    return corners @ rot
+
+
+def _resolve_mesh_path(filename: str, urdf_dir: str, mesh_dirs=()) -> str:
+    """The file of a URDF mesh reference (`package://...` or a path)."""
+    cands = []
+    if filename.startswith("package://"):
+        rel = filename[len("package://") :]
+        for base in (*mesh_dirs, urdf_dir):
+            cands.append(os.path.join(base, rel))
+            cands.append(os.path.join(base, *rel.split("/")[1:]))  # without the package
+    elif os.path.isabs(filename):
+        cands.append(filename)
+    else:
+        for base in (urdf_dir, *mesh_dirs):
+            cands.append(os.path.join(base, filename))
+    for c in cands:
+        if os.path.exists(c):
+            return c
+    raise FileNotFoundError(f"mesh '{filename}' not found (tried {cands})")
+
+
+def parse_visual_geometries(path_or_str: str) -> dict[str, list[dict]]:
+    """Per-link `<visual>` geometries: `{link: [spec, ...]}`, each spec its
+    `origin` (rot, pos), its `tag` and the element's attributes as read
+    (a mesh's `filename` and `scale` unresolved). The collision-mesh
+    fallback of a link without collision geometry reads them."""
+    root = ET.parse(path_or_str).getroot() if os.path.exists(path_or_str) else ET.fromstring(
+        path_or_str)
+    out: dict[str, list[dict]] = {}
+    for link in root.findall("link"):
+        specs = []
+        for vis in link.findall("visual"):
+            geom = vis.find("geometry")
+            if geom is None or len(geom) == 0:
+                continue
+            g = geom[0]
+            spec: dict = {"frame_name": link.get("name"),
+                          "origin": _parse_origin(vis.find("origin")), "tag": g.tag}
+            spec.update(g.attrib)
+            specs.append(spec)
+        if specs:
+            out[link.get("name")] = specs
+    return out
+
+
+def parse_collision_geometries(path_or_str: str, mesh_dirs=(), links=None) -> dict[str, list[dict]]:
+    """Per-link ``<collision>`` geometries of a URDF: ``{link: [spec, ...]}``,
     each spec a `Robot.build(collision_bodies=...)` dict with its geometry
     kind, parameters and ``origin`` (rot, pos) in the link frame.
 
     ``links`` restricts parsing to the named links. Boxes, spheres,
-    cylinders and capsules are read; a mesh raises (its vertex loading is
-    not ported yet)."""
+    cylinders and capsules are read as such; a mesh loads its vertex cloud
+    (``points``) and keeps its file (``filename``)."""
     if os.path.exists(path_or_str):
         root = ET.parse(path_or_str).getroot()
+        urdf_dir = os.path.dirname(os.path.abspath(path_or_str))
     else:
         root = ET.fromstring(path_or_str)
+        urdf_dir = os.getcwd()
     out: dict[str, list[dict]] = {}
     for link in root.findall("link"):
         lname = link.get("name")
@@ -262,10 +404,11 @@ def parse_collision_geometries(path_or_str: str, links=None) -> dict[str, list[d
                 spec.update(geometry=g.tag, radius=float(g.get("radius")),
                             length=float(g.get("length")))
             elif g.tag == "mesh":
-                raise NotImplementedError(
-                    f"collision mesh on link {lname}: mesh loading is not ported yet "
-                    "(ROADMAP.md queue 1 item 10)"
-                )
+                scale = g.get("scale")
+                scale = np.array([float(x) for x in scale.split()]) if scale else None
+                path = _resolve_mesh_path(g.get("filename"), urdf_dir, mesh_dirs)
+                spec.update(geometry="mesh", points=load_mesh_vertices(path, scale),
+                            filename=path)
             else:
                 raise ValueError(f"unsupported collision geometry <{g.tag}> on link {lname}")
             specs.append(spec)

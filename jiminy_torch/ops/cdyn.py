@@ -832,9 +832,11 @@ class ComponentDynamics:
                         ic[p][r][col] = ic[p][r][col] + ia_p[r][col]
         return m_out
 
-    def nle_components(self, qc, vc, xs=None):
+    def nle_components(self, qc, vc, xs=None, fext=None):
         """Nonlinear effects (gravity + Coriolis/centrifugal) as nv
-        components: RNEA with zero joint acceleration."""
+        components: RNEA with zero joint acceleration. `fext`: per-joint
+        LOCAL wrenches [(ang V3, lin V3) or None] (`_contact_fext`), taken
+        off each joint's force."""
         c = self.c
         g = self.gravity
         if xs is None:
@@ -879,6 +881,9 @@ class ComponentDynamics:
             iv_a, iv_l = sym6_mv(ia, w_i, v_i)
             f_a = v_add(ia_a, v_add(v_cross(w_i, iv_a), v_cross(v_i, iv_l)))
             f_l = v_add(ia_l, v_cross(w_i, iv_l))
+            if fext is not None and fext[i] is not None:
+                f_a = v_sub(f_a, fext[i][0])
+                f_l = v_sub(f_l, fext[i][1])
             if f[i] is not None:
                 f_a = v_add(f_a, f[i][0])
                 f_l = v_add(f_l, f[i][1])
@@ -972,6 +977,47 @@ class ComponentDynamics:
                 ang[vi] = v3()
                 lin[vi] = m_mv(rw, c.axis[j])
         return ang, lin
+
+    def distance_rows_components(self, world, vel, acc, pairs, dist_ref, kp: float, kd: float):
+        """The loop closures' rows and Baumgarte drifts: each row the two
+        frames' point Jacobians over their support dofs projected on the
+        unit direction between them, its drift `dir.(a_a - a_b) + (|dv|^2 -
+        (dv.dir)^2) / dist + kp (dist - ref) + kd dv.dir`. Returns (rows
+        [nd][nv components, Python 0.0 off the supports], drifts [nd])."""
+        c = self.c
+        nv = self.model.nv
+        rows, drifts = [], []
+        for k, (fa, fb) in enumerate(pairs):
+            data = []
+            for fidx in (fa, fb):
+                parent = c.frame_parents[fidx]
+                fp = c.fpos[fidx]
+                rw, pw = world[parent]
+                p_f = v_add(m_mv(rw, fp), pw)
+                w_l, v_l = vel[parent]
+                a_l = acc[parent]
+                vw_lin = m_mv(rw, v_add(v_l, v_cross(w_l, fp)))
+                vw_ang = m_mv(rw, w_l)
+                aw_lin = v_add(m_mv(rw, v_sub(a_l[1], v_cross(fp, a_l[0]))),
+                               v_cross(vw_ang, vw_lin))
+                data.append((parent, p_f, vw_lin, aw_lin))
+            (ja, pa, va, aa), (jb, pb, vb, ab) = data
+            dp = v_sub(pa, pb)
+            dist = torch.sqrt(torch.clamp(v_dot(dp, dp), min=1e-24))
+            direction = v_scale(dp, 1.0 / dist)
+            row = [0.0] * nv
+            for d, col in self._point_jacobian_cols(world, ja, pa).items():
+                row[d] = row[d] + v_dot(direction, col)
+            for d, col in self._point_jacobian_cols(world, jb, pb).items():
+                row[d] = row[d] - v_dot(direction, col)
+            dv = v_sub(va, vb)
+            dv_proj = v_dot(dv, direction)
+            g = v_dot(direction, v_sub(aa, ab))
+            g = g + (v_dot(dv, dv) - dv_proj * dv_proj) / dist
+            g = g + kp * (dist - dist_ref[k]) + kd * dv_proj
+            rows.append(row)
+            drifts.append(g)
+        return rows, drifts
 
     # ---------------- fused multi-substep integration ----------------
     def _build_final_outputs(self, tau_c_fn, imu_frames):

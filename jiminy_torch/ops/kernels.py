@@ -35,16 +35,18 @@ CM_PHASES = 8  # phases of a constrained solve timed by a CDYN_CM_PROFILE build
 CAP_NAMES = ("nj", "nq", "nv", "nc", "ni", "nm", "nb", "n_cmd", "n_action", "n_carry")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# Each entry's last two arguments: the terrain flag (the instance that
-# evaluates the model's terrain section) and the stream.
+# Each entry's last arguments: the terrain flag (the instance that evaluates
+# the model's terrain section), for the constrained kernels the ext flag (the
+# instance of the extended body: loop closures, spring-damper contacts and
+# penalty bounds beside the rows), and the stream.
 _SIGNATURES = {
     "cdyn_accel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     "cdyn_period": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cdyn_rollout": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    "cdyn_period_cm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "cdyn_period_cm": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "cdyn_rollout_cm": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+                        _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -122,7 +124,7 @@ class Library:
             raise RuntimeError(f"cdyn_caps returned {n} caps, expected {len(CAP_NAMES)}")
         self.caps = dict(zip(CAP_NAMES, list(buf)))
         self._cm_smem = self._dll.cdyn_cm_smem_bytes
-        self._cm_smem.argtypes = [_I] * 8
+        self._cm_smem.argtypes = [_I] * 10
         self._cm_smem.restype = ctypes.c_int
         self._sp_smem = self._dll.cdyn_sp_smem_bytes
         self._sp_smem.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_int)]
@@ -134,7 +136,7 @@ class Library:
         self._sp_blocks.argtypes = [_I] * 4
         self._sp_blocks.restype = ctypes.c_int
         self._cm_envs = self._dll.cdyn_cm_envs_per_sm
-        self._cm_envs.argtypes = [_I] * 4
+        self._cm_envs.argtypes = [_I] * 5
         self._cm_envs.restype = ctypes.c_int
         self._phases = getattr(self._dll, "cdyn_cm_phase_cycles", None)
         if self._phases is not None:
@@ -150,11 +152,12 @@ class Library:
         except KeyError:
             raise ValueError(f"no kernel {name} for dtype {dtype}") from None
 
-    def cm_smem_bytes(self, nj, nq, nv, n_rows, nc, nb, ns, elt) -> int:
+    def cm_smem_bytes(self, nj, nq, nv, n_rows, nc, nb, ns, nd, n_spring, elt) -> int:
         """Bytes of dynamic shared memory one env of the constrained kernels
-        takes (`CmLayout`, `cm_env_stride` in csrc/pgs.cuh); -1 for more rows
-        than the kernels take."""
-        return int(self._cm_smem(nj, nq, nv, n_rows, nc, nb, ns, elt))
+        takes (`CmLayout`, `cm_env_stride` in csrc/pgs.cuh) with nd loop
+        closures and n_spring spring-damper contacts beside the rows; -1 for
+        more rows than the kernels take."""
+        return int(self._cm_smem(nj, nq, nv, n_rows, nc, nb, ns, nd, n_spring, elt))
 
     def sp_smem_bytes(self, nj, nq, nv, nc, n_cmd, n_action, n_carry, elt) -> tuple:
         """(bytes of dynamic shared memory one env of the spring kernels
@@ -186,12 +189,13 @@ class Library:
                     self.sp_smem_bytes(1, 1, 1, 0, 0, 0, 0, elt))
         return blocks * geometry[2]
 
-    def cm_envs_per_sm(self, kernel: str, elt: int, smem_per_env: int, terrain=False) -> int:
+    def cm_envs_per_sm(self, kernel: str, elt: int, smem_per_env: int, terrain=False,
+                       ext=False) -> int:
         """Envs of a constrained kernel ("cdyn_period_cm" or "cdyn_rollout_cm";
-        its terrain instance with `terrain`) that the runtime keeps on one
-        SM, as `sp_envs_per_sm`."""
+        its terrain instance with `terrain`, its extended body with `ext`)
+        that the runtime keeps on one SM, as `sp_envs_per_sm`."""
         which = ("cdyn_period_cm", "cdyn_rollout_cm").index(kernel)
-        envs = self._cm_envs(which, elt, smem_per_env, int(terrain))
+        envs = self._cm_envs(which, elt, smem_per_env, int(terrain), int(ext))
         if envs < 0:
             raise RuntimeError(f"cdyn_cm_envs_per_sm: CUDA error {-envs} "
                                f"({self.error_string(-envs)})")

@@ -16,7 +16,11 @@ env's engine options into constraint contact mode, as `bench.py` does with
 `BENCH_CONTACT=constraint`; `dopri_options` turns them to adaptive DOPRI
 5(4), every other option kept. `rough_ground` is the terrain cell's ground
 (`ground_options` sets a ground); `spread_on_ground` and `place_on_ground`
-put states on it at distinct (x, y).
+put states on it at distinct (x, y). `fourbar_robot` builds jiminy_tpu's two
+Cassie-shaped test models (a four-bar linkage closed by a distance loop,
+with a spring-damper foot and a bounded joint in the second);
+`loop_inputs` draws states and command rows for a robot with loop closures
+beside its spring-damper contacts (Digit, the four-bars).
 """
 
 from __future__ import annotations
@@ -277,3 +281,97 @@ def column_quantile_errors(out: torch.Tensor, ref: torch.Tensor, q: float = 0.9)
     err = (out - ref).abs() / rms
     k = min(err.shape[0], max(1, math.ceil(q * err.shape[0])))
     return torch.kthvalue(err, k, dim=0).values
+
+
+def _fourbar_joint(name, parent, placement_z, x=0.0, com_z=-0.25, mass=0.5, limit=None):
+    from jiminy_torch.models.joints import JointType
+
+    spec = {
+        "name": name, "type": JointType.REVOLUTE, "parent": parent,
+        "axis": np.array([0.0, 1.0, 0.0]),
+        "placement": (np.eye(3), np.array([x, 0.0, placement_z])),
+        "mass": mass, "com": np.array([0.0, 0.0, com_z]), "inertia": np.eye(3) * 1e-3,
+    }
+    if limit is not None:
+        spec["position_limit"] = (np.array([-limit]), np.array([limit]))
+    return spec
+
+
+def fourbar_robot(contacts: bool = False):
+    """jiminy_tpu's Cassie-shaped test models (`tests/test_cdyn.py:343-485`):
+    two revolute links and a third closed onto the second's tip by a
+    distance loop, one motor on the first joint. With `contacts` the
+    linkage hangs 0.6 m up with a spring-damper foot below the second link
+    and the first joint bounded to +-1 rad (`fourbar_c`)."""
+    from jiminy_torch.engine.robot import Robot
+    from jiminy_torch.models.model import build_model
+
+    def frame(name, parent, z):
+        return {"name": name, "parent": parent, "placement": (np.eye(3), np.array([0.0, 0.0, z]))}
+
+    if contacts:
+        joints = [
+            _fourbar_joint("j0", -1, 0.6, mass=1.0, limit=1.0),
+            _fourbar_joint("j1", 0, -0.35, com_z=-0.15),
+            _fourbar_joint("j2", -1, 0.6, x=0.15, com_z=-0.15),
+        ]
+        frames = [frame("tip_a", 1, -0.3), frame("tip_b", 2, -0.3), frame("foot", 1, -0.32)]
+    else:
+        joints = [
+            _fourbar_joint("j0", -1, 0.0, mass=1.0),
+            _fourbar_joint("j1", 0, -0.5),
+            _fourbar_joint("j2", -1, 0.0, x=0.3),
+        ]
+        frames = [frame("tip_a", 1, -0.5), frame("tip_b", 2, -0.5)]
+    model = build_model("fourbar_c" if contacts else "fourbar", joints, frames)
+    return Robot.build(model, motors=[{"joint_name": "j0"}],
+                       contact_frames=["foot"] if contacts else [],
+                       loop_constraints=[("tip_a", "tip_b")])
+
+
+def fourbar_options(contacts: bool = False):
+    """The engine options of jiminy_tpu's four-bar tests: RK4 at 1 ms; with
+    the foot a stiff spring-damper contact and penalty joint bounds."""
+    from jiminy_torch.engine.config import ContactOptions, EngineOptions, StepperOptions
+
+    if not contacts:
+        return EngineOptions(stepper=StepperOptions(dt_max=1e-3))
+    return EngineOptions(contacts=ContactOptions(stiffness=2e4, damping=4e2, friction=1.0),
+                         stepper=StepperOptions(dt_max=1e-3), joint_bounds_mode="penalty")
+
+
+def loop_inputs(eng, q0, batch: int, seed: int, device=None, dtype=None, drop: float = 0.03):
+    """(q, v, cmd, cc_tail) for the constrained kernels of a robot with loop
+    closures beside spring-damper contacts: `q0` perturbed (joints by 0.05
+    rad; a floating base lowered 0 to `drop` m, so that some contact points
+    touch), random velocities and motor commands, and the command row's tail
+    `[distance_ref (nd) | lam (N) | contact active (nc) | bound active
+    (nb)]`: the loops' lengths at `q0` give or take 1 cm, multipliers from
+    -50 to 50 in half the envs (0 in the others), random 0/1 masks."""
+    from jiminy_torch.engine.constraints import compute_distance_refs
+    from jiminy_torch.ops.kinematics import forward_kinematics
+
+    device = eng.device if device is None else device
+    dtype = eng.dtype if dtype is None else dtype
+    model, cset = eng.robot.model, eng.cset
+    rng = np.random.default_rng(seed)
+    q0 = np.asarray(q0, np.float64)
+    q = np.tile(q0, (batch, 1))
+    free = model.nq != model.nv
+    first = 7 if free else 0
+    q[:, first:] += rng.normal(size=(batch, model.nq - first)) * 0.05
+    if free:
+        q[:, 2] -= rng.uniform(0.0, drop, size=batch)
+    v = rng.normal(size=(batch, model.nv)) * 0.3
+    cmd = rng.normal(size=(batch, eng.robot.nmotors)) * 5.0
+    dref = compute_distance_refs(model, cset, forward_kinematics(
+        model, torch.as_tensor(q0, dtype=torch.float64))).numpy()
+    dref = dref + rng.uniform(-0.01, 0.01, size=(batch, cset.n_distance))
+    lam = rng.uniform(-50.0, 50.0, size=(batch, cset.total_rows)) * (
+        rng.uniform(size=(batch, 1)) < 0.5)
+    masks = (rng.uniform(size=(batch, cset.n_contacts + cset.n_bounds)) < 0.5).astype(np.float64)
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype, device=device)
+
+    return t(q), t(v), t(cmd), t(np.concatenate([dref, lam, masks], axis=1))

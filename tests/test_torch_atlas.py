@@ -215,9 +215,11 @@ def test_atlas_spring_section_has_wide_depths(envs):
 def test_atlas_entry_points_refuse_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
         t_make("atlas-pid", device="cpu", procedural=True)
-    for name in ("cassie-pid", "ant", "digit"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
+        t_make("ant", device="cpu")
+    for name in ("cassie-pid", "digit"):  # ported: their procedural builders are not
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-            t_make(name, device="cpu")
+            t_make(name, device="cpu", procedural=True)
     # The toys are ported (ROADMAP.md queue 1 item 8, first half)
     assert t_make("cartpole", device="cpu").action_size == 1
     # Other collision primitives (the hands' spheres, the arms' cylinders) and

@@ -49,6 +49,7 @@ def test_port_imports_neither_jax_nor_jiminy_tpu():
     assert "jiminy_torch.engine.solver" in mods and "jiminy_torch.engine.constraints" in mods
     assert "jiminy_torch.envs.bipeds" in mods and "jiminy_torch.envs.builders_bipeds" in mods
     assert "jiminy_torch.engine.contact" in mods and "jiminy_torch.envs.toys" in mods
+    assert "jiminy_torch.models.urdf" in mods and "jiminy_torch.envs.assets" in mods
     for m in ("rl.ppo", "rl.evaluate", "rl.checkpoint", "rl.networks", "gym.wrappers",
               "telemetry.trajectory", "utils", "utils.terrain"):
         assert f"jiminy_torch.{m}" in mods, m
@@ -138,10 +139,14 @@ def test_unported_options_raise_not_implemented(env):
     for opts in (
         EngineOptions(stepper=stepper, contacts=ContactOptions(model=ContactModel.CONSTRAINT),
                       joint_bounds_mode="constraint"),
-        EngineOptions(joint_bounds_mode="constraint"),
+        EngineOptions(stepper=stepper, joint_bounds_mode="constraint"),
     ):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             type(env.env.engine)(robot, opts, device="cpu")
+    # Joint bounds through the solver beside the spring-damper feet are ported
+    beside = type(env.env.engine)(robot, EngineOptions(joint_bounds_mode="constraint"),
+                                  device="cpu")
+    assert beside._cdyn_cm.has_contacts and beside.cset.n_bounds == 12
     # A ground profile builds on every path; one without a packed form runs
     # on the CPU only, and is refused for the card (the routing decision,
     # taken before any tensor reaches a device)
@@ -304,15 +309,14 @@ def test_constrained_wrappers_raise_instead_of_falling_back(cm_env):
 
 
 def test_unported_constraint_rows_and_terrain_raise_not_implemented(cm_env):
-    """Distance-loop and rolling rows (ROADMAP item 10) and sphere contacts
-    (item 3) are refused, on every path that would assemble them; terrain
-    builds, and a ground without a packed form is refused for the card
-    (queue 2 item 6)."""
+    """Rolling rows (ROADMAP item 10) and sphere contacts (item 9) are
+    refused, on every path that would assemble them, and distance-loop rows
+    build; terrain builds, and a ground without a packed form is refused for
+    the card (queue 2 item 6)."""
     eng = cm_env.engine
     cd, opts = eng._cdyn_cm, eng._solver_opts
     opts_s = opts
     for cset in (
-        dataclasses.replace(eng.cset, distance_pairs=((89, 123),)),
         dataclasses.replace(eng.cset, sphere_specs=((89, 0.02),)),
         dataclasses.replace(eng.cset, wheel_specs=((89, 0.02, (0.0, 1.0, 0.0)),)),
     ):
@@ -320,8 +324,11 @@ def test_unported_constraint_rows_and_terrain_raise_not_implemented(cm_env):
             solver.ConstrainedPeriodIntegrator(cd, eng._tau_c, cset, opts, 1e-3, 1, "rk4", 12, ())
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
             solver.pack_constraints(cd, cset, opts, "cpu", torch.float64)
+    loops = dataclasses.replace(eng.cset, distance_pairs=((89, 123),), distance_ref=(0.5,))
+    solver.ConstrainedPeriodIntegrator(cd, eng._tau_c, loops, opts, 1e-3, 1, "rk4", 12, ())
+    assert solver.pack_constraints(cd, loops, opts, "cpu", torch.float64).counts["nd_rows"] == 1
     spheres = dataclasses.replace(eng.cset, contact_radii=(0.02,) * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 3"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
         solver.constraint_system_components(cd, spheres, *([None] * 6), 1.0, 1.0, 1e-3, [], [])
     # Terrain builds in constraint mode; a ground without a packed form runs
     # on the CPU (the plain solve) and is refused for the card and by the
@@ -372,3 +379,37 @@ def test_packed_constraint_constants_match_model(cm_env):
     np.testing.assert_array_equal(lim[:, 2], model.position_limit_lower[qi] + o.transition_eps)
     frames = sf[off + 48:].reshape(4, 12)
     np.testing.assert_array_equal(frames[:, :3], model.fplacement_pos[list(cset.contact_frame_indices)])
+
+
+def test_loop_closure_entry_points_run_on_the_card_and_never_fall_back(monkeypatch):
+    """The Cassie/Digit slice: `make` of its ids and an engine of a loop
+    robot run on the card unless asked for the CPU; the constrained
+    wrappers refuse CPU tensors; the kernels' extended body is chosen for a
+    core with loops, spring contacts or penalty bounds beside its rows, and
+    not for the constraint-mode ANYmal."""
+    from jiminy_torch.engine.engine import Engine
+    from jiminy_torch.testing import fourbar_options, fourbar_robot, loop_inputs
+
+    eng = Engine(fourbar_robot(True), fourbar_options(True), device="cpu", dtype=torch.float64)
+    q, v, cmd, tail = loop_inputs(eng, [0.4, -0.3, 0.2], 2, seed=0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        eng._get_period_run("rk4").kernel(q, v, torch.cat([cmd, tail], -1))
+    run = eng._get_rollout_run("zoh-test", cdyn.ZOHPassThrough(1), 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        run.kernel(q, v, torch.cat([cmd, tail[:, :1]], -1), tail[:, 1:])
+    assert all(k.launches == 0 for k in cdyn.KERNELS.values())
+    pr = eng._get_period_run("rk4")
+    packed = eng._cdyn_cm.pack(eng._tau_c, pr.dt, (), "cpu", torch.float64)
+    assert solver.cm_ext(packed, pr.pack("cpu", torch.float64)) == 1
+    cm = make("anymal-pid", device="cpu", dtype=torch.float64)
+    cm = make("anymal-pid", device="cpu", dtype=torch.float64,
+              options=constraint_mode_options(cm.engine.options))
+    pr = cm.engine._get_period_run("rk4")
+    packed = cm.engine._cdyn_cm.pack(cm.engine._tau_c, pr.dt, (), "cpu", torch.float64)
+    assert solver.cm_ext(packed, pr.pack("cpu", torch.float64)) == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for name in ("digit-pid", "cassie"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(name)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Engine(fourbar_robot(False), fourbar_options(False))

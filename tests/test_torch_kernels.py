@@ -3,9 +3,12 @@ version on the card, at a small batch, for the ANYmal constants (the
 constrained kernels for `anymal-pid` in constraint contact mode, on states
 with active contact and bound rows, and for the pendulum: a fixed root, no
 contact, one bound row, 50 ticks behind a ZOH controller) and, for the
-spring kernels, for the full Atlas (`atlas-pid`); and all five for the
-ANYmal on rough ground (`testing.rough_ground`), each env at its own (x, y),
-their terrain instances evaluating the ground per contact.
+spring kernels, for the full Atlas (`atlas-pid`); all five for the ANYmal
+on rough ground (`testing.rough_ground`), each env at its own (x, y), their
+terrain instances evaluating the ground per contact; and the constrained
+kernels' extended body (loop closures beside spring-damper contacts and
+penalty bounds) for `digit-pid` and jiminy_tpu's Cassie-shaped four-bar
+with a foot (`testing.fourbar_robot`), each flat and rough.
 
 Marked `cuda`; they skip where no CUDA device is present (the check runs in a
 fixture, never at import). On a machine with a card, run them with:
@@ -579,3 +582,75 @@ def test_flat_kernel_misses_the_terrain(cuda_device):
     assert _error(cd.accel_kernel(q, v, tau), ref, torch.float64) < TOL[torch.float64][0]
     assert _error(flat.accel_kernel(q, v, tau), ref, torch.float64) > 1e-3
 
+
+
+# --------------------------------------------------------------------------- #
+# Loop closures beside spring-damper contacts and penalty bounds: the
+# constrained kernels' extended body
+# --------------------------------------------------------------------------- #
+
+
+def _loop_engine(device, dtype, model, ground):
+    from jiminy_torch.engine.engine import Engine
+    from jiminy_torch.testing import fourbar_options, fourbar_robot
+
+    if model == "fourbar_c":
+        opts = fourbar_options(True)
+        if ground == "rough":
+            opts = ground_options(opts, rough_ground())
+        return Engine(fourbar_robot(True), opts, device=device, dtype=dtype), None
+    env = make("digit-pid", device=device, dtype=dtype)
+    if ground == "rough":
+        env = make("digit-pid", device=device, dtype=dtype,
+                   options=ground_options(env.engine.options, rough_ground()))
+    return env.engine, env
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,ground", [("digit", "flat"), ("digit", "rough"),
+                                          ("fourbar_c", "flat"), ("fourbar_c", "rough")])
+@pytest.mark.parametrize("kernel", ["cdyn_period_cm", "cdyn_rollout_cm"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_loop_kernels_match_plain(cuda_device, dtype, kernel, model, ground):
+    from jiminy_torch.testing import loop_inputs
+
+    eng, env = _loop_engine(cuda_device, dtype, model, ground)
+    q0 = env.env.nominal_q.cpu().numpy() if env is not None else [0.4, -0.3, 0.2]
+    q, v, cmd, tail = loop_inputs(eng, q0, 64, seed=5)
+    nd = eng.cset.n_distance
+    if kernel == "cdyn_period_cm":
+        run = eng._get_period_run("rk4")
+        cc = torch.cat([cmd, tail], dim=-1)
+        outs = run.kernel(q, v, cc, n_substeps=2)
+        refs = run.plain(q, v, cc, n_substeps=2)
+    else:
+        nm = eng.robot.nmotors
+        if env is not None:
+            ctrl = env.block.component_controller(env.env)
+            block = torch.cat([q[:, 7:], torch.zeros((64, 2 * nm), dtype=dtype,
+                                                     device=cuda_device)], dim=-1)
+        else:
+            ctrl = cdyn.ZOHPassThrough(nm)
+            block = torch.zeros((64, 0), dtype=dtype, device=cuda_device)
+        run = eng._get_rollout_run("test", ctrl, 16)
+        action = torch.cat([cmd * 0.01, tail[:, :nd]], dim=-1)
+        carry = torch.cat([block, tail[:, nd:]], dim=-1)
+        outs = run.kernel(q, v, action, carry, n_ticks=2, n_substeps=1)
+        refs = run.plain(q, v, action, carry, n_ticks=2, n_substeps=1)
+    torch.cuda.synchronize()
+    for out, ref in zip(outs, refs):
+        assert torch.isfinite(out).all()
+        assert _error(out, ref, dtype) < TOL[dtype][1]
+
+
+@pytest.mark.cuda
+def test_digit_steps_through_cdyn_rollout_cm(cuda_device):
+    env = make("digit-pid", device=cuda_device, dtype=torch.float32)
+    st, _ = env.reset(batch_size=256)
+    cdyn.reset_launch_counts()
+    st, *_ = env.step(st, torch.zeros(env.action_size, device=cuda_device))
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    assert launches == {"cdyn_accel": 0, "cdyn_period": 0, "cdyn_rollout": 0,
+                        "cdyn_period_cm": 0, "cdyn_rollout_cm": 1}
+    assert torch.isfinite(st.sim.q).all() and st.sim.distance_ref.shape == (256, 2)
