@@ -183,10 +183,42 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and N_STEPS_CASSIE steps (env-steps/s; no kernel runs), the pushrods
    within PUSHROD_TOL.
 
-The op and call counts (phases 5, 6, 8, 11, 18 and 19) and phase 17's CPU
-train_steps run on the CPU in three worker processes beside the card's
-phases (those that need no main path's state from the start). Every
-process the script starts ends before it exits.
+22. Ant main path: make("ant") (nq 15, nv 14, 8 motors taking torques, 9
+   sphere contacts: the torso's of radius 0.25 m, two on each foot of 0.08
+   m; 10 ticks of 5 RK4 substeps a step) at float32, B=131072: launch
+   counts to 0, reset (cdyn_accel), a warm-up step and N_STEPS_ANT steps of
+   zero actions, counts read (one cdyn_rollout a step, one cdyn_accel at
+   the reset, nothing else): env-steps/s, all finite, no standing ant
+   terminated; then one step of the per-period path. The three spring
+   kernels through `phase_kernel_records` as for the Atlas, the rollout
+   over ANT_CHECK_TICKS ticks: the first launches of their radius branch.
+23. The ant in constraint contact mode (the C++ reference's
+   ant_options.toml: 36 sphere rows, the extended body), the same main path
+   through cdyn_rollout_cm (the reset is the plain solve, timed) and
+   cdyn_period_cm, phase 7's physics checks with every limited joint held;
+   the two kernels on the main path's states as the Digit's (the rollout
+   over ANT_CM_TICKS ticks), float64 one env short within 1e-9 with zeroed
+   contact multipliers and one PGS sweep refused; the 44-row ant (its
+   bounds as rows too) refused by the wrappers, naming ROADMAP.md queue 2
+   item 5. Then the terrain instance with sphere radii on rough ground at
+   B=B_ANT_ROUGH_CHECK, float64, the whole period and one tick of the
+   rollout, the flat instance on the same states refused.
+24. The rolling ball (jiminy_tpu's tests/test_rolling.py: a free sphere of
+   radius 0.2 m with a sphere or a wheel rolling constraint, 3 rows): B=131072
+   at float32, N_STEPS_BALL steps of 1 ms through cdyn_period_cm (one launch
+   a step, nothing else), no slip within 1e-4 m/s, the height within 1 mm,
+   the ball travelled; cdyn_period_cm and its plain version at float64 over
+   N_STEPS_BALL_CHECK periods at B=B_BALL_CHECK, q, v and the multipliers
+   within 1e-9.
+
+The op and call counts (phases 5, 6, 8, 11, 18, 19, 22 and 23) and phase
+17's CPU train_steps run on the CPU in three worker processes beside the
+card's phases (those that need no main path's state from the start). Every
+process the script starts ends before it exits. The plain versions of the
+period and rollout integrators run with their substeps replayed from CUDA
+graphs captured at each call (`replayed`): the same torch kernels on the
+same inputs, bit for bit, without the host's launch overhead; `plain_ms`
+is such a call's host-clocked time, the capture included.
 The last two lines are the `{"kernels": [...]}` record and the device line.
 """
 
@@ -366,6 +398,24 @@ def count_ops(fn, prune_zeros=False):
     return Counter.n
 
 
+def _step_controller(env):
+    """(the base env, the rollout's controller key, its component
+    controller, its carry of a state `st`): a pipeline's PD block, or for a
+    plain env (the ant) the zero-order hold of its torque actions."""
+    import torch
+
+    from jiminy_torch.ops import cdyn
+
+    block = getattr(env, "block", None)
+    if block is None:
+        ctrl = env._component_controllers.setdefault("zoh", cdyn.ZOHPassThrough(env.robot.nmotors))
+        return env, "zoh", ctrl, lambda st: st.sim.q.new_zeros(st.sim.q.shape[:-1] + (0,))
+    base = env.env
+    ctrl = base._component_controllers.get(block.name) or block.component_controller(base)
+    return base, block.name, ctrl, lambda st: st.blocks[block.name].reshape(
+        st.sim.q.shape[:-1] + (-1,)).contiguous()
+
+
 def plain_op_counts(env_cpu, prune_zeros):
     """Ops per env of one accel evaluation, one 5-substep period and one
     8-tick rollout, counted on the CPU at B=1 (the rollout from three short
@@ -377,7 +427,8 @@ def plain_op_counts(env_cpu, prune_zeros):
 
     from jiminy_torch.testing import perturbed_states
 
-    eng = env_cpu.env.engine
+    base, _, ctrl, _ = _step_controller(env_cpu)
+    eng = base.engine
     q, v, tau = perturbed_states(env_cpu, 1, seed=9)
     nm = env_cpu.robot.nmotors
     cmd = torch.zeros((1, nm), dtype=q.dtype)
@@ -388,9 +439,8 @@ def plain_op_counts(env_cpu, prune_zeros):
     accel = count(lambda: eng._cdyn.accel_plain(q, v, tau))
     period_run = eng._get_period_run("rk4")
     period = count(lambda: period_run.plain(q, v, cmd))
-    ctrl = env_cpu.block.component_controller(env_cpu.env)
-    run = eng._get_rollout_run("count", ctrl, env_cpu.env.n_ctrl_per_step)
-    carry = torch.zeros((1, 3 * nm), dtype=q.dtype)
+    run = eng._get_rollout_run("count", ctrl, base.n_ctrl_per_step)
+    carry = torch.zeros((1, ctrl.n_carry), dtype=q.dtype)
 
     def n(ticks, subs):
         return count(lambda: run.plain(q, v, cmd, carry, n_ticks=ticks, n_substeps=subs))
@@ -491,7 +541,7 @@ def phase_kernels_vs_plain(device):
         q, v, _ = perturbed_states(env, 64, seed=1)
         cmd = _commands(64, env.robot.nmotors, dtype, device, seed=1)
         run = eng._get_period_run("rk4")
-        outs, refs = run.kernel(q, v, cmd), run.plain(q, v, cmd)
+        outs, refs = run.kernel(q, v, cmd), replayed(run.plain)(q, v, cmd)
         torch.cuda.synchronize()
         e, where = output_error(outs, refs, name)
         log(f"[check] cdyn_period {name} B=64 (5 substeps): {ERR_NAME[name]} {e:.3e} at {where} "
@@ -503,7 +553,7 @@ def phase_kernels_vs_plain(device):
             ctrl, action, carry = _rollout_inputs(env, q, dtype, device, controller, 2)
             run = eng._get_rollout_run("smoke-" + controller, ctrl, env.env.n_ctrl_per_step)
             outs = run.kernel(q, v, action, carry, n_ticks=2, n_substeps=2)
-            refs = run.plain(q, v, action, carry, n_ticks=2, n_substeps=2)
+            refs = replayed(run.plain)(q, v, action, carry, n_ticks=2, n_substeps=2)
             torch.cuda.synchronize()
             e, where = output_error(outs, refs, name)
             log(f"[check] cdyn_rollout/{controller} {name} B=64 (2 ticks x 2 substeps): "
@@ -778,6 +828,103 @@ def phase_dopri(device, smi, glue=None):
             "stage_inputs": stage_inputs}
 
 
+class _ReplayedSubstep:
+    """A plain version's substep `fn(*groups)` (component lists in, component
+    lists out) replayed from a CUDA graph: its first call for an input shape
+    and dtype runs eagerly and then captures the same call on copies of its
+    inputs; later calls copy their inputs in, replay, and return clones of
+    the outputs. The same torch kernels on the same inputs, bit for bit,
+    without the host's launch overhead (a plain substep is some 10^4-10^5
+    elementwise launches, host-bound when eager)."""
+
+    def __init__(self, fn):
+        self.fn, self.graphs = fn, {}
+
+    def __call__(self, *groups):
+        import torch
+
+        from jiminy_torch.ops import cdyn
+
+        tensors = [x for g in groups for x in g if isinstance(x, torch.Tensor)]
+        batch = torch.broadcast_shapes(*(x.shape for x in tensors))
+        ins = [cdyn._stack(list(g), batch, tensors[0]) for g in groups]
+        key = tuple((tuple(x.shape), x.dtype) for x in ins)
+        entry = self.graphs.get(key)
+        if entry is None:
+            out = self.fn(*groups)
+            static = [x.clone() for x in ins]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                res = self.fn(*([x[..., i] for i in range(x.shape[-1])] for x in static))
+                res = [cdyn._stack(list(r), batch, tensors[0]) for r in res]
+            self.graphs[key] = (graph, static, res)
+            return out
+        graph, static, res = entry
+        for dst, src in zip(static, ins):
+            dst.copy_(src)
+        graph.replay()
+        return tuple(list(r.clone().unbind(-1)) for r in res)
+
+
+# The replayed substeps of the runs of the current phase, kept (with their
+# graphs) until `free_replays` (after every phase, or once the card's
+# reserved memory passes REPLAY_MEMORY_CAP): id(run) -> (run, replay)
+_REPLAYS = {}
+REPLAY_MEMORY_CAP = 40e9  # bytes
+
+
+def replayed(plain):
+    """`plain`, a bound plain version of a period or rollout integrator,
+    called with its substeps replayed from CUDA graphs (`_ReplayedSubstep`,
+    one a run, its graphs kept for the phase): the same outputs, bit for
+    bit."""
+    import torch
+
+    run = plain.__self__
+    if torch.cuda.memory_reserved() > REPLAY_MEMORY_CAP:
+        free_replays()  # bound what the phase's graphs hold on the card
+    if id(run) not in _REPLAYS:
+        _REPLAYS[id(run)] = (run, _ReplayedSubstep(run.substep))
+    replay = _REPLAYS[id(run)][1]
+
+    def call(*args, **kw):
+        own = run.__dict__.get("substep")
+        run.substep = replay
+        try:
+            return plain(*args, **kw)
+        finally:
+            if own is None:
+                del run.substep
+            else:
+                run.substep = own
+
+    return call
+
+
+def _host_memory():
+    """This process's resident memory and the host's available memory."""
+    fields = {}
+    for path, keys in (("/proc/self/status", ("VmRSS",)), ("/proc/meminfo", ("MemAvailable",))):
+        try:
+            with open(path) as f:
+                for line in f:
+                    key = line.split(":")[0]
+                    if key in keys:
+                        fields[key] = int(line.split()[1]) / 1e6
+        except OSError:
+            pass
+    return ", ".join(f"{k} {v:.1f} GB" for k, v in fields.items())
+
+
+def free_replays():
+    """Free the phase's CUDA graphs and their memory pools."""
+    import torch
+
+    _REPLAYS.clear()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
 def _time_cuda(fn, n):
     import torch
 
@@ -861,7 +1008,9 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
 
     device = env.device
     env64 = make(model, device=device, dtype=torch.float64)
-    engines = {torch.float32: env.env.engine, torch.float64: env64.env.engine}
+    base, block, ctrl, carry_of = _step_controller(env)
+    base64, _, ctrl64, _ = _step_controller(env64)
+    engines = {torch.float32: base.engine, torch.float64: base64.engine}
     elt = 4
     nq, nv, nm = env.robot.nq, env.robot.nv, env.robot.nmotors
     ops, ops_generic = counts.result() if counts is not None else spring_op_counts(model)
@@ -869,9 +1018,7 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
     log(f"[ops] {model} plain-version ops per env, generic formulation (what the kernels run): "
         f"{ops_generic}")
 
-    block = env.block.name
-    ctrl = env.env._component_controllers[block]
-    n_ticks = env.env.n_ctrl_per_step
+    n_ticks = base.n_ctrl_per_step
 
     def fns(name, dtype, ticks=None):
         eng = engines[dtype]
@@ -879,16 +1026,16 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
             return eng._cdyn.accel_kernel, eng._cdyn.accel_plain
         if name == "cdyn_period":
             run = eng._get_period_run("rk4")
-            return run.kernel, run.plain
-        run = eng._get_rollout_run(block, ctrl, n_ticks)
+            return run.kernel, replayed(run.plain)
+        run = eng._get_rollout_run(block, ctrl if dtype == torch.float32 else ctrl64, n_ticks)
         return (lambda *xs: run.kernel(*xs, n_ticks=ticks),
-                lambda *xs: run.plain(*xs, n_ticks=ticks))
+                lambda *xs: replayed(run.plain)(*xs, n_ticks=ticks))
 
     # Main path states, float32 as stepped
     q, v = st.sim.q.contiguous(), st.sim.v.contiguous()
     tau = engines[torch.float32]._compute_efforts(st.sim.command, v)[1]
     q2, v2, cmd2 = st2.sim.q.contiguous(), st2.sim.v.contiguous(), st2.sim.command.contiguous()
-    carry = st.blocks[block].reshape(B_MAIN, -1).contiguous()
+    carry = carry_of(st)
     action = torch.zeros((B_MAIN, nm), dtype=torch.float32, device=device)
     main_inputs = {"cdyn_accel": (q, v, tau), "cdyn_period": (q2, v2, cmd2),
                    "cdyn_rollout": (q, v, action, carry)}
@@ -897,7 +1044,8 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
     def perturbed(dtype):
         qp, vp, taup = perturbed_states(env64, B_MAIN, seed=0)
         cmdp = _commands(B_MAIN, nm, torch.float64, device, seed=0)
-        _, actp, carryp = _rollout_inputs(env64, qp, torch.float64, device, "pd", 0)
+        _, actp, carryp = _rollout_inputs(env64, qp, torch.float64, device,
+                                          "zoh" if block == "zoh" else "pd", 0)
         xs = {"cdyn_accel": (qp, vp, taup), "cdyn_period": (qp, vp, cmdp),
               "cdyn_rollout": (qp, vp, actp, carryp)}
         return {k: tuple(x.to(dtype) for x in val) for k, val in xs.items()}
@@ -1326,9 +1474,10 @@ def phase_constrained_main_path(device, smi):
     return env, launches, period_launches, steps_per_s, pp_steps_per_s, reset_ms, st, st2
 
 
-def physics_checks(env, sim):
+def physics_checks(env, sim, joints=None):
     """Checks a zeroed or wrong solver fails, on the final state of the
-    constrained main path (the robot at rest on its four feet)."""
+    constrained main path (the robot at rest on its feet): `joints` those
+    held within their limits (by default the bound rows')."""
     import numpy as np
     import torch
 
@@ -1341,7 +1490,7 @@ def physics_checks(env, sim):
     log(f"[cm-physics] sum of normal forces / (m g = {weight:.3f} N): worst env off by {worst:.3e} "
         f"(tol {CM_WEIGHT_TOL:g})")
     check(worst < CM_WEIGHT_TOL, "the feet do not carry the robot's weight")
-    qi = [model.idx_q[j] for j in cset.bound_joint_indices]
+    qi = [model.idx_q[j] for j in (cset.bound_joint_indices if joints is None else joints)]
     q = sim.q[:, qi].double()
     lo = torch.as_tensor(model.position_limit_lower[qi], device=q.device)
     hi = torch.as_tensor(model.position_limit_upper[qi], device=q.device)
@@ -1352,9 +1501,10 @@ def physics_checks(env, sim):
     lam_b, lam_n = lam[:, :nb], lam[:, nb + 2::4]
     lam_t = torch.hypot(lam[:, nb::4], lam[:, nb + 1::4])
     cone = float((lam_t - mu * lam_n * (1 + 1e-5)).max())
-    log(f"[cm-physics] min bound multiplier {float(lam_b.min()):.3e}, min normal multiplier "
+    b_min = float(lam_b.min()) if nb else 0.0  # no bound row: none to hold
+    log(f"[cm-physics] min bound multiplier {b_min:.3e} ({nb} bound rows), min normal multiplier "
         f"{float(lam_n.min()):.3e}, max ||lam_t|| - mu lam_n (1 + 1e-5) {cone:.3e}")
-    check(float(lam_b.min()) >= 0.0 and float(lam_n.min()) >= 0.0, "negative boxed multiplier")
+    check(b_min >= 0.0 and float(lam_n.min()) >= 0.0, "negative boxed multiplier")
     check(cone <= 0.0, "a tangential multiplier is outside the friction cone")
 
 
@@ -1504,7 +1654,7 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
         outs = run32.kernel(*xs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        refs = run32.plain(*xs)
+        refs = replayed(run32.plain)(*xs)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         e_abs = abs_err(outs, refs)
@@ -1513,7 +1663,7 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
         # float64, main path states, reduced counts: every column, every env
         run64 = run_of(name, engines[torch.float64])
         xs64 = tuple(x.double() for x in xs)
-        outs, refs = run64.kernel(*xs64, **reduced(name)), run64.plain(*xs64, **reduced(name))
+        outs, refs = run64.kernel(*xs64, **reduced(name)), replayed(run64.plain)(*xs64, **reduced(name))
         torch.cuda.synchronize()
         e64_main, at64_main = output_error(outs, refs, "float64")
         log(f"[cm-check] {name} float64 B={B_MAIN} ({reduced(name)}), main path states: column "
@@ -1524,7 +1674,7 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
 
         # float64, active rows, reduced counts; the one-ulp and the solver witnesses
         xs = active[name]
-        outs, refs = run64.kernel(*xs, **reduced(name)), run64.plain(*xs, **reduced(name))
+        outs, refs = run64.kernel(*xs, **reduced(name)), replayed(run64.plain)(*xs, **reduced(name))
         torch.cuda.synchronize()
         e64, at64 = output_error(outs, refs, "float64")
         share = share_beyond(outs, refs, tol64)
@@ -1557,7 +1707,7 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
         # float32, active rows, reduced counts: q90 per column; the witnesses again
         run32 = run_of(name, engines[torch.float32])
         xs32 = tuple(x.float() for x in xs)
-        outs, refs = run32.kernel(*xs32, **reduced(name)), run32.plain(*xs32, **reduced(name))
+        outs, refs = run32.kernel(*xs32, **reduced(name)), replayed(run32.plain)(*xs32, **reduced(name))
         torch.cuda.synchronize()
         e32, at32 = output_error(outs, refs, "float32")
         zeroed = outs[2].clone()
@@ -1577,7 +1727,7 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
         extreme_errs = {}
         for rows, batch in extremes.items():
             xs = batch[name]
-            outs, refs = run64.kernel(*xs, **reduced(name)), run64.plain(*xs, **reduced(name))
+            outs, refs = run64.kernel(*xs, **reduced(name)), replayed(run64.plain)(*xs, **reduced(name))
             torch.cuda.synchronize()
             e64x, at64x = output_error(outs, refs, "float64")
             share_x = share_beyond(outs, refs, tol64)
@@ -1590,7 +1740,7 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
                 check(bool((outs[2][:, lam_cols] == 0).all()), f"{name}: a multiplier with no row active")
             del outs, refs
             xs32 = tuple(x.float() for x in xs)
-            outs, refs = run32.kernel(*xs32, **reduced(name)), run32.plain(*xs32, **reduced(name))
+            outs, refs = run32.kernel(*xs32, **reduced(name)), replayed(run32.plain)(*xs32, **reduced(name))
             torch.cuda.synchronize()
             e32x, at32x = output_error(outs, refs, "float32")
             check(e32x < tol32, f"{name} float32 disagrees ({rows} rows active): {e32x}")
@@ -1960,7 +2110,7 @@ def phase_pendulum_records(toys, smi):
         outs = run32.kernel(*xs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        refs = run32.plain(*xs)
+        refs = replayed(run32.plain)(*xs)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         e_abs = abs_err(outs, refs)
@@ -1970,7 +2120,7 @@ def phase_pendulum_records(toys, smi):
         # float64: the main path's states, perturbed states, every row and no row active
         for case in ("main", "mixed", "all", "none"):
             xs64 = main_inputs(name, torch.float64) if case == "main" else inputs_of(name, case, torch.float64)
-            outs, refs = run64.kernel(*xs64), run64.plain(*xs64)
+            outs, refs = run64.kernel(*xs64), replayed(run64.plain)(*xs64)
             torch.cuda.synchronize()
             e64, at64 = output_error(outs, refs, "float64")
             check(all(bool(torch.isfinite(o).all()) for o in outs), f"{name}: non-finite output ({case})")
@@ -2007,7 +2157,7 @@ def phase_pendulum_records(toys, smi):
                 errs["ragged"] = e_rag
                 del outs_rag
                 xs32 = tuple(x.float() for x in xs64)
-                outs32, refs32 = run32.kernel(*xs32), run32.plain(*xs32)
+                outs32, refs32 = run32.kernel(*xs32), replayed(run32.plain)(*xs32)
                 e32, at32 = output_error(outs32, refs32, "float32")
                 log(f"[pendulum-check] {name} float32 B={B_MAIN}, mixed states: column q90 err / "
                     f"rms {e32:.3e} at {at32} (tol {tol32:g})")
@@ -2440,12 +2590,12 @@ def _rough_checks(device, envs, witness):
         q = spread_on_ground(q, ground, seed=1, half_width=ROUGH_HALF_WIDTH)
         cmd = _commands(64, nm, dtype, device, seed=1)
         run = eng._get_period_run("rk4")
-        held("cdyn_period", run.kernel(q, v, cmd), run.plain(q, v, cmd), True,
+        held("cdyn_period", run.kernel(q, v, cmd), replayed(run.plain)(q, v, cmd), True,
              "B=64 (5 substeps)")
         ctrl, action, carry = _rollout_inputs(env, q, dtype, device, "pd", 2)
         run = eng._get_rollout_run("rough-check", ctrl, env.env.n_ctrl_per_step)
         outs = run.kernel(q, v, action, carry, n_ticks=2, n_substeps=2)
-        refs = run.plain(q, v, action, carry, n_ticks=2, n_substeps=2)
+        refs = replayed(run.plain)(q, v, action, carry, n_ticks=2, n_substeps=2)
         held("cdyn_rollout", outs, refs, True, "B=64 (2 ticks x 2 substeps)")
         if dtype == torch.float64:  # (b) the contacts meet the terrain off vertical
             nv, nc = env.robot.nv, len(env.robot.contact_frame_indices)
@@ -2468,7 +2618,7 @@ def _rough_checks(device, envs, witness):
         run = cm_eng._get_period_run("rk4")
         cc = torch.cat([cmda, sola], -1)
         held("cdyn_period_cm", run.kernel(qa, va, cc, n_substeps=CM_SUBSTEPS),
-             run.plain(qa, va, cc, n_substeps=CM_SUBSTEPS), True,
+             replayed(run.plain)(qa, va, cc, n_substeps=CM_SUBSTEPS), True,
              f"B={B_ROUGH_CHECK} ({CM_SUBSTEPS} substeps)")
         ctrl = cm_env.block.component_controller(cm_env.env)
         run = cm_eng._get_rollout_run("rough-check", ctrl, cm_env.env.n_ctrl_per_step)
@@ -2476,7 +2626,7 @@ def _rough_checks(device, envs, witness):
         blk[:, :nm] = qa[:, 7:]
         xs = (qa, va, cmda * 2.5, torch.cat([blk, sola], -1))
         held("cdyn_rollout_cm", run.kernel(*xs, n_ticks=CM_TICKS, n_substeps=CM_SUBSTEPS),
-             run.plain(*xs, n_ticks=CM_TICKS, n_substeps=CM_SUBSTEPS), True,
+             replayed(run.plain)(*xs, n_ticks=CM_TICKS, n_substeps=CM_SUBSTEPS), True,
              f"B={B_ROUGH_CHECK} ({CM_TICKS} ticks x {CM_SUBSTEPS} substeps)")
     return errs
 
@@ -2631,13 +2781,13 @@ def phase_terrain(device, smi, records, counts=None):
     inputs = {
         "cdyn_accel": (eng._cdyn.accel_kernel, eng._cdyn.accel_plain,
                        (st.sim.q, st.sim.v, eng._compute_efforts(st.sim.command, st.sim.v)[1])),
-        "cdyn_period": (prun.kernel, prun.plain, (st2.sim.q, st2.sim.v, st2.sim.command)),
-        "cdyn_rollout": (run.kernel, run.plain,
+        "cdyn_period": (prun.kernel, replayed(prun.plain), (st2.sim.q, st2.sim.v, st2.sim.command)),
+        "cdyn_rollout": (run.kernel, replayed(run.plain),
                          (st.sim.q, st.sim.v, zeros, st.blocks[block].reshape(B_MAIN, -1))),
-        "cdyn_period_cm": (cm_prun.kernel, cm_prun.plain,
+        "cdyn_period_cm": (cm_prun.kernel, replayed(cm_prun.plain),
                            (cst2.sim.q, cst2.sim.v, torch.cat(
                                [cst2.sim.command, _cm_solver_row(cst2.sim, torch.float32)], -1))),
-        "cdyn_rollout_cm": (cm_run.kernel, cm_run.plain,
+        "cdyn_rollout_cm": (cm_run.kernel, replayed(cm_run.plain),
                             (cst.sim.q, cst.sim.v, zeros, torch.cat(
                                 [cst.blocks[cm_block].reshape(B_MAIN, -1),
                                  _cm_solver_row(cst.sim, torch.float32)], -1))),
@@ -2688,7 +2838,7 @@ def phase_terrain(device, smi, records, counts=None):
             k = cm_prun.pack(device, torch.float32).counts
             smem = {elt: lib.cm_smem_bytes(c["nj"], c["nq"], c["nv"], k["n_rows"], k["nc_rows"],
                                            k["nb_rows"], k["support_width"], k["nd_rows"],
-                                           c["nc"], elt)
+                                           c["nc"], k["nr_rows"], elt)
                     for elt in (4, 8)}
             per_sm = lib.cm_envs_per_sm(name, 4, smem[4], terrain=True)
             per_sm_flat = lib.cm_envs_per_sm(name, 4, flat[name]["smem_per_env"])
@@ -2881,9 +3031,10 @@ def loop_op_counts(env_cpu, q, v, cc, bc, fold_zeros):
     qc, vc = [q[..., i] for i in range(q.shape[-1])], [v[..., i] for i in range(v.shape[-1])]
     ccl, bcl = [cc[..., i] for i in range(cc.shape[-1])], [bc[..., i] for i in range(bc.shape[-1])]
     run = eng._get_period_run("rk4")
-    ctrl = env_cpu.block.component_controller(env_cpu.env)
-    rrun = eng._get_rollout_run("count", ctrl, env_cpu.env.n_ctrl_per_step)
-    acl = [torch.zeros(1, dtype=torch.float64)] * (env_cpu.action_size + eng.cset.n_distance)
+    base, _, ctrl, _ = _step_controller(env_cpu)
+    rrun = eng._get_rollout_run("count", ctrl, base.n_ctrl_per_step)
+    acl = [torch.zeros(1, dtype=torch.float64)] * (env_cpu.action_size + eng.cset.n_distance
+                                                   + eng.cset.n_rolling)
 
     def count(fn):
         return count_elem_ops(fn, fold_zeros)
@@ -2988,7 +3139,7 @@ def phase_digit_records(env, env64, launches, period_launches, smi, st, st2, cou
         outs = run32.kernel(*xs, **cut)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        refs = run32.plain(*xs, **cut)
+        refs = replayed(run32.plain)(*xs, **cut)
         torch.cuda.synchronize()
         plain_part_ms = (time.perf_counter() - t0) * 1e3
         e_abs = abs_err(outs, refs)
@@ -3006,7 +3157,7 @@ def phase_digit_records(env, env64, launches, period_launches, smi, st, st2, cou
         if name == "cdyn_period_cm":  # float64, one env short: the last block part-filled
             run64 = run_of(name, env64.engine)
             xs64 = tuple(x[: B_MAIN - 1].double() for x in xs)
-            outs, refs = run64.kernel(*xs64), run64.plain(*xs64)
+            outs, refs = run64.kernel(*xs64), replayed(run64.plain)(*xs64)
             torch.cuda.synchronize()
             e64, at64 = output_error(outs, refs, "float64")
             zeroed = outs[2].clone()
@@ -3150,7 +3301,7 @@ def phase_loop_checks(device, envs):
                         torch.cat([block, tail[:, nd:]], -1))
                 cut = (dict(n_ticks=LOOP_TICKS) if whole else
                        dict(n_ticks=LOOP_TICKS, n_substeps=LOOP_SUBSTEPS))
-            outs, refs = run.kernel(*args, **cut), run.plain(*args, **cut)
+            outs, refs = run.kernel(*args, **cut), replayed(run.plain)(*args, **cut)
             torch.cuda.synchronize()
             check(cdyn.KERNELS[name].launches == before + 1, f"{label} {name} did not launch once")
             e, at = output_error(outs, refs, dname)
@@ -3274,6 +3425,561 @@ def phase_cassie(device, smi, golden=None):
 
 
 
+# --------------------------------------------------------------------------- #
+# The ant (sphere contacts through the spring kernels and as PGS rows) and
+# the rolling ball (rolling rows through the constrained kernels)
+# --------------------------------------------------------------------------- #
+
+N_STEPS_ANT = 5  # the ant's main path, after a warm-up step
+N_STEPS_ANT_CM = 3  # the ant's main path in constraint mode, after a warm-up step
+ANT_CHECK_TICKS = 2  # the ant's spring rollout held to its plain version over these ticks (of 10)
+ANT_CM_TICKS = 1  # its cdyn_rollout_cm held and timed against its plain version over these
+B_ANT_ROUGH_CHECK = 1024  # the terrain instance with radii, against its plain version
+N_STEPS_BALL = 200  # steps of 1 ms of the rolling ball at B_MAIN
+B_BALL_CHECK = 256  # the ball's cdyn_period_cm against its plain version at float64
+N_STEPS_BALL_CHECK = 150
+BALL_RADIUS = 0.2
+BALL_SLIP_TOL = 1e-4  # [m/s] |v_x - w_y r| (jiminy_tpu's tests/test_rolling.py:31-61)
+BALL_HEIGHT_TOL = 1e-3  # [m]
+BALL_TRAVEL_MIN = 0.015  # [m] over N_STEPS_BALL steps from a spin of 2-3 rad/s
+
+
+def _ant_make(device, dtype, constraint=False, rough=False, bounds=None):
+    """make("ant") (spring-damper), in constraint contact mode, on the rough
+    ground, or with `joint_bounds_mode=bounds`."""
+    from jiminy_torch.engine.config import ContactModel
+    from jiminy_torch.envs import make
+    from jiminy_torch.testing import ground_options, rough_ground
+
+    kw = {"contact_model": ContactModel.CONSTRAINT} if constraint else {}
+    env = make("ant", device=device, dtype=dtype, **kw)
+    options = env.engine.options
+    if rough:
+        options = ground_options(options, rough_ground())
+    if bounds:
+        options = options.replace(joint_bounds_mode=bounds)
+    if rough or bounds:
+        env = make("ant", device=device, dtype=dtype, options=options)
+    return env
+
+
+def _limited_joints(robot):
+    """The motorized 1-dof joints with finite limits (the ant's eight)."""
+    import numpy as np
+
+    model = robot.model
+    lo, hi = np.asarray(model.position_limit_lower), np.asarray(model.position_limit_upper)
+    return [j for j in robot.motors.joint_indices
+            if np.isfinite(lo[model.idx_q[j]]) or np.isfinite(hi[model.idx_q[j]])]
+
+
+def phase_ant_main_path(device, smi, constraint):
+    """make("ant") at float32, B_MAIN, spring-damper or constraint contact
+    mode: launch counts to 0, batched reset (cdyn_accel; in constraint mode
+    the plain constrained solve, timed), a warm-up step and N steps of zero
+    actions (one rollout launch a step, nothing else), counts read;
+    env-steps/s, all finite, no standing ant terminated (constraint mode:
+    phase 7's physics checks, every limited joint held); then one step of
+    the per-period path (one period launch a controller period)."""
+    import torch
+
+    from jiminy_torch.ops import cdyn
+
+    env = _ant_make(device, torch.float32, constraint)
+    eng = env.engine
+    tag = "ant-cm" if constraint else "ant"
+    rollout, period = ("cdyn_rollout_cm", "cdyn_period_cm") if constraint else (
+        "cdyn_rollout", "cdyn_period")
+    n_steps = N_STEPS_ANT_CM if constraint else N_STEPS_ANT
+    log(f"[{tag}] ant: nq {env.robot.nq}, nv {env.robot.nv}, {env.robot.model.njoints} joints, "
+        f"{env.robot.nmotors} motors, contact radii {env.robot.contact_radii}, "
+        f"{env.n_ctrl_per_step} ticks x {eng.n_substeps} substeps a step; rows "
+        f"{eng.cset.total_rows} ({eng.cset.n_contacts} contacts, {eng.cset.n_bounds} bounds)")
+    action = torch.zeros(env.action_size, device=device)
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, _ = env.reset(batch_size=B_MAIN)
+    torch.cuda.synchronize()
+    reset_ms = (time.perf_counter() - t0) * 1e3
+    st, *_ = env.step(st, action)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        st, obs, reward, term, trunc, _ = env.step(st, action)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    log(f"[{tag}] float32 B={B_MAIN}, reset ({reset_ms:.1f} ms, host clock) + warm-up + "
+        f"{n_steps} steps: launches {launches}")
+    want = {rollout: n_steps + 1, **({} if constraint else {"cdyn_accel": 1})}
+    check(launches == {k: want.get(k, 0) for k in launches},
+          f"{tag}: {rollout} not once a step (and {'nothing' if constraint else 'cdyn_accel'} "
+          f"at the reset)")
+    sim = st.sim
+    for name, x in (("q", sim.q), ("v", sim.v), ("reward", reward),
+                    ("contact_forces", sim.contact_forces)):
+        check(bool(torch.isfinite(x).all()), f"{tag}: non-finite {name} on the main path")
+    fell = float(term.float().mean())
+    steps_per_s = B_MAIN * n_steps / elapsed
+    log(f"[{tag}] base height mean {float(sim.q[:, 2].mean()):.4f} m, terminated share {fell:.4f}; "
+        f"env-steps/s {steps_per_s:.1f} ({elapsed:.4f} s for {n_steps} steps, host clock) on {smi}")
+    check(fell == 0.0, f"{tag}: a standing ant terminated under zero actions")
+    if constraint:
+        check(bool(torch.isfinite(sim.lam).all()), f"{tag}: non-finite multipliers")
+        physics_checks(env, sim, joints=_limited_joints(env.robot))
+
+    env.use_fused_rollout = False
+    st2, *_ = env.step(st, action)
+    torch.cuda.synchronize()
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    st2, *_ = env.step(st2, action)
+    torch.cuda.synchronize()
+    elapsed_pp = time.perf_counter() - t0
+    period_launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    pp_steps_per_s = B_MAIN / elapsed_pp
+    log(f"[{tag}] per-period path, 1 step: launches {period_launches}; env-steps/s "
+        f"{pp_steps_per_s:.1f} on {smi}")
+    check(period_launches[period] == env.n_ctrl_per_step
+          and sum(period_launches.values()) == env.n_ctrl_per_step,
+          f"{tag}: {period} did not run once per controller period (and nothing else)")
+    check(bool(torch.isfinite(st2.sim.q).all()), f"{tag}: non-finite q on the per-period path")
+    env.use_fused_rollout = True
+    return env, launches, period_launches, steps_per_s, pp_steps_per_s, reset_ms, st, st2
+
+
+def ant_cm_op_counts(q1, v1, cc1, bc1):
+    """`loop_op_counts` of the ant in constraint mode on the CPU at one
+    state, zero operands folded away."""
+    import torch
+
+    return loop_op_counts(_ant_make("cpu", torch.float64, constraint=True), q1, v1, cc1, bc1,
+                          fold_zeros=True)
+
+
+def phase_ant_cm_records(env, launches, period_launches, smi, st, st2, counters=None):
+    """The constrained kernels on the ant's constraint-mode main path states
+    at B_MAIN: float32 timed (CUDA events) beside the plain version (host
+    clock; the period whole, the rollout over ANT_CM_TICKS of its 10 ticks,
+    its record's `plain_ms` null), printed beside a one-ulp witness; float64
+    one env short (the last block part-filled) every column within 1e-9,
+    the period whole and the rollout over ANT_CM_TICKS ticks, zeroed contact
+    multipliers and one PGS sweep refused. Ops counted on the plain version
+    (in a worker process), bytes, bound, registers, shared memory, envs an
+    SM. Then the 44-row ant (its joint bounds as rows too) is refused by
+    the wrappers, naming ROADMAP.md queue 2 item 5."""
+    import dataclasses
+
+    import torch
+
+    from jiminy_torch.engine import solver
+    from jiminy_torch.ops import cdyn, kernels
+    from jiminy_torch.testing import column_errors
+
+    device = env.device
+    env64 = _ant_make(device, torch.float64, constraint=True)
+    nm, nq, nv = env.robot.nmotors, env.robot.nq, env.robot.nv
+    cset = env.engine.cset
+    ctrl = env._component_controllers["zoh"]
+    ctrl64 = cdyn.ZOHPassThrough(nm)
+    n_ticks = env.n_ctrl_per_step
+
+    def run_of(name, eng, ctl, opts=None):
+        if name == "cdyn_period_cm":
+            run = eng._get_period_run("rk4")
+            if opts is not None:
+                run = solver.ConstrainedPeriodIntegrator(run.cd, run.tau_c, run.cset, opts, run.dt,
+                                                         run.n_substeps, run.integrator,
+                                                         run.n_cmd, run.imu_frames)
+            return run
+        run = eng._get_rollout_run("zoh", ctl, n_ticks)
+        if opts is not None:
+            run = solver.ConstrainedRolloutIntegrator(run.cd, run.tau_c, run.cset, opts, run.dt,
+                                                      run.n_substeps, run.n_ticks, ctl,
+                                                      run.integrator, run.imu_frames)
+        return run
+
+    main_inputs = {
+        "cdyn_period_cm": (st2.sim.q, st2.sim.v,
+                           torch.cat([st2.sim.command.expand(B_MAIN, nm),
+                                      _cm_solver_row(st2.sim, torch.float32)], -1)),
+        "cdyn_rollout_cm": (st.sim.q, st.sim.v, torch.zeros((B_MAIN, nm), device=device),
+                            _cm_solver_row(st.sim, torch.float32)),
+    }
+    cuts = {"cdyn_period_cm": {}, "cdyn_rollout_cm": dict(n_ticks=ANT_CM_TICKS)}
+    xs = main_inputs["cdyn_rollout_cm"]
+    q1, v1 = xs[0][:1].double().cpu(), xs[1][:1].double().cpu()
+    cc1 = torch.cat([st.sim.command.expand(B_MAIN, nm)[:1],
+                     _cm_solver_row(st.sim, torch.float32)[:1]], -1).double().cpu()
+    bc1 = xs[3][:1].double().cpu()
+    counting = counters.submit(ant_cm_op_counts, q1, v1, cc1, bc1) if counters else None
+    ops = None
+    n_solver = cset.total_rows + cset.n_contacts + cset.n_bounds
+    nc = cset.n_contacts
+    n_extra = nv + 10 * nc + n_solver
+    n_cc, n_carry, n_act = nm + n_solver, n_solver, nm
+    io_per_env = {
+        "cdyn_period_cm": 2 * nq + 2 * nv + n_cc + n_extra,
+        "cdyn_rollout_cm": 2 * nq + 2 * nv + n_act + n_carry + n_extra + n_cc + n_carry,
+    }
+    lam_cols = slice(n_extra - n_solver, n_extra - n_solver + cset.total_rows)
+    n_launch = {"cdyn_period_cm": period_launches["cdyn_period_cm"],
+                "cdyn_rollout_cm": launches["cdyn_rollout_cm"]}
+    lib = kernels.load()
+    tol64 = TOL["float64"][1]
+    records = []
+    for name in ("cdyn_period_cm", "cdyn_rollout_cm"):
+        run32 = run_of(name, env.engine, ctrl)
+        xs, cut = main_inputs[name], cuts[name]
+        ms = _time_cuda(lambda: run32.kernel(*xs), 5 if name == "cdyn_period_cm" else 1)
+        ms_part = _time_cuda(lambda: run32.kernel(*xs, **cut), 3) if cut else ms
+        outs = run32.kernel(*xs, **cut)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = replayed(run32.plain)(*xs, **cut)
+        torch.cuda.synchronize()
+        plain_part_ms = (time.perf_counter() - t0) * 1e3
+        e_abs = abs_err(outs, refs)
+        e32_main, at32_main = output_error(outs, refs, "float32")
+        nudged = (torch.nextafter(xs[0], torch.full_like(xs[0], math.inf)),) + xs[1:]
+        e32_ulp, at32_ulp = output_error(run32.kernel(*nudged, **cut), outs, "float32")
+        span = f" over {cut['n_ticks']} of its {n_ticks} ticks" if cut else ", a whole period"
+        log(f"[ant-cm-check] {name} float32 B={B_MAIN}{span}, main path states (printed, not "
+            f"held): {ERR_NAME['float32']} {e32_main:.3e} at {at32_main}, max abs err "
+            f"{e_abs:.3e}; the kernel against itself with q moved one ulp {e32_ulp:.3e} at "
+            f"{at32_ulp}")
+        del outs, refs
+
+        # float64, one env short: the last block part-filled
+        run64 = run_of(name, env64.engine, ctrl64)
+        xs64 = tuple(x[: B_MAIN - 1].double() for x in xs)
+        outs, refs = run64.kernel(*xs64, **cut), replayed(run64.plain)(*xs64, **cut)
+        torch.cuda.synchronize()
+        e64, at64 = output_error(outs, refs, "float64")
+        zeroed = outs[2].clone()
+        zeroed[:, lam_cols] = 0.0
+        e_zero = float(column_errors(zeroed, refs[2]).max())
+        one_sweep = run_of(name, env64.engine, ctrl64, dataclasses.replace(run64.opts, iter_max=1))
+        e_sweep, at_sweep = output_error(one_sweep.kernel(*xs64, **cut), refs, "float64")
+        log(f"[ant-cm-check] {name} float64 B={B_MAIN - 1} (ragged){span}, main path states: "
+            f"column max rel err {e64:.3e} at {at64} (tol {tol64:g}); witnesses: contact "
+            f"multipliers zeroed {e_zero:.3e}, one PGS sweep {e_sweep:.3e} at {at_sweep}")
+        check(all(bool(torch.isfinite(o).all()) for o in outs) and e64 < tol64,
+              f"ant {name} float64 disagrees on the main path's states: {e64}")
+        check(e_zero > tol64 and e_sweep > tol64, f"ant {name}: the float64 check misses a wrong "
+              "solver")
+        del outs, refs
+
+        if ops is None:
+            ops = counting.result() if counting else ant_cm_op_counts(q1, v1, cc1, bc1)
+            log(f"[ant-cm-ops] plain-version scalar ops per env at the main path's state, zero "
+                f"operands folded away: {ops}")
+        packed = run32.cd.pack(run32.tau_c, run32.dt, run32.imu_frames, device, torch.float32)
+        cpk = run32.pack(device, torch.float32)
+        check(solver.cm_ext(packed, cpk) == 1, "ant: its spheres do not take the extended body")
+        smem = {dt: solver.cm_smem_per_env(packed, cpk, dt) for dt in (torch.float32, torch.float64)}
+        per_sm = {dt: lib.cm_envs_per_sm(name, torch.empty((), dtype=dt).element_size(), smem[dt],
+                                         ext=True) for dt in smem}
+        regs = _cm_registers(lib.build.ptxas_log, name, "f", False, True)
+        t_ops = ops[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
+        t_bytes = io_per_env[name] * 4 * B_MAIN / PEAK_BYTES * 1e3
+        plain_ms = plain_part_ms if not cut else None
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": "jiminy_torch/csrc/pgs.cuh",
+            "replaces": cdyn.KERNELS[name].replaces.split()[0],
+            "launches": n_launch[name],
+            "max_abs_err": e_abs,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+            "model": "ant (constraint mode)",
+            "plain_ms_basis": ("measured" if not cut else
+                               f"not measured: the plain version's whole step was not run; "
+                               f"over {cut['n_ticks']} of {n_ticks} ticks it took "
+                               f"plain_ms_part, the kernel ms_part"),
+            "ticks_compared": cut.get("n_ticks", None),
+            "ms_part": ms_part if cut else None,
+            "plain_ms_part": plain_part_ms if cut else None,
+            "ops_per_env": ops[name],
+            "bytes_per_env": io_per_env[name] * 4,
+            "f32_q90_err_main": e32_main,
+            "f32_q90_one_ulp_witness": e32_ulp,
+            "f64_err_ragged": e64,
+            "smem_per_env": smem[torch.float32],
+            "smem_per_env_f64": smem[torch.float64],
+            "envs_per_sm": per_sm[torch.float32],
+            "envs_per_sm_f64": per_sm[torch.float64],
+            "registers": regs,
+        }
+        plain_txt = (f"plain {plain_ms:.1f} ms (host clock, measured)" if not cut else
+                     f"plain not timed over the whole step; over {cut['n_ticks']} tick(s) the "
+                     f"kernel {ms_part:.3f} ms (CUDA events), the plain version "
+                     f"{plain_part_ms:.1f} ms (host clock)")
+        log(f"[kernel] ant (constraint mode) {name} B={B_MAIN} float32: {ms:.3f} ms (CUDA events), "
+            f"{plain_txt}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; {ops[name]} ops and "
+            f"{rec['bytes_per_env']} B an env), {rec['bound_ms'] / ms:.2%} of it; {regs} registers, "
+            f"{smem[torch.float32]} B an env ({smem[torch.float64]} at float64), "
+            f"{per_sm[torch.float32]} envs an SM ({per_sm[torch.float64]}); |kernel-plain| on the "
+            f"main path's states{span} {e_abs:.3e}; launches {rec['launches']} on {smi}")
+        records.append(rec)
+
+    # 36 contact rows and 8 bound rows: past the kernels' row cap
+    env44 = _ant_make(device, torch.float32, constraint=True, bounds="constraint")
+    check(env44.engine.cset.total_rows == 44, "ant: not 44 rows with its bounds as rows")
+    run44 = env44.engine._get_period_run("rk4")
+    q, v = st.sim.q[:4], st.sim.v[:4]
+    cc44 = torch.zeros((4, run44.n_cc), device=device)
+    try:
+        run44.kernel(q, v, cc44)
+        refused = None
+    except ValueError as exc:
+        refused = str(exc)
+    log(f"[ant-cm-check] the 44-row ant on the card: {refused}")
+    check(refused is not None and "ROADMAP.md queue 2 item 5" in refused,
+          "ant: the 44-row constrained launch is not refused naming ROADMAP.md queue 2 item 5")
+    return records
+
+
+def phase_ant_rough_check(device):
+    """The constrained kernels' terrain instance with sphere radii: the ant
+    in constraint mode on the rough ground, B_ANT_ROUGH_CHECK states from
+    `constrained_inputs` spread over the ground, float64: the whole period
+    and the rollout over one tick, every column within 1e-9; the flat
+    instance on the same states must miss the rough plain version."""
+    import torch
+
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.testing import constrained_inputs, spread_on_ground
+
+    dtype = torch.float64
+    flat = _ant_make(device, dtype, constraint=True)
+    rough = _ant_make(device, dtype, constraint=True, rough=True)
+    ground = rough.engine.ground_fn
+    nm = rough.robot.nmotors
+    q, v, cmd, sol = constrained_inputs(rough, B_ANT_ROUGH_CHECK, seed=31, dtype=dtype)
+    q = spread_on_ground(q, ground, seed=31, half_width=ROUGH_HALF_WIDTH)
+    tol = TOL["float64"][1]
+    errs = {}
+    for name in ("cdyn_period_cm", "cdyn_rollout_cm"):
+        runs = []
+        for env in (rough, flat):
+            eng = env.engine
+            if name == "cdyn_period_cm":
+                runs.append(eng._get_period_run("rk4"))
+                args, cut = (q, v, torch.cat([cmd, sol], -1)), {}
+            else:
+                run = eng._get_rollout_run("rough-check", cdyn.ZOHPassThrough(nm),
+                                           env.n_ctrl_per_step)
+                runs.append(run)
+                args, cut = (q, v, cmd * 0.05, sol), dict(n_ticks=1)
+        before = cdyn.KERNELS[name].launches
+        outs, refs = runs[0].kernel(*args, **cut), replayed(runs[0].plain)(*args, **cut)
+        outs_flat = runs[1].kernel(*args, **cut)
+        torch.cuda.synchronize()
+        check(cdyn.KERNELS[name].launches == before + 2, f"ant rough {name} did not launch")
+        e, at = output_error(outs, refs, "float64")
+        e_flat, _ = output_error(outs_flat, refs, "float64")
+        log(f"[ant-rough] {name} float64 B={B_ANT_ROUGH_CHECK} "
+            f"({'1 tick' if cut else 'a whole period'}): {ERR_NAME['float64']} {e:.3e} at {at} "
+            f"(tol {tol:g}); witness: the flat instance against the rough plain version "
+            f"{e_flat:.3e}")
+        check(all(bool(torch.isfinite(o).all()) for o in outs) and e < tol,
+              f"ant rough {name} disagrees with its plain version: {e}")
+        check(e_flat > tol, f"ant rough {name}: the flat instance passes the terrain check")
+        errs[name] = e
+    return errs
+
+
+def _ball_engine(device, dtype, kind):
+    """jiminy_tpu's tests/test_rolling.py ball: a free body of radius
+    BALL_RADIUS (mass 1, solid-sphere inertia), a sphere or a wheel (axis
+    y) rolling constraint on its centre frame, RK4 at 1 ms."""
+    import numpy as np
+
+    from jiminy_torch.engine.config import EngineOptions, StepperOptions
+    from jiminy_torch.engine.engine import Engine
+    from jiminy_torch.engine.robot import Robot
+    from jiminy_torch.models import build_model
+    from jiminy_torch.models.joints import JointType
+
+    model = build_model(
+        "ball",
+        [{"name": "root_joint", "type": JointType.FREE, "parent": -1, "mass": 1.0,
+          "com": np.zeros(3), "inertia": np.eye(3) * (2.0 / 5.0) * BALL_RADIUS**2}],
+        [{"name": "center", "parent": 0, "placement": (np.eye(3), np.zeros(3))}])
+    spec = {"frame_name": "center", "radius": BALL_RADIUS}
+    if kind == "wheel":
+        spec["axis"] = (0.0, 1.0, 0.0)
+    robot = Robot.build(model, rolling_constraints=[spec])
+    return Engine(robot, EngineOptions(stepper=StepperOptions(dt_max=1e-3)), device=device,
+                  dtype=dtype)
+
+
+def _ball_periods(eng, st, n, route):
+    """`n` controller periods of `eng` from `st` through the period
+    integrator's kernel or plain version (`route`), as `Engine.step` runs
+    them: (q, v, lam) after them."""
+    import torch
+
+    from jiminy_torch.ops import integrate as integ
+
+    run = eng._get_period_run("rk4")
+    fn = run.kernel if route == "kernel" else replayed(run.plain)
+    q, v, lam = st.q, st.v, st.lam
+    dt = q.dtype
+    for _ in range(n):
+        cc = torch.cat([st.command, st.distance_ref, lam, st.contact_active.to(dt),
+                        st.bound_active.to(dt), st.rolling_ref], -1)
+        q, v, extras = fn(q, v, cc)
+        q = integ.normalize(eng.robot.model, q)
+        _, aux = eng._unpack_period_extras(extras, st.command, v, *eng._solver_widths())
+        lam = aux["lam"]
+    return q, v, lam
+
+
+def phase_ball(device, smi):
+    """The rolling ball through cdyn_period_cm (a sphere spec and a wheel
+    spec): B_MAIN balls at float32, spun about y at 2-3 rad/s (a seeded
+    torch.Generator), launch counts to 0, N_STEPS_BALL steps of 1 ms (one
+    launch a step, nothing else), counts read; checked as jiminy_tpu's
+    tests/test_rolling.py:31-61 checks one ball: no slip, the height kept,
+    the speed of the momentum kept about the contact point, the ball
+    travelled. Then cdyn_period_cm against its plain version at float64 on
+    B_BALL_CHECK tilted balls with random velocities and reference heights,
+    N_STEPS_BALL_CHECK periods each way, q, v and the multipliers within
+    1e-9 of their columns. Records for the kernels line."""
+    import torch
+
+    from jiminy_torch.ops import cdyn, lie
+
+    records, rates = [], {}
+    for kind in ("sphere", "wheel"):
+        eng = _ball_engine(device, torch.float32, kind)
+        check(eng.cset.n_rolling == 1 and eng.cset.total_rows == 3, f"ball {kind}: not 3 rows")
+        gen = torch.Generator(device=device).manual_seed(7)
+        q0 = torch.tensor([0.0, 0.0, BALL_RADIUS, 0.0, 0.0, 0.0, 1.0], device=device)
+        q0 = q0.expand(B_MAIN, 7).contiguous()
+        w0 = 2.0 + torch.rand(B_MAIN, generator=gen, device=device)
+        v0 = torch.zeros((B_MAIN, 6), device=device)
+        v0[:, 4] = w0
+        st = eng.reset(q0, v0)
+        torch.cuda.synchronize()
+        cdyn.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(N_STEPS_BALL):
+            st = eng.step(st)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+        log(f"[ball] {kind} float32 B={B_MAIN}, {N_STEPS_BALL} steps of 1 ms: launches {launches}")
+        check(launches["cdyn_period_cm"] == N_STEPS_BALL and sum(launches.values()) == N_STEPS_BALL,
+              f"ball {kind}: cdyn_period_cm not once a step (and nothing else)")
+        for name, x in (("q", st.q), ("v", st.v), ("lam", st.lam)):
+            check(bool(torch.isfinite(x).all()), f"ball {kind}: non-finite {name}")
+        q, v = st.q.double(), st.v.double()
+        rot = lie.quat_to_mat(q[:, 3:7])
+        v_w, w_w = lie.mv(rot, v[:, :3]), lie.mv(rot, v[:, 3:6])
+        slip = float((v_w[:, 0] - w_w[:, 1] * BALL_RADIUS).abs().max())
+        v_expected = 0.4 / 1.4 * w0.double() * BALL_RADIUS  # I / (I + m r^2) w0 r
+        speed = float(((v_w[:, 0] - v_expected).abs() / (0.25 * v_expected + 1e-3)).max())
+        height = float((q[:, 2] - BALL_RADIUS).abs().max())
+        travel = float(q[:, 0].min())
+        rates[kind] = B_MAIN * N_STEPS_BALL / elapsed
+        log(f"[ball] {kind}: max slip |v_x - w_y r| {slip:.3e} m/s (tol {BALL_SLIP_TOL:g}), max "
+            f"|v_x - v_expected| / (0.25 v_expected + 1e-3) {speed:.3f} (at most 1), max |z - r| "
+            f"{height:.3e} m (tol {BALL_HEIGHT_TOL:g}), least x travelled {travel:.4f} m (at least "
+            f"{BALL_TRAVEL_MIN:g}); env-steps/s {rates[kind]:.1f} ({elapsed:.3f} s, host clock) "
+            f"on {smi}")
+        check(slip < BALL_SLIP_TOL, f"ball {kind}: it slips")
+        check(speed <= 1.0, f"ball {kind}: the rolling speed is off")
+        check(height < BALL_HEIGHT_TOL, f"ball {kind}: it left its height")
+        check(travel > BALL_TRAVEL_MIN, f"ball {kind}: it did not travel")
+
+        # one launch at B_MAIN: kernel (CUDA events) and plain (host clock)
+        run = eng._get_period_run("rk4")
+        cc = torch.cat([st.command, st.distance_ref, st.lam, st.contact_active.float(),
+                        st.bound_active.float(), st.rolling_ref], -1)
+        ms = _time_cuda(lambda: run.kernel(st.q, st.v, cc), 20)
+        outs = run.kernel(st.q, st.v, cc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = replayed(run.plain)(st.q, st.v, cc)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        e_abs = abs_err(outs, refs)
+        e32, at32 = output_error(outs, refs, "float32")
+
+        # float64: the kernel's and the plain version's trajectories
+        eng64 = _ball_engine(device, torch.float64, kind)
+        gen = torch.Generator(device=device).manual_seed(8)
+        qb = torch.zeros((B_BALL_CHECK, 7), dtype=torch.float64, device=device)
+        w = torch.randn((B_BALL_CHECK, 3), generator=gen, device=device, dtype=torch.float64) * 0.5
+        th = torch.linalg.norm(w, dim=1, keepdim=True)
+        qb[:, 3:6], qb[:, 6:] = w / th * torch.sin(th / 2), torch.cos(th / 2)
+        qb[:, :3] = torch.randn((B_BALL_CHECK, 3), generator=gen, device=device,
+                                dtype=torch.float64) * 0.01
+        qb[:, 2] += BALL_RADIUS
+        vb = torch.randn((B_BALL_CHECK, 6), generator=gen, device=device, dtype=torch.float64)
+        stb = eng64.reset(qb, vb)
+        stb = stb.replace(rolling_ref=stb.rolling_ref + 0.003 * torch.randn(
+            (B_BALL_CHECK, 1), generator=gen, device=device, dtype=torch.float64))
+        before = cdyn.KERNELS["cdyn_period_cm"].launches
+        got = _ball_periods(eng64, stb, N_STEPS_BALL_CHECK, "kernel")
+        want = _ball_periods(eng64, stb, N_STEPS_BALL_CHECK, "plain")
+        torch.cuda.synchronize()
+        check(cdyn.KERNELS["cdyn_period_cm"].launches == before + N_STEPS_BALL_CHECK,
+              f"ball {kind}: the float64 check did not launch once a period")
+        e64, at64 = output_error(got, want, "float64")
+        e_zero, _ = output_error((got[0], got[1], torch.zeros_like(got[2])), want, "float64")
+        log(f"[ball] {kind} cdyn_period_cm float64 B={B_BALL_CHECK}, {N_STEPS_BALL_CHECK} periods "
+            f"each way: q, v, lam column max rel err {e64:.3e} at {at64} (tol "
+            f"{TOL['float64'][1]:g}); zeroed multipliers {e_zero:.3e}")
+        check(e64 < TOL["float64"][1], f"ball {kind}: float64 kernel and plain trajectories part")
+        check(e_zero > TOL["float64"][1], f"ball {kind}: the check passes zeroed multipliers")
+
+        ops = _ball_ops(kind)
+        nq, nv, n = 7, 6, 3
+        io = 2 * nq + 2 * nv + (n + 1) + (nv + n)  # q v in and out, cc row, extras
+        t_ops = ops * B_MAIN / PEAK_F32_FLOPS * 1e3
+        t_bytes = io * 4 * B_MAIN / PEAK_BYTES * 1e3
+        rec = {
+            "name": "cdyn_period_cm", "route": "cuda", "source": "jiminy_torch/csrc/pgs.cuh",
+            "replaces": cdyn.KERNELS["cdyn_period_cm"].replaces.split()[0],
+            "launches": launches["cdyn_period_cm"], "max_abs_err": e_abs, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+            "model": f"ball ({kind})", "ops_per_env": ops, "bytes_per_env": io * 4,
+            "f32_q90_err_main": e32, "f64_err_trajectory": e64, "env_steps_per_s": rates[kind],
+        }
+        log(f"[kernel] ball ({kind}) cdyn_period_cm B={B_MAIN} float32: {ms:.4f} ms (CUDA events), "
+            f"plain {plain_ms:.1f} ms (host clock), bound {rec['bound_ms']:.5f} ms "
+            f"({rec['bound_by']}; {ops} ops and {io * 4} B an env), {rec['bound_ms'] / ms:.2%} of "
+            f"it; float32 {ERR_NAME['float32']} {e32:.3e} at {at32} (printed); launches "
+            f"{rec['launches']} on {smi}")
+        records.append(rec)
+    return records, rates
+
+
+def _ball_ops(kind):
+    """Scalar ops per env of one ball period (one RK4 substep and the final
+    solve), counted on the plain version on the CPU at B=1, zero operands
+    folded away."""
+    import torch
+
+    eng = _ball_engine("cpu", torch.float64, kind)
+    q0 = torch.tensor([[0.0, 0.0, BALL_RADIUS, 0.0, 0.0, 0.0, 1.0]], dtype=torch.float64)
+    v0 = torch.tensor([[0.1, 0.0, 0.0, 0.0, 2.0, 0.0]], dtype=torch.float64)
+    st = eng.reset(q0, v0)
+    run = eng._get_period_run("rk4")
+    cc = torch.cat([st.command, st.distance_ref, st.lam, st.contact_active.double(),
+                    st.bound_active.double(), st.rolling_ref], -1)
+    return count_elem_ops(lambda: run.plain(st.q, st.v, cc), True)
+
+
 def main():
     import concurrent.futures
     import multiprocessing
@@ -3295,7 +4001,11 @@ def main():
     def timed(name, fn, *args, **kw):
         t0 = time.perf_counter()
         out = fn(*args, **kw)
-        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+        peak = torch.cuda.max_memory_reserved() / 1e9
+        free_replays()
+        torch.cuda.reset_peak_memory_stats()
+        log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s (card memory reserved at most "
+            f"{peak:.1f} GB; host {_host_memory()})")
         return out
 
     # Worker processes count ops, and run phase 17's CPU side, on the CPU
@@ -3321,7 +4031,7 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
 
     from jiminy_torch.ops import kernels
 
-    counts = {m: counters.submit(spring_op_counts, m) for m in ("anymal-pid", "atlas-pid")}
+    counts = {m: counters.submit(spring_op_counts, m) for m in ("anymal-pid", "atlas-pid", "ant")}
     counts["terrain"] = counters.submit(rough_terrain_ops)
     counts["dopri"] = counters.submit(dopri_glue_calls)
     ppo_cpu = {env_id: counters.submit(ppo_cpu_step, env_id, horizon, sizes)
@@ -3375,6 +4085,22 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
     timed("loop kernels vs plain", phase_loop_checks, device,
           {torch.float64: dg_env64, torch.float32: dg_env})
     del dg_env, dg_env64
+    ant = timed("ant main path", phase_ant_main_path, device, smi, False)
+    an_env, an_launches, an_period_launches, an_sps, _, _, an_st, an_st2 = ant
+    launches = {"cdyn_accel": an_launches["cdyn_accel"],
+                "cdyn_period": an_period_launches["cdyn_period"],
+                "cdyn_rollout": an_launches["cdyn_rollout"]}
+    records += timed("ant kernel records", phase_kernel_records, "ant", an_env, launches, smi,
+                     an_st, an_st2, check_ticks=ANT_CHECK_TICKS, counts=counts["ant"])
+    del ant, an_env, an_st, an_st2
+    ant_cm = timed("ant constraint-mode main path", phase_ant_main_path, device, smi, True)
+    ac_env, ac_launches, ac_period_launches, ac_sps, _, ac_reset_ms, ac_st, ac_st2 = ant_cm
+    records += timed("ant constraint-mode kernel records", phase_ant_cm_records, ac_env,
+                     ac_launches, ac_period_launches, smi, ac_st, ac_st2, counters)
+    del ant_cm, ac_env, ac_st, ac_st2
+    timed("ant on rough ground", phase_ant_rough_check, device)
+    ball_records, ball_rates = timed("rolling ball", phase_ball, device, smi)
+    records += ball_records
     cassie_sps = timed("cassie", phase_cassie, device, smi, cassie_rows)
     t_ppo = time.perf_counter()
     ppo_anymal = timed("PPO anymal-pid", phase_ppo_anymal, device, smi)
@@ -3384,7 +4110,9 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
         f"DOPRI {dopri['steps_per_s']:.1f}, constraint mode {cm_steps_per_s:.1f} (reset "
         f"{cm_reset_ms:.1f} ms), on rough ground {rough_sps:.1f} and {rough_cm_sps:.1f}, "
         f"atlas-pid {at_steps_per_s:.1f}, digit-pid {dg_steps_per_s:.1f} (reset {dg_reset_ms:.1f} "
-        f"ms), cassie-pid {cassie_sps:.1f} (generic path), toys {toy_rates}, PPO training "
+        f"ms), ant {an_sps:.1f}, ant constraint mode {ac_sps:.1f} (reset {ac_reset_ms:.1f} ms), "
+        f"rolling ball sphere {ball_rates['sphere']:.1f} and wheel {ball_rates['wheel']:.1f}, "
+        f"cassie-pid {cassie_sps:.1f} (generic path), toys {toy_rates}, PPO training "
         f"(anymal-pid, 4096 envs) {ppo_anymal['steps_per_s']:.1f} on {smi}")
     log(smi)
     print(json.dumps({"kernels": records}))

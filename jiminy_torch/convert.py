@@ -1,7 +1,9 @@
 """Carry a simulator's "weights" across: the model arrays (every joint type:
 free-flyer, revolute, continuous, prismatic, spherical), the motor bank, a
-motorized robot assembled from both, the PD block constants, and a trained
-policy's parameters, given as plain numpy dictionaries.
+motorized robot assembled from both, the PD block constants, a trained
+policy's parameters and a simulation state (with its solver carry: the
+warm-start multipliers, active sets, loop lengths and rolling heights),
+given as plain numpy dictionaries.
 
 A caller dumps the fields of a `jiminy_tpu` RobotModel / MotorBank /
 PDController to numpy (this package imports nothing of jiminy_tpu) and
@@ -16,6 +18,7 @@ import torch
 
 from jiminy_torch.engine.hardware import MOTOR_ARRAY_FIELDS, MotorBank
 from jiminy_torch.engine.robot import Robot
+from jiminy_torch.engine.state import SimState, StepperState
 from jiminy_torch.models.model import ARRAY_FIELDS, META_FIELDS, RobotModel
 from jiminy_torch.ops.cdyn import PDComponents
 
@@ -55,19 +58,51 @@ def motor_bank_from_arrays(arrays: dict) -> MotorBank:
 
 
 def robot_from_arrays(model_arrays: dict, motor_arrays=None, name=None, contact_frames=(),
-                      loop_pairs=()) -> Robot:
+                      loop_pairs=(), contact_radii=None, rolling_specs=()) -> Robot:
     """A sensor-free Robot from a motorized model's arrays and its motor
     bank's (a robot built with `Robot.build(model, motors=...)`, as the toys
-    build theirs), with its radius-0 contact frames (indices or names: a
-    Cassie's or Digit's collision points are frames of the model) and its
-    loop closures ((frame_a, frame_b) pairs). The model's arrays already
-    hold the motors' armature, so nothing is folded again."""
+    build theirs), with its contact frames (indices or names: a Cassie's or
+    Digit's collision points are frames of the model) and their radii (0 by
+    default; an ant's spheres), its loop closures ((frame_a, frame_b) pairs)
+    and its rolling constraints ((frame, radius, axis or None), jiminy_tpu's
+    `rolling_specs`). The model's arrays already hold the motors' armature,
+    so nothing is folded again."""
     model = model_from_arrays(model_arrays)
     bank = motor_bank_from_arrays(motor_arrays) if motor_arrays is not None else None
     contacts = tuple(model.frame_index(f) if isinstance(f, str) else int(f) for f in contact_frames)
+    radii = (0.0,) * len(contacts) if contact_radii is None else tuple(map(float, contact_radii))
     return Robot(name=name or model.name, model=model, motors=bank,
-                 contact_frame_indices=contacts, contact_radii=(0.0,) * len(contacts),
-                 loop_pairs=tuple(tuple(p) for p in loop_pairs))
+                 contact_frame_indices=contacts, contact_radii=radii,
+                 loop_pairs=tuple(tuple(p) for p in loop_pairs),
+                 rolling_specs=tuple((f, float(r), None if a is None else tuple(map(float, a)))
+                                     for f, r, a in rolling_specs))
+
+
+SIM_FIELDS = ("t", "q", "v", "a", "command", "u_motor", "contact_forces", "tick")
+SOLVER_FIELDS = ("contact_active", "bound_active", "lam", "distance_ref", "rolling_ref")
+STEPPER_FIELDS = ("dt", "iterations", "iter_failed", "successive_iter_failed", "diverged")
+
+
+def sim_state_from_arrays(arrays: dict, device=None, dtype=torch.float64) -> SimState:
+    """A SimState from `{field: value}`: the fields of `SIM_FIELDS`, the
+    stepper's `STEPPER_FIELDS` under "stepper" (a dict), optionally the
+    solver carry's `SOLVER_FIELDS` (a jiminy_tpu state's `lam`,
+    `distance_ref`, `rolling_ref` ...) and "measurements" ({group:
+    array}). Floats take `dtype`, counters int32, active sets bool."""
+
+    def conv(name, x):
+        x = np.asarray(x)
+        if name in ("tick", "iterations", "iter_failed", "successive_iter_failed"):
+            return torch.as_tensor(x.astype(np.int32), device=device)
+        if name in ("contact_active", "bound_active", "diverged"):
+            return torch.as_tensor(x.astype(bool), device=device)
+        return torch.as_tensor(x.astype(np.float64), device=device).to(dtype)
+
+    stepper = StepperState(**{f: conv(f, arrays["stepper"][f]) for f in STEPPER_FIELDS})
+    solver = {f: conv(f, arrays[f]) for f in SOLVER_FIELDS if arrays.get(f) is not None}
+    meas = {k: conv(k, x) for k, x in arrays.get("measurements", {}).items()}
+    return SimState(stepper=stepper, measurements=meas,
+                    **{f: conv(f, arrays[f]) for f in SIM_FIELDS}, **solver)
 
 
 def pd_components_from_arrays(arrays: dict) -> PDComponents:

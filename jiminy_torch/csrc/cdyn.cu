@@ -741,13 +741,15 @@ int cdyn_caps(int* out, int n) {
 
 // Bytes of dynamic shared memory one env of the constrained kernels takes
 // (its slice and the padding to the next one) for a model of nj joints, nq
-// and nv coordinates, n rows (nc contacts, nb bounds, nd loop closures) and
-// supports of up to ns dofs, with ncs spring-damper contacts beside them, at
-// elt bytes a float; -1 past the rows the kernels take.
+// and nv coordinates, n rows (nc contacts, nb bounds, nd loop closures, nr
+// rolling constraints) and supports of up to ns dofs, with ncs spring-damper
+// contacts beside them, at elt bytes a float; -1 past the rows the kernels
+// take.
 int cdyn_cm_smem_bytes(int nj, int nq, int nv, int n, int nc, int nb, int ns, int nd, int ncs,
-                       int elt) {
+                       int nr, int elt) {
   if (n > cdyn::CM_ROWS_MAX) return -1;
-  return cdyn::cm_env_stride(cdyn::CmLayout(nj, nq, nv, n, nc, nb, ns, nd, ncs, elt).bytes, elt);
+  return cdyn::cm_env_stride(cdyn::CmLayout(nj, nq, nv, n, nc, nb, ns, nd, ncs, nr, elt).bytes,
+                             elt);
 }
 
 // Bytes of dynamic shared memory one env of the spring kernels takes (its

@@ -59,23 +59,30 @@
 // update, their lengths riding the command or action row), the core's
 // spring-damper ground contacts as external forces in the RNEA (evaluated
 // per contact by the spring kernels' `contact_eval_at`, the end-of-period
-// forces into the extras) and its penalty joint bounds in the torques.
+// forces into the extras) and its penalty joint bounds in the torques;
+// sphere contacts (radius r > 0: the depth less r, the rows and drifts at the
+// surface point -r n through r skew(n)); rolling constraints (a sphere or a
+// wheel on a frame, 3 rows each, always active and unbounded, swept after the
+// loop rows with the same update, their reference heights riding the command
+// or action row).
 #pragma once
 
 namespace cdyn {
 
 // Int buffer `si`: header [N nb nc iter_max stage_warm_start support_width nd
-// ...], then per bound (q index, v index), per contact (parent joint,
+// nr], then per bound (q index, v index), per contact (parent joint,
 // support size, offset of its support dofs in `si`), per loop closure (the
-// parent joints of its two frames, support size, offset), then the support
-// dof lists (ascending; a loop's the union of its two chains');
+// parent joints of its two frames, support size, offset), per rolling
+// constraint (parent joint, support size, offset, 1 for a wheel), then the
+// support dof lists (ascending; a loop's the union of its two chains');
 // support_width is the largest support size (1 for a bound).
 // Float buffer `sf`: header [kp kd friction torsion regularization
 // min_regularizer transition_eps ...], the relaxation weight of every sweep,
 // then per bound (lo hi lo+eps hi-eps), per contact fpos(3) frot(9), per
-// loop closure the two frames' fpos(3).
+// loop closure the two frames' fpos(3), the contacts' radii, per rolling
+// constraint fpos(3), radius, a wheel's axis in its joint's coordinates (3).
 constexpr int SI_HEADER = 8, SF_HEADER = 8, SI_BOUND = 2, SI_CONTACT = 3, SI_DISTANCE = 4,
-              SF_BOUND = 4, SF_CONTACT = 12, SF_DISTANCE = 6;
+              SI_ROLLING = 4, SF_BOUND = 4, SF_CONTACT = 12, SF_DISTANCE = 6, SF_ROLLING = 7;
 
 template <typename T>
 struct CModel {
@@ -114,6 +121,11 @@ struct CModel {
   __device__ int dsup(int k) const { return dinfo(k)[3]; }
   __device__ int dsup_n(int k) const { return dinfo(k)[2]; }
   __device__ const T* dfpos(int k) const { return cfpos(nc) + SF_DISTANCE * k; }
+  // contact radii and rolling constraints (read by the kExt instances only)
+  __device__ T cradius(int k) const { return dfpos(nd())[k]; }
+  __device__ int nr() const { return si[7]; }
+  __device__ const int* rinfo(int k) const { return dinfo(nd()) + SI_ROLLING * k; }
+  __device__ const T* rfl(int k) const { return dfpos(nd()) + nc + SF_ROLLING * k; }
 };
 
 // --------------------------------------------------------------------------
@@ -155,15 +167,15 @@ __device__ __forceinline__ int upper_at(int na, int r, int c) {
 
 // Byte offsets of one env's slice of dynamic shared memory, from the model's
 // joints, dofs, rows, contacts, bounds and support width, and for the kExt
-// body its loop closures (nd) and spring-damper contacts (ncs), whose
-// regions come last and take no space without them (the same on host and
-// device).
+// body its loop closures (nd), spring-damper contacts (ncs) and rolling
+// constraints (nr), whose regions come last and take no space without them
+// (the same on host and device).
 struct CmLayout {
   int tree, wmat, amat, jmat, mmat, dinv, d, tau, tc, qs, vs, qdd, drift, b, x, depth, lam;
-  int rows, pos, soff, scnt, cnt, clist, jorder, lstart, masks, dref, fx, bytes;
+  int rows, pos, soff, scnt, cnt, clist, jorder, lstart, masks, dref, fx, rref, bytes;
 
   __host__ __device__ CmLayout(int nj, int nq, int nv, int n, int nc, int nb, int ns, int nd,
-                               int ncs, int elt) {
+                               int ncs, int nr, int elt) {
     int off = 0;
     auto take = [&](int count, int size) {
       const int at = off;
@@ -202,6 +214,7 @@ struct CmLayout {
     masks = take(3 * (nc + nb), 1);
     dref = take(nd, elt);
     fx = take(6 * ncs, elt);  // the spring contacts' LOCAL wrenches on their joints
+    rref = take(nr, elt);     // the rolling constraints' reference heights
     bytes = off;
   }
 };
@@ -248,10 +261,12 @@ struct Work {
   unsigned char* masks;
   T* dref;               // the loops' lengths (kExt)
   T (*FX)[6];            // the spring contacts' wrenches (n, f) on their joints (kExt)
+  T* rref;               // the rolling constraints' reference heights (kExt)
   int n, nc, nmask;
 
-  __device__ Work(unsigned char* base, const Model<T>& M, const CModel<T>& C, int nd, int ncs) {
-    const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, nd, ncs,
+  __device__ Work(unsigned char* base, const Model<T>& M, const CModel<T>& C, int nd, int ncs,
+                  int nr) {
+    const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, nd, ncs, nr,
                       static_cast<int>(sizeof(T)));
     T* t = reinterpret_cast<T*>(base + lo.tree);
     const int nj = M.nj;
@@ -295,6 +310,7 @@ struct Work {
     masks = base + lo.masks;
     dref = reinterpret_cast<T*>(base + lo.dref);
     FX = reinterpret_cast<T(*)[6]>(base + lo.fx);
+    rref = reinterpret_cast<T*>(base + lo.rref);
     n = C.n;
     nc = C.nc;
     nmask = C.nc + C.nb;
@@ -336,15 +352,16 @@ __device__ __forceinline__ unsigned char* dynamic_smem() {
 // symbol rather than taking it by reference: the compiler then sees shared
 // memory behind the pointers, and keeps them and the model's constants in
 // registers (a reference to the stack is reloaded after every store). Only
-// the kExt instances read the loops and the spring contacts.
+// the kExt instances read the loops, the spring contacts and the rolling
+// constraints.
 template <bool kExt, typename T>
 __device__ __forceinline__ Work<T> env_work(const Model<T>& M, const CModel<T>& C) {
-  const int nd = kExt ? C.nd() : 0, ncs = kExt ? M.nc : 0;
-  const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, nd, ncs,
+  const int nd = kExt ? C.nd() : 0, ncs = kExt ? M.nc : 0, nr = kExt ? C.nr() : 0;
+  const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, nd, ncs, nr,
                     static_cast<int>(sizeof(T)));
   const int slot = threadIdx.x / CM_LANES;
   return Work<T>(dynamic_smem() + (size_t)slot * cm_env_stride(lo.bytes, sizeof(T)), M, C, nd,
-                 ncs);
+                 ncs, nr);
 }
 
 // --------------------------------------------------------------------------
@@ -682,11 +699,30 @@ __device__ void bound_row(const CModel<T>& C, int b, int p, const T* q, const T*
   drift[p] = sign * (C.kp() * dq + C.kd() * vj);
 }
 
+// scale skew(vec) (row-major), the plain version's `_skew_mat`.
+template <typename T>
+__device__ __forceinline__ void skew_scaled(const T* vec, T scale, T* sk) {
+  sk[0] = T(0);              sk[1] = -scale * vec[2];   sk[2] = scale * vec[1];
+  sk[3] = scale * vec[2];    sk[4] = T(0);              sk[5] = -scale * vec[0];
+  sk[6] = -scale * vec[1];   sk[7] = scale * vec[0];    sk[8] = T(0);
+}
+
+// a += sk b
+template <typename T>
+__device__ __forceinline__ void add_mv3(const T* sk, const T* b, T* a) {
+  T t[3];
+  mv3(sk, b, t);
+  for (int i = 0; i < 3; ++i) a[i] = a[i] + t[i];
+}
+
 // The four rows and drifts of active contact k (tangent c0, tangent c1,
 // normal, torsion) at positions p[0..3], each row over the contact's
 // support dofs; with kTerrain about the unit ground normal nrm[3k..3k+3)
-// the active-set pass stored, else about +z.
-template <bool kTerrain, typename T>
+// the active-set pass stored, else about +z. With kExt a contact of radius
+// r > 0 is a sphere: its linear columns, velocity and bias acceleration
+// are those of the surface point -r n (r skew(n) times the angular ones
+// added).
+template <bool kTerrain, bool kExt, typename T>
 __device__ void contact_rows(const Model<T>& M, const CModel<T>& C, int k, const int* p,
                              const T (*RW)[9], const T (*PW)[3], const T (*VEL)[6],
                              const T (*ACC)[6], const T* depth, const T* nrm, T* J, T* drift) {
@@ -703,6 +739,13 @@ __device__ void contact_rows(const Model<T>& M, const CModel<T>& C, int k, const
     for (int i = 0; i < 3; ++i) n[i] = nrm[3 * k + i];
   T c0[3], c1[3];
   normal_basis(n, c0, c1);
+  bool sphere = false;
+  T sk[9];
+  if constexpr (kExt) {
+    const T r = C.cradius(k);
+    sphere = r > T(0);
+    if (sphere) skew_scaled(n, r, sk);
+  }
   // Jacobian columns over the support dofs (the ancestors' dofs)
 #pragma unroll 1
   for (int j = parent; j >= 0; j = M.parent(j)) {
@@ -727,6 +770,8 @@ __device__ void contact_rows(const Model<T>& M, const CModel<T>& C, int k, const
         mv3(rj, M.axis(j), lin);
         for (int i = 0; i < 3; ++i) ang[i] = T(0);
       }
+      if constexpr (kExt)
+        if (sphere) add_mv3(sk, ang, lin);
       const int d = vi + m;
       int s = 0;  // d's place in the support list
       while (s < ns - 1 && sd[s] != d) ++s;
@@ -752,6 +797,12 @@ __device__ void contact_rows(const Model<T>& M, const CModel<T>& C, int k, const
   mv3(rw, t2, aw_lin);
   cross3(vw_ang, vw_lin, tmp);
   for (int i = 0; i < 3; ++i) aw_lin[i] = aw_lin[i] + tmp[i];
+  if constexpr (kExt) {
+    if (sphere) {
+      add_mv3(sk, vw_ang, vw_lin);
+      add_mv3(sk, aw_ang, aw_lin);
+    }
+  }
   T g_lin[3], g_ang[3];
   for (int i = 0; i < 3; ++i) {
     g_lin[i] = aw_lin[i] + kp * depth[k] * n[i] + kd * vw_lin[i];
@@ -761,6 +812,28 @@ __device__ void contact_rows(const Model<T>& M, const CModel<T>& C, int k, const
   drift[p[1]] = dot3(c1, g_lin);
   drift[p[2]] = dot3(n, g_lin);
   drift[p[3]] = dot3(n, g_ang);
+}
+
+// The world-aligned (angular, linear) Jacobian columns of dof m of joint j
+// (rotation rj) at a point `lever` from the joint's origin
+// (`_frame_jacobian_cols`, `_point_jacobian_cols`).
+template <typename T>
+__device__ __forceinline__ void dof_columns(const Model<T>& M, int j, int m, const T* rj,
+                                            const T* lever, T* ang, T* lin) {
+  const int t = M.type(j);
+  if (t == FREE && m < 3) {  // translational dofs: R e_m
+    for (int i = 0; i < 3; ++i) { lin[i] = rj[3 * i + m]; ang[i] = T(0); }
+  } else if (t == FREE || t == REVOLUTE) {
+    if (t == FREE) {
+      for (int i = 0; i < 3; ++i) ang[i] = rj[3 * i + m - 3];
+    } else {
+      mv3(rj, M.axis(j), ang);
+    }
+    cross3(ang, lever, lin);
+  } else {  // PRISMATIC
+    mv3(rj, M.axis(j), lin);
+    for (int i = 0; i < 3; ++i) ang[i] = T(0);
+  }
 }
 
 // The row and drift of loop closure k at position p (`distance_rows_components`):
@@ -813,22 +886,10 @@ __device__ void distance_row(const Model<T>& M, const CModel<T>& C, int k, int p
       T lever[3];
       for (int i = 0; i < 3; ++i) lever[i] = pf[e][i] - PW[j][i];
       const int vi = M.iv(j);
-      const int t = M.type(j);
-      const int ndof = (t == FREE) ? 6 : 1;
+      const int ndof = (M.type(j) == FREE) ? 6 : 1;
       for (int m = 0; m < ndof; ++m) {
         T ang[3], lin[3];
-        if (t == FREE && m < 3) {  // translational dofs: R e_m
-          for (int i = 0; i < 3; ++i) lin[i] = rj[3 * i + m];
-        } else if (t == FREE || t == REVOLUTE) {
-          if (t == FREE) {
-            for (int i = 0; i < 3; ++i) ang[i] = rj[3 * i + m - 3];
-          } else {
-            mv3(rj, M.axis(j), ang);
-          }
-          cross3(ang, lever, lin);
-        } else {  // PRISMATIC
-          mv3(rj, M.axis(j), lin);
-        }
+        dof_columns(M, j, m, rj, lever, ang, lin);
         const int d = vi + m;
         int s = 0;  // d's place in the support list
         while (s < ns - 1 && sd[s] != d) ++s;
@@ -843,6 +904,94 @@ __device__ void distance_row(const Model<T>& M, const CModel<T>& C, int k, int p
   T g = dot3(dir, da);
   g = g + (dot3(dv, dv) - dv_proj * dv_proj) / dist;
   drift[p] = g + C.kp() * (dist - dref[k]) + C.kd() * dv_proj;
+}
+
+// The three rows and drifts of rolling constraint k at positions p..p+2
+// (the rolling rows of `constraint_system_components`): the contact point's
+// velocity, r skew(u) times the frame's angular columns added to its linear
+// ones, u = +z for a sphere and for a wheel the unit vector from its centre
+// towards the ground in the wheel's plane; each row over the frame's chain.
+// The Baumgarte drift holds the frame's height at rref[k] (a wheel's its
+// contact point's).
+template <typename T>
+__device__ void rolling_rows(const Model<T>& M, const CModel<T>& C, int k, int p,
+                             const T (*RW)[9], const T (*PW)[3], const T (*VEL)[6],
+                             const T (*ACC)[6], const T* rref, T* J, T* drift) {
+  const int* ri = C.rinfo(k);
+  const int parent = ri[0], ns = ri[1];
+  const int* sd = C.si + ri[2];
+  const T* rf = C.rfl(k);
+  const T* fp = rf;
+  const T radius = rf[3];
+  const T* rw = RW[parent];
+  const T* w_l = VEL[parent];
+  const T* v_l = VEL[parent] + 3;
+  const T* a_a = ACC[parent];
+  const T* a_l = ACC[parent] + 3;
+  T pc[3], tmp[3], t2[3], w_w[3], v_w[3], a_ang[3], a_lin[3];
+  mv3(rw, fp, tmp);
+  for (int i = 0; i < 3; ++i) pc[i] = tmp[i] + PW[parent][i];
+  mv3(rw, w_l, w_w);
+  cross3(w_l, fp, tmp);
+  for (int i = 0; i < 3; ++i) t2[i] = v_l[i] + tmp[i];
+  mv3(rw, t2, v_w);
+  mv3(rw, a_a, a_ang);
+  cross3(fp, a_a, tmp);
+  for (int i = 0; i < 3; ++i) t2[i] = a_l[i] - tmp[i];
+  mv3(rw, t2, a_lin);
+  cross3(w_w, v_w, tmp);
+  for (int i = 0; i < 3; ++i) a_lin[i] = a_lin[i] + tmp[i];
+  const T up[3] = {T(0), T(0), T(1)};
+  T sk[9], delta, extra[3] = {T(0), T(0), T(0)};
+  if (ri[3] == 0) {  // a sphere
+    skew_scaled(up, radius, sk);
+    delta = pc[2] - rref[k];
+  } else {  // a wheel
+    T axis_w[3], x[3], y[3], daxis[3], dx[3], z[3], dy[3], sk_dy[9];
+    mv3(rw, rf + 4, axis_w);
+    cross3(axis_w, up, tmp);
+    cross3(tmp, axis_w, x);
+    const T x_norm = tmax(sqrt(tmax(dot3(x, x), T(0))), T(1e-9));
+    const T inv = T(1) / x_norm;
+    for (int i = 0; i < 3; ++i) y[i] = x[i] * inv;
+    skew_scaled(y, radius, sk);
+    delta = pc[2] - rref[k] + radius * (up[2] - y[2]);
+    cross3(w_w, axis_w, daxis);
+    cross3(daxis, up, tmp);
+    cross3(tmp, axis_w, dx);
+    cross3(axis_w, up, tmp);
+    cross3(tmp, daxis, t2);
+    for (int i = 0; i < 3; ++i) dx[i] = dx[i] + t2[i];
+    for (int i = 0; i < 3; ++i) z[i] = dx[i] * inv;
+    const T yz = dot3(y, z);
+    for (int i = 0; i < 3; ++i) dy[i] = z[i] - y[i] * yz;
+    skew_scaled(dy, radius, sk_dy);
+    mv3(sk_dy, w_w, extra);
+  }
+  T vel_pt[3], ska[3];
+  mv3(sk, w_w, tmp);
+  for (int i = 0; i < 3; ++i) vel_pt[i] = v_w[i] + tmp[i];
+  mv3(sk, a_ang, ska);
+  const T kp = C.kp(), kd = C.kd();
+  for (int i = 0; i < 3; ++i)
+    drift[p + i] = a_lin[i] + ska[i] + extra[i] + kp * delta * up[i] + kd * vel_pt[i];
+#pragma unroll 1
+  for (int j = parent; j >= 0; j = M.parent(j)) {
+    const T* rj = RW[j];
+    T lever[3];
+    for (int i = 0; i < 3; ++i) lever[i] = pc[i] - PW[j][i];
+    const int vi = M.iv(j);
+    const int ndof = (M.type(j) == FREE) ? 6 : 1;
+    for (int m = 0; m < ndof; ++m) {
+      T ang[3], lin[3];
+      dof_columns(M, j, m, rj, lever, ang, lin);
+      add_mv3(sk, ang, lin);
+      const int d = vi + m;
+      int s = 0;  // d's place in the support list
+      while (s < ns - 1 && sd[s] != d) ++s;
+      for (int i = 0; i < 3; ++i) J[C.ns * (p + i) + s] = lin[i];
+    }
+  }
 }
 
 // tc plus the penalty torques of the core's bounds on dof i (`u_c`).
@@ -874,9 +1023,9 @@ __device__ __forceinline__ T support_dot(const int* sd, int ns, const T* j, cons
 }
 
 // The boxed/cone Gauss-Seidel sweeps (`_pgs_sweep_components`) over the
-// active rows, x in place: positions [0, nda) the loop closures (kExt; a
-// plain Gauss-Seidel update), then nba bounds, nca normals, nca torsion
-// rows, nca tangent pairs. Lane l keeps the
+// active rows, x in place: positions [0, nda) the loop closures and the
+// rolling rows (kExt; a plain Gauss-Seidel update), then nba bounds, nca
+// normals, nca torsion rows, nca tangent pairs. Lane l keeps the
 // multipliers x and the residual y = b - A x of rows l, l + CM_LANES, ... in
 // registers. A row's update takes its x and y from that lane (shuffles);
 // every lane computes the new multiplier, the lane of the row keeps it, and
@@ -936,7 +1085,7 @@ __device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nda, 
 #pragma unroll 1
   for (int it = 0; it < C.iter_max; ++it) {
     const T w = C.relax(it);
-    if constexpr (kExt) {  // the loop closures: unbounded, unrelaxed
+    if constexpr (kExt) {  // the loop closures and rolling rows: unbounded, unrelaxed
 #pragma unroll 1
       for (int i = 0; i < o; ++i) {
         const T xi = fetch(xr, i), yi = fetch(y, i), aii = A[upper_at(na, i, i)];
@@ -1025,7 +1174,8 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
   CM_PROFILE_PHASE(L, 0, t_prof);
   // Active sets and depths, one bound or contact per lane; with kExt the
   // spring contacts' wrenches on their joints
-  const int nd = kExt ? C.nd() : 0, ncs = kExt ? M.nc : 0;
+  const int nd = kExt ? C.nd() : 0, ncs = kExt ? M.nc : 0, nr = kExt ? C.nr() : 0;
+  const int nu = nd + 3 * nr;  // the unbounded rows: loops, then rolling
 #pragma unroll 1
   for (int t = lane; t < nb + nc + ncs; t += G) {
     if constexpr (kExt) {
@@ -1043,7 +1193,11 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
     } else {
       const int k = t - nb;
       T pc[3], n[3];
-      const T depth = contact_point<kTerrain>(M, C, k, w.RW, w.PW, pc, n);
+      T depth = contact_point<kTerrain>(M, C, k, w.RW, w.PW, pc, n);
+      if constexpr (kExt) {  // a sphere: the depth of its surface
+        const T r = C.cradius(k);
+        if (r > T(0)) depth = depth - r;
+      }
       w.depth[k] = depth;
       if constexpr (kTerrain)
         for (int i = 0; i < 3; ++i) w.b[3 * k + i] = n[i];
@@ -1051,20 +1205,24 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
     }
   }
   L.sync();
-  // The active rows in sweep order: positions of loop closures (kExt),
-  // bounds, normals, torsion, tangent pairs; their rows, support dofs, and
-  // each row's position (-1)
+  // The active rows in sweep order: positions of loop closures and rolling
+  // rows (kExt), bounds, normals, torsion, tangent pairs; their rows,
+  // support dofs, and each row's position (-1)
   if (L.leader()) {
     for (int r = 0; r < n; ++r) w.pos[r] = -1;
     int p = 0;
     auto add = [&](int r, int soff, int scnt) {
       w.rows[p] = r; w.soff[p] = soff; w.scnt[p] = scnt; w.pos[r] = p; ++p;
     };
-    if constexpr (kExt)
+    if constexpr (kExt) {
       for (int k = 0; k < nd; ++k) add(nb + 4 * nc + k, C.dsup(k), C.dsup_n(k));
+      for (int k = 0; k < nr; ++k)
+        for (int i = 0; i < 3; ++i)
+          add(nb + 4 * nc + nd + 3 * k + i, C.rinfo(k)[2], C.rinfo(k)[1]);
+    }
     for (int b = 0; b < nb; ++b)
       if (out.bact[b]) add(b, C.bsup(b), 1);
-    const int nba = p - nd;
+    const int nba = p - nu;
     int nca = 0;
     for (int k = 0; k < nc; ++k)
       if (out.cact[k]) w.clist[nca++] = k;
@@ -1088,24 +1246,30 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
   L.sync();
   const int na = w.cnt[0], nba = w.cnt[1], nca = w.cnt[2];
   CM_PROFILE_PHASE(L, 1, t_prof);
-  // The active rows, a loop, bound or contact per lane; the mass matrix and
-  // the nonlinear effects, depth after depth from the leaves, a joint per
-  // lane
+  // The active rows, a loop, rolling constraint, bound or contact per
+  // lane; the mass matrix and the nonlinear effects, depth after depth from
+  // the leaves, a joint per lane
 #pragma unroll 1
-  for (int t = lane; t < nd + nba + nca; t += G) {
+  for (int t = lane; t < nd + nr + nba + nca; t += G) {
     if constexpr (kExt) {
       if (t < nd) {
         distance_row(M, C, t, t, w.RW, w.PW, w.VEL, w.ACC, w.dref, w.J, w.drift);
         continue;
       }
+      if (t < nd + nr) {
+        rolling_rows(M, C, t - nd, nd + 3 * (t - nd), w.RW, w.PW, w.VEL, w.ACC, w.rref, w.J,
+                     w.drift);
+        continue;
+      }
     }
-    if (t < nd + nba) {
-      bound_row(C, w.rows[t], t, q, v, w.J, w.drift);
+    const int u = t + 2 * nr;  // the row's position
+    if (u < nu + nba) {
+      bound_row(C, w.rows[u], u, q, v, w.J, w.drift);
     } else {
-      const int m = t - nd - nba, o = nd + nba;
+      const int m = u - nu - nba, o = nu + nba;
       const int p[4] = {o + 2 * nca + 2 * m, o + 2 * nca + 2 * m + 1, o + m, o + nca + m};
-      contact_rows<kTerrain>(M, C, w.clist[m], p, w.RW, w.PW, w.VEL, w.ACC, w.depth, w.b, w.J,
-                             w.drift);
+      contact_rows<kTerrain, kExt>(M, C, w.clist[m], p, w.RW, w.PW, w.VEL, w.ACC, w.depth, w.b,
+                                   w.J, w.drift);
     }
   }
   L.sync();  // IC, F and FT take the place of RW, PW, VEL and ACC
@@ -1193,7 +1357,7 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
   }
   L.sync();
   CM_PROFILE_PHASE(L, 5, t_prof);
-  pgs_sweeps<kExt>(L, C, na, nd, nba, nca, w.A, w.b, w.x);
+  pgs_sweeps<kExt>(L, C, na, nu, nba, nca, w.A, w.b, w.x);
   CM_PROFILE_PHASE(L, 6, t_prof);
   // qdd = tau_res + sum over the active rows, in row order, of lam_r (M^-1 J^T)_r
 #pragma unroll 1
@@ -1417,7 +1581,7 @@ __device__ void copy_solver_state(const CModel<T>& C, const SolverState<T>& src,
 // --------------------------------------------------------------------------
 
 // One controller period: cc = [cmd (n_cmd) | dref (nd, kExt) | lam | cact |
-// bact]. An instance on flat ground and one on the model's terrain
+// bact | rref (nr, kExt)]. An instance on flat ground and one on the model's terrain
 // (kTerrain), each with the bound and contact rows or the extended body
 // (kExt).
 template <typename T, bool kTerrain, bool kExt>
@@ -1435,13 +1599,15 @@ __global__ void cdyn_period_cm_kernel(const int* ci, const T* cf, const int* si,
   const Work<T> w = env_work<kExt>(M, C);
   T q[NQ_MAX], v[NV_MAX], cmd[NCMD_MAX];
   if (L.leader()) {
-    const int nd = kExt ? C.nd() : 0;
+    const int nd = kExt ? C.nd() : 0, nr = kExt ? C.nr() : 0;
     tree_levels(M, w.jorder, w.lstart, w.cnt + 3);
     for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
     for (int i = 0; i < M.nv; ++i) v[i] = v_g[(size_t)i * B + b];
     for (int i = 0; i < n_cmd; ++i) cmd[i] = cc_g[(size_t)i * B + b];
     for (int k = 0; k < nd; ++k) w.dref[k] = cc_g[(size_t)(n_cmd + k) * B + b];
     load_solver_state(C, cc_g, n_cmd + nd, B, b, w.state(ST_CARRY));
+    const int o_r = n_cmd + nd + C.n + C.nc + C.nb;
+    for (int k = 0; k < nr; ++k) w.rref[k] = cc_g[(size_t)(o_r + k) * B + b];
   }
 #pragma unroll 1
   for (int k = 0; k < n_substeps; ++k)
@@ -1453,9 +1619,9 @@ __global__ void cdyn_period_cm_kernel(const int* ci, const T* cf, const int* si,
   final_outputs_cm<kTerrain, kExt>(M, C, q, v, cmd, ST_CARRY, ST_TMP, eo, B, b);
 }
 
-// One env step: action = [env action | dref (nd, kExt)], carry = [block
-// carry (n_block) | lam | cact | bact]; extras = period extras + [cc_last |
-// carry'].
+// One env step: action = [env action | dref (nd, kExt) | rref (nr, kExt)],
+// carry = [block carry (n_block) | lam | cact | bact]; extras = period
+// extras + [cc_last | carry'].
 template <typename T, bool kTerrain, bool kExt>
 __global__ void cdyn_rollout_cm_kernel(const int* ci, const T* cf, const int* si, const T* sf,
                                        const int* pi, const T* pf, int controller,
@@ -1474,11 +1640,12 @@ __global__ void cdyn_rollout_cm_kernel(const int* ci, const T* cf, const int* si
   // the carry's solver channels and the command row's (ST_TMP for the stages)
   const SolverState<T> carry = w.state(ST_CARRY), cc = w.state(ST_CC);
   const bool lead = L.leader();
-  const int nd = kExt ? C.nd() : 0;
+  const int nd = kExt ? C.nd() : 0, nr = kExt ? C.nr() : 0;
   T q[NQ_MAX], v[NV_MAX], ac[NACT_MAX], bc[NCARRY_MAX], bc_new[NCARRY_MAX], cmd[NCMD_MAX];
   if (lead) {
     tree_levels(M, w.jorder, w.lstart, w.cnt + 3);
-    for (int k = 0; k < nd; ++k) w.dref[k] = a_g[(size_t)(n_action - nd + k) * B + b];
+    for (int k = 0; k < nd; ++k) w.dref[k] = a_g[(size_t)(n_action - nd - nr + k) * B + b];
+    for (int k = 0; k < nr; ++k) w.rref[k] = a_g[(size_t)(n_action - nr + k) * B + b];
     for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
     for (int i = 0; i < M.nv; ++i) v[i] = v_g[(size_t)i * B + b];
     for (int i = 0; i < n_action; ++i) ac[i] = a_g[(size_t)i * B + b];
@@ -1513,10 +1680,11 @@ __global__ void cdyn_rollout_cm_kernel(const int* ci, const T* cf, const int* si
   if (!lead) return;
   const int nco = C.nc + (kExt ? M.nc : 0);
   const int n_std = M.nv + 10 * nco + 6 * M.ni + C.n + C.nc + C.nb;
-  const int n_ccrow = n_cmd + nd + C.n + C.nc + C.nb;
+  const int n_ccrow = n_cmd + nd + C.n + C.nc + C.nb + nr;
   for (int i = 0; i < n_cmd; ++i) eo[(size_t)(n_std + i) * B + b] = cmd[i];
   for (int k = 0; k < nd; ++k) eo[(size_t)(n_std + n_cmd + k) * B + b] = w.dref[k];
   store_solver_state(C, cc, eo, n_std + n_cmd + nd, B, b);
+  for (int k = 0; k < nr; ++k) eo[(size_t)(n_std + n_ccrow - nr + k) * B + b] = w.rref[k];
   for (int i = 0; i < n_block; ++i) eo[(size_t)(n_std + n_ccrow + i) * B + b] = bc[i];
   store_solver_state(C, carry, eo, n_std + n_ccrow + n_block, B, b);
 }

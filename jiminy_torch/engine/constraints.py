@@ -14,8 +14,8 @@ solution depends on this order. Row conventions:
 - distance (1 row) and rolling (3 rows per sphere or wheel): unbounded.
 
 The component solver (`engine/solver.py`) and `compute_constraint_system`
-assemble bound, contact and distance rows; rolling rows are ROADMAP.md
-queue 1 item 10.
+assemble all four kinds; a contact of radius r > 0 is a sphere, its rows
+taken at the surface point below its centre.
 """
 
 from __future__ import annotations
@@ -176,16 +176,14 @@ def compute_constraint_system(model: RobotModel, cset: ConstraintSet, opts: Cont
                               jac_world: torch.Tensor, q: torch.Tensor, v: torch.Tensor,
                               prev_contact_active: torch.Tensor,
                               prev_bound_active: torch.Tensor,
-                              distance_ref: Optional[torch.Tensor] = None) -> ConstraintSystem:
-    """(J, drift, active) of the bound, contact and distance rows, with the
-    reference's hysteresis on the active sets. `kin_bias` is forward
-    kinematics at zero acceleration, so its accelerations are the
+                              distance_ref: Optional[torch.Tensor] = None,
+                              rolling_ref: Optional[torch.Tensor] = None) -> ConstraintSystem:
+    """(J, drift, active) of the bound, contact, distance and rolling rows,
+    with the reference's hysteresis on the active sets. `kin_bias` is
+    forward kinematics at zero acceleration, so its accelerations are the
     velocity-bias terms; `distance_ref` (..., nd) the loops' lengths (None:
-    the set's own)."""
-    if cset.n_rolling:
-        raise NotImplementedError(
-            "rolling constraint rows are not ported yet (ROADMAP.md queue 1 item 10)"
-        )
+    the set's own); `rolling_ref` (..., nr) the rolling frames' reference
+    heights (None: their current heights)."""
     if ground_fn is None:
         ground_fn = flat_ground
     batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1])
@@ -197,7 +195,7 @@ def compute_constraint_system(model: RobotModel, cset: ConstraintSet, opts: Cont
 
     omega = 2.0 * math.pi * opts.stabilization_freq
     kp, kd = omega * omega, 2.0 * omega
-    off_b, off_c, off_d, _ = cset.row_offsets()
+    off_b, off_c, off_d, off_r = cset.row_offsets()
     lo_all = np.asarray(model.position_limit_lower, np.float64)
     hi_all = np.asarray(model.position_limit_upper, np.float64)
 
@@ -316,6 +314,58 @@ def compute_constraint_system(model: RobotModel, cset: ConstraintSet, opts: Cont
         jac[..., row, :] = lie.mv((ja - jb).transpose(-1, -2), direction)
         drift[..., row] = g
         active[..., row] = True
+
+    # Rolling constraints (spheres, wheels): the contact point's velocity
+    # is zero, 3 unbounded rows always active (reference
+    # `sphere_constraint.cc`, `wheel_constraint.cc`)
+    def frame_wa(fidx):
+        rot, pos = frame_placement(model, kin_bias, fidx)
+        v_local = frame_velocity_local(model, kin_bias, fidx)
+        parent = model.frame_parents[fidx]
+        a_sp = lie.motion_act_inv(fplace_rot[fidx], fplace_pos[fidx],
+                                  kin_bias.acc[..., parent, :])
+        w_w = lie.mv(rot, v_local[..., 0:3])
+        v_w = lie.mv(rot, v_local[..., 3:6])
+        a_lin = lie.mv(rot, a_sp[..., 3:6]) + lie.cross(w_w, v_w)
+        a_ang = lie.mv(rot, a_sp[..., 0:3])
+        jf = frame_jacobian_world_aligned(model, kin_bias, jac_world, fidx)
+        return rot, pos, w_w, v_w, a_ang, a_lin, jf
+
+    def const3(values):  # fills, not a host copy (CUDA-graph capturable)
+        out = q.new_zeros(batch + (3,))
+        for i, x in enumerate(values):
+            out[..., i] = float(x)
+        return out
+
+    specs = [(f, r, None) for f, r in cset.sphere_specs] + list(cset.wheel_specs)
+    ez = const3((0.0, 0.0, 1.0)) if specs else None
+    for slot, (fidx, radius, axis) in enumerate(specs):
+        rot, pos, w_w, v_w, a_ang, a_lin, jf = frame_wa(fidx)
+        ref_h = pos[..., 2] if rolling_ref is None else rolling_ref[..., slot]
+        if axis is None:
+            # skewRadius = r skew(n): the contact point at -r n
+            sk = radius * lie.skew(ez)
+            delta = pos[..., 2] - ref_h
+            g = a_lin + lie.mv(sk, a_ang)
+        else:
+            axis_w = lie.mv(rot, const3(axis))
+            x = lie.cross(lie.cross(axis_w, ez), axis_w)
+            x_norm = torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=1e-9)
+            y = x / x_norm
+            sk = radius * lie.skew(y)
+            delta = pos[..., 2] - ref_h + radius * (ez[..., 2] - y[..., 2])
+            daxis = lie.cross(w_w, axis_w)
+            dx = (lie.cross(lie.cross(daxis, ez), axis_w)
+                  + lie.cross(lie.cross(axis_w, ez), daxis))
+            z = dx / x_norm
+            dy = z - (y * z).sum(-1, keepdim=True) * y
+            g = a_lin + lie.mv(sk, a_ang) + lie.mv(radius * lie.skew(dy), w_w)
+        vel = v_w + lie.mv(sk, w_w)
+        g = g + kp * delta[..., None] * ez + kd * vel
+        row = off_r + 3 * slot
+        jac[..., row : row + 3, :] = jf[..., 3:6, :] + lie.mm(sk, jf[..., 0:3, :])
+        drift[..., row : row + 3] = g
+        active[..., row : row + 3] = True
     return ConstraintSystem(jac=jac, drift=drift, active=active, contact_basis=contact_basis,
                             contact_active=contact_active, bound_active=bound_active,
                             contact_depth=contact_depth)

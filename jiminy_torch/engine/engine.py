@@ -67,6 +67,7 @@ _FIXED_STEP = {
     IntegratorType.RUNGE_KUTTA_4: "rk4",
 }
 _PGS_KEYS = ("lam", "contact_active", "bound_active")  # what the solve's stages refresh
+_REF_KEYS = ("distance_ref", "rolling_ref")  # constant through a step
 
 
 def _refuse_unported(robot: Robot, opts: EngineOptions, device: torch.device) -> None:
@@ -312,7 +313,8 @@ class Engine:
         if self._cdyn_cm is not None:
             if carry is None:
                 carry = self._zero_carry(torch.broadcast_shapes(q.shape[:-1], v.shape[:-1]))
-            return self._constrained_eval(q, v, u, u_motor, carry["distance_ref"])
+            return self._constrained_eval(q, v, u, u_motor, carry["distance_ref"],
+                                          carry["rolling_ref"])
         a = self._cdyn.accel(q, v, u)
         auxc = self._cdyn.aux_outputs(q, v, a, imu_frames=self._imu_frames)
         imu_raw = auxc.pop("imu_raw")
@@ -385,25 +387,29 @@ class Engine:
     # ------------------------------------------------------------------ #
     # The generic path
     # ------------------------------------------------------------------ #
-    def _zero_carry(self, batch, distance_ref=None) -> dict:
+    def _zero_carry(self, batch, distance_ref=None, rolling_ref=None) -> dict:
         """A cold PGS carry: no multiplier, no active row; the loops' lengths
-        `distance_ref` (the set's own if None)."""
+        `distance_ref` (the set's own if None) and the rolling frames'
+        reference heights `rolling_ref` (None: their current heights)."""
         cset = self.cset
         if distance_ref is None:
             distance_ref = torch.as_tensor(cset.distance_ref, dtype=self.dtype,
                                            device=self.device).expand(batch + (cset.n_distance,))
+        if rolling_ref is None and not cset.n_rolling:
+            rolling_ref = self._zeros(batch + (0,))
         return {"lam": self._zeros(batch + (cset.total_rows,)),
                 "contact_active": self._zeros(batch + (cset.n_contacts,), torch.bool),
                 "bound_active": self._zeros(batch + (cset.n_bounds,), torch.bool),
-                "distance_ref": distance_ref}
+                "distance_ref": distance_ref, "rolling_ref": rolling_ref}
 
     def _carry_of(self, state: SimState) -> dict:
-        """The PGS warm start, active sets and loop lengths a state carries
-        (a cold, zero-width carry on a state without rows)."""
+        """The PGS warm start, active sets, loop lengths and rolling heights
+        a state carries (a cold, zero-width carry on a state without rows)."""
         if state.lam is None:
             return self._zero_carry(state.q.shape[:-1])
         return {"lam": state.lam, "contact_active": state.contact_active,
-                "bound_active": state.bound_active, "distance_ref": state.distance_ref}
+                "bound_active": state.bound_active, "distance_ref": state.distance_ref,
+                "rolling_ref": state.rolling_ref}
 
     def dynamics_full(self, t, q, v, command, carry=None):
         """One generic dynamics evaluation (reference
@@ -482,6 +488,7 @@ class Engine:
             model, cset, self.options.contacts, self.ground_fn, kin,
             joint_space_jacobian(model, kin), q, v, carry["contact_active"],
             carry["bound_active"], distance_ref=carry["distance_ref"],
+            rolling_ref=carry["rolling_ref"],
         )
         o = self._solver_opts
         res = solver.constrained_forward_dynamics(
@@ -498,7 +505,7 @@ class Engine:
         their launch overhead."""
         carry = self._carry_of(state)
         args = (state.t, state.q, state.v, command,
-                [carry[k] for k in _PGS_KEYS + ("distance_ref",)])
+                [carry[k] for k in _PGS_KEYS + _REF_KEYS])
         if self.device.type == "cuda" and self.external_force_fn is None:
             q, v, a, aux = self._replay_generic_period(kind, *args)
         else:
@@ -513,13 +520,13 @@ class Engine:
         Returns (q', v', a, aux), q' normalized, a and aux at the tick's end."""
         model = self.robot.model
         carry = dict(zip(_PGS_KEYS, carry_list))
-        dref = carry_list[len(_PGS_KEYS)]
+        refs = dict(zip(_REF_KEYS, carry_list[len(_PGS_KEYS):]))
         dt = self._dt_tick
         if self.has_constraints and self.options.stepper.pgs_stage_warm_start:
             step = steppers.euler_step_stateful if kind == "euler" else steppers.rk4_step_stateful
 
             def f2(t, q, v, pgs):
-                a, aux = self.dynamics_full(t, q, v, command, {**pgs, "distance_ref": dref})
+                a, aux = self.dynamics_full(t, q, v, command, {**pgs, **refs})
                 return a, {k: aux[k] for k in _PGS_KEYS}
 
             for _ in range(self.n_substeps):
@@ -527,11 +534,11 @@ class Engine:
                 t = t + dt
         else:
             step = steppers.euler_step if kind == "euler" else steppers.rk4_step
-            f = self._accel_fn(command, {**carry, "distance_ref": dref})
+            f = self._accel_fn(command, {**carry, **refs})
             for _ in range(self.n_substeps):
                 q, v, _ = step(model, f, t, q, v, dt)
                 t = t + dt
-        a, aux = self.dynamics_full(t, q, v, command, {**carry, "distance_ref": dref})
+        a, aux = self.dynamics_full(t, q, v, command, {**carry, **refs})
         return integ.normalize(model, q), v, a, aux
 
     def _replay_generic_period(self, kind: str, t, q, v, command, carry_list):
@@ -566,7 +573,7 @@ class Engine:
         graph.replay()
         return q2.clone(), v2.clone(), a.clone(), {k: x.clone() for k, x in aux.items()}
 
-    def _constrained_eval(self, q, v, u, u_motor, distance_ref):
+    def _constrained_eval(self, q, v, u, u_motor, distance_ref, rolling_ref):
         """The constrained dynamics at one state from a cold start, plain
         torch on any device (jiminy_tpu's `dynamics_full` on its component
         path): acceleration, contact forces (from the multipliers in
@@ -589,6 +596,7 @@ class Engine:
             [no] * cset.n_contacts, [no] * cset.n_bounds,
             [self._zeros(batch)] * cset.total_rows,
             [distance_ref[..., k] for k in range(cset.n_distance)],
+            [rolling_ref[..., k] for k in range(cset.n_rolling)],
         )
         a = cdyn._stack(qdd, batch, q)
 
@@ -617,13 +625,24 @@ class Engine:
             "bound_active": masks(bact),
         }
 
+    def _rolling_heights(self, q):
+        """(..., nr) heights of the rolling frames at `q` (spheres, then
+        wheels)."""
+        model, cset = self.robot.model, self.cset
+        frames = [f for f, _ in cset.sphere_specs] + [f for f, _, _ in cset.wheel_specs]
+        if not frames:
+            return q.new_zeros(q.shape[:-1] + (0,))
+        kin = forward_kinematics(model, q)
+        return torch.stack([frame_placement(model, kin, f)[1][..., 2] for f in frames], dim=-1)
+
     def _tick_time(self, tick):
         return tick.to(self.dtype) * self.tick_period
 
     # ------------------------------------------------------------------ #
     def reset(self, q0, v0=None) -> SimState:
         """Initial state; `q0` is (nq,) or (B, nq) for B environments. The
-        loop closures' lengths are those of the reset pose."""
+        loop closures' lengths and the rolling frames' reference heights are
+        those of the reset pose."""
         model = self.robot.model
         q0 = torch.as_tensor(q0, dtype=self.dtype, device=self.device)
         batch = q0.shape[:-1]
@@ -638,7 +657,9 @@ class Engine:
         dist_ref = self._zeros(batch + (0,))
         if self.cset.n_distance:
             dist_ref = compute_distance_refs(model, self.cset, forward_kinematics(model, q0))
-        a0, aux = self._final_eval(t0, q0, v0, command, self._zero_carry(batch, dist_ref))
+        roll_ref = self._rolling_heights(q0)
+        a0, aux = self._final_eval(t0, q0, v0, command,
+                                   self._zero_carry(batch, dist_ref, roll_ref))
         st = SimState(
             t=t0,
             q=q0,
@@ -665,6 +686,7 @@ class Engine:
                 bound_active=aux["bound_active"],
                 lam=aux["lam"],
                 distance_ref=dist_ref,
+                rolling_ref=roll_ref,
             )
         return self._update_sensors(st, a0, aux)
 
@@ -706,12 +728,12 @@ class Engine:
             return self._integrate_period_generic(state, command, kind)
         cc = command
         if self._cdyn_cm is not None:
-            # The loops' lengths, warm-start multipliers and active sets ride
-            # the command row
+            # The loops' lengths, warm-start multipliers, active sets and
+            # rolling heights ride the command row
             batch = state.q.shape[:-1]
             cc = torch.cat([command.expand(batch + command.shape[-1:]), state.distance_ref,
                             state.lam, state.contact_active.to(self.dtype),
-                            state.bound_active.to(self.dtype)], dim=-1)
+                            state.bound_active.to(self.dtype), state.rolling_ref], dim=-1)
         q, v, extras = self._get_period_run(kind)(state.q, state.v, cc)
         a, aux = self._unpack_period_extras(extras, command, v, *self._solver_widths())
         stepper = state.stepper.replace(iterations=state.stepper.iterations + self.n_substeps)
@@ -823,10 +845,10 @@ class Engine:
         n_lam, n_cact, n_bact = widths = self._solver_widths()
         carry_ext = carry
         if self._cdyn_cm is not None:
-            # The loops' lengths ride the action row, the solver's carry
-            # behind the controller's
+            # The loops' lengths and rolling heights ride the action row,
+            # the solver's carry behind the controller's
             action = torch.cat([action.expand(state.q.shape[:-1] + action.shape[-1:]),
-                                state.distance_ref], dim=-1)
+                                state.distance_ref, state.rolling_ref], dim=-1)
             carry_ext = torch.cat([carry, state.lam, state.contact_active.to(self.dtype),
                                    state.bound_active.to(self.dtype)], dim=-1)
         run = self._get_rollout_run(cache_key, controller, n_periods)

@@ -2,11 +2,12 @@
 `jiminy_tpu.engine.robot`).
 
 This slice assembles motors (armature folded onto the model diagonal),
-encoder, effort, IMU and force sensors, point contact frames, and collision
-bodies expanded into radius-0 contact points (boxes, point clouds), and
-loop closures (distance constraints between two frames, `loop_pairs`).
-Flexibility and backlash joints, the other collision primitives (spheres,
-capsules, cylinders) and collision pairs are refused with the ROADMAP.md
+encoder, effort, IMU and force sensors, point contact frames, collision
+bodies expanded into contact points (a sphere one radius-r point, a capsule
+two, boxes, cylinder rims and point clouds radius-0 points), loop closures
+(distance constraints between two frames, `loop_pairs`) and rolling
+constraints (`rolling_specs`: a sphere or a wheel on a frame). Flexibility
+and backlash joints and collision pairs are refused with the ROADMAP.md
 item that will port them.
 """
 
@@ -40,6 +41,9 @@ class Robot:
     contact_radii: tuple = ()
     # Closed kinematic loops: ((frame_a, frame_b), ...) distance constraints
     loop_pairs: tuple = ()
+    # Rolling constraints: ((frame_name, radius, axis or None), ...); None is
+    # a sphere, an axis (in the frame) a wheel
+    rolling_specs: tuple = ()
 
     @property
     def nq(self):
@@ -64,6 +68,7 @@ class Robot:
         collision_bodies: Sequence = (),
         flexibility: Sequence[dict] = (),
         loop_constraints: Sequence[tuple] = (),
+        rolling_constraints: Sequence[dict] = (),
         collision_pairs: Sequence[tuple] = (),
         lock_joints: Sequence[str] = (),
     ) -> "Robot":
@@ -110,9 +115,11 @@ class Robot:
             model = model.replace(armature=arm)
 
         contact_idx = tuple(model.frame_index(fn) for fn in contact_frames)
+        radii = [0.0] * len(contact_idx)
         if collision_bodies:
-            model, extra_idx = _expand_collision_bodies(model, collision_bodies)
+            model, extra_idx, extra_radii = _expand_collision_bodies(model, collision_bodies)
             contact_idx = contact_idx + extra_idx
+            radii += extra_radii
         suite = _build_sensor_suite(model, bank, sensors or {}, contact_idx)
         return Robot(
             name=name,
@@ -120,8 +127,12 @@ class Robot:
             motors=bank,
             sensors=suite,
             contact_frame_indices=contact_idx,
-            contact_radii=(0.0,) * len(contact_idx),
+            contact_radii=tuple(radii),
             loop_pairs=tuple(tuple(p) for p in loop_constraints),
+            rolling_specs=tuple(
+                (r["frame_name"], float(r["radius"]), tuple(r["axis"]) if "axis" in r else None)
+                for r in rolling_constraints
+            ),
         )
 
 
@@ -159,28 +170,55 @@ def box_corners(size) -> list:
     ]
 
 
+def _unit(axis) -> np.ndarray:
+    axis = np.asarray(axis, float)
+    return axis / max(np.linalg.norm(axis), 1e-12)
+
+
 def _geometry_points(spec) -> list:
-    """Radius-0 contact offsets (in the geometry's frame) of a box (its 8
-    corners) or a point cloud (its hull vertices, at most `max_points`,
-    default 16)."""
+    """Contact points (offset in the geometry's frame, radius) of a
+    collision body: a sphere one radius-r point at its centre, a capsule a
+    radius-r point at each segment end, a box its 8 corners, a cylinder
+    `n_rim` (default 8) points on each end rim, a point cloud its hull
+    vertices (at most `max_points`, default 16); all but the first two of
+    radius 0."""
     geom = spec["geometry"]
+    if geom == "sphere":
+        return [(np.zeros(3), float(spec["radius"]))]
+    if geom == "capsule":
+        half = 0.5 * float(spec["length"]) * _unit(spec.get("axis", (0.0, 0.0, 1.0)))
+        return [(half, float(spec["radius"])), (-half, float(spec["radius"]))]
     if geom == "box":
-        return box_corners(spec["size"])
+        return [(c, 0.0) for c in box_corners(spec["size"])]
+    if geom == "cylinder":
+        axis = _unit(spec.get("axis", (0.0, 0.0, 1.0)))
+        half = 0.5 * float(spec["length"])
+        rad = float(spec["radius"])
+        # Orthonormal basis of the rim plane
+        ref = np.array([1.0, 0.0, 0.0])
+        if abs(axis @ ref) > 0.9:
+            ref = np.array([0.0, 1.0, 0.0])
+        u = np.cross(axis, ref)
+        u /= np.linalg.norm(u)
+        w = np.cross(axis, u)
+        return [
+            (end * half * axis + rad * (np.cos(a) * u + np.sin(a) * w), 0.0)
+            for end in (-1.0, 1.0)
+            for a in np.linspace(0.0, 2.0 * np.pi, int(spec.get("n_rim", 8)), endpoint=False)
+        ]
     if geom in ("mesh", "points"):
-        return list(_hull_downsample(spec["points"], int(spec.get("max_points", 16))))
-    if geom in ("sphere", "capsule", "cylinder"):
-        raise NotImplementedError(
-            f"{geom} collision bodies are not ported yet (ROADMAP.md queue 1 item 10)"
-        )
+        pts = _hull_downsample(spec["points"], int(spec.get("max_points", 16)))
+        return [(p, 0.0) for p in pts]
     raise ValueError(f"unsupported collision geometry '{geom}'")
 
 
 def _expand_collision_bodies(model: RobotModel, specs) -> tuple:
-    """Collision bodies expanded into radius-0 contact frames on the body's
-    parent joint, named `<body>_collision_<k>` (`<body>_collision` for a
-    body's only point): (model with the frames, their indices). Each spec
-    may carry an `origin` (rot, pos) of the geometry in its frame."""
+    """Collision bodies expanded into contact frames on the body's parent
+    joint, named `<body>_collision_<k>` (`<body>_collision` for a body's
+    only point): (model with the frames, their indices, their radii). Each
+    spec may carry an `origin` (rot, pos) of the geometry in its frame."""
     idx: list = []
+    radii: list = []
     used: dict = {}
     for spec in specs:
         fname = spec["frame_name"]
@@ -190,15 +228,16 @@ def _expand_collision_bodies(model: RobotModel, specs) -> tuple:
         pos0 = np.asarray(model.fplacement_pos[fidx], np.float64)
         o_rot, o_pos = spec.get("origin", (np.eye(3), np.zeros(3)))
         rot0, pos0 = rot0 @ np.asarray(o_rot, float), pos0 + rot0 @ np.asarray(o_pos, float)
-        offsets = _geometry_points(spec)
+        points = _geometry_points(spec)
         base = used.get(fname, 0)
-        used[fname] = base + len(offsets)
-        single = len(offsets) == 1 and base == 0
-        for k, off in enumerate(offsets):
+        used[fname] = base + len(points)
+        single = len(points) == 1 and base == 0
+        for k, (off, r) in enumerate(points):
             pname = f"{fname}_collision" if single else f"{fname}_collision_{base + k}"
             model = model.add_frame(pname, parent, rot0, pos0 + rot0 @ off)
             idx.append(model.nframes - 1)
-    return model, tuple(idx)
+            radii.append(r)
+    return model, tuple(idx), radii
 
 
 def _opt_arrays(n, ndata, specs):

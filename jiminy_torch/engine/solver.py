@@ -91,18 +91,6 @@ def _relaxation(iter_idx: int, iter_max: int) -> float:
     return _RELAX_MIN + (_RELAX_MAX - _RELAX_MIN) * clipped * clipped
 
 
-def _unported_rows(cset: ConstraintSet) -> None:
-    if cset.n_rolling:
-        raise NotImplementedError(
-            "rolling constraint rows are not ported yet (ROADMAP.md queue 1 item 10)"
-        )
-    if any(r > 0.0 for r in cset.contact_radii):
-        raise NotImplementedError(
-            "sphere contact primitives (radius > 0) are not ported yet "
-            "(ROADMAP.md queue 1 item 9)"
-        )
-
-
 def _pgs_sweep_components(cset: ConstraintSet, a, b, lam0, friction: float,
                           torsion: float, iter_max: int):
     """The boxed/cone Gauss-Seidel sweeps: distance and rolling rows plain
@@ -328,19 +316,31 @@ def _normal_basis_components(n):
 
 
 def _flat_ground_normal(like: torch.Tensor):
-    return [like.new_tensor(0.0), like.new_tensor(0.0), like.new_tensor(1.0)]
+    """+z as components shaped like `like` (fills: no host copy, so a solve
+    can be captured in a CUDA graph)."""
+    return [torch.zeros_like(like), torch.zeros_like(like), torch.ones_like(like)]
+
+
+def _skew_mat(vec, scale=1.0):
+    """scale * skew(vec) as a nested list (Python floats stay floats)."""
+    return [
+        [0.0, -scale * vec[2], scale * vec[1]],
+        [scale * vec[2], 0.0, -scale * vec[0]],
+        [-scale * vec[1], scale * vec[0], 0.0],
+    ]
 
 
 def constraint_system_components(cd, cset, qc, vc, xs, world, vel, acc, kp: float, kd: float,
-                                 transition_eps: float, prev_cact, prev_bact, drefc=()):
-    """Joint-bound, ground-contact and distance-loop rows (jiminy_tpu's
-    `constraint_system_components` without its rolling rows), on flat ground
-    or on the ground `cd.ground_fn`; `drefc` the loops' lengths.
+                                 transition_eps: float, prev_cact, prev_bact, drefc=(),
+                                 rollrefc=()):
+    """Joint-bound, ground-contact (points and spheres), distance-loop and
+    rolling rows (jiminy_tpu's `constraint_system_components`), on flat
+    ground or on the ground `cd.ground_fn`; `drefc` the loops' lengths,
+    `rollrefc` the rolling frames' reference heights.
 
     Returns `(rows [N][nv], drifts [N], basis [nc] (c0, c1, n), depth [nc],
     cact [nc], bact [nb])`, rows and drifts already masked by activity; a
     row's entries off its support dofs are Python 0.0."""
-    _unported_rows(cset)
     model = cd.model
     c = cd.c
     nv = model.nv
@@ -367,7 +367,9 @@ def constraint_system_components(cd, cset, qc, vc, xs, world, vel, acc, kp: floa
         drifts.append(torch.where(act, g, 0.0))
 
     basis_all, depth_all, cact = [], [], []
+    radii = cset.contact_radii or (0.0,) * cset.n_contacts
     for k, fidx in enumerate(cset.contact_frame_indices):
+        radius = radii[k]
         parent = c.frame_parents[fidx]
         fp = c.fpos[fidx]
         rw, pw = world[parent]
@@ -382,6 +384,8 @@ def constraint_system_components(cd, cset, qc, vc, xs, world, vel, acc, kp: floa
             n = v_scale(n, 1.0 / nn)
             depth = (pc[2] - h) * n[2]
             basis = _normal_basis_components(n)
+        if radius > 0.0:
+            depth = depth - radius
         act = (depth < 0.0) | (prev_cact[k] & (depth <= transition_eps))
         cact.append(act)
         depth_all.append(depth)
@@ -389,12 +393,21 @@ def constraint_system_components(cd, cset, qc, vc, xs, world, vel, acc, kp: floa
         basis_all.append((c0, c1, n_col))
 
         ang_cols, lin_cols = cd._frame_jacobian_cols(world, parent, pc)
+        sk = None
+        if radius > 0.0:
+            # A sphere: the surface point at -r n (skewRadius = r skew(n),
+            # reference `sphere_constraint.cc`)
+            sk = _skew_mat(n, radius)
+            lin_cols = {d: v_add(lin_cols[d], m_mv(sk, ang_cols[d])) for d in lin_cols}
         w_l, v_l = vel[parent]
         a_l = acc[parent]
         vw_ang = m_mv(rw, w_l)
         vw_lin = m_mv(rw, v_add(v_l, v_cross(w_l, fp)))
         aw_ang = m_mv(rw, a_l[0])
         aw_lin = v_add(m_mv(rw, v_sub(a_l[1], v_cross(fp, a_l[0]))), v_cross(vw_ang, vw_lin))
+        if sk is not None:
+            vw_lin = v_add(vw_lin, m_mv(sk, vw_ang))
+            aw_lin = v_add(aw_lin, m_mv(sk, aw_ang))
         # Baumgarte: delta position = depth n, delta rotation = 0
         g_lin = [aw_lin[i] + kp * depth * n[i] + kd * vw_lin[i] for i in range(3)]
         g_ang = [aw_ang[i] + kd * vw_ang[i] for i in range(3)]
@@ -418,6 +431,53 @@ def constraint_system_components(cd, cset, qc, vc, xs, world, vel, acc, kp: floa
                                                        drefc, kp, kd)
         rows += d_rows
         drifts += d_drifts
+
+    # Rolling constraints (spheres, then wheels): the contact point's
+    # velocity is zero, 3 unbounded rows each
+    n_up = [0.0, 0.0, 1.0]
+    specs = [(f, r, None) for f, r in cset.sphere_specs] + list(cset.wheel_specs)
+    for slot, (fidx, radius, axis) in enumerate(specs):
+        parent = c.frame_parents[fidx]
+        fp = c.fpos[fidx]
+        rw, pw = world[parent]
+        pc = v_add(m_mv(rw, fp), pw)
+        w_l, v_l = vel[parent]
+        a_l = acc[parent]
+        w_w = m_mv(rw, w_l)
+        v_w = m_mv(rw, v_add(v_l, v_cross(w_l, fp)))
+        a_ang = m_mv(rw, a_l[0])
+        a_lin = v_add(m_mv(rw, v_sub(a_l[1], v_cross(fp, a_l[0]))), v_cross(w_w, v_w))
+        ang_cols, lin_cols = cd._frame_jacobian_cols(world, parent, pc)
+        if axis is None:
+            sk = _skew_mat(n_up, radius)
+            delta = pc[2] - rollrefc[slot]
+            extra = None
+        else:
+            # The wheel's axis in its joint's coordinates is static
+            ax_p = (np.asarray(c.frot[fidx], np.float64) @ np.asarray(axis, np.float64)).tolist()
+            axis_w = m_mv(rw, ax_p)
+            x = v_cross(v_cross(axis_w, n_up), axis_w)
+            x_norm = torch.clamp(torch.sqrt(torch.clamp(v_dot(x, x), min=0.0)), min=1e-9)
+            y = v_scale(x, 1.0 / x_norm)
+            sk = _skew_mat(y, radius)
+            delta = pc[2] - rollrefc[slot] + radius * (n_up[2] - y[2])
+            daxis = v_cross(w_w, axis_w)
+            dx = v_add(v_cross(v_cross(daxis, n_up), axis_w),
+                       v_cross(v_cross(axis_w, n_up), daxis))
+            z = v_scale(dx, 1.0 / x_norm)
+            dy = v_sub(z, v_scale(y, v_dot(y, z)))
+            extra = m_mv(_skew_mat(dy, radius), w_w)
+        vel_pt = v_add(v_w, m_mv(sk, w_w))
+        ska = m_mv(sk, a_ang)
+        acc_pt = v_add(a_lin, ska) if extra is None else [
+            a_lin[i] + ska[i] + extra[i] for i in range(3)]
+        g = [acc_pt[i] + kp * delta * n_up[i] + kd * vel_pt[i] for i in range(3)]
+        for i in range(3):
+            row = [0.0] * nv
+            for d in lin_cols:
+                row[d] = v_add(lin_cols[d], m_mv(sk, ang_cols[d]))[i]
+            rows.append(row)
+            drifts.append(g[i])
     return rows, drifts, basis_all, depth_all, cact, bact
 
 
@@ -433,9 +493,9 @@ def _stack_rows(comps, batch, like: torch.Tensor) -> torch.Tensor:
 def constrained_accel_full_components(cd, cset, qc, vc, tc, kp: float, kd: float,
                                       transition_eps: float, friction: float, torsion: float,
                                       regularization: float, iter_max: int, prev_cact,
-                                      prev_bact, lamc, drefc=()):
+                                      prev_bact, lamc, drefc=(), rollrefc=()):
     """Component-wise constrained forward dynamics for bound, ground
-    contact and distance rows: qdd = M^-1 (tau - nle + J^T lam), lam from
+    contact, distance and rolling rows: qdd = M^-1 (tau - nle + J^T lam), lam from
     PGS over A = J M^-1 J^T + reg; nle takes the core's spring-damper
     ground forces, if it has contacts. Returns `(qdd [nv], lam (N, *batch),
     basis, depth, cact, bact)`."""
@@ -447,7 +507,8 @@ def constrained_accel_full_components(cd, cset, qc, vc, tc, kp: float, kd: float
     world = cd._world_placements(xs)
     vel, acc = cd._vel_bias_components(xs, vc)
     rows, drifts, basis, depth, cact, bact = constraint_system_components(
-        cd, cset, qc, vc, xs, world, vel, acc, kp, kd, transition_eps, prev_cact, prev_bact, drefc
+        cd, cset, qc, vc, xs, world, vel, acc, kp, kd, transition_eps, prev_cact, prev_bact, drefc,
+        rollrefc,
     )
     mass = cd.mass_matrix_components(qc, xs=xs)
     fext = cd._contact_fext(world, vel)[0] if cd.has_contacts else None
@@ -473,9 +534,10 @@ def constrained_accel_full_components(cd, cset, qc, vc, tc, kp: float, kd: float
         jt_tau = t if jt_tau is None else jt_tau + t
     b = -_stack_rows(drifts, batch, like) - jt_tau
     # Warm start masked by row activity (inactive rows: zero force; the
-    # distance rows are always active)
+    # distance and rolling rows are always active)
     always = torch.ones(batch, dtype=torch.bool, device=like.device)
-    act_of_row = list(bact) + [x for x in cact for _ in range(4)] + [always] * cset.n_distance
+    act_of_row = (list(bact) + [x for x in cact for _ in range(4)]
+                  + [always] * (cset.n_distance + 3 * cset.n_rolling))
     lam0 = torch.where(torch.stack([x.expand(batch) for x in act_of_row]),
                        torch.stack([x.to(like.dtype).expand(batch) for x in lamc]), 0.0)
     lam = _pgs_sweep_components(cset, a, b, lam0, friction, torsion, iter_max)
@@ -549,7 +611,7 @@ def solver_channels(lam, cact, bact) -> list:
 class _ConstrainedCore:
     """The closures of `make_constrained_period_integrator`: command row
     `[motor command (n_cmd) | distance_ref (nd) | lam (N) | contact active
-    (nc) | bound active (nb)]`, extras `[a | f_world | w_local | depth | imu
+    (nc) | bound active (nb) | rolling_ref (nr)]`, extras `[a | f_world | w_local | depth | imu
     | lam | cact | bact]`. The contact block of the extras comes from the
     multipliers in constraint contact mode, else from the core's
     spring-damper contacts (one of the two has none); the core's penalty
@@ -558,14 +620,13 @@ class _ConstrainedCore:
 
     def __init__(self, cd, tau_c, cset: ConstraintSet, opts: SolverOptions, dt: float,
                  n_substeps: int, integrator: str, n_cmd: int, imu_frames: tuple):
-        _unported_rows(cset)
         if integrator not in cdyn._INTEGRATORS:
             raise ValueError(f"unknown fixed-step integrator {integrator!r}")
         self.cd, self.tau_c, self.cset, self.opts = cd, tau_c, cset, opts
         self.dt, self.n_substeps, self.integrator = float(dt), int(n_substeps), integrator
         self.n_cmd, self.imu_frames = int(n_cmd), tuple(imu_frames)
         nc, nb, n, nd = cset.n_contacts, cset.n_bounds, cset.total_rows, cset.n_distance
-        self.n_cc = self.n_cmd + nd + n + nc + nb
+        self.n_cc = self.n_cmd + nd + n + nc + nb + cset.n_rolling
         self._packed = {}
         nc_out = nc + (len(cd.contact_frames) if cd.has_contacts else 0)
         self.n_extra = cd.model.nv + 10 * nc_out + 6 * len(self.imu_frames) + n + nc + nb
@@ -579,25 +640,29 @@ class _ConstrainedCore:
 
     def split_cc(self, cc):
         cset = self.cset
-        n, nc, nd = cset.total_rows, cset.n_contacts, cset.n_distance
+        n, nc, nb, nd = cset.total_rows, cset.n_contacts, cset.n_bounds, cset.n_distance
         off = self.n_cmd + nd
         lamc = cc[off : off + n]
         cactc = [x > 0.5 for x in cc[off + n : off + n + nc]]
-        bactc = [x > 0.5 for x in cc[off + n + nc :]]
-        return cc[: self.n_cmd], cc[self.n_cmd : off], lamc, cactc, bactc
+        bactc = [x > 0.5 for x in cc[off + n + nc : off + n + nc + nb]]
+        rollrefc = cc[off + n + nc + nb :]
+        return cc[: self.n_cmd], cc[self.n_cmd : off], lamc, cactc, bactc, rollrefc
 
     def accel(self, qc, vc, cc):
-        cmd, drefc, lamc, cactc, bactc = self.split_cc(cc)
+        cmd, drefc, lamc, cactc, bactc, rollrefc = self.split_cc(cc)
         o = self.opts
         return constrained_accel_full_components(
             self.cd, self.cset, qc, vc, self.u_c(qc, vc, cmd), o.kp, o.kd, o.transition_eps,
             o.friction, o.torsion, o.regularization, o.iter_max, cactc, bactc, lamc, drefc,
+            rollrefc,
         )
 
     def cc_with(self, cc, lam, cact, bact):
         """The command row with its warm-start and hysteresis channels
         replaced by a solver stage's outputs (stage-chained warm start)."""
-        return list(cc[: self.n_cmd + self.cset.n_distance]) + solver_channels(lam, cact, bact)
+        nr = self.cset.n_rolling
+        return (list(cc[: self.n_cmd + self.cset.n_distance]) + solver_channels(lam, cact, bact)
+                + list(cc[len(cc) - nr :]))
 
     def final_outputs(self, qc, vc, cc):
         ac, lam, basis, depth, cact, bact = self.accel(qc, vc, cc)
@@ -681,8 +746,8 @@ class ConstrainedPeriodIntegrator(_ConstrainedCore):
 class ConstrainedRolloutIntegrator(_ConstrainedCore):
     """One whole env step (the closures of
     `make_constrained_rollout_integrator` on `make_generic_rollout`):
-    action row `[env action | distance_ref (nd)]`, carry `[block carry |
-    lam | cact | bact]`,
+    action row `[env action | distance_ref (nd) | rolling_ref (nr)]`, carry
+    `[block carry | lam | cact | bact]`,
     extras = period extras + `[cc_last | carry']`. Each tick runs the
     controller, then the substeps with the command row threaded through
     them, then an end-of-tick solve that refreshes the carried multipliers
@@ -703,10 +768,11 @@ class ConstrainedRolloutIntegrator(_ConstrainedCore):
 
     def controller_fn(self, qc, vc, bc, ac):
         n_block = len(bc) - self.n_solver
-        n_action = len(ac) - self.cset.n_distance
+        nd, nr = self.cset.n_distance, self.cset.n_rolling
+        n_action = len(ac) - nd - nr
         cmd, bs2 = self.controller(qc, vc, bc[:n_block], ac[:n_action])
-        return (list(cmd) + list(ac[n_action:]) + list(bc[n_block:]),
-                list(bs2) + list(bc[n_block:]))
+        return (list(cmd) + list(ac[n_action : n_action + nd]) + list(bc[n_block:])
+                + list(ac[n_action + nd :]), list(bs2) + list(bc[n_block:]))
 
     def post_tick_fn(self, qc, vc, cc, bc):
         """End-of-tick solve: refresh the warm-start multipliers and the
@@ -756,11 +822,13 @@ class ConstrainedRolloutIntegrator(_ConstrainedCore):
 # Constant packing (layout read by csrc/pgs.cuh, `struct CModel`)
 # --------------------------------------------------------------------------- #
 
-SI_HEADER, SF_HEADER = 8, 8  # [N nb nc iter_max stage_warm support_width nd ...],
+SI_HEADER, SF_HEADER = 8, 8  # [N nb nc iter_max stage_warm support_width nd nr],
 #                               [kp kd friction torsion reg min_reg transition_eps ...]
 SI_BOUND, SI_CONTACT = 2, 3  # (q index, v index); (parent joint, support size, support offset)
 SI_DISTANCE = 4  # (parent joint a, parent joint b, support size, support offset)
+SI_ROLLING = 4  # (parent joint, support size, support offset, 1 for a wheel)
 SF_BOUND, SF_CONTACT, SF_DISTANCE = 4, 12, 6  # (lo hi lo+eps hi-eps); fpos(3) frot(9); fpos a, b
+SF_ROLLING = 7  # fpos(3), radius, a wheel's axis in its joint's coordinates (3)
 
 
 @dataclasses.dataclass(eq=False)
@@ -784,14 +852,16 @@ def support_dofs(cd, joint: int) -> list:
 def pack_constraints(cd, cset: ConstraintSet, opts: SolverOptions, device,
                      dtype) -> PackedConstraints:
     """Pack the row layout, bound limits, contact frames, loop closures'
-    frames and support dofs (a loop's: the union of both frames' chains),
-    solver constants and the relaxation weights of every sweep. Floats are
-    computed in float64 on the host, as the plain version computes its
-    Python-float constants, then rounded once to `dtype`. The ground's
-    program travels in the model's buffers (`cdyn.pack_model`)."""
-    _unported_rows(cset)
+    frames, the contacts' radii, the rolling constraints (spheres, then
+    wheels) and the support dofs (a loop's: the union of both frames'
+    chains), solver constants and the relaxation weights of every sweep.
+    Floats are computed in float64 on the host, as the plain version
+    computes its Python-float constants, then rounded once to `dtype`. The
+    ground's program travels in the model's buffers (`cdyn.pack_model`)."""
     model, c = cd.model, cd.c
     nb, nc, n, nd = cset.n_bounds, cset.n_contacts, cset.total_rows, cset.n_distance
+    rolling = [(f, r, None) for f, r in cset.sphere_specs] + list(cset.wheel_specs)
+    nr = len(rolling)
     lo_all = np.asarray(model.position_limit_lower, dtype=np.float64)
     hi_all = np.asarray(model.position_limit_upper, dtype=np.float64)
     eps = opts.transition_eps
@@ -799,9 +869,9 @@ def pack_constraints(cd, cset: ConstraintSet, opts: SolverOptions, device,
     supports = [support_dofs(cd, fp[f]) for f in cset.contact_frame_indices]
     supports += [sorted(set(support_dofs(cd, fp[fa])) | set(support_dofs(cd, fp[fb])))
                  for fa, fb in cset.distance_pairs]
+    supports += [support_dofs(cd, fp[f]) for f, _, _ in rolling]
     width = max([1 if nb else 0] + [len(sup) for sup in supports])
-    si = [n, nb, nc, opts.iter_max, int(opts.stage_warm_start), width, nd]
-    si += [0] * (SI_HEADER - len(si))
+    si = [n, nb, nc, opts.iter_max, int(opts.stage_warm_start), width, nd, nr]
     sf = [opts.kp, opts.kd, opts.friction, opts.torsion, opts.regularization, _MIN_REGULARIZER,
           eps]
     sf += [0.0] * (SF_HEADER - len(sf))
@@ -811,7 +881,7 @@ def pack_constraints(cd, cset: ConstraintSet, opts: SolverOptions, device,
         lo, hi = float(lo_all[qi]), float(hi_all[qi])
         si += [qi, model.idx_v[j]]
         sf += [lo, hi, lo + eps, hi - eps]
-    off = len(si) + SI_CONTACT * nc + SI_DISTANCE * nd
+    off = len(si) + SI_CONTACT * nc + SI_DISTANCE * nd + SI_ROLLING * nr
     for fidx, sup in zip(cset.contact_frame_indices, supports):
         si += [fp[fidx], len(sup), off]
         off += len(sup)
@@ -820,13 +890,21 @@ def pack_constraints(cd, cset: ConstraintSet, opts: SolverOptions, device,
         si += [fp[fa], fp[fb], len(sup), off]
         off += len(sup)
         sf += list(c.fpos[fa]) + list(c.fpos[fb])
+    sf += [float(r) for r in (cset.contact_radii or (0.0,) * nc)]
+    for (fidx, radius, axis), sup in zip(rolling, supports[nc + nd:]):
+        si += [fp[fidx], len(sup), off, int(axis is not None)]
+        off += len(sup)
+        axis_p = ([0.0] * 3 if axis is None else
+                  (np.asarray(c.frot[fidx], np.float64) @ np.asarray(axis, np.float64)).tolist())
+        sf += list(c.fpos[fidx]) + [float(radius)] + axis_p
     for sup in supports:
         si += sup
     return PackedConstraints(
         si=torch.tensor(si, dtype=torch.int32, device=device),
         sf=torch.tensor(sf, dtype=torch.float64).to(device=device, dtype=dtype),
-        counts=dict(n_rows=n, nb_rows=nb, nc_rows=nc, nd_rows=nd, iter_max=opts.iter_max,
-                    support_width=width),
+        counts=dict(n_rows=n, nb_rows=nb, nc_rows=nc, nd_rows=nd, nr_rows=nr,
+                    iter_max=opts.iter_max, support_width=width,
+                    spheres=any(r > 0.0 for r in cset.contact_radii)),
     )
 
 
@@ -841,8 +919,11 @@ def _n_solver(cpk: PackedConstraints) -> int:
 
 def cm_ext(packed, cpk: PackedConstraints) -> int:
     """1 when a constrained launch takes the kernels' extended body: loop
-    closures, or spring-damper contacts or penalty bounds in the core."""
-    return int(cpk.counts["nd_rows"] > 0 or packed.counts["nc"] > 0 or packed.counts["nb"] > 0)
+    closures, rolling rows, sphere contacts (radius > 0), or spring-damper
+    contacts or penalty bounds in the core."""
+    k = cpk.counts
+    return int(k["nd_rows"] > 0 or k["nr_rows"] > 0 or k["spheres"]
+               or packed.counts["nc"] > 0 or packed.counts["nb"] > 0)
 
 
 def cm_smem_per_env(packed, cpk: PackedConstraints, dtype) -> int:
@@ -855,9 +936,12 @@ def cm_smem_per_env(packed, cpk: PackedConstraints, dtype) -> int:
     elt = torch.empty((), dtype=dtype).element_size()
     per_env = kernels.load().cm_smem_bytes(c["nj"], c["nq"], c["nv"], k["n_rows"], k["nc_rows"],
                                            k["nb_rows"], k["support_width"], k["nd_rows"],
-                                           c["nc"], elt)
+                                           c["nc"], k["nr_rows"], elt)
     if per_env < 0:
-        raise ValueError(f"constrained kernels: {k['n_rows']} rows exceed the compiled cap")
+        raise ValueError(
+            f"constrained kernels: {k['n_rows']} rows exceed the compiled cap; kernels sized "
+            "from the model are not ported yet (ROADMAP.md queue 2 item 5)"
+        )
     return per_env
 
 
@@ -868,9 +952,9 @@ def _launch_period_cm(packed, cpk: PackedConstraints, q, v, cc, n_substeps: int,
     nq, nv, n_cc = packed.counts["nq"], packed.counts["nv"], cc.shape[-1]
     cdyn._check_caps(packed, n_cmd=n_cmd)
     smem = cm_smem_per_env(packed, cpk, q.dtype)
-    if n_cc != n_cmd + cpk.counts["nd_rows"] + _n_solver(cpk):
+    if n_cc != n_cmd + cpk.counts["nd_rows"] + _n_solver(cpk) + cpk.counts["nr_rows"]:
         raise ValueError(f"cdyn_period_cm: command row width {n_cc} != {n_cmd} + loop lengths "
-                         "+ solver channels")
+                         "+ solver channels + rolling heights")
     if n_cmd < packed.counts["nm"]:
         raise ValueError(f"cdyn_period_cm: command width {n_cmd} < {packed.counts['nm']} motors")
     batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1], cc.shape[:-1])
@@ -906,7 +990,7 @@ def _launch_rollout_cm(packed, cpk: PackedConstraints, ctrl, kind: int, q, v, ac
                          "and the solver channels")
     if n_cmd < packed.counts["nm"]:
         raise ValueError(f"cdyn_rollout_cm: command width {n_cmd} < {packed.counts['nm']} motors")
-    if kind == cdyn.CONTROLLER_ZOH and na - cpk.counts["nd_rows"] < n_cmd:
+    if kind == cdyn.CONTROLLER_ZOH and na - cpk.counts["nd_rows"] - cpk.counts["nr_rows"] < n_cmd:
         raise ValueError(f"cdyn_rollout_cm: pass-through needs >= {n_cmd} action channels")
     batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1], action.shape[:-1],
                                    carry.shape[:-1])

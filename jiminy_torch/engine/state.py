@@ -44,6 +44,7 @@ class SimState:
     bound_active: Optional[torch.Tensor] = None  # (..., nb) bool
     lam: Optional[torch.Tensor] = None  # (..., N) warm-start PGS multipliers
     distance_ref: Optional[torch.Tensor] = None  # (..., nd) loop-closure lengths
+    rolling_ref: Optional[torch.Tensor] = None  # (..., nr) rolling frames' reference heights
 
     def replace(self, **kw) -> "SimState":
         return dataclasses.replace(self, **kw)

@@ -1,12 +1,11 @@
 """Preconfigured environments (port of `jiminy_tpu.envs`: the toys, the
-ANYmal, Cassie, Digit and the Atlas entries).
+ant, the ANYmal, Cassie, Digit and the Atlas entries).
 
 `make(env_id, device=None, dtype=None)` builds an env on the card unless
-`device` says otherwise; with no device and no card it raises. The ids of
-`jiminy_tpu` not ported yet raise `NotImplementedError` naming their
-ROADMAP.md item.
+`device` says otherwise; with no device and no card it raises.
 """
 
+from jiminy_torch.envs.ant import AntEnv
 from jiminy_torch.envs.anymal import ANYmalEnv, ANYmalPDControlEnv
 from jiminy_torch.envs.bipeds import (
     AtlasEnv,
@@ -25,6 +24,7 @@ _REGISTRY = {
     "cartpole": CartPoleEnv,
     "acrobot": AcrobotEnv,
     "pendulum": PendulumEnv,
+    "ant": AntEnv,
     "anymal": ANYmalEnv,
     "anymal-pid": ANYmalPDControlEnv,
     "atlas": AtlasEnv,
@@ -38,7 +38,7 @@ _REGISTRY = {
 }
 
 # jiminy_tpu's other ids and the ROADMAP.md queue 1 item that ports them
-_NOT_PORTED = {"ant": 10}
+_NOT_PORTED: dict = {}
 
 
 def make(name: str, device=None, dtype=None, **kwargs):
@@ -57,6 +57,7 @@ __all__ = [
     "AcrobotEnv",
     "CartPoleEnv",
     "PendulumEnv",
+    "AntEnv",
     "ANYmalEnv",
     "ANYmalPDControlEnv",
     "AtlasEnv",

@@ -4,7 +4,8 @@
 The URDF and `*_hardware.toml` files are read as data from the JAX package's
 data directory; nothing of that package is imported. It loads the toys
 (cartpole, acrobot, simple_pendulum: fixed base, no hardware file), the
-ANYmal (point contact frames), Atlas (foot collision boxes expanded into
+ant (sphere collision bodies on the torso and the feet, radius-r contact
+points), the ANYmal (point contact frames), Atlas (foot collision boxes expanded into
 corner contact points, pruned to the support hull at the nominal pose;
 locked joints folded away), and Cassie and Digit (toe meshes, collision or
 visual, replaced by their oriented bounding box's corners, the four lowest
@@ -44,6 +45,7 @@ _ASSET_SUBDIRS = {
     "cartpole": "toys_models/cartpole",
     "acrobot": "toys_models/acrobot",
     "simple_pendulum": "toys_models/simple_pendulum",
+    "ant": "toys_models/ant",
     "anymal": "quadrupedal_robots/anymal",
     "atlas": "bipedal_robots/atlas",
     "cassie": "bipedal_robots/cassie",
@@ -241,7 +243,7 @@ def load_robot(name: str, has_freeflyer: Optional[bool] = None, lock_joints=None
     by default the robot's passive joints); the motors and sensors on them
     are dropped."""
     if has_freeflyer is None:
-        has_freeflyer = name in ("anymal", "atlas", "cassie", "digit")
+        has_freeflyer = name in ("ant", "anymal", "atlas", "cassie", "digit")
     if lock_joints is None:
         lock_joints = _LOCKED_JOINTS.get(name, ())
     hw_file = hardware_path(name)

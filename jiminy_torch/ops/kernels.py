@@ -124,7 +124,7 @@ class Library:
             raise RuntimeError(f"cdyn_caps returned {n} caps, expected {len(CAP_NAMES)}")
         self.caps = dict(zip(CAP_NAMES, list(buf)))
         self._cm_smem = self._dll.cdyn_cm_smem_bytes
-        self._cm_smem.argtypes = [_I] * 10
+        self._cm_smem.argtypes = [_I] * 11
         self._cm_smem.restype = ctypes.c_int
         self._sp_smem = self._dll.cdyn_sp_smem_bytes
         self._sp_smem.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_int)]
@@ -152,12 +152,12 @@ class Library:
         except KeyError:
             raise ValueError(f"no kernel {name} for dtype {dtype}") from None
 
-    def cm_smem_bytes(self, nj, nq, nv, n_rows, nc, nb, ns, nd, n_spring, elt) -> int:
+    def cm_smem_bytes(self, nj, nq, nv, n_rows, nc, nb, ns, nd, n_spring, nr, elt) -> int:
         """Bytes of dynamic shared memory one env of the constrained kernels
         takes (`CmLayout`, `cm_env_stride` in csrc/pgs.cuh) with nd loop
-        closures and n_spring spring-damper contacts beside the rows; -1 for
-        more rows than the kernels take."""
-        return int(self._cm_smem(nj, nq, nv, n_rows, nc, nb, ns, nd, n_spring, elt))
+        closures, n_spring spring-damper contacts and nr rolling constraints
+        beside the rows; -1 for more rows than the kernels take."""
+        return int(self._cm_smem(nj, nq, nv, n_rows, nc, nb, ns, nd, n_spring, nr, elt))
 
     def sp_smem_bytes(self, nj, nq, nv, nc, n_cmd, n_action, n_carry, elt) -> tuple:
         """(bytes of dynamic shared memory one env of the spring kernels

@@ -244,15 +244,17 @@ def bound_row_inputs(env, batch: int, seed: int, device=None, dtype=None, rows: 
 
 
 def _highest_foot(eng, q: np.ndarray) -> np.ndarray:
-    """Height of the highest contact point per env (float64, on the CPU)."""
+    """Height of the highest contact point per env, a sphere's lowest point
+    (float64, on the CPU)."""
     cd = eng._cdyn_cm
     qt = torch.as_tensor(q, dtype=torch.float64)
     world = cd._world_placements(cd._joint_x([qt[:, i] for i in range(qt.shape[1])]))
     heights = []
-    for f in eng.cset.contact_frame_indices:
+    radii = eng.cset.contact_radii or (0.0,) * eng.cset.n_contacts
+    for f, r in zip(eng.cset.contact_frame_indices, radii):
         rw, pw = world[cd.c.frame_parents[f]]
         fp = cd.c.fpos[f]
-        heights.append(sum(rw[2][k] * fp[k] for k in range(3)) + pw[2])
+        heights.append(sum(rw[2][k] * fp[k] for k in range(3)) + pw[2] - r)
     return torch.stack(heights, -1).amax(-1).numpy()
 
 

@@ -216,18 +216,22 @@ def test_atlas_entry_points_refuse_what_is_not_ported(monkeypatch):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
         t_make("atlas-pid", device="cpu", procedural=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        t_make("ant", device="cpu")
+        t_make("ant", device="cpu", procedural=True)
     for name in ("cassie-pid", "digit"):  # ported: their procedural builders are not
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
             t_make(name, device="cpu", procedural=True)
     # The toys are ported (ROADMAP.md queue 1 item 8, first half)
     assert t_make("cartpole", device="cpu").action_size == 1
-    # Other collision primitives (the hands' spheres, the arms' cylinders) and
-    # collision pairs
+    # The other collision primitives are ported (the hands' spheres, the
+    # arms' cylinders: radius-r and rim points as jiminy_tpu builds them);
+    # collision pairs are not
     urdf = t_assets.urdf_path("atlas")
     for link in ("l_hand", "l_ufarm"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-            TRobot.build(urdf, has_freeflyer=True, collision_bodies=[link])
+        tr = TRobot.build(urdf, has_freeflyer=True, collision_bodies=[link])
+        jr = JRobot.build(urdf, has_freeflyer=True, collision_bodies=[link])
+        assert tr.contact_radii == tuple(jr.contact_radii) and tr.contact_radii
+        assert tr.contact_frame_indices == tuple(jr.contact_frame_indices)
+        _assert_same_model(tr.model, jr.model)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
         TRobot.build(urdf, has_freeflyer=True, collision_pairs=[("l_foot", "r_foot")])
     # No device and no card: the entry point runs on the card or raises

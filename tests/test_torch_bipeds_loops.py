@@ -405,15 +405,23 @@ def test_biped_env_ids_build_and_reset(name, action):
 
 
 def test_unported_biped_options_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        t_make("ant", device="cpu")
-    for name in ("cassie-pid", "digit"):
+    """The procedural builders are not ported (the ant's neither); rolling
+    rows beside a four-bar's loop pack for the kernels' extended body, the
+    rolling block after the loop's."""
+    for name in ("ant", "cassie-pid", "digit"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
             t_make(name, device="cpu", procedural=True)
     eng = TEngine(fourbar_robot(True), fourbar_options(True), device="cpu", dtype=torch.float64)
-    for cset in (
-        dataclasses.replace(eng.cset, sphere_specs=((2, 0.02),)),
-        dataclasses.replace(eng.cset, wheel_specs=((2, 0.02, (0.0, 1.0, 0.0)),)),
+    for cset, wheel in (
+        (dataclasses.replace(eng.cset, sphere_specs=((2, 0.02),)), 0),
+        (dataclasses.replace(eng.cset, wheel_specs=((2, 0.02, (0.0, 1.0, 0.0)),)), 1),
     ):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-            t_solver.pack_constraints(eng._cdyn_cm, cset, eng._solver_opts, "cpu", torch.float64)
+        cpk = t_solver.pack_constraints(eng._cdyn_cm, cset, eng._solver_opts, "cpu",
+                                        torch.float64)
+        assert (cpk.counts["nd_rows"], cpk.counts["nr_rows"]) == (1, 1)
+        assert cpk.counts["n_rows"] == cset.total_rows == 4
+        si = cpk.si.tolist()
+        rolling = si[t_solver.SI_HEADER + t_solver.SI_DISTANCE:][:t_solver.SI_ROLLING]
+        assert rolling[0] == eng.robot.model.frame_parents[2] and rolling[3] == wheel
+        assert si[rolling[2]:rolling[2] + rolling[1]] == t_solver.support_dofs(
+            eng._cdyn_cm, rolling[0])

@@ -50,6 +50,7 @@ def test_port_imports_neither_jax_nor_jiminy_tpu():
     assert "jiminy_torch.envs.bipeds" in mods and "jiminy_torch.envs.builders_bipeds" in mods
     assert "jiminy_torch.engine.contact" in mods and "jiminy_torch.envs.toys" in mods
     assert "jiminy_torch.models.urdf" in mods and "jiminy_torch.envs.assets" in mods
+    assert "jiminy_torch.envs.ant" in mods and "jiminy_torch.engine.robot" in mods
     for m in ("rl.ppo", "rl.evaluate", "rl.checkpoint", "rl.networks", "gym.wrappers",
               "telemetry.trajectory", "utils", "utils.terrain"):
         assert f"jiminy_torch.{m}" in mods, m
@@ -83,9 +84,13 @@ def env():
 
 
 def test_make_without_device_raises_without_a_card(monkeypatch):
+    from jiminy_torch import envs
+
+    assert not envs._NOT_PORTED and "ant" in envs._REGISTRY
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        make("anymal-pid")
+    for name in ("anymal-pid", "ant"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(name)
     monkeypatch.setattr(kernels, "_LIBRARY", None)
     with pytest.raises(RuntimeError, match="CUDA device"):
         kernels.load()
@@ -309,27 +314,33 @@ def test_constrained_wrappers_raise_instead_of_falling_back(cm_env):
 
 
 def test_unported_constraint_rows_and_terrain_raise_not_implemented(cm_env):
-    """Rolling rows (ROADMAP item 10) and sphere contacts (item 9) are
-    refused, on every path that would assemble them, and distance-loop rows
-    build; terrain builds, and a ground without a packed form is refused for
-    the card (queue 2 item 6)."""
+    """Rolling rows, sphere contacts and distance-loop rows build on every
+    path and take the kernels' extended body (their radii and rolling
+    constraints packed after the loops'); terrain builds, and a ground
+    without a packed form is refused for the card (queue 2 item 6)."""
     eng = cm_env.engine
     cd, opts = eng._cdyn_cm, eng._solver_opts
     opts_s = opts
-    for cset in (
-        dataclasses.replace(eng.cset, sphere_specs=((89, 0.02),)),
-        dataclasses.replace(eng.cset, wheel_specs=((89, 0.02, (0.0, 1.0, 0.0)),)),
-    ):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-            solver.ConstrainedPeriodIntegrator(cd, eng._tau_c, cset, opts, 1e-3, 1, "rk4", 12, ())
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-            solver.pack_constraints(cd, cset, opts, "cpu", torch.float64)
+    run = eng._get_period_run("rk4")
+    packed = cd.pack(eng._tau_c, run.dt, (), "cpu", torch.float64)
+    assert solver.cm_ext(packed, run.pack("cpu", torch.float64)) == 0
     loops = dataclasses.replace(eng.cset, distance_pairs=((89, 123),), distance_ref=(0.5,))
-    solver.ConstrainedPeriodIntegrator(cd, eng._tau_c, loops, opts, 1e-3, 1, "rk4", 12, ())
-    assert solver.pack_constraints(cd, loops, opts, "cpu", torch.float64).counts["nd_rows"] == 1
     spheres = dataclasses.replace(eng.cset, contact_radii=(0.02,) * 4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9"):
-        solver.constraint_system_components(cd, spheres, *([None] * 6), 1.0, 1.0, 1e-3, [], [])
+    for cset, counts in (
+        (dataclasses.replace(eng.cset, sphere_specs=((89, 0.02),)), (0, 1, 31)),
+        (dataclasses.replace(eng.cset, wheel_specs=((89, 0.02, (0.0, 1.0, 0.0)),)), (0, 1, 31)),
+        (loops, (1, 0, 29)),
+        (spheres, (0, 0, 28)),
+    ):
+        pr = solver.ConstrainedPeriodIntegrator(cd, eng._tau_c, cset, opts, 1e-3, 1, "rk4", 12, ())
+        assert pr.n_cc == 12 + counts[0] + cset.total_rows + 4 + 12 + counts[1]
+        cpk = solver.pack_constraints(cd, cset, opts, "cpu", torch.float64)
+        k = cpk.counts
+        assert (k["nd_rows"], k["nr_rows"], k["n_rows"]) == counts
+        assert solver.cm_ext(packed, cpk) == 1
+        radii = cpk.sf[solver.SF_HEADER + opts.iter_max + solver.SF_BOUND * 12
+                       + solver.SF_CONTACT * 4 + solver.SF_DISTANCE * counts[0]:][:4]
+        assert radii.tolist() == list(cset.contact_radii)
     # Terrain builds in constraint mode; a ground without a packed form runs
     # on the CPU (the plain solve) and is refused for the card and by the
     # kernels' packing (the model's buffers carry the ground's program)
@@ -377,8 +388,9 @@ def test_packed_constraint_constants_match_model(cm_env):
     np.testing.assert_array_equal(lim[:, 0], model.position_limit_lower[qi])
     np.testing.assert_array_equal(lim[:, 1], model.position_limit_upper[qi])
     np.testing.assert_array_equal(lim[:, 2], model.position_limit_lower[qi] + o.transition_eps)
-    frames = sf[off + 48:].reshape(4, 12)
+    frames = sf[off + 48:off + 96].reshape(4, 12)
     np.testing.assert_array_equal(frames[:, :3], model.fplacement_pos[list(cset.contact_frame_indices)])
+    np.testing.assert_array_equal(sf[off + 96:], [0.0] * 4)  # the contacts' radii
 
 
 def test_loop_closure_entry_points_run_on_the_card_and_never_fall_back(monkeypatch):
