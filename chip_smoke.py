@@ -6,7 +6,8 @@
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
 1. Device: the card from nvidia-smi and torch; no CUDA device -> exit 2.
-2. Build: nvcc builds csrc/cdyn.cu for sm_90a; the -Xptxas -v summary.
+2. Build: nvcc builds csrc/cdyn.cu for sm_90a, its parts an nvcc each, all
+   at once, then linked; the -Xptxas -v summary.
 3. Kernels against their plain PyTorch versions on the card, for the ANYmal
    constants, on perturbed states: cdyn_accel at B=4096, cdyn_period and
    cdyn_rollout (PD and zero-order-hold controllers) at B=64 with fewer ticks
@@ -26,7 +27,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    env took), and nothing else runs. Checks: all finite, no env diverged or
    terminated. Trials a period (mean and max over the batch), env-steps/s,
    and one more step with CUDA events around each launch: the step's time
-   split into kernel and glue. Then two periods from the standing robot, its
+   split into kernel and glue. Then N_PERIODS_DOPRI_F64 period from the standing robot, its
    velocities perturbed, at float64, B=256, through the kernel and through
    `accel_plain`: the same trials, q, v and a within 1e-9.
 6. The three spring kernels at the main path's shapes (B=131072), one
@@ -119,8 +120,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 16. PPO learns the cartpole (jiminy_tpu's test_ppo_learns_cartpole whole,
    float64 as that test runs, seed 42): late mean_done below early, the
    episode return tracking its length within 5, lengths growing, 5 greedy
-   episodes averaging over 100 steps. It runs first, while nvcc builds the
-   kernels (phase 2): the cartpole's generic path launches none of them.
+   episodes averaging over 100 steps. It runs from the start in a process
+   of its own on the card (the cartpole's generic path launches no kernel),
+   beside the build and the phases that time nothing (3, 9, 12, 18 (a) and
+   (b), 20 and the ant's rough ground of 23), which run first; every other
+   phase runs after it, alone on the card.
 17. One train_step on the card against the CPU at float64, from the same
    parameters, initial states and draws: the cartpole (8 envs x 8 steps,
    every env auto-reset inside the rollout) and anymal-pid (16 envs x 2
@@ -148,8 +152,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    else), counts read, env-steps/s, all finite, the terminated share
    reported (not gated); then each mode's per-period path one step. (d)
    Records with `"ground": "rough"`: each kernel timed (CUDA events) on the
-   rough main path's states beside its flat time, its plain version
-   (host clock; the rollouts' whole step, as the timed launch), the bound
+   rough main path's states beside its flat time, and over ROUGH_CUT (one
+   substep of the periods, one tick of the rollouts; `plain_ms` null)
+   beside its plain version over the same cut (host clock), the bound
    from the flat plain version's ops plus the terrain branch's, counted on
    the plain version, for every contact evaluation.
 19. Digit main path: make("digit-pid") (nq 27, nv 26, 20 motors, 2 pushrod
@@ -159,15 +164,18 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    read (one cdyn_rollout_cm a step and nothing else): env-steps/s, every
    pushrod within PUSHROD_TOL of its length, all finite, no standing env
    below base_height_min; then one step of the per-period path (one
-   cdyn_period_cm a period). The two kernels on the main path's states:
+   cdyn_period_cm a period). The two kernels on the main path's states
+   (`phase_cm_records`, as every constrained model of phases 23 and 25):
    float32 timed (CUDA events) beside the plain version (host clock; the
    period whole, the rollout over DIGIT_PLAIN_TICKS tick and its record's
    `plain_ms` null: a whole plain step is minutes of eager launches), their
-   distance printed beside a one-ulp witness; the whole period at float64
-   one env short, every column within 1e-9, zeroed loop multipliers and one
-   PGS sweep refused; ops counted on the plain version (in a worker process),
-   bytes, bound, registers, shared memory and envs an SM; records join the
-   kernels line with `"model": "digit-pid"`.
+   distance printed beside a one-ulp witness and, where float64 runs the
+   same launch, the float32 kernel's and plain version's distances to the
+   float64 plain version; the whole period at float64 one env short, every
+   column within 1e-9, zeroed multipliers and one PGS sweep refused; ops
+   counted on the plain version (in a worker process), bytes, bound,
+   registers, shared memory and envs an SM; records join the kernels line
+   with `"model": "digit-pid"`.
 20. The constrained kernels at B_LOOP_CHECK on `testing.loop_inputs`
    states: digit-pid and jiminy_tpu's Cassie-shaped four-bar with a foot
    and a bound, each on flat and rough ground (both instances), both
@@ -178,8 +186,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    differ); float32 within TOL at LOOP_TICKS x LOOP_SUBSTEPS.
 21. Cassie: every row of tests/goldens/cassie-pid.csv at float64, B=1, on
    the generic path (continuous ankles; a CUDA graph a tick, no kernel)
-   within CASSIE_GOLDEN_ATOL (run by a second process on the card beside
-   phase 16: it launches no kernel and times nothing); cassie-pid at float32, B=131072, a warm-up
+   within CASSIE_GOLDEN_ATOL (run from the start by a process of its own on
+   the card, as phase 16: it launches no kernel and times nothing); cassie-pid at float32, B=B_CASSIE, a warm-up
    and N_STEPS_CASSIE steps (env-steps/s; no kernel runs), the pushrods
    within PUSHROD_TOL.
 
@@ -198,11 +206,11 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    cdyn_period_cm, phase 7's physics checks with every limited joint held;
    the two kernels on the main path's states as the Digit's (the rollout
    over ANT_CM_TICKS ticks), float64 one env short within 1e-9 with zeroed
-   contact multipliers and one PGS sweep refused; the 44-row ant (its
-   bounds as rows too) refused by the wrappers, naming ROADMAP.md queue 2
-   item 5. Then the terrain instance with sphere radii on rough ground at
-   B=B_ANT_ROUGH_CHECK, float64, the whole period and one tick of the
-   rollout, the flat instance on the same states refused.
+   multipliers and one PGS sweep refused; then the ant with its
+   bounds as rows too (44 rows) as in phase 25. Then the terrain instance
+   with sphere radii on rough ground at B=B_ANT_ROUGH_CHECK, float64, the
+   whole period and one tick of the rollout, the flat instance on the same
+   states refused.
 24. The rolling ball (jiminy_tpu's tests/test_rolling.py: a free sphere of
    radius 0.2 m with a sphere or a wheel rolling constraint, 3 rows): B=131072
    at float32, N_STEPS_BALL steps of 1 ms through cdyn_period_cm (one launch
@@ -210,8 +218,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the ball travelled; cdyn_period_cm and its plain version at float64 over
    N_STEPS_BALL_CHECK periods at B=B_BALL_CHECK, q, v and the multipliers
    within 1e-9.
+25. The Atlas in constraint mode (`testing.constraint_mode_options`: ground
+   contacts and joint bounds as PGS rows): atlas-pid (78 rows, nv 36) and
+   atlas-reduced-pid (60 rows), run after phase 11, and the ant with its
+   bounds as rows (44 rows), run in phase 23; each at float32, B=B_CM_WIDE
+   (the models' full width, the batch cut so that the phase fits): launch
+   counts to 0, the reset (the plain constrained solve, timed), a warm-up
+   step and N_STEPS_CM_WIDE steps of zero actions through make(...).step,
+   counts read (one cdyn_rollout_cm a step, nothing else), env-steps/s,
+   phase 7's physics checks; one step of the per-period path (Engine.step:
+   one cdyn_period_cm a controller period, nothing else). Both kernels
+   through `phase_cm_records`: float32 timed (CUDA events) over the whole
+   launch and, beside the plain version, over CM_WIDE_CUT (one substep of
+   the period, one tick of one substep of the rollout; `plain_ms` null);
+   on the main path's states printed beside a one-ulp witness and beside
+   the float32 plain version's distance to the float64 one; float64 one env
+   short over that cut within 1e-9, zeroed multipliers and one PGS sweep
+   refused; `constrained_inputs` states at B_CM_ROWS (a quarter past a
+   bound, every row active, no row active) after the main path's envs in
+   the same calls (one plain call a dtype and kernel), float64 within 1e-9
+   (every row active, more than CM_REG_ROWS; none active) and the perturbed
+   ones at float32 within TOL. Ops (in a worker), bytes, bound, registers,
+   bytes an env, envs a block and an SM; records join the kernels line with
+   `"model": "... (constraint mode ...)"`.
 
-The op and call counts (phases 5, 6, 8, 11, 18, 19, 22 and 23) and phase
+The op and call counts (phases 5, 6, 8, 11, 18, 19, 22, 23 and 25) and phase
 17's CPU train_steps run on the CPU in three worker processes beside the
 card's phases (those that need no main path's state from the start). Every
 process the script starts ends before it exits. The plain versions of the
@@ -223,6 +254,7 @@ The last two lines are the `{"kernels": [...]}` record and the device line.
 """
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -244,10 +276,11 @@ GOLDEN_ATOL = 1e-9
 GOLDEN_REACH = 5.0  # atlas golden rows: times the one-ulp witnesses' spread
 ATLAS_GOLDEN_ROWS = 10
 N_STEPS_ATLAS = 3  # atlas-pid main path
-ATLAS_CHECK_TICKS = 2  # atlas rollouts held to their plain version: controller ticks
+ATLAS_CHECK_TICKS = 1  # atlas rollouts held to their plain version: controller ticks
 N_STEPS_CM = 10  # constrained main path (the robot settles within some 10 steps)
 N_STEPS_DOPRI = 2  # DOPRI main path
 B_DOPRI_F64 = 256  # DOPRI kernel-vs-plain periods
+N_PERIODS_DOPRI_F64 = 1
 CM_TICKS, CM_SUBSTEPS = 2, 2  # cut of the constrained kernel-vs-plain checks
 CM_WEIGHT_TOL = 0.05  # feet carry m g within this share at rest
 CM_JOINT_SLACK = 1e-2  # [rad] beyond a joint limit
@@ -484,12 +517,16 @@ def spring_op_counts(model):
 # --------------------------------------------------------------------------- #
 
 
-def phase_build(res):
-    """The kernels' build `res` (`kernels.build()`): its ptxas summary; then
-    the library is bound."""
+def phase_build():
+    """The kernels' build (`kernels.build()`: the parts of csrc/cdyn.cu, an
+    nvcc each, all at once, then linked): its time, each part's, and its
+    ptxas summary; then the library is bound."""
     from jiminy_torch.ops import kernels
 
-    log(f"[build] {res.path.name}: {'reused' if res.reused else f'nvcc {res.seconds:.1f} s'}")
+    res = kernels.build()
+    parts = ", ".join(f"{t:.1f}" for t in res.part_seconds)
+    log(f"[build] {res.path.name}: "
+        f"{'reused' if res.reused else f'nvcc {res.seconds:.1f} s (its parts done at {parts} s)'}")
     entry = None
     for line in res.ptxas_log.splitlines():
         if "Compiling entry function" in line:
@@ -713,7 +750,7 @@ def dopri_glue_calls():
 def phase_dopri(device, smi, glue=None):
     """Adaptive DOPRI on the card (phase 5): the main path, its launches and
     trials, the kernel/glue split, and the kernel against the plain version
-    over two periods at float64."""
+    over N_PERIODS_DOPRI_F64 periods at float64."""
     import numpy as np
     import torch
 
@@ -792,7 +829,7 @@ def phase_dopri(device, smi, glue=None):
         f"{step_ms - kernel_ms:.2f} ms ({(step_ms - kernel_ms) / step_ms:.1%} of the step) on {smi}")
     del stage, events
 
-    # Two periods at float64 from the standing robot of the main path, its
+    # N_PERIODS_DOPRI_F64 periods at float64 from the standing robot of the main path, its
     # velocities perturbed: the kernel against the plain version
     env64 = _dopri_make(device, torch.float64)
     eng64 = env64.engine
@@ -806,7 +843,7 @@ def phase_dopri(device, smi, glue=None):
         if route == "plain":
             eng64._cdyn.accel = eng64._cdyn.accel_plain
         x = st0
-        for _ in range(2):
+        for _ in range(N_PERIODS_DOPRI_F64):
             x = eng64.step(x, cmd)
         runs[route] = x
     del eng64._cdyn.accel
@@ -814,7 +851,8 @@ def phase_dopri(device, smi, glue=None):
     k, p = runs["kernel"], runs["plain"]
     tk, tp = (r.stepper.iterations + r.stepper.iter_failed for r in (k, p))
     e64 = max(float(column_errors(a, b).max()) for a, b in ((k.q, p.q), (k.v, p.v), (k.a, p.a)))
-    log(f"[dopri] float64 B={B_DOPRI_F64}, two periods, velocities perturbed: trials kernel / plain mean "
+    log(f"[dopri] float64 B={B_DOPRI_F64}, {N_PERIODS_DOPRI_F64} period(s), velocities perturbed: "
+        f"trials kernel / plain mean "
         f"{float(tk.double().mean()):.3f} / {float(tp.double().mean()):.3f}, max {int(tk.max())} / "
         f"{int(tp.max())}, equal in every env: {bool(torch.equal(tk, tp))}; q, v, a column max "
         f"rel err {e64:.3e} (tol {TOL['float64'][1]:g})")
@@ -1574,7 +1612,7 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
     import torch
 
     from jiminy_torch.engine import solver
-    from jiminy_torch.ops import cdyn
+    from jiminy_torch.ops import cdyn, kernels
     from jiminy_torch.testing import column_errors, column_quantile_errors, constrained_inputs
 
     device = env.device
@@ -1640,9 +1678,7 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
     lam_cols = slice(n_extra - n_solver, n_extra - n_solver + cset.total_rows)
     n_launch = {"cdyn_period_cm": period_launches["cdyn_period_cm"],
                 "cdyn_rollout_cm": launches["cdyn_rollout_cm"]}
-    run32 = run_of("cdyn_rollout_cm", engines[torch.float32])
-    packed = run32.cd.pack(run32.tau_c, run32.dt, run32.imu_frames, device, torch.float32)
-    smem_per_env = solver.cm_smem_per_env(packed, run32.pack(device, torch.float32), torch.float32)
+    lib = kernels.load()
     n_time = {"cdyn_period_cm": 5, "cdyn_rollout_cm": 3}
     tol64, tol32 = TOL["float64"][1], TOL["float32"][1]
     records = []
@@ -1785,12 +1821,13 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
             "f64_err_none_active": extreme_errs["none"][0],
             "f32_q90_err_all_active": extreme_errs["all"][2],
             "f64_share_ragged": share_rag,
-            "smem_per_env": smem_per_env,
+            **_cm_geometry_record(lib, device, run32, run_of(name, engines[torch.float64]), name,
+                                  False, False),
         }
         log(f"[kernel] {name} B={B_MAIN} float32: {ms:.3f} ms (CUDA events), plain {plain_ms:.1f} ms "
             f"(host clock), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; every element op "
-            f"{rec['bound_ms_generic']:.4f} ms); |kernel-plain| on the main path's states "
-            f"{e_abs:.3e} on {smi}")
+            f"{rec['bound_ms_generic']:.4f} ms); {_geometry_text(rec)}; |kernel-plain| on the "
+            f"main path's states {e_abs:.3e} on {smi}")
         records.append(rec)
     return records
 
@@ -2040,7 +2077,6 @@ def phase_pendulum_records(toys, smi):
     Records for the kernels line with "model": "pendulum"."""
     import torch
 
-    from jiminy_torch.engine import solver
     from jiminy_torch.envs import make
     from jiminy_torch.ops import cdyn, kernels
     from jiminy_torch.testing import bound_row_inputs, column_errors, column_quantile_errors
@@ -2098,12 +2134,7 @@ def phase_pendulum_records(toys, smi):
     records = []
     for name in ("cdyn_period_cm", "cdyn_rollout_cm"):
         run32, run64 = run_of(name, torch.float32), run_of(name, torch.float64)
-        packed = {dt: r.cd.pack(r.tau_c, r.dt, r.imu_frames, device, dt)
-                  for dt, r in ((torch.float32, run32), (torch.float64, run64))}
-        smem = {dt: solver.cm_smem_per_env(packed[dt], r.pack(device, dt), dt)
-                for dt, r in ((torch.float32, run32), (torch.float64, run64))}
-        per_sm = {dt: lib.cm_envs_per_sm(name, torch.empty((), dtype=dt).element_size(), smem[dt])
-                  for dt in smem}
+        geometry = _cm_geometry_record(lib, device, run32, run64, name, False, False)
         # float32, the main path's states: timing
         xs = main_inputs(name, torch.float32)
         ms = _time_cuda(lambda: run32.kernel(*xs), 5)
@@ -2192,16 +2223,12 @@ def phase_pendulum_records(toys, smi):
             "f64_err_none_active": errs["none"],
             "f64_err_ragged": errs["ragged"],
             "f32_q90_err_mixed": errs["f32_mixed"],
-            "smem_per_env": smem[torch.float32],
-            "smem_per_env_f64": smem[torch.float64],
-            "envs_per_sm": per_sm[torch.float32],
-            "envs_per_sm_f64": per_sm[torch.float64],
+            **geometry,
         }
         log(f"[kernel] {name} pendulum B={B_MAIN} float32: {ms:.3f} ms (CUDA events), plain "
             f"{plain_ms:.1f} ms (host clock), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
-            f"every element op {rec['bound_ms_generic']:.4f} ms); {smem[torch.float32]} B an env, "
-            f"{per_sm[torch.float32]} envs an SM (float64 {smem[torch.float64]} B, "
-            f"{per_sm[torch.float64]}); |kernel-plain| on the main path's states {e_abs:.3e} on {smi}")
+            f"every element op {rec['bound_ms_generic']:.4f} ms); {_geometry_text(rec)}; "
+            f"|kernel-plain| on the main path's states {e_abs:.3e} on {smi}")
         records.append(rec)
     log(f"[pendulum-check] phase {time.perf_counter() - t_phase:.1f} s")
     return records
@@ -2744,23 +2771,36 @@ def rough_terrain_ops():
     return _terrain_ops(_rough_make("cpu", torch.float64))
 
 
-def phase_terrain(device, smi, records, counts=None):
-    """Phase 18: the ground evaluated per contact inside the five kernels.
-    `records` are the kernel records of the earlier phases (the flat
-    kernels' times and op counts of anymal-pid); `counts` a future of
+def phase_terrain_checks(device):
+    """Phase 18 (a) and (b), which time nothing: (errors, witnesses)."""
+    import torch
+
+    envs = {dt: (_rough_make(device, dt), _rough_make(device, dt, constraint=True))
+            for dt in (torch.float64, torch.float32)}
+    witness = {}
+    return _rough_checks(device, envs, witness), witness
+
+
+# Phase 18 (d): the plain versions run, and the kernels are timed beside
+# them, over one substep of the periods and one tick of the rollouts
+ROUGH_CUT = {"cdyn_accel": {}, "cdyn_period": dict(n_substeps=1),
+             "cdyn_rollout": dict(n_ticks=1), "cdyn_period_cm": dict(n_substeps=1),
+             "cdyn_rollout_cm": dict(n_ticks=1)}
+
+
+def phase_terrain(device, smi, records, checks, counts=None):
+    """Phase 18 (c) and (d): the ground evaluated per contact inside the
+    five kernels. `records` are the kernel records of the earlier phases
+    (the flat kernels' times and op counts of anymal-pid); `checks` what
+    `phase_terrain_checks` returned; `counts` a future of
     `rough_terrain_ops()` (counted here without it)."""
     import torch
 
     from jiminy_torch.ops import cdyn, kernels
 
     flat = {r["name"]: r for r in records if r.get("model") == "anymal-pid"}
-    envs = {dt: (_rough_make(device, dt), _rough_make(device, dt, constraint=True))
-            for dt in (torch.float64, torch.float32)}
-    witness = {}
-    errs = _rough_checks(device, envs, witness)
-
-    env, cm_env = envs[torch.float32]
-    del envs
+    errs, witness = checks
+    env, cm_env = _rough_make(device, torch.float32), _rough_make(device, torch.float32, True)
     st, st2, launches, sps, reset_launches, p_launches = _rough_main_path(
         env, N_STEPS_ROUGH, "cdyn_rollout", "cdyn_period", smi, "spring-damper")
     cst, cst2, cm_launches, cm_sps, _, cm_p_launches = _rough_main_path(
@@ -2816,13 +2856,14 @@ def phase_terrain(device, smi, records, counts=None):
     lib = kernels.load()
     out = []
     for name, (kern, plain, xs) in inputs.items():
-        xs = tuple(x.contiguous() for x in xs)
+        xs, cut = tuple(x.contiguous() for x in xs), ROUGH_CUT[name]
         ms = _time_cuda(lambda: kern(*xs), n_time[name])
-        outs = kern(*xs)
+        ms_part = _time_cuda(lambda: kern(*xs, **cut), n_time[name]) if cut else None
+        outs = kern(*xs, **cut)
         outs = outs if isinstance(outs, tuple) else (outs,)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        refs = plain(*xs)  # the same work as the timed launch: a rollout's every tick
+        refs = plain(*xs, **cut)  # the same work as the launch timed as ms_part (ms uncut)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         refs = refs if isinstance(refs, tuple) else (refs,)
@@ -2833,15 +2874,10 @@ def phase_terrain(device, smi, records, counts=None):
         t_ops = ops * B_MAIN / PEAK_F32_FLOPS * 1e3
         t_bytes = flat[name]["bytes_per_env"] * B_MAIN / PEAK_BYTES * 1e3
         if name.endswith("_cm"):
-            c = cm_prun.cd.pack(cm_prun.tau_c, cm_prun.dt, cm_prun.imu_frames, device,
-                                torch.float32).counts
-            k = cm_prun.pack(device, torch.float32).counts
-            smem = {elt: lib.cm_smem_bytes(c["nj"], c["nq"], c["nv"], k["n_rows"], k["nc_rows"],
-                                           k["nb_rows"], k["support_width"], k["nd_rows"],
-                                           c["nc"], k["nr_rows"], elt)
-                    for elt in (4, 8)}
-            per_sm = lib.cm_envs_per_sm(name, 4, smem[4], terrain=True)
-            per_sm_flat = lib.cm_envs_per_sm(name, 4, flat[name]["smem_per_env"])
+            smem4, _, per_sm = (cm_prun if name == "cdyn_period_cm" else cm_run).launch_geometry(
+                device, torch.float32)
+            smem = {4: smem4}
+            per_sm_flat = flat[name]["envs_per_sm"]
         else:
             per_sm = lib.sp_envs_per_sm(name, 4, flat[name]["smem_per_env"], terrain=True)
             per_sm_flat = lib.sp_envs_per_sm(name, 4, flat[name]["smem_per_env"])
@@ -2854,13 +2890,18 @@ def phase_terrain(device, smi, records, counts=None):
             "launches": main_launches[name],
             "max_abs_err": e_abs,
             "ms": ms,
-            "plain_ms": plain_ms,
+            "plain_ms": None if cut else plain_ms,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
             "model": "anymal-pid",
             "ground": "rough",
-            "plain_ms_basis": "measured",
+            "plain_ms_basis": ("measured" if not cut else
+                               f"not measured: the plain version's whole launch was not run; "
+                               f"over {cut} it took plain_ms_part, the kernel ms_part"),
+            "cut_compared": cut or None,
+            "ms_part": ms_part,
+            "plain_ms_part": plain_ms if cut else None,
             "check_ticks": None,
             "ops_per_env": ops,
             "terrain_ops_per_contact": terrain_ops,
@@ -2876,12 +2917,15 @@ def phase_terrain(device, smi, records, counts=None):
             **({"env_steps_per_s": cm_sps} if name == "cdyn_rollout_cm" else {}),
             **({"witness": witness} if name == "cdyn_accel" else {}),
         }
+        plain_txt = (f"plain {plain_ms:.1f} ms (measured)" if not cut else
+                     f"over {cut} the kernel {ms_part:.4f} ms, the plain version {plain_ms:.1f} ms "
+                     f"(host clock)")
         log(f"[kernel] anymal-pid rough {name} B={B_MAIN} float32: {ms:.4f} ms (CUDA events; "
-            f"flat {flat[name]['ms']:.4f} ms, {ms / flat[name]['ms']:.2f}x), plain {plain_ms:.1f} "
-            f"ms (measured), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+            f"flat {flat[name]['ms']:.4f} ms, {ms / flat[name]['ms']:.2f}x), {plain_txt}, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
             f"{rec['bound_ms'] / ms:.2%} of it; {smem[4]} B an env, {per_sm} envs an SM (flat "
             f"instance {per_sm_flat}); |kernel-plain| on the main path's states {e_abs:.3e}, {ERR_NAME['float32']} {e32:.3e} at "
-            f"{at32}; launches {main_launches[name]} on {smi}")
+            f"{at32}{f' over {cut}' if cut else ''}; launches {main_launches[name]} on {smi}")
         out.append(rec)
         del outs, refs
     log(f"[terrain] rough ground: spring-damper {sps:.1f} env-steps/s, constraint mode "
@@ -2902,6 +2946,7 @@ LOOP_SUBSTEPS = 1  # the cut checks: substeps a tick
 PUSHROD_TOL = 0.02  # [m] |d - d_ref| of a pushrod (jiminy_tpu's tests/test_bipeds.py:28-46)
 CASSIE_GOLDEN_ATOL = 1e-10  # the CPU test's tolerance of tests/goldens/cassie-pid.csv
 N_STEPS_CASSIE = 1  # cassie-pid main path, after a warm-up
+B_CASSIE = 32768  # cassie-pid main path's batch, cut so that the run fits its limit
 
 
 def _digit_make(device, dtype, base=None):
@@ -2954,6 +2999,28 @@ def _cm_registers(log_text, kernel, dtype_char, terrain, ext):
         if m and name and tag in name:
             return int(m.group(1))
     return None
+
+
+def _cm_geometry_record(lib, device, run32, run64, name, terrain, ext):
+    """The launch geometry of a constrained integrator's kernel at both
+    dtypes (`launch_geometry`: bytes of shared memory an env, the envs a
+    block the launcher picks, the envs an SM), and the float32 instance's
+    registers from the build's -Xptxas -v log."""
+    import torch
+
+    g32 = run32.launch_geometry(device, torch.float32)
+    g64 = run64.launch_geometry(device, torch.float64)
+    check(g32[2] > 0 and g64[2] > 0, f"{name}: no block fits an SM")
+    return {"smem_per_env": g32[0], "smem_per_env_f64": g64[0], "envs_per_block": g32[1],
+            "envs_per_block_f64": g64[1], "envs_per_sm": g32[2], "envs_per_sm_f64": g64[2],
+            "registers": _cm_registers(lib.build.ptxas_log, name, "f", terrain, ext)}
+
+
+def _geometry_text(rec):
+    return (f"{rec['registers']} registers, {rec['smem_per_env']} B an env "
+            f"({rec['smem_per_env_f64']} at float64), {rec['envs_per_block']} envs a block and "
+            f"{rec['envs_per_sm']} an SM ({rec['envs_per_block_f64']} and "
+            f"{rec['envs_per_sm_f64']} at float64)")
 
 
 def phase_digit_main_path(device, smi):
@@ -3049,190 +3116,6 @@ def loop_op_counts(env_cpu, q, v, cc, bc, fold_zeros):
         "cdyn_rollout_cm": n_ticks * (ctl + n_sub * sub) + (n_ticks - 1) * post + fin,
         "one constrained solve (final outputs)": fin,
     }
-
-
-def digit_op_counts(q1, v1, cc1, bc1):
-    """`loop_op_counts` of digit-pid on the CPU at one state, zero operands
-    folded away."""
-    import torch
-
-    return loop_op_counts(_digit_make("cpu", torch.float64), q1, v1, cc1, bc1, fold_zeros=True)
-
-
-def phase_digit_records(env, env64, launches, period_launches, smi, st, st2, counters=None):
-    """The two constrained kernels on digit-pid's main path states at
-    B_MAIN, float32: each timed (CUDA events) beside its plain version (host
-    clock): the period whole; the rollout over DIGIT_PLAIN_TICKS of its
-    ticks, the kernel timed over the same ticks too (the plain version's
-    whole step, some 16 x 8 s of eager launches, is not timed: its record's
-    `plain_ms` is null); their distance on those states printed beside a
-    one-ulp witness (the kernel against itself with q moved one ulp). The
-    whole period at float64 one env short (the last block part-filled),
-    every column within 1e-9, with zeroed loop multipliers and one PGS sweep
-    refused. Records for the kernels line. (Phase 20
-    holds the rollout at float64 over 2 whole ticks.)
-    The ops are counted on the CPU meanwhile, by `counters` (an executor)
-    where given."""
-    import dataclasses
-
-    import torch
-
-    from jiminy_torch.engine import solver
-    from jiminy_torch.ops import cdyn, kernels
-    from jiminy_torch.testing import column_errors
-
-    device = env.device
-    eng32 = env.engine
-    nm, nq, nv = env.robot.nmotors, env.robot.nq, env.robot.nv
-    cset = eng32.cset
-    nd = cset.n_distance
-    block = env.block.name
-    ctrl = env.env._component_controllers[block]
-    n_ticks = env.env.n_ctrl_per_step
-
-    def run_of(name, eng, opts=None):
-        if name == "cdyn_period_cm":
-            run = eng._get_period_run("rk4")
-            if opts is not None:
-                run = solver.ConstrainedPeriodIntegrator(run.cd, run.tau_c, run.cset, opts, run.dt,
-                                                         run.n_substeps, run.integrator,
-                                                         run.n_cmd, run.imu_frames)
-            return run
-        return eng._get_rollout_run(block, ctrl, n_ticks)
-
-    main_inputs = {
-        "cdyn_period_cm": (st2.sim.q, st2.sim.v,
-                           torch.cat([st2.sim.command, _loop_row(st2.sim, torch.float32)], -1)),
-        "cdyn_rollout_cm": (st.sim.q, st.sim.v,
-                            torch.cat([torch.zeros((B_MAIN, nm), device=device),
-                                       st.sim.distance_ref], -1),
-                            torch.cat([st.blocks[block].reshape(B_MAIN, -1),
-                                       _cm_solver_row(st.sim, torch.float32)], -1)),
-    }
-    part = {"cdyn_period_cm": {}, "cdyn_rollout_cm": dict(n_ticks=DIGIT_PLAIN_TICKS)}
-    xs = main_inputs["cdyn_rollout_cm"]
-    q1, v1 = xs[0][:1].double().cpu(), xs[1][:1].double().cpu()
-    cc1 = torch.cat([st.sim.command[:1], _loop_row(st.sim, torch.float32)[:1]], -1).double().cpu()
-    bc1 = xs[3][:1].double().cpu()
-    counting = counters.submit(digit_op_counts, q1, v1, cc1, bc1) if counters else None
-    ops = None
-    n_solver = cset.total_rows + cset.n_contacts + cset.n_bounds
-    nc_out = len(env.robot.contact_frame_indices)
-    n_extra = nv + 10 * nc_out + 6 * len(eng32._imu_frames) + n_solver
-    n_cc, n_carry, n_act = nm + nd + n_solver, 3 * nm + n_solver, nm + nd
-    io_per_env = {
-        "cdyn_period_cm": 2 * nq + 2 * nv + n_cc + n_extra,
-        "cdyn_rollout_cm": 2 * nq + 2 * nv + n_act + n_carry + n_extra + n_cc + n_carry,
-    }
-    lam_cols = slice(n_extra - n_solver, n_extra - n_solver + cset.total_rows)
-    n_launch = {"cdyn_period_cm": period_launches["cdyn_period_cm"],
-                "cdyn_rollout_cm": launches["cdyn_rollout_cm"]}
-    lib = kernels.load()
-    tol64 = TOL["float64"][1]
-    records = []
-    for name in ("cdyn_period_cm", "cdyn_rollout_cm"):
-        run32 = run_of(name, eng32)
-        xs = main_inputs[name]
-        cut = part[name]
-        ms = _time_cuda(lambda: run32.kernel(*xs), 5 if name == "cdyn_period_cm" else 1)
-        ms_part = _time_cuda(lambda: run32.kernel(*xs, **cut), 5) if cut else ms
-        outs = run32.kernel(*xs, **cut)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        refs = replayed(run32.plain)(*xs, **cut)
-        torch.cuda.synchronize()
-        plain_part_ms = (time.perf_counter() - t0) * 1e3
-        e_abs = abs_err(outs, refs)
-        e32_main, at32_main = output_error(outs, refs, "float32")
-        nudged = (torch.nextafter(xs[0], torch.full_like(xs[0], math.inf)),) + xs[1:]
-        e32_ulp, at32_ulp = output_error(run32.kernel(*nudged, **cut), outs, "float32")
-        span = f" over {cut['n_ticks']} of its {n_ticks} ticks" if cut else ", a whole period"
-        log(f"[digit-check] {name} float32 B={B_MAIN}{span}, main path states (printed, not "
-            f"held): {ERR_NAME['float32']} {e32_main:.3e} at {at32_main}, max abs err "
-            f"{e_abs:.3e}; the kernel against itself with q moved one ulp {e32_ulp:.3e} at "
-            f"{at32_ulp}")
-        del outs, refs
-
-        e64 = None
-        if name == "cdyn_period_cm":  # float64, one env short: the last block part-filled
-            run64 = run_of(name, env64.engine)
-            xs64 = tuple(x[: B_MAIN - 1].double() for x in xs)
-            outs, refs = run64.kernel(*xs64), replayed(run64.plain)(*xs64)
-            torch.cuda.synchronize()
-            e64, at64 = output_error(outs, refs, "float64")
-            zeroed = outs[2].clone()
-            zeroed[:, lam_cols] = 0.0
-            e_zero = float(column_errors(zeroed, refs[2]).max())
-            one_sweep = run_of(name, env64.engine, dataclasses.replace(run64.opts, iter_max=1))
-            e_sweep, at_sweep = output_error(one_sweep.kernel(*xs64), refs, "float64")
-            log(f"[digit-check] {name} float64 B={B_MAIN - 1} (ragged, a whole period), main path states: "
-                f"column max rel err {e64:.3e} at {at64} (tol {tol64:g}); witnesses: loop "
-                f"multipliers zeroed {e_zero:.3e}, one PGS sweep {e_sweep:.3e} at {at_sweep}")
-            check(all(bool(torch.isfinite(o).all()) for o in outs) and e64 < tol64,
-                  f"digit {name} float64 disagrees on the main path's states: {e64}")
-            check(e_zero > tol64 and e_sweep > tol64,
-                  f"digit {name}: the float64 check misses a wrong solver")
-            del outs, refs
-
-        if ops is None:
-            ops = counting.result() if counting else digit_op_counts(q1, v1, cc1, bc1)
-            log(f"[digit-ops] plain-version scalar ops per env at the main path's state, zero "
-                f"operands folded away: {ops}")
-        packed = run32.cd.pack(run32.tau_c, run32.dt, run32.imu_frames, device, torch.float32)
-        cpk = run32.pack(device, torch.float32)
-        smem = {dt: solver.cm_smem_per_env(packed, cpk, dt) for dt in (torch.float32, torch.float64)}
-        per_sm = {dt: lib.cm_envs_per_sm(name, torch.empty((), dtype=dt).element_size(), smem[dt],
-                                         ext=True) for dt in smem}
-        regs = _cm_registers(lib.build.ptxas_log, name, "f", False, True)
-        regs_terrain = _cm_registers(lib.build.ptxas_log, name, "f", True, True)
-        t_ops = ops[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
-        t_bytes = io_per_env[name] * 4 * B_MAIN / PEAK_BYTES * 1e3
-        plain_ms = plain_part_ms if not cut else None
-        rec = {
-            "name": name,
-            "route": "cuda",
-            "source": "jiminy_torch/csrc/pgs.cuh",
-            "replaces": cdyn.KERNELS[name].replaces.split()[0],
-            "launches": n_launch[name],
-            "max_abs_err": e_abs,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
-            "model": "digit-pid",
-            "plain_ms_basis": ("measured" if not cut else
-                               f"not measured: the plain version's whole step was not run; "
-                               f"over {cut['n_ticks']} of {n_ticks} ticks it took "
-                               f"plain_ms_part, the kernel ms_part"),
-            "ticks_compared": cut.get("n_ticks", None),
-            "ms_part": ms_part if cut else None,
-            "plain_ms_part": plain_part_ms if cut else None,
-            "ops_per_env": ops[name],
-            "bytes_per_env": io_per_env[name] * 4,
-            "f32_q90_err_main": e32_main,
-            "f32_q90_one_ulp_witness": e32_ulp,
-            "f64_err_ragged": e64,
-            "smem_per_env": smem[torch.float32],
-            "smem_per_env_f64": smem[torch.float64],
-            "envs_per_sm": per_sm[torch.float32],
-            "envs_per_sm_f64": per_sm[torch.float64],
-            "registers": regs,
-            "registers_terrain": regs_terrain,
-        }
-        plain_txt = (f"plain {plain_ms:.1f} ms (host clock, measured)" if not cut else
-                     f"plain not timed over the whole step; over {cut['n_ticks']} tick(s) the "
-                     f"kernel {ms_part:.3f} ms (CUDA events), the plain version "
-                     f"{plain_part_ms:.1f} ms (host clock)")
-        log(f"[kernel] digit-pid {name} B={B_MAIN} float32: {ms:.3f} ms (CUDA events), "
-            f"{plain_txt}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; {ops[name]} ops and "
-            f"{rec['bytes_per_env']} B an env), {rec['bound_ms'] / ms:.2%} of it; {regs} registers "
-            f"({regs_terrain} on terrain), {smem[torch.float32]} B an env ({smem[torch.float64]} at "
-            f"float64), {per_sm[torch.float32]} envs an SM ({per_sm[torch.float64]}); "
-            f"|kernel-plain| on the main path's states{span} {e_abs:.3e}; launches "
-            f"{rec['launches']} on {smi}")
-        records.append(rec)
-    return records
 
 
 def phase_loop_checks(device, envs):
@@ -3380,7 +3263,7 @@ def phase_cassie(device, smi, golden=None):
     kernel covers them), a CUDA graph a tick: every row of
     tests/goldens/cassie-pid.csv at float64, B=1, within the CPU test's
     tolerance (`golden`, a future of `cassie_golden()`; run here without
-    it); then the throughput at float32, B_MAIN, a warm-up and
+    it); then the throughput at float32, B_CASSIE, a warm-up and
     N_STEPS_CASSIE steps. It runs no kernel, and the line says so."""
     import torch
 
@@ -3399,7 +3282,7 @@ def phase_cassie(device, smi, golden=None):
 
     env32 = make("cassie-pid", device=device)
     action = torch.zeros(env32.action_size, device=device)
-    st, _ = env32.reset(batch_size=B_MAIN)
+    st, _ = env32.reset(batch_size=B_CASSIE)
     st, *_ = env32.step(st, action)  # warm-up (the tick's CUDA graph is captured here)
     torch.cuda.synchronize()
     cdyn.reset_launch_counts()
@@ -3409,9 +3292,9 @@ def phase_cassie(device, smi, golden=None):
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = sum(c.launches for c in cdyn.KERNELS.values())
-    steps_per_s = B_MAIN * N_STEPS_CASSIE / elapsed
+    steps_per_s = B_CASSIE * N_STEPS_CASSIE / elapsed
     rod = _pushrod_error(env32, st.sim)
-    log(f"[cassie] cassie-pid float32 B={B_MAIN}, generic path (no kernel: continuous ankles), "
+    log(f"[cassie] cassie-pid float32 B={B_CASSIE}, generic path (no kernel: continuous ankles), "
         f"{N_STEPS_CASSIE} steps after a warm-up: {steps_per_s:.1f} env-steps/s "
         f"({elapsed / N_STEPS_CASSIE * 1e3:.1f} ms a step, host clock), kernel launches "
         f"{launches}, terminated share {float(term.float().mean()):.4f}, pushrods max |d - d_ref| "
@@ -3546,202 +3429,6 @@ def phase_ant_main_path(device, smi, constraint):
     check(bool(torch.isfinite(st2.sim.q).all()), f"{tag}: non-finite q on the per-period path")
     env.use_fused_rollout = True
     return env, launches, period_launches, steps_per_s, pp_steps_per_s, reset_ms, st, st2
-
-
-def ant_cm_op_counts(q1, v1, cc1, bc1):
-    """`loop_op_counts` of the ant in constraint mode on the CPU at one
-    state, zero operands folded away."""
-    import torch
-
-    return loop_op_counts(_ant_make("cpu", torch.float64, constraint=True), q1, v1, cc1, bc1,
-                          fold_zeros=True)
-
-
-def phase_ant_cm_records(env, launches, period_launches, smi, st, st2, counters=None):
-    """The constrained kernels on the ant's constraint-mode main path states
-    at B_MAIN: float32 timed (CUDA events) beside the plain version (host
-    clock; the period whole, the rollout over ANT_CM_TICKS of its 10 ticks,
-    its record's `plain_ms` null), printed beside a one-ulp witness; float64
-    one env short (the last block part-filled) every column within 1e-9,
-    the period whole and the rollout over ANT_CM_TICKS ticks, zeroed contact
-    multipliers and one PGS sweep refused. Ops counted on the plain version
-    (in a worker process), bytes, bound, registers, shared memory, envs an
-    SM. Then the 44-row ant (its joint bounds as rows too) is refused by
-    the wrappers, naming ROADMAP.md queue 2 item 5."""
-    import dataclasses
-
-    import torch
-
-    from jiminy_torch.engine import solver
-    from jiminy_torch.ops import cdyn, kernels
-    from jiminy_torch.testing import column_errors
-
-    device = env.device
-    env64 = _ant_make(device, torch.float64, constraint=True)
-    nm, nq, nv = env.robot.nmotors, env.robot.nq, env.robot.nv
-    cset = env.engine.cset
-    ctrl = env._component_controllers["zoh"]
-    ctrl64 = cdyn.ZOHPassThrough(nm)
-    n_ticks = env.n_ctrl_per_step
-
-    def run_of(name, eng, ctl, opts=None):
-        if name == "cdyn_period_cm":
-            run = eng._get_period_run("rk4")
-            if opts is not None:
-                run = solver.ConstrainedPeriodIntegrator(run.cd, run.tau_c, run.cset, opts, run.dt,
-                                                         run.n_substeps, run.integrator,
-                                                         run.n_cmd, run.imu_frames)
-            return run
-        run = eng._get_rollout_run("zoh", ctl, n_ticks)
-        if opts is not None:
-            run = solver.ConstrainedRolloutIntegrator(run.cd, run.tau_c, run.cset, opts, run.dt,
-                                                      run.n_substeps, run.n_ticks, ctl,
-                                                      run.integrator, run.imu_frames)
-        return run
-
-    main_inputs = {
-        "cdyn_period_cm": (st2.sim.q, st2.sim.v,
-                           torch.cat([st2.sim.command.expand(B_MAIN, nm),
-                                      _cm_solver_row(st2.sim, torch.float32)], -1)),
-        "cdyn_rollout_cm": (st.sim.q, st.sim.v, torch.zeros((B_MAIN, nm), device=device),
-                            _cm_solver_row(st.sim, torch.float32)),
-    }
-    cuts = {"cdyn_period_cm": {}, "cdyn_rollout_cm": dict(n_ticks=ANT_CM_TICKS)}
-    xs = main_inputs["cdyn_rollout_cm"]
-    q1, v1 = xs[0][:1].double().cpu(), xs[1][:1].double().cpu()
-    cc1 = torch.cat([st.sim.command.expand(B_MAIN, nm)[:1],
-                     _cm_solver_row(st.sim, torch.float32)[:1]], -1).double().cpu()
-    bc1 = xs[3][:1].double().cpu()
-    counting = counters.submit(ant_cm_op_counts, q1, v1, cc1, bc1) if counters else None
-    ops = None
-    n_solver = cset.total_rows + cset.n_contacts + cset.n_bounds
-    nc = cset.n_contacts
-    n_extra = nv + 10 * nc + n_solver
-    n_cc, n_carry, n_act = nm + n_solver, n_solver, nm
-    io_per_env = {
-        "cdyn_period_cm": 2 * nq + 2 * nv + n_cc + n_extra,
-        "cdyn_rollout_cm": 2 * nq + 2 * nv + n_act + n_carry + n_extra + n_cc + n_carry,
-    }
-    lam_cols = slice(n_extra - n_solver, n_extra - n_solver + cset.total_rows)
-    n_launch = {"cdyn_period_cm": period_launches["cdyn_period_cm"],
-                "cdyn_rollout_cm": launches["cdyn_rollout_cm"]}
-    lib = kernels.load()
-    tol64 = TOL["float64"][1]
-    records = []
-    for name in ("cdyn_period_cm", "cdyn_rollout_cm"):
-        run32 = run_of(name, env.engine, ctrl)
-        xs, cut = main_inputs[name], cuts[name]
-        ms = _time_cuda(lambda: run32.kernel(*xs), 5 if name == "cdyn_period_cm" else 1)
-        ms_part = _time_cuda(lambda: run32.kernel(*xs, **cut), 3) if cut else ms
-        outs = run32.kernel(*xs, **cut)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        refs = replayed(run32.plain)(*xs, **cut)
-        torch.cuda.synchronize()
-        plain_part_ms = (time.perf_counter() - t0) * 1e3
-        e_abs = abs_err(outs, refs)
-        e32_main, at32_main = output_error(outs, refs, "float32")
-        nudged = (torch.nextafter(xs[0], torch.full_like(xs[0], math.inf)),) + xs[1:]
-        e32_ulp, at32_ulp = output_error(run32.kernel(*nudged, **cut), outs, "float32")
-        span = f" over {cut['n_ticks']} of its {n_ticks} ticks" if cut else ", a whole period"
-        log(f"[ant-cm-check] {name} float32 B={B_MAIN}{span}, main path states (printed, not "
-            f"held): {ERR_NAME['float32']} {e32_main:.3e} at {at32_main}, max abs err "
-            f"{e_abs:.3e}; the kernel against itself with q moved one ulp {e32_ulp:.3e} at "
-            f"{at32_ulp}")
-        del outs, refs
-
-        # float64, one env short: the last block part-filled
-        run64 = run_of(name, env64.engine, ctrl64)
-        xs64 = tuple(x[: B_MAIN - 1].double() for x in xs)
-        outs, refs = run64.kernel(*xs64, **cut), replayed(run64.plain)(*xs64, **cut)
-        torch.cuda.synchronize()
-        e64, at64 = output_error(outs, refs, "float64")
-        zeroed = outs[2].clone()
-        zeroed[:, lam_cols] = 0.0
-        e_zero = float(column_errors(zeroed, refs[2]).max())
-        one_sweep = run_of(name, env64.engine, ctrl64, dataclasses.replace(run64.opts, iter_max=1))
-        e_sweep, at_sweep = output_error(one_sweep.kernel(*xs64, **cut), refs, "float64")
-        log(f"[ant-cm-check] {name} float64 B={B_MAIN - 1} (ragged){span}, main path states: "
-            f"column max rel err {e64:.3e} at {at64} (tol {tol64:g}); witnesses: contact "
-            f"multipliers zeroed {e_zero:.3e}, one PGS sweep {e_sweep:.3e} at {at_sweep}")
-        check(all(bool(torch.isfinite(o).all()) for o in outs) and e64 < tol64,
-              f"ant {name} float64 disagrees on the main path's states: {e64}")
-        check(e_zero > tol64 and e_sweep > tol64, f"ant {name}: the float64 check misses a wrong "
-              "solver")
-        del outs, refs
-
-        if ops is None:
-            ops = counting.result() if counting else ant_cm_op_counts(q1, v1, cc1, bc1)
-            log(f"[ant-cm-ops] plain-version scalar ops per env at the main path's state, zero "
-                f"operands folded away: {ops}")
-        packed = run32.cd.pack(run32.tau_c, run32.dt, run32.imu_frames, device, torch.float32)
-        cpk = run32.pack(device, torch.float32)
-        check(solver.cm_ext(packed, cpk) == 1, "ant: its spheres do not take the extended body")
-        smem = {dt: solver.cm_smem_per_env(packed, cpk, dt) for dt in (torch.float32, torch.float64)}
-        per_sm = {dt: lib.cm_envs_per_sm(name, torch.empty((), dtype=dt).element_size(), smem[dt],
-                                         ext=True) for dt in smem}
-        regs = _cm_registers(lib.build.ptxas_log, name, "f", False, True)
-        t_ops = ops[name] * B_MAIN / PEAK_F32_FLOPS * 1e3
-        t_bytes = io_per_env[name] * 4 * B_MAIN / PEAK_BYTES * 1e3
-        plain_ms = plain_part_ms if not cut else None
-        rec = {
-            "name": name,
-            "route": "cuda",
-            "source": "jiminy_torch/csrc/pgs.cuh",
-            "replaces": cdyn.KERNELS[name].replaces.split()[0],
-            "launches": n_launch[name],
-            "max_abs_err": e_abs,
-            "ms": ms,
-            "plain_ms": plain_ms,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "library_ms": None,
-            "model": "ant (constraint mode)",
-            "plain_ms_basis": ("measured" if not cut else
-                               f"not measured: the plain version's whole step was not run; "
-                               f"over {cut['n_ticks']} of {n_ticks} ticks it took "
-                               f"plain_ms_part, the kernel ms_part"),
-            "ticks_compared": cut.get("n_ticks", None),
-            "ms_part": ms_part if cut else None,
-            "plain_ms_part": plain_part_ms if cut else None,
-            "ops_per_env": ops[name],
-            "bytes_per_env": io_per_env[name] * 4,
-            "f32_q90_err_main": e32_main,
-            "f32_q90_one_ulp_witness": e32_ulp,
-            "f64_err_ragged": e64,
-            "smem_per_env": smem[torch.float32],
-            "smem_per_env_f64": smem[torch.float64],
-            "envs_per_sm": per_sm[torch.float32],
-            "envs_per_sm_f64": per_sm[torch.float64],
-            "registers": regs,
-        }
-        plain_txt = (f"plain {plain_ms:.1f} ms (host clock, measured)" if not cut else
-                     f"plain not timed over the whole step; over {cut['n_ticks']} tick(s) the "
-                     f"kernel {ms_part:.3f} ms (CUDA events), the plain version "
-                     f"{plain_part_ms:.1f} ms (host clock)")
-        log(f"[kernel] ant (constraint mode) {name} B={B_MAIN} float32: {ms:.3f} ms (CUDA events), "
-            f"{plain_txt}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; {ops[name]} ops and "
-            f"{rec['bytes_per_env']} B an env), {rec['bound_ms'] / ms:.2%} of it; {regs} registers, "
-            f"{smem[torch.float32]} B an env ({smem[torch.float64]} at float64), "
-            f"{per_sm[torch.float32]} envs an SM ({per_sm[torch.float64]}); |kernel-plain| on the "
-            f"main path's states{span} {e_abs:.3e}; launches {rec['launches']} on {smi}")
-        records.append(rec)
-
-    # 36 contact rows and 8 bound rows: past the kernels' row cap
-    env44 = _ant_make(device, torch.float32, constraint=True, bounds="constraint")
-    check(env44.engine.cset.total_rows == 44, "ant: not 44 rows with its bounds as rows")
-    run44 = env44.engine._get_period_run("rk4")
-    q, v = st.sim.q[:4], st.sim.v[:4]
-    cc44 = torch.zeros((4, run44.n_cc), device=device)
-    try:
-        run44.kernel(q, v, cc44)
-        refused = None
-    except ValueError as exc:
-        refused = str(exc)
-    log(f"[ant-cm-check] the 44-row ant on the card: {refused}")
-    check(refused is not None and "ROADMAP.md queue 2 item 5" in refused,
-          "ant: the 44-row constrained launch is not refused naming ROADMAP.md queue 2 item 5")
-    return records
 
 
 def phase_ant_rough_check(device):
@@ -3980,6 +3667,402 @@ def _ball_ops(kind):
     return count_elem_ops(lambda: run.plain(st.q, st.v, cc), True)
 
 
+# --------------------------------------------------------------------------- #
+# The Atlas in constraint mode and the ant with its bounds as rows: the
+# constrained kernels at 44 to 78 rows and nv up to 36 (phase 25)
+# --------------------------------------------------------------------------- #
+
+B_CM_WIDE = 8192  # their main path's batch, cut so that the phase fits (the models' full width)
+N_STEPS_CM_WIDE = 2  # timed steps, after a warm-up step
+# their kernels held and timed against the plain version over one substep of
+# the period and one tick of one substep of the rollout (a plain atlas-pid
+# solve is some 1 s of replayed launches)
+CM_WIDE_CUT = {"cdyn_period_cm": dict(n_substeps=1), "cdyn_rollout_cm": dict(n_ticks=1, n_substeps=1)}
+B_CM_ROWS = 1024  # their perturbed, every-row and no-row states
+CM_REG_ROWS = 40  # rows whose sweep state the kernels keep in registers (csrc/pgs.cuh)
+CM_WIDE_MODELS = ("atlas-pid", "atlas-reduced-pid", "ant-bounds")
+
+
+def _cm_env(device, dtype, model):
+    """A constrained model of phases 19, 23 and 25 (CM_CASES): digit-pid,
+    the ant in constraint contact mode ("ant"; "ant-bounds" with its joint
+    bounds as rows too), or an Atlas env id in constraint mode
+    (`testing.constraint_mode_options`: ground contacts and joint bounds as
+    PGS rows)."""
+    from jiminy_torch.envs import make
+    from jiminy_torch.testing import constraint_mode_options
+
+    if model == "digit-pid":
+        return _digit_make(device, dtype)
+    if model in ("ant", "ant-bounds"):
+        return _ant_make(device, dtype, constraint=True,
+                         bounds="constraint" if model == "ant-bounds" else None)
+    options = make(model, device=device, dtype=dtype).engine.options
+    return make(model, device=device, dtype=dtype, options=constraint_mode_options(options))
+
+
+def cm_model_op_counts(model, q1, v1, cc1, bc1):
+    """`loop_op_counts` of a CM_CASES model on the CPU at one state, zero
+    operands folded away."""
+    import torch
+
+    return loop_op_counts(_cm_env("cpu", torch.float64, model), q1, v1, cc1, bc1, fold_zeros=True)
+
+
+@dataclasses.dataclass(frozen=True)
+class CmCase:
+    """How `phase_cm_records` holds a model's two constrained kernels."""
+    label: str  # the records' "model"
+    cuts: dict  # kernel -> the cut its plain version runs ({}: the whole launch)
+    reps: tuple  # CUDA-event repetitions: the period whole, the rollout whole, a cut
+    f64: tuple  # the kernels held at float64 on the main path's states
+    ext: bool  # the model takes the kernels' extended body (`solver.cm_ext`)
+    extra_rows: tuple = ()  # `constrained_inputs` states after the main path's envs
+    replay: bool = True  # the plain version's substeps replayed from CUDA graphs
+
+
+CM_KERNELS = ("cdyn_period_cm", "cdyn_rollout_cm")
+CM_ROW_STATES = ("mixed", "all", "none")  # a quarter past a bound; every row active; none
+CM_CASES = {
+    # phase 20 holds the Digit's rollout at float64 over whole ticks
+    "digit-pid": CmCase("digit-pid", {"cdyn_period_cm": {},
+                                      "cdyn_rollout_cm": dict(n_ticks=DIGIT_PLAIN_TICKS)},
+                        (5, 1, 5), ("cdyn_period_cm",), True),
+    "ant": CmCase("ant (constraint mode)", {"cdyn_period_cm": {},
+                                            "cdyn_rollout_cm": dict(n_ticks=ANT_CM_TICKS)},
+                  (5, 1, 3), CM_KERNELS, True),
+    "atlas-pid": CmCase("atlas-pid (constraint mode)", CM_WIDE_CUT, (3, 1, 2), CM_KERNELS, False,
+                        CM_ROW_STATES, False),
+    "atlas-reduced-pid": CmCase("atlas-reduced-pid (constraint mode)", CM_WIDE_CUT, (3, 1, 2),
+                                CM_KERNELS, False, CM_ROW_STATES, False),
+    "ant-bounds": CmCase("ant (constraint mode, bounds as rows)", CM_WIDE_CUT, (3, 1, 2),
+                         CM_KERNELS, True, CM_ROW_STATES, False),
+}
+
+
+def phase_cm_records(model, env, launches, period_launches, smi, st, st2, counters=None,
+                     env64=None):
+    """The two constrained kernels of `model` (CM_CASES) on its main path's
+    states `st` (the rollout's) and `st2` (the period's), float32, B their
+    batch. Each kernel timed (CUDA events) over its whole launch and, beside
+    its plain version (host clock), over the case's cut (`plain_ms` null
+    where the cut is not the whole launch). Float32: the main path's envs
+    printed beside a one-ulp witness (the kernel against itself with q moved
+    one ulp), and with the kernels of `case.f64` the float32 kernel and
+    plain version each against the float64 plain version; the perturbed
+    `constrained_inputs` states of `case.extra_rows` (after the main path's
+    envs, in the same calls) held to TOL. Float64 (the kernels of
+    `case.f64`): the main path's envs one short (the last block
+    part-filled), then the other row states, every column within 1e-9,
+    zeroed multipliers and one PGS sweep refused, every row active and none
+    active as their states say. Ops counted on the plain version (in a worker
+    of `counters`, or here), bytes, bound, registers, shared memory, envs a
+    block and an SM; a record each for the kernels line."""
+    import torch
+
+    from jiminy_torch.engine import solver
+    from jiminy_torch.ops import cdyn, kernels
+    from jiminy_torch.testing import column_errors, constrained_inputs
+
+    case = CM_CASES[model]
+    device = env.device
+    tag = f"[{model}-cm-check]"
+    env64 = env64 or _cm_env(device, torch.float64, model)
+    carry_of = _step_controller(env)[3]
+    nm = env.robot.nmotors
+    cset = env.engine.cset
+    B = st.sim.q.shape[0]
+
+    def run_of(name, e, opts=None):
+        if name == "cdyn_period_cm":
+            run = e.engine._get_period_run("rk4")
+            if opts is not None:
+                run = solver.ConstrainedPeriodIntegrator(run.cd, run.tau_c, run.cset, opts, run.dt,
+                                                         run.n_substeps, run.integrator,
+                                                         run.n_cmd, run.imu_frames)
+            return run
+        base, k, ctrl, _ = _step_controller(e)
+        run = e.engine._get_rollout_run(k, ctrl, base.n_ctrl_per_step)
+        if opts is not None:
+            run = solver.ConstrainedRolloutIntegrator(run.cd, run.tau_c, run.cset, opts, run.dt,
+                                                      run.n_substeps, run.n_ticks, ctrl,
+                                                      run.integrator, run.imu_frames)
+        return run
+
+    main_inputs = {
+        "cdyn_period_cm": (st2.sim.q, st2.sim.v,
+                           torch.cat([st2.sim.command.expand(B, nm),
+                                      _loop_row(st2.sim, torch.float32)], -1)),
+        "cdyn_rollout_cm": (st.sim.q, st.sim.v,
+                            torch.cat([torch.zeros((B, nm), device=device),
+                                       st.sim.distance_ref], -1),
+                            torch.cat([carry_of(st), _cm_solver_row(st.sim, torch.float32)], -1)),
+    }
+    xs = main_inputs["cdyn_rollout_cm"]
+    q1, v1 = xs[0][:1].double().cpu(), xs[1][:1].double().cpu()
+    cc1 = torch.cat([st.sim.command.expand(B, nm)[:1], _loop_row(st.sim, torch.float32)[:1]],
+                    -1).double().cpu()
+    bc1 = xs[3][:1].double().cpu()
+    args = (model, q1, v1, cc1, bc1)
+    counting = counters.submit(cm_model_op_counts, *args) if counters else None
+    n_block = xs[3].shape[-1] - cset.total_rows - cset.n_contacts - cset.n_bounds
+    extra, n_extra = {}, {}  # rows -> kernel -> float64 inputs
+    for rows in case.extra_rows:
+        qa, va, cmda, sola = constrained_inputs(env64, B_CM_ROWS, seed=41, rows=rows)
+        blk = torch.zeros((B_CM_ROWS, n_block), dtype=torch.float64, device=device)
+        blk[:, :min(nm, n_block)] = qa[:, 7:7 + min(nm, n_block)]
+        extra[rows] = {"cdyn_period_cm": (qa, va, torch.cat([cmda, sola], -1)),
+                       "cdyn_rollout_cm": (qa, va, cmda * 2.5, torch.cat([blk, sola], -1))}
+
+    def joined(name, first, parts, dtype):
+        """The main path's inputs `first` then those of `parts` (row states)
+        for kernel `name`, at `dtype`, and each part's slice of the batch."""
+        ys, at = [x.to(dtype) for x in first], first[0].shape[0]
+        spans = {"main": slice(0, at)}
+        for rows in parts:
+            zs = extra[rows][name]
+            ys = [torch.cat([y, z.to(dtype)]) for y, z in zip(ys, zs)]
+            spans[rows] = slice(at, at + zs[0].shape[0])
+            at += zs[0].shape[0]
+        return tuple(ys), spans
+
+    def part(outs, span):
+        return tuple(o[span] for o in outs)
+
+    n_launch = {"cdyn_period_cm": period_launches["cdyn_period_cm"],
+                "cdyn_rollout_cm": launches["cdyn_rollout_cm"]}
+    lib = kernels.load()
+    tol64, tol32 = TOL["float64"][1], TOL["float32"][1]
+    ops = None
+    records = []
+    for name in CM_KERNELS:
+        run32, run64 = run_of(name, env), run_of(name, env64)
+        plain32, plain64 = ((replayed(run32.plain), replayed(run64.plain)) if case.replay else
+                            (run32.plain, run64.plain))
+        xs, cut = main_inputs[name], case.cuts[name]
+        ms = _time_cuda(lambda: run32.kernel(*xs), case.reps[name == "cdyn_rollout_cm"])
+        ms_part = _time_cuda(lambda: run32.kernel(*xs, **cut), case.reps[2]) if cut else ms
+        span = f" over {cut}" if cut else ", the whole launch"
+
+        # float32: the main path's envs, then the perturbed ones
+        xs32, spans32 = joined(name, xs, case.extra_rows[:1], torch.float32)
+        outs = run32.kernel(*xs32, **cut)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = plain32(*xs32, **cut)
+        torch.cuda.synchronize()
+        plain_part_ms = (time.perf_counter() - t0) * 1e3
+        main = spans32["main"]
+        outs32, refs32 = part(outs, main), part(refs, main)
+        n_extra[name] = outs[2].shape[-1]
+        io_cols = sum(x.shape[-1] for x in xs) + sum(o.shape[-1] for o in outs)
+        e_abs = abs_err(outs32, refs32)
+        e32_main, at32_main = output_error(outs32, refs32, "float32")
+        nudged = (torch.nextafter(xs[0], torch.full_like(xs[0], math.inf)),) + xs[1:]
+        e32_ulp, at32_ulp = output_error(run32.kernel(*nudged, **cut), outs32, "float32")
+        log(f"{tag} {name} float32 B={B}{span}, main path states (printed, not held): "
+            f"{ERR_NAME['float32']} {e32_main:.3e} at {at32_main}, max abs err {e_abs:.3e}; the "
+            f"kernel against itself with q moved one ulp {e32_ulp:.3e} at {at32_ulp}")
+        errs = {}
+        if "mixed" in spans32:
+            e32, at32 = output_error(part(outs, spans32["mixed"]), part(refs, spans32["mixed"]),
+                                     "float32")
+            log(f"{tag} {name} float32 B={B_CM_ROWS}, rows mixed{span}: {ERR_NAME['float32']} "
+                f"{e32:.3e} at {at32} (tol {tol32:g})")
+            check(e32 < tol32, f"{model} {name} float32 disagrees with its plain version: {e32}")
+            errs["f32_q90_err_mixed"] = e32
+        del outs, refs
+
+        e64 = None
+        if name in case.f64:  # the main path's envs one short, then the other states
+            xs64, spans64 = joined(name, tuple(x[: B - 1] for x in xs), case.extra_rows,
+                                   torch.float64)
+            outs, refs = run64.kernel(*xs64, **cut), plain64(*xs64, **cut)
+            torch.cuda.synchronize()
+            main = spans64["main"]
+            e64, at64 = output_error(part(outs, main), part(refs, main), "float64")
+            n_std = n_extra["cdyn_period_cm"] - cset.total_rows - cset.n_contacts - cset.n_bounds
+            lam_cols = slice(n_std, n_std + cset.total_rows)
+            cact_cols = slice(lam_cols.stop, lam_cols.stop + cset.n_contacts)
+            bact_cols = slice(cact_cols.stop, cact_cols.stop + cset.n_bounds)
+            zeroed = outs[2][main].clone()
+            zeroed[:, lam_cols] = 0.0
+            e_zero = float(column_errors(zeroed, refs[2][main]).max())
+            one_sweep = run_of(name, env64, dataclasses.replace(run64.opts, iter_max=1))
+            e_sweep, at_sweep = output_error(part(one_sweep.kernel(*xs64, **cut), main),
+                                             part(refs, main), "float64")
+            log(f"{tag} {name} float64 B={xs64[0].shape[0]} ({B - 1} main path states first)"
+                f"{span}: {ERR_NAME['float64']} {e64:.3e} at {at64} (tol {tol64:g}); witnesses: "
+                f"multipliers zeroed {e_zero:.3e}, one PGS sweep {e_sweep:.3e} at {at_sweep}")
+            check(all(bool(torch.isfinite(o).all()) for o in outs) and e64 < tol64,
+                  f"{model} {name} float64 disagrees on the main path's states: {e64}")
+            check(e_zero > tol64 and e_sweep > tol64, f"{model} {name}: the float64 check misses a "
+                  "wrong solver")
+            # float32's rounding: the kernel and the plain version each against float64
+            truth = tuple(r.double() for r in part(refs, main))
+            e_k, at_k = output_error(tuple(o[: B - 1].double() for o in outs32), truth, "float32")
+            e_p, at_p = output_error(tuple(r[: B - 1].double() for r in refs32), truth, "float32")
+            log(f"{tag} {name} float32 against float64 on the main path's states{span}: the "
+                f"kernel {e_k:.3e} at {at_k}, the plain version {e_p:.3e} at {at_p} "
+                f"({ERR_NAME['float32']}, printed)")
+            errs.update(f32_q90_kernel_to_f64=e_k, f32_q90_plain_to_f64=e_p)
+            for rows in case.extra_rows:
+                o, r = part(outs, spans64[rows]), part(refs, spans64[rows])
+                e, at = output_error(o, r, "float64")
+                nonzero = int((o[2][:, lam_cols] != 0).sum(-1).max())
+                active = int((4 * o[2][:, cact_cols].sum(-1) + o[2][:, bact_cols].sum(-1)).min())
+                log(f"{tag} {name} float64 B={B_CM_ROWS}, rows {rows}{span}: "
+                    f"{ERR_NAME['float64']} {e:.3e} at {at}; at most {nonzero} multipliers nonzero "
+                    f"in an env, at least {active} rows active")
+                check(e < tol64, f"{model} {name} float64 disagrees with rows {rows}: {e}")
+                if rows == "none":
+                    check(nonzero == 0 and active == 0,
+                          f"{model} {name}: a row or a multiplier active where none should be")
+                if rows == "all":
+                    check(active > CM_REG_ROWS,
+                          f"{model} {name}: no row past the registers' is active")
+                errs[f"f64_err_{rows}"] = e
+            del outs, refs
+        del outs32, refs32
+
+        if ops is None:
+            ops = counting.result() if counting else cm_model_op_counts(*args)
+            log(f"[{model}-cm-ops] plain-version scalar ops per env at the main path's state, zero "
+                f"operands folded away: {ops}")
+        packed = run32.cd.pack(run32.tau_c, run32.dt, run32.imu_frames, device, torch.float32)
+        check(solver.cm_ext(packed, run32.pack(device, torch.float32)) == int(case.ext),
+              f"{model}: the extended body taken where it should not be, or not taken")
+        geometry = _cm_geometry_record(lib, device, run32, run64, name, False, case.ext)
+        regs_terrain = _cm_registers(lib.build.ptxas_log, name, "f", True, case.ext)
+        t_ops = ops[name] * B / PEAK_F32_FLOPS * 1e3
+        t_bytes = io_cols * 4 * B / PEAK_BYTES * 1e3
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": "jiminy_torch/csrc/pgs.cuh",
+            "replaces": cdyn.KERNELS[name].replaces.split()[0],
+            "launches": n_launch[name],
+            "max_abs_err": e_abs,
+            "ms": ms,
+            "plain_ms": None if cut else plain_part_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+            "model": case.label,
+            "batch": B,
+            "plain_ms_basis": ("measured" if not cut else
+                               f"not measured: the plain version's whole launch was not run; "
+                               f"over {cut} it took plain_ms_part (its batch {xs32[0].shape[0]}), "
+                               f"the kernel ms_part"),
+            "cut_compared": cut or None,
+            "ms_part": ms_part if cut else None,
+            "plain_ms_part": plain_part_ms if cut else None,
+            "ops_per_env": ops[name],
+            "bytes_per_env": io_cols * 4,
+            "f32_q90_err_main": e32_main,
+            "f32_q90_one_ulp_witness": e32_ulp,
+            "f64_err_ragged": e64,
+            **errs,
+            **geometry,
+            "registers_terrain": regs_terrain,
+        }
+        plain_txt = (f"plain {plain_part_ms:.1f} ms (host clock, measured)" if not cut else
+                     f"plain not timed over the whole launch; over {cut} the kernel {ms_part:.3f} "
+                     f"ms (CUDA events), the plain version {plain_part_ms:.1f} ms (host clock, "
+                     f"B={xs32[0].shape[0]})")
+        log(f"[kernel] {case.label} {name} B={B} float32: {ms:.3f} ms (CUDA events), {plain_txt}, "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; {ops[name]} ops and "
+            f"{rec['bytes_per_env']} B an env), {rec['bound_ms'] / ms:.2%} of it; "
+            f"{_geometry_text(rec)} ({regs_terrain} registers on terrain); |kernel-plain| on the "
+            f"main path's states{span} {e_abs:.3e}; launches {rec['launches']} on {smi}")
+        records.append(rec)
+    return records
+
+
+def _cm_wide_main_path(device, smi, model):
+    """The model at float32, B_CM_WIDE: launch counts to 0, the batched reset
+    (the plain constrained solve, timed), a warm-up step and N_STEPS_CM_WIDE
+    steps of zero actions through `make(...).step` (one cdyn_rollout_cm a
+    step, nothing else), counts read; env-steps/s, the step's time against
+    its one launch (CUDA events), all finite, phase 7's physics checks
+    (weight, joint limits, multipliers in their boxes and cones); then one
+    step of the per-period path (`Engine.step`: one cdyn_period_cm a
+    controller period, nothing else)."""
+    import torch
+
+    from jiminy_torch.ops import cdyn
+
+    env = _cm_env(device, torch.float32, model)
+    eng, cset = env.engine, env.engine.cset
+    base = _step_controller(env)[0]
+    tag = f"[{model}-cm]"
+    log(f"{tag} nq {env.robot.nq}, nv {env.robot.nv}, {env.robot.nmotors} motors, rows "
+        f"{cset.total_rows} ({cset.n_bounds} bounds, {cset.n_contacts} contacts x 4), "
+        f"{base.n_ctrl_per_step} ticks x {eng.n_substeps} substeps a step")
+    check(cset.total_rows == {"atlas-pid": 78, "atlas-reduced-pid": 60, "ant-bounds": 44}[model],
+          f"{model}: unexpected row count {cset.total_rows}")
+    action = torch.zeros(env.action_size, device=device)
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, _ = env.reset(batch_size=B_CM_WIDE)
+    torch.cuda.synchronize()
+    reset_ms = (time.perf_counter() - t0) * 1e3
+    st, *_ = env.step(st, action)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_STEPS_CM_WIDE):
+        st, obs, reward, term, trunc, _ = env.step(st, action)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    log(f"{tag} float32 B={B_CM_WIDE}, reset ({reset_ms:.1f} ms, host clock) + warm-up + "
+        f"{N_STEPS_CM_WIDE} steps: launches {launches}")
+    check(launches == {k: (N_STEPS_CM_WIDE + 1 if k == "cdyn_rollout_cm" else 0)
+                       for k in launches},
+          f"{model}: cdyn_rollout_cm not once a step (and nothing else)")
+    sim = st.sim
+    for name, x in (("q", sim.q), ("v", sim.v), ("reward", reward), ("lam", sim.lam),
+                    ("contact_forces", sim.contact_forces)):
+        check(bool(torch.isfinite(x).all()), f"{model}: non-finite {name} on the main path")
+    steps_per_s = B_CM_WIDE * N_STEPS_CM_WIDE / elapsed
+    log(f"{tag} base height mean {float(sim.q[:, 2].mean()):.4f} m, terminated share "
+        f"{float(term.float().mean()):.4f}; env-steps/s {steps_per_s:.1f} ({elapsed:.4f} s for "
+        f"{N_STEPS_CM_WIDE} steps, host clock) on {smi}")
+    physics_checks(env, sim)
+
+    env.use_fused_rollout = False
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    st2, *_ = env.step(st, action)
+    torch.cuda.synchronize()
+    elapsed_pp = time.perf_counter() - t0
+    period_launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    pp_steps_per_s = B_CM_WIDE / elapsed_pp
+    log(f"{tag} per-period path (Engine.step), 1 step: launches {period_launches}; env-steps/s "
+        f"{pp_steps_per_s:.1f} on {smi}")
+    check(period_launches == {k: (base.n_ctrl_per_step if k == "cdyn_period_cm" else 0)
+                              for k in period_launches},
+          f"{model}: cdyn_period_cm not once a controller period (and nothing else)")
+    check(bool(torch.isfinite(st2.sim.q).all()) and bool(torch.isfinite(st2.sim.lam).all()),
+          f"{model}: non-finite state on the per-period path")
+    env.use_fused_rollout = True
+    return env, launches, period_launches, steps_per_s, reset_ms, st, st2
+
+
+def phase_cm_wide(device, smi, models, counters=None):
+    """Phase 25 for each of `models` (of CM_WIDE_MODELS): the main path, then
+    `phase_cm_records`."""
+    records, rates = [], {}
+    for model in models:
+        env, launches, period_launches, sps, reset_ms, st, st2 = _cm_wide_main_path(
+            device, smi, model)
+        records += phase_cm_records(model, env, launches, period_launches, smi, st, st2, counters)
+        rates[model] = (sps, reset_ms)
+        del env, st, st2
+        free_replays()
+    return records, rates
+
+
 def main():
     import concurrent.futures
     import multiprocessing
@@ -4013,10 +4096,11 @@ def main():
     counters = concurrent.futures.ProcessPoolExecutor(
         max_workers=3, mp_context=multiprocessing.get_context("spawn"),
         initializer=counting_worker)
-    # A second process on the card runs the Cassie golden (untimed, no
-    # kernel) beside phase 16
+    # Two more processes on the card run phase 16 (the cartpole's training)
+    # and the Cassie golden, which launch no kernel and time nothing the
+    # kernels line reads, beside the build and the phases that time nothing
     card_lane = concurrent.futures.ProcessPoolExecutor(
-        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+        max_workers=2, mp_context=multiprocessing.get_context("spawn"))
     try:
         return run_phases(device, smi, kind, t_start, timed, counters, card_lane)
     finally:
@@ -4036,15 +4120,20 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
     counts["dopri"] = counters.submit(dopri_glue_calls)
     ppo_cpu = {env_id: counters.submit(ppo_cpu_step, env_id, horizon, sizes)
                for env_id, horizon, sizes, _ in PPO_CASES}
+    cartpole = card_lane.submit(phase_ppo_cartpole, device, smi)
     cassie_rows = card_lane.submit(cassie_golden, device)
-    # nvcc builds the kernels while phase 16 trains the cartpole, which runs
-    # the generic path and launches none of them
-    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
-        building = pool.submit(kernels.build)
-        timed("PPO cartpole learns (beside the kernels' build)", phase_ppo_cartpole, device, smi)
-        built = timed("the build's rest", building.result)
-    timed("build", phase_build, built)
+    # Beside them: nvcc builds the kernels (its parts at once), then the
+    # phases that only hold kernels against plain versions or goldens run;
+    # every timed phase follows, alone on the card
+    timed("build", phase_build)
     timed("kernels vs plain", phase_kernels_vs_plain, device)
+    timed("atlas golden", phase_atlas_golden, device)
+    timed("toy golden", phase_toy_golden, device)
+    rough_checks = timed("terrain checks", phase_terrain_checks, device)
+    timed("loop kernels vs plain", phase_loop_checks, device,
+          {dt: _digit_make(device, dt) for dt in (torch.float64, torch.float32)})
+    timed("ant on rough ground", phase_ant_rough_check, device)
+    timed("PPO cartpole learns (its process's rest)", cartpole.result)
     env, fused_launches, period_launches, steps_per_s, st, st2 = timed(
         "main path", phase_main_path, device, smi)
     dopri = timed("DOPRI", phase_dopri, device, smi, counts["dopri"])
@@ -4059,9 +4148,8 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
                      cm_launches, cm_period_launches, smi, cm_st, cm_st2, counters)
     del cm_env, cm_st, cm_st2
     rough, rough_sps, rough_cm_sps = timed("terrain", phase_terrain, device, smi, records,
-                                           counts["terrain"])
+                                           rough_checks, counts["terrain"])
     records += rough
-    timed("atlas golden", phase_atlas_golden, device)
     atlas = timed("atlas main path", phase_atlas_main_path, device, smi)
     at_env, at_launches, at_period_launches, at_steps_per_s, at_st, at_st2 = atlas
     launches = {"cdyn_accel": at_launches["cdyn_accel"],
@@ -4071,7 +4159,9 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
                      launches, smi, at_st, at_st2, check_ticks=ATLAS_CHECK_TICKS,
                      counts=counts["atlas-pid"])
     del at_env, at_st, at_st2
-    timed("toy golden", phase_toy_golden, device)
+    atlas_cm, wide_rates = timed("atlas in constraint mode", phase_cm_wide, device, smi,
+                                 ("atlas-pid", "atlas-reduced-pid"), counters)
+    records += atlas_cm
     toys = timed("toy main path", phase_toy_main_path, device, smi)
     records += timed("pendulum kernel records", phase_pendulum_records, toys, smi)
     toy_rates = ", ".join(f"{k} {toys[k]['steps_per_s']:.1f}" for k in TOYS)
@@ -4079,12 +4169,9 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
     digit = timed("digit main path", phase_digit_main_path, device, smi)
     dg_env, dg_launches, dg_period_launches, dg_steps_per_s, dg_reset_ms, dg_st, dg_st2 = digit
     dg_env64 = _digit_make(device, torch.float64)
-    records += timed("digit-pid kernel records", phase_digit_records, dg_env, dg_env64,
-                     dg_launches, dg_period_launches, smi, dg_st, dg_st2, counters)
-    del dg_st, dg_st2
-    timed("loop kernels vs plain", phase_loop_checks, device,
-          {torch.float64: dg_env64, torch.float32: dg_env})
-    del dg_env, dg_env64
+    records += timed("digit-pid kernel records", phase_cm_records, "digit-pid", dg_env,
+                     dg_launches, dg_period_launches, smi, dg_st, dg_st2, counters, dg_env64)
+    del dg_st, dg_st2, dg_env, dg_env64
     ant = timed("ant main path", phase_ant_main_path, device, smi, False)
     an_env, an_launches, an_period_launches, an_sps, _, _, an_st, an_st2 = ant
     launches = {"cdyn_accel": an_launches["cdyn_accel"],
@@ -4095,10 +4182,13 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
     del ant, an_env, an_st, an_st2
     ant_cm = timed("ant constraint-mode main path", phase_ant_main_path, device, smi, True)
     ac_env, ac_launches, ac_period_launches, ac_sps, _, ac_reset_ms, ac_st, ac_st2 = ant_cm
-    records += timed("ant constraint-mode kernel records", phase_ant_cm_records, ac_env,
+    records += timed("ant constraint-mode kernel records", phase_cm_records, "ant", ac_env,
                      ac_launches, ac_period_launches, smi, ac_st, ac_st2, counters)
     del ant_cm, ac_env, ac_st, ac_st2
-    timed("ant on rough ground", phase_ant_rough_check, device)
+    ant_bounds, ant_bounds_rates = timed("ant with its bounds as rows", phase_cm_wide, device, smi,
+                                         ("ant-bounds",), counters)
+    records += ant_bounds
+    wide_rates.update(ant_bounds_rates)
     ball_records, ball_rates = timed("rolling ball", phase_ball, device, smi)
     records += ball_records
     cassie_sps = timed("cassie", phase_cassie, device, smi, cassie_rows)
@@ -4111,6 +4201,8 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
         f"{cm_reset_ms:.1f} ms), on rough ground {rough_sps:.1f} and {rough_cm_sps:.1f}, "
         f"atlas-pid {at_steps_per_s:.1f}, digit-pid {dg_steps_per_s:.1f} (reset {dg_reset_ms:.1f} "
         f"ms), ant {an_sps:.1f}, ant constraint mode {ac_sps:.1f} (reset {ac_reset_ms:.1f} ms), "
+        + "".join(f"{m} constraint mode at B={B_CM_WIDE} {r[0]:.1f} (reset {r[1]:.1f} ms), "
+                  for m, r in wide_rates.items()) +
         f"rolling ball sphere {ball_rates['sphere']:.1f} and wheel {ball_rates['wheel']:.1f}, "
         f"cassie-pid {cassie_sps:.1f} (generic path), toys {toy_rates}, PPO training "
         f"(anymal-pid, 4096 envs) {ppo_anymal['steps_per_s']:.1f} on {smi}")

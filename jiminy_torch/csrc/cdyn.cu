@@ -21,7 +21,8 @@
 // contraction and the last bits of the math library.
 //
 // Built with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
-// -shared -Xcompiler -fPIC (jiminy_torch/ops/kernels.py); no fast math.
+// -Xcompiler -fPIC, in parts linked -shared (the C interface below;
+// jiminy_torch/ops/kernels.py); no fast math.
 
 #include <cuda_runtime.h>
 
@@ -679,24 +680,26 @@ int launch_rollout(const void* ci, const void* cf, const void* pi, const void* p
   return static_cast<int>(cudaGetLastError());
 }
 
-// The constrained kernels: CM_LANES lanes per env, CM_ENVS envs per block,
-// `smem_per_env` bytes of dynamic shared memory per env
-// (`cdyn_cm_smem_bytes`); a block's share past the card's limit fails here.
+// The constrained kernels: CM_LANES lanes per env, `envs` envs per block (1
+// to CM_ENVS, `cdyn_cm_geometry`), `smem_per_env` bytes of dynamic shared
+// memory per env (`cdyn_cm_smem_bytes`); a block's share past the card's
+// limit fails here.
 template <typename K>
-int prepare_cm(K kernel, int smem_per_env) {
+int prepare_cm(K kernel, int smem_per_env, int envs) {
   cudaGetLastError();
+  if (envs < 1 || envs > CM_ENVS) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               smem_per_env * CM_ENVS));
+                                               smem_per_env * envs));
 }
 
 template <typename T, bool kTerrain, bool kExt>
 int launch_period_cm(const void* ci, const void* cf, const void* si, const void* sf, const void* q,
                      const void* v, const void* cc, void* qo, void* vo, void* eo, int B, int n_cmd,
-                     int n_substeps, int integrator, int smem_per_env, void* stream) {
-  const int rc = prepare_cm(cdyn_period_cm_kernel<T, kTerrain, kExt>, smem_per_env);
+                     int n_substeps, int integrator, int smem_per_env, int envs, void* stream) {
+  const int rc = prepare_cm(cdyn_period_cm_kernel<T, kTerrain, kExt>, smem_per_env, envs);
   if (rc != 0) return rc;
-  cdyn_period_cm_kernel<T, kTerrain, kExt><<<(B + CM_ENVS - 1) / CM_ENVS, CM_LANES * CM_ENVS,
-                             (size_t)smem_per_env * CM_ENVS, static_cast<cudaStream_t>(stream)>>>(
+  cdyn_period_cm_kernel<T, kTerrain, kExt><<<(B + envs - 1) / envs, CM_LANES * envs,
+                             (size_t)smem_per_env * envs, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const int*>(si),
       static_cast<const T*>(sf), static_cast<const T*>(q), static_cast<const T*>(v),
       static_cast<const T*>(cc), static_cast<T*>(qo), static_cast<T*>(vo), static_cast<T*>(eo), B,
@@ -709,11 +712,11 @@ int launch_rollout_cm(const void* ci, const void* cf, const void* si, const void
                       const void* pi, const void* pf, int controller, const void* q, const void* v,
                       const void* action, const void* carry, void* qo, void* vo, void* eo, int B,
                       int n_action, int n_block, int n_cmd, int n_ticks, int n_substeps,
-                      int integrator, int smem_per_env, void* stream) {
-  const int rc = prepare_cm(cdyn_rollout_cm_kernel<T, kTerrain, kExt>, smem_per_env);
+                      int integrator, int smem_per_env, int envs, void* stream) {
+  const int rc = prepare_cm(cdyn_rollout_cm_kernel<T, kTerrain, kExt>, smem_per_env, envs);
   if (rc != 0) return rc;
-  cdyn_rollout_cm_kernel<T, kTerrain, kExt><<<(B + CM_ENVS - 1) / CM_ENVS, CM_LANES * CM_ENVS,
-                              (size_t)smem_per_env * CM_ENVS, static_cast<cudaStream_t>(stream)>>>(
+  cdyn_rollout_cm_kernel<T, kTerrain, kExt><<<(B + envs - 1) / envs, CM_LANES * envs,
+                              (size_t)smem_per_env * envs, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const int*>(si),
       static_cast<const T*>(sf), static_cast<const int*>(pi), static_cast<const T*>(pf), controller,
       static_cast<const T*>(q), static_cast<const T*>(v), static_cast<const T*>(action),
@@ -727,29 +730,114 @@ int launch_rollout_cm(const void* ci, const void* cf, const void* si, const void
 // --------------------------------------------------------------------------
 // Plain C interface (bound with ctypes by jiminy_torch/ops/kernels.py)
 // --------------------------------------------------------------------------
+//
+// The library is built in parts: kernels.py compiles this file once for each
+// part (-DCDYN_PART=n), every part at once, and links the objects into one
+// library. A build without CDYN_PART holds every part (one with
+// CDYN_CM_PROFILE is such a build: its phase counters are one array). Part 0
+// holds the host helpers and the occupancy queries' dispatch; parts 1 and 2
+// the spring kernels at float and double; parts 3 and 4 cdyn_period_cm,
+// parts 5 and 6 cdyn_rollout_cm, at float and double, each with its terrain
+// and extended-body instances.
+
+#ifdef CDYN_PART
+#ifdef CDYN_CM_PROFILE
+#error "a CDYN_CM_PROFILE build is one part: its phase counters must be one array"
+#endif
+#define CDYN_IN_PART(n) (CDYN_PART == (n))
+#else
+#define CDYN_IN_PART(n) 1
+#endif
+
+namespace cdyn {
+
+// Blocks of a spring kernel (0 cdyn_accel, 1 cdyn_period, 2 cdyn_rollout;
+// its terrain instance with `terrain`) at float type T that the runtime
+// would keep on one SM (`cdyn_sp_blocks_per_sm`).
+template <typename T>
+int sp_blocks_per_sm(int kernel, int smem_per_env, int terrain) {
+  const int threads = SP_LANES * (kernel == 0 ? SPA_ENVS : SP_ENVS);
+  const int smem = smem_per_env * (kernel == 0 ? SPA_ENVS : SP_ENVS);
+  auto occupancy = [&](auto k) {
+    int blocks = 0;
+    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
+    cudaGetLastError();
+    return e == cudaSuccess ? blocks : -static_cast<int>(e);
+  };
+  auto of_ground = [&](auto flag) {
+    constexpr bool kTerrain = decltype(flag)::value;
+    return kernel == 0 ? occupancy(cdyn_accel_kernel<T, kTerrain>)
+         : kernel == 1 ? occupancy(cdyn_period_kernel<T, kTerrain>)
+                       : occupancy(cdyn_rollout_kernel<T, kTerrain>);
+  };
+  return terrain ? of_ground(std::true_type{}) : of_ground(std::false_type{});
+}
+
+// The launch geometry of a constrained kernel (cdyn_rollout_cm with
+// kRollout, else cdyn_period_cm) at float type T (`cdyn_cm_geometry`).
+template <bool kRollout, typename T>
+int cm_geometry(int smem_per_env, int terrain, int ext, int* out) {
+  auto occupancy = [&](auto k, int envs) {
+    int blocks = 0;
+    const int smem = smem_per_env * envs;
+    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, CM_LANES * envs, smem);
+    cudaGetLastError();
+    return e == cudaSuccess ? blocks * envs : -static_cast<int>(e);
+  };
+  auto best = [&](auto k) {
+    out[0] = out[1] = 0;
+    int err = 0;
+    for (int envs = CM_ENVS; envs >= 1; --envs) {
+      const int per_sm = occupancy(k, envs);
+      if (per_sm < 0) {
+        err = -per_sm;
+      } else if (per_sm > out[1]) {
+        out[0] = envs;
+        out[1] = per_sm;
+      }
+    }
+    return out[1] > 0 ? 0 : (err ? err : static_cast<int>(cudaErrorInvalidConfiguration));
+  };
+  auto of_body = [&](auto flag, auto ext_flag) {
+    constexpr bool kTerrain = decltype(flag)::value, kExt = decltype(ext_flag)::value;
+    if constexpr (kRollout)
+      return best(cdyn_rollout_cm_kernel<T, kTerrain, kExt>);
+    else
+      return best(cdyn_period_cm_kernel<T, kTerrain, kExt>);
+  };
+  auto of_ext = [&](auto flag) {
+    return ext ? of_body(flag, std::true_type{}) : of_body(flag, std::false_type{});
+  };
+  return terrain ? of_ext(std::true_type{}) : of_ext(std::false_type{});
+}
+
+}  // namespace cdyn
 
 extern "C" {
 
-int cdyn_caps(int* out, int n) {
-  const int caps[] = {cdyn::NJ_MAX,  cdyn::NQ_MAX,   cdyn::NV_MAX,   cdyn::NC_MAX,
-                      cdyn::NI_MAX,  cdyn::NM_MAX,   cdyn::NB_MAX,   cdyn::NCMD_MAX,
-                      cdyn::NACT_MAX, cdyn::NCARRY_MAX};
-  const int count = static_cast<int>(sizeof(caps) / sizeof(caps[0]));
-  for (int i = 0; i < count && i < n; ++i) out[i] = caps[i];
-  return count;
-}
+// Each part's occupancy queries, dispatched by part 0
+int cdyn_sp_blocks_per_sm_f32(int kernel, int smem_per_env, int terrain);
+int cdyn_sp_blocks_per_sm_f64(int kernel, int smem_per_env, int terrain);
+int cdyn_period_cm_geometry_f32(int smem_per_env, int terrain, int ext, int* out);
+int cdyn_period_cm_geometry_f64(int smem_per_env, int terrain, int ext, int* out);
+int cdyn_rollout_cm_geometry_f32(int smem_per_env, int terrain, int ext, int* out);
+int cdyn_rollout_cm_geometry_f64(int smem_per_env, int terrain, int ext, int* out);
+
+#if CDYN_IN_PART(0)
 
 // Bytes of dynamic shared memory one env of the constrained kernels takes
 // (its slice and the padding to the next one) for a model of nj joints, nq
 // and nv coordinates, n rows (nc contacts, nb bounds, nd loop closures, nr
 // rolling constraints) and supports of up to ns dofs, with ncs spring-damper
-// contacts beside them, at elt bytes a float; -1 past the rows the kernels
-// take.
+// contacts beside them, a command of n_cmd, an action of n_act and a
+// controller carry of n_blk values, at elt bytes a float.
 int cdyn_cm_smem_bytes(int nj, int nq, int nv, int n, int nc, int nb, int ns, int nd, int ncs,
-                       int nr, int elt) {
-  if (n > cdyn::CM_ROWS_MAX) return -1;
-  return cdyn::cm_env_stride(cdyn::CmLayout(nj, nq, nv, n, nc, nb, ns, nd, ncs, nr, elt).bytes,
-                             elt);
+                       int nr, int n_cmd, int n_act, int n_blk, int elt) {
+  return cdyn::cm_env_stride(
+      cdyn::CmLayout(nj, nq, nv, n, nc, nb, ns, nd, ncs, nr, n_cmd, n_act, n_blk, elt).bytes, elt);
 }
 
 // Bytes of dynamic shared memory one env of the spring kernels takes (its
@@ -781,55 +869,25 @@ int cdyn_accel_smem_bytes(int nj, int nq, int nv, int nc, int elt, int* geometry
 // launch raises it; a negative CUDA error code on failure (a block past what
 // the card grants).
 int cdyn_sp_blocks_per_sm(int kernel, int elt, int smem_per_env, int terrain) {
-  const int threads = cdyn::SP_LANES * (kernel == 0 ? cdyn::SPA_ENVS : cdyn::SP_ENVS);
-  const int smem = smem_per_env * (kernel == 0 ? cdyn::SPA_ENVS : cdyn::SP_ENVS);
-  auto occupancy = [&](auto k) {
-    int blocks = 0;
-    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
-    cudaGetLastError();
-    return e == cudaSuccess ? blocks : -static_cast<int>(e);
-  };
-  auto of_type = [&](auto zero, auto flag) {
-    using T = decltype(zero);
-    constexpr bool kTerrain = decltype(flag)::value;
-    return kernel == 0 ? occupancy(cdyn::cdyn_accel_kernel<T, kTerrain>)
-         : kernel == 1 ? occupancy(cdyn::cdyn_period_kernel<T, kTerrain>)
-                       : occupancy(cdyn::cdyn_rollout_kernel<T, kTerrain>);
-  };
-  if (elt == 4)
-    return terrain ? of_type(0.0f, std::true_type{}) : of_type(0.0f, std::false_type{});
-  return terrain ? of_type(0.0, std::true_type{}) : of_type(0.0, std::false_type{});
+  return elt == 4 ? cdyn_sp_blocks_per_sm_f32(kernel, smem_per_env, terrain)
+                  : cdyn_sp_blocks_per_sm_f64(kernel, smem_per_env, terrain);
 }
 
-// Envs of a constrained kernel (0 cdyn_period_cm, 1 cdyn_rollout_cm; its
-// terrain instance with `terrain`, its extended body with `ext`) the runtime
-// would keep on one SM (its blocks there x CM_ENVS) with smem_per_env bytes
-// of dynamic shared memory an env, at elt bytes a float, as
-// `cdyn_sp_blocks_per_sm` counts blocks of the spring kernels; a negative
-// CUDA error code on failure.
-int cdyn_cm_envs_per_sm(int kernel, int elt, int smem_per_env, int terrain, int ext) {
-  const int threads = cdyn::CM_LANES * cdyn::CM_ENVS;
-  const int smem = smem_per_env * cdyn::CM_ENVS;
-  auto occupancy = [&](auto k) {
-    int blocks = 0;
-    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
-    cudaGetLastError();
-    return e == cudaSuccess ? blocks * cdyn::CM_ENVS : -static_cast<int>(e);
-  };
-  auto of_type = [&](auto zero, auto flag, auto ext_flag) {
-    using T = decltype(zero);
-    constexpr bool kTerrain = decltype(flag)::value, kExt = decltype(ext_flag)::value;
-    return kernel == 0 ? occupancy(cdyn::cdyn_period_cm_kernel<T, kTerrain, kExt>)
-                       : occupancy(cdyn::cdyn_rollout_cm_kernel<T, kTerrain, kExt>);
-  };
-  auto of_ext = [&](auto zero, auto flag) {
-    return ext ? of_type(zero, flag, std::true_type{}) : of_type(zero, flag, std::false_type{});
-  };
-  if (elt == 4)
-    return terrain ? of_ext(0.0f, std::true_type{}) : of_ext(0.0f, std::false_type{});
-  return terrain ? of_ext(0.0, std::true_type{}) : of_ext(0.0, std::false_type{});
+// The launch geometry of a constrained kernel (0 cdyn_period_cm, 1
+// cdyn_rollout_cm; its terrain instance with `terrain`, its extended body
+// with `ext`) for smem_per_env bytes of dynamic shared memory an env at elt
+// bytes a float: of 1 to CM_ENVS envs a block, the count that the runtime
+// keeps the most envs of on one SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`
+// x envs, the kernel's shared-memory limit raised to the block's share
+// first, as a launch raises it; the larger count on a tie). Writes (envs a
+// block, envs an SM) into out[0..1]; 0, or a CUDA error code when no block
+// of one env fits.
+int cdyn_cm_geometry(int kernel, int elt, int smem_per_env, int terrain, int ext, int* out) {
+  if (kernel == 0)
+    return elt == 4 ? cdyn_period_cm_geometry_f32(smem_per_env, terrain, ext, out)
+                    : cdyn_period_cm_geometry_f64(smem_per_env, terrain, ext, out);
+  return elt == 4 ? cdyn_rollout_cm_geometry_f32(smem_per_env, terrain, ext, out)
+                  : cdyn_rollout_cm_geometry_f64(smem_per_env, terrain, ext, out);
 }
 
 #ifdef CDYN_CM_PROFILE
@@ -848,6 +906,8 @@ const char* cdyn_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+#endif  // part 0
+
 // Each entry launches the flat-ground instance of its kernel, or with
 // `terrain` the instance that evaluates the model's terrain section.
 #define CDYN_LAUNCH(NAME, T, ...) \
@@ -859,7 +919,7 @@ const char* cdyn_error_string(int code) {
                   : cdyn::NAME<T, false, true>(__VA_ARGS__))                            \
        : (terrain ? cdyn::NAME<T, true, false>(__VA_ARGS__)                             \
                   : cdyn::NAME<T, false, false>(__VA_ARGS__)))
-#define CDYN_ENTRIES(SUFFIX, T)                                                                  \
+#define CDYN_SP_ENTRIES(SUFFIX, T)                                                               \
   int cdyn_accel_##SUFFIX(const void* ci, const void* cf, const void* q, const void* v,          \
                           const void* tau, void* out, int B, int smem_per_env, int terrain,      \
                           void* stream) {                                                        \
@@ -881,29 +941,58 @@ const char* cdyn_error_string(int code) {
                        vo, eo, B, n_action, n_carry, n_cmd, n_ticks, n_substeps, integrator,     \
                        smem_per_env, stream);                                                    \
   }                                                                                              \
+  int cdyn_sp_blocks_per_sm_##SUFFIX(int kernel, int smem_per_env, int terrain) {                \
+    return cdyn::sp_blocks_per_sm<T>(kernel, smem_per_env, terrain);                            \
+  }
+#define CDYN_PERIOD_CM_ENTRIES(SUFFIX, T)                                                        \
   int cdyn_period_cm_##SUFFIX(const void* ci, const void* cf, const void* si, const void* sf,    \
                               const void* q, const void* v, const void* cc, void* qo, void* vo,  \
                               void* eo, int B, int n_cmd, int n_substeps, int integrator,        \
-                              int smem_per_env, int terrain, int ext, void* stream) {            \
-    return CDYN_LAUNCH_CM(launch_period_cm, T, ci, cf, si, sf, q, v, cc, qo, vo, eo, B, n_cmd,      \
-                       n_substeps, integrator, smem_per_env, stream);                            \
+                              int smem_per_env, int envs, int terrain, int ext, void* stream) {  \
+    return CDYN_LAUNCH_CM(launch_period_cm, T, ci, cf, si, sf, q, v, cc, qo, vo, eo, B, n_cmd,   \
+                          n_substeps, integrator, smem_per_env, envs, stream);                   \
   }                                                                                              \
+  int cdyn_period_cm_geometry_##SUFFIX(int smem_per_env, int terrain, int ext, int* out) {       \
+    return cdyn::cm_geometry<false, T>(smem_per_env, terrain, ext, out);                         \
+  }
+#define CDYN_ROLLOUT_CM_ENTRIES(SUFFIX, T)                                                       \
   int cdyn_rollout_cm_##SUFFIX(const void* ci, const void* cf, const void* si, const void* sf,   \
                                const void* pi, const void* pf, int controller, const void* q,    \
                                const void* v, const void* action, const void* carry, void* qo,   \
                                void* vo, void* eo, int B, int n_action, int n_block, int n_cmd,  \
                                int n_ticks, int n_substeps, int integrator, int smem_per_env,    \
-                               int terrain, int ext, void* stream) {                             \
-    return CDYN_LAUNCH_CM(launch_rollout_cm, T, ci, cf, si, sf, pi, pf, controller, q, v, action,   \
-                       carry, qo, vo, eo, B, n_action, n_block, n_cmd, n_ticks, n_substeps,      \
-                       integrator, smem_per_env, stream);                                        \
+                               int envs, int terrain, int ext, void* stream) {                   \
+    return CDYN_LAUNCH_CM(launch_rollout_cm, T, ci, cf, si, sf, pi, pf, controller, q, v,        \
+                          action, carry, qo, vo, eo, B, n_action, n_block, n_cmd, n_ticks,       \
+                          n_substeps, integrator, smem_per_env, envs, stream);                   \
+  }                                                                                              \
+  int cdyn_rollout_cm_geometry_##SUFFIX(int smem_per_env, int terrain, int ext, int* out) {      \
+    return cdyn::cm_geometry<true, T>(smem_per_env, terrain, ext, out);                          \
   }
 
-CDYN_ENTRIES(f32, float)
-CDYN_ENTRIES(f64, double)
+#if CDYN_IN_PART(1)
+CDYN_SP_ENTRIES(f32, float)
+#endif
+#if CDYN_IN_PART(2)
+CDYN_SP_ENTRIES(f64, double)
+#endif
+#if CDYN_IN_PART(3)
+CDYN_PERIOD_CM_ENTRIES(f32, float)
+#endif
+#if CDYN_IN_PART(4)
+CDYN_PERIOD_CM_ENTRIES(f64, double)
+#endif
+#if CDYN_IN_PART(5)
+CDYN_ROLLOUT_CM_ENTRIES(f32, float)
+#endif
+#if CDYN_IN_PART(6)
+CDYN_ROLLOUT_CM_ENTRIES(f64, double)
+#endif
 
 #undef CDYN_LAUNCH
 #undef CDYN_LAUNCH_CM
-#undef CDYN_ENTRIES
+#undef CDYN_SP_ENTRIES
+#undef CDYN_PERIOD_CM_ENTRIES
+#undef CDYN_ROLLOUT_CM_ENTRIES
 
 }  // extern "C"

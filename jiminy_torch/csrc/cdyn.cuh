@@ -1,29 +1,14 @@
-// Compile-time caps and the packed-constant layout shared by the cdyn kernels.
+// The packed-constant layout shared by the cdyn kernels.
 //
 // The layout must match `pack_model` in jiminy_torch/ops/cdyn.py (int buffer
 // `ci`, float buffer `cf`) and `PDComponents.pack` / `ZOHPassThrough.pack`
-// (controller buffers `pi`, `pf`). The caps bound the constrained kernels'
-// per-thread arrays (pgs.cuh); the Python wrappers read them through
-// `cdyn_caps` and refuse a constrained launch beyond them. The spring kernels
-// (spring.cuh) keep no cap-sized array and take any model whose shared-memory
-// slice the card grants.
+// (controller buffers `pi`, `pf`). No kernel keeps an array sized at compile
+// time: the spring kernels (spring.cuh) and the constrained kernels
+// (pgs.cuh) keep their working set in a shared-memory slice sized from the
+// model at launch, and take any model whose slice the card grants.
 #pragma once
 
 namespace cdyn {
-
-// Per-thread array sizes of the constrained kernels. The ANYmal uses nj 13,
-// nq 19, nv 18, nc 4, ni 1, nm 12 (the full Atlas: nj 31, nq 37, nv 36, nc 12,
-// nm 30, beyond them).
-constexpr int NJ_MAX = 24;
-constexpr int NV_MAX = 30;
-constexpr int NQ_MAX = NV_MAX + 1;  // free-flyer root + 1-dof joints
-constexpr int NC_MAX = 16;
-constexpr int NI_MAX = 4;
-constexpr int NM_MAX = 30;
-constexpr int NB_MAX = NV_MAX;
-constexpr int NCMD_MAX = NM_MAX;
-constexpr int NACT_MAX = 32;
-constexpr int NCARRY_MAX = 3 * NM_MAX;
 
 // Int buffer: header [nj nq nv nc ni nm nb has_contacts blend ...], then
 // per joint (parent, type, idx_q, idx_v), per contact (parent, has_radius),

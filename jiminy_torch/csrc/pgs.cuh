@@ -17,16 +17,21 @@
 // sweeps warm-started from the carried multipliers.
 //
 // Design. A group of CM_LANES = 8 lanes (aligned in its warp) steps one env,
-// CM_ENVS = 4 envs to a block (PERF.md times the alternatives); a group
-// past the end of the batch leaves whole. The solve's working set lives in
+// up to CM_ENVS = 4 envs to a block: the launcher picks the count from the
+// slice so that a block fits and the most envs stay resident an SM
+// (`cdyn_cm_geometry`), and the kernels read it from blockDim; a group past
+// the end of the batch leaves whole. Everything an env keeps lives in
 // dynamic shared memory, one slice per env sized from the model's joints,
-// dofs, rows and supports at launch (`CmLayout`, about 8 KB at float32 for
-// the ANYmal, so 28 envs fit on an SM): J over each row's support dofs and
-// M^-1 J^T over the active rows, A's upper triangle, the LDL^T factor of M,
-// the per-joint arrays of the tree passes (whose arrays share space by
-// lifetime, and with M^-1 J^T and A, alive only after them) and the three
-// solver states. Only the integrator's vectors stay in the leading lane's
-// stack. Inside a solve:
+// dofs, rows and supports and the kernel's command, action and carry widths
+// at launch (`CmLayout`, about 8 KB at float32 for the ANYmal, so 28 envs fit
+// on an SM; 36,000 B for the 78 rows of the full Atlas): J over each row's
+// support dofs and M^-1 J^T over the active rows, A's upper triangle, the
+// LDL^T factor of M (its lower triangle), the per-joint arrays of the tree
+// passes (whose arrays share space by lifetime, and with M^-1 J^T and A,
+// alive only after them), the three solver states, the env's state and its
+// RK4 sums (the stage states are the solve's inputs, the stage
+// accelerations its output), the command, the action and the controller's
+// carry. No array is sized at compile time. Inside a solve:
 //  - the tree passes (placements, the bias kinematics, RNEA, CRBA) run
 //    depth after depth of the tree, a joint per lane, each joint's
 //    arithmetic that of the serial passes; lanes build the rows a bound or
@@ -46,7 +51,10 @@
 //    mod CM_LANES: a row update takes its y from its lane (one shuffle) and
 //    every lane subtracts the update times A's column from its rows, so the
 //    chain of a Gauss-Seidel step is a shuffle, a division and an FMA. Every
-//    lane keeps its own copy of the multipliers up to date: no barrier.
+//    lane keeps its own copy of the multipliers up to date: no barrier. A
+//    lane keeps CM_SLOTS rows in registers (the first CM_REG_ROWS rows of
+//    the group, all of the ANYmal's); the x and y of the rows past them stay
+//    in the slice (in x and b), each written by its lane alone.
 // Group barriers are __syncwarp on the group's mask only, so groups of one
 // warp with different active counts never wait on each other. Float64 runs
 // agree with the plain version to rounding (the residual is updated rather
@@ -90,8 +98,10 @@ struct CModel {
   const T* __restrict__ sf;
   int n, nb, nc, iter_max, stage_warm, ns;
   int fb, fc;  // float offsets: bounds, contacts
+  int ncmd, nact, nblk;  // the kernel's command, action and controller-carry widths
 
-  __device__ CModel(const int* si_, const T* sf_) : si(si_), sf(sf_) {
+  __device__ CModel(const int* si_, const T* sf_, int ncmd_, int nact_, int nblk_)
+      : si(si_), sf(sf_), ncmd(ncmd_), nact(nact_), nblk(nblk_) {
     n = si[0]; nb = si[1]; nc = si[2]; iter_max = si[3]; stage_warm = si[4]; ns = si[5];
     fb = SF_HEADER + iter_max;
     fc = fb + SF_BOUND * nb;
@@ -132,7 +142,8 @@ struct CModel {
 // Lane groups and the per-env shared-memory slice
 // --------------------------------------------------------------------------
 
-// Lanes per env and envs per block; a build may set others (-DCDYN_CM_LANES,
+// Lanes per env and the most envs a block (the launcher picks up to that
+// many from the slice); a build may set others (-DCDYN_CM_LANES,
 // -DCDYN_CM_ENVS: 4, 8, 16 or 32 lanes) to time them.
 #ifndef CDYN_CM_LANES
 #define CDYN_CM_LANES 8
@@ -141,11 +152,22 @@ struct CModel {
 #define CDYN_CM_ENVS 4
 #endif
 constexpr int CM_LANES = CDYN_CM_LANES, CM_ENVS = CDYN_CM_ENVS;
-constexpr int CM_ROWS_MAX = 40;  // rows of one model
-constexpr int CM_SLOTS = (CM_ROWS_MAX + CM_LANES - 1) / CM_LANES;  // residual rows per lane
+constexpr int CM_REG_ROWS = 40;  // rows whose sweep state lives in registers
+constexpr int CM_SLOTS = (CM_REG_ROWS + CM_LANES - 1) / CM_LANES;  // register rows per lane
 static_assert(CM_LANES == 4 || CM_LANES == 8 || CM_LANES == 16 || CM_LANES == 32,
               "CM_LANES: a power of two from 4 to 32");
 static_assert(CM_LANES * CM_ENVS <= 1024, "CM_LANES * CM_ENVS threads a block");
+// The blocks an SM the period kernel's instance asks its registers to allow:
+// the float32 instances of the bound and contact rows keep to 168 registers,
+// 384 threads an SM (48 envs where the slice allows: the pendulum's; 212
+// registers left it 32); the others keep the compiler's count (the cap
+// spills in the extended body and at float64).
+template <typename T, bool kExt>
+struct CmPeriodBlocks {
+  static constexpr int threads = CM_LANES * CM_ENVS;
+  static constexpr int value =
+      (sizeof(T) == 4 && !kExt && threads <= 384) ? 384 / threads : 1;
+};
 
 // The CM_LANES lanes of one env, aligned in their warp.
 struct Lanes {
@@ -165,17 +187,25 @@ __device__ __forceinline__ int upper_at(int na, int r, int c) {
   return r * (2 * na - r + 1) / 2 + (c - r);
 }
 
+// Position of entry (r, c), c <= r, of a packed lower triangle, row by row
+// (the mass matrix and its LDL^T factor).
+__device__ __forceinline__ int lower_at(int r, int c) { return r * (r + 1) / 2 + c; }
+// Entry (r, c) of a symmetric matrix kept as its lower triangle.
+__device__ __forceinline__ int sym_at(int r, int c) { return r >= c ? lower_at(r, c) : lower_at(c, r); }
+
 // Byte offsets of one env's slice of dynamic shared memory, from the model's
-// joints, dofs, rows, contacts, bounds and support width, and for the kExt
-// body its loop closures (nd), spring-damper contacts (ncs) and rolling
-// constraints (nr), whose regions come last and take no space without them
-// (the same on host and device).
+// joints, dofs, rows, contacts, bounds and support width, for the kExt body
+// its loop closures (nd), spring-damper contacts (ncs) and rolling
+// constraints (nr), whose regions take no space without them, and the
+// kernel's command, action and controller-carry widths (the same on host
+// and device).
 struct CmLayout {
   int tree, wmat, amat, jmat, mmat, dinv, d, tau, tc, qs, vs, qdd, drift, b, x, depth, lam;
-  int rows, pos, soff, scnt, cnt, clist, jorder, lstart, masks, dref, fx, rref, bytes;
+  int rows, pos, soff, scnt, cnt, clist, jorder, lstart, masks, dref, fx, rref;
+  int q, v, ksum, vsum, cmd, act, blk, bytes;
 
   __host__ __device__ CmLayout(int nj, int nq, int nv, int n, int nc, int nb, int ns, int nd,
-                               int ncs, int nr, int elt) {
+                               int ncs, int nr, int n_cmd, int n_act, int n_blk, int elt) {
     int off = 0;
     auto take = [&](int count, int size) {
       const int at = off;
@@ -190,7 +220,7 @@ struct CmLayout {
     wmat = tree;
     amat = tree + n * nv * elt;
     jmat = take(n * ns, elt);
-    mmat = take(nv * nv, elt);
+    mmat = take(nv * (nv + 1) / 2, elt);  // lower triangle
     dinv = take(nv, elt);
     d = take(nv, elt);
     tau = take(nv, elt);
@@ -215,6 +245,16 @@ struct CmLayout {
     dref = take(nd, elt);
     fx = take(6 * ncs, elt);  // the spring contacts' LOCAL wrenches on their joints
     rref = take(nr, elt);     // the rolling constraints' reference heights
+    // The env's state, its RK4 sums, command, action and controller carry:
+    // alive across the solves (a substep's stage states are qs and vs, its
+    // stage accelerations qdd)
+    q = take(nq, elt);
+    v = take(nv, elt);
+    ksum = take(nv, elt);
+    vsum = take(nv, elt);
+    cmd = take(n_cmd, elt);
+    act = take(n_act, elt);
+    blk = take(n_blk, elt);
     bytes = off;
   }
 };
@@ -262,12 +302,14 @@ struct Work {
   T* dref;               // the loops' lengths (kExt)
   T (*FX)[6];            // the spring contacts' wrenches (n, f) on their joints (kExt)
   T* rref;               // the rolling constraints' reference heights (kExt)
+  T *q, *v, *ksum, *vsum;  // the env's state and a substep's RK4 sums
+  T *cmd, *act, *blk;      // its command, action and controller carry
   int n, nc, nmask;
 
   __device__ Work(unsigned char* base, const Model<T>& M, const CModel<T>& C, int nd, int ncs,
                   int nr) {
-    const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, nd, ncs, nr,
-                      static_cast<int>(sizeof(T)));
+    const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, nd, ncs, nr, C.ncmd, C.nact,
+                      C.nblk, static_cast<int>(sizeof(T)));
     T* t = reinterpret_cast<T*>(base + lo.tree);
     const int nj = M.nj;
     R = reinterpret_cast<T(*)[9]>(t);
@@ -311,6 +353,13 @@ struct Work {
     dref = reinterpret_cast<T*>(base + lo.dref);
     FX = reinterpret_cast<T(*)[6]>(base + lo.fx);
     rref = reinterpret_cast<T*>(base + lo.rref);
+    q = reinterpret_cast<T*>(base + lo.q);
+    v = reinterpret_cast<T*>(base + lo.v);
+    ksum = reinterpret_cast<T*>(base + lo.ksum);
+    vsum = reinterpret_cast<T*>(base + lo.vsum);
+    cmd = reinterpret_cast<T*>(base + lo.cmd);
+    act = reinterpret_cast<T*>(base + lo.act);
+    blk = reinterpret_cast<T*>(base + lo.blk);
     n = C.n;
     nc = C.nc;
     nmask = C.nc + C.nb;
@@ -357,7 +406,7 @@ __device__ __forceinline__ unsigned char* dynamic_smem() {
 template <bool kExt, typename T>
 __device__ __forceinline__ Work<T> env_work(const Model<T>& M, const CModel<T>& C) {
   const int nd = kExt ? C.nd() : 0, ncs = kExt ? M.nc : 0, nr = kExt ? C.nr() : 0;
-  const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, nd, ncs, nr,
+  const CmLayout lo(M.nj, M.nq, M.nv, C.n, C.nc, C.nb, C.ns, nd, ncs, nr, C.ncmd, C.nact, C.nblk,
                     static_cast<int>(sizeof(T)));
   const int slot = threadIdx.x / CM_LANES;
   return Work<T>(dynamic_smem() + (size_t)slot * cm_env_stride(lo.bytes, sizeof(T)), M, C, nd,
@@ -522,21 +571,20 @@ __device__ void forward_joint(const Model<T>& M, int i, const T* q, const T* v, 
 // the parent frame (FT).
 template <bool kExt, typename T>
 __device__ void backward_joint(const Model<T>& M, int i, Work<T>& w) {
-  const int nv = M.nv;
   const int vi = M.iv(i);
   const int p = M.parent(i);
   T* Mm = w.Mm;
   T (*IC)[36] = w.IC;
   if (M.type(i) == FREE) {  // permuted composite inertia + armature
     for (int r = 0; r < 6; ++r)
-      for (int c = 0; c < 6; ++c) Mm[nv * (vi + r) + vi + c] = IC[i][6 * ((r + 3) % 6) + (c + 3) % 6];
+      for (int c = 0; c <= r; ++c) Mm[lower_at(vi + r, vi + c)] = IC[i][6 * ((r + 3) % 6) + (c + 3) % 6];
     for (int r = 0; r < 6; ++r)
-      Mm[nv * (vi + r) + vi + r] = Mm[nv * (vi + r) + vi + r] + M.armature(vi + r);
+      Mm[lower_at(vi + r, vi + r)] = Mm[lower_at(vi + r, vi + r)] + M.armature(vi + r);
   } else {
     T ax_a[3], ax_l[3], fv[6];
     motion_axis(M, i, ax_a, ax_l);
     sym6_mv(IC[i], ax_a, ax_l, fv);
-    Mm[nv * vi + vi] = (dot3(ax_a, fv) + dot3(ax_l, fv + 3)) + M.armature(vi);
+    Mm[lower_at(vi, vi)] = (dot3(ax_a, fv) + dot3(ax_l, fv + 3)) + M.armature(vi);
     T n_c[3] = {fv[0], fv[1], fv[2]}, f_c[3] = {fv[3], fv[4], fv[5]};
     int j = i;
 #pragma unroll 1
@@ -546,16 +594,11 @@ __device__ void backward_joint(const Model<T>& M, int i, Work<T>& w) {
       const int vj = M.iv(j);
       if (M.type(j) == FREE) {
         const T full[6] = {n_c[0], n_c[1], n_c[2], f_c[0], f_c[1], f_c[2]};
-        for (int k = 0; k < 6; ++k) {
-          Mm[nv * vi + vj + k] = full[(k + 3) % 6];
-          Mm[nv * (vj + k) + vi] = full[(k + 3) % 6];
-        }
+        for (int k = 0; k < 6; ++k) Mm[sym_at(vi, vj + k)] = full[(k + 3) % 6];
       } else {
         T aj_a[3], aj_l[3];
         motion_axis(M, j, aj_a, aj_l);
-        const T val = dot3(aj_a, n_c) + dot3(aj_l, f_c);
-        Mm[nv * vi + vj] = val;
-        Mm[nv * vj + vi] = val;
+        Mm[sym_at(vi, vj)] = dot3(aj_a, n_c) + dot3(aj_l, f_c);
       }
     }
     if (p >= 0) {
@@ -621,18 +664,19 @@ __device__ void gather_children(const Model<T>& M, int p, Work<T>& w) {
   }
 }
 
-// Solve with the in-place LDL^T factor L (row-major n x n) and the inverse
-// pivots (`_ldl_solve_components`); y[i] = 0 for i < first, which the
-// forward pass skips (exact).
+// Solve with the in-place LDL^T factor L (its packed lower triangle,
+// `lower_at`) and the inverse pivots (`_ldl_solve_components`); y[i] = 0 for
+// i < first, which the forward pass skips (exact).
 template <typename T>
 __device__ void ldl_solve(int n, const T* L, const T* dinv, T* y, int first) {
   // y[i] accumulates in a register: the same operations in the same order,
   // with no shared-memory round trip between them
 #pragma unroll 1
   for (int i = first; i < n; ++i) {
+    const T* li = L + lower_at(i, 0);
     T s = y[i];
 #pragma unroll 4
-    for (int k = first; k < i; ++k) s = s - L[n * i + k] * y[k];
+    for (int k = first; k < i; ++k) s = s - li[k] * y[k];
     y[i] = s;
   }
 #pragma unroll 1
@@ -640,8 +684,12 @@ __device__ void ldl_solve(int n, const T* L, const T* dinv, T* y, int first) {
 #pragma unroll 1
   for (int i = n - 1; i >= 0; --i) {
     T s = y[i];
+    int at = lower_at(i + 1, i);  // L[k][i], k = i + 1, ...: the next row's entry i
 #pragma unroll 4
-    for (int k = i + 1; k < n; ++k) s = s - L[n * k + i] * y[k];
+    for (int k = i + 1; k < n; ++k) {
+      s = s - L[at] * y[k];
+      at += k + 1;
+    }
     y[i] = s;
   }
 }
@@ -1026,17 +1074,21 @@ __device__ __forceinline__ T support_dot(const int* sd, int ns, const T* j, cons
 // active rows, x in place: positions [0, nda) the loop closures and the
 // rolling rows (kExt; a plain Gauss-Seidel update), then nba bounds, nca
 // normals, nca torsion rows, nca tangent pairs. Lane l keeps the
-// multipliers x and the residual y = b - A x of rows l, l + CM_LANES, ... in
-// registers. A row's update takes its x and y from that lane (shuffles);
-// every lane computes the new multiplier, the lane of the row keeps it, and
-// every lane takes the change times A's column off the y of its rows. The
-// lanes share nothing in memory until x is written back at the end.
-template <bool kExt, typename T>
+// multipliers x and the residual y = b - A x of rows l, l + CM_LANES, ...:
+// those below CM_SLOTS * CM_LANES in registers, the others in x and b
+// themselves (b turns into y). A row's update takes its x and y from that
+// lane (shuffles); every lane computes the new multiplier, the lane of the
+// row keeps it, and every lane takes the change times A's column off the y
+// of its rows. No lane reads another's rows from memory: the lanes share
+// nothing but shuffles until x is written back at the end. The instance
+// without kOver takes at most CM_SLOTS * CM_LANES rows, all in registers.
+template <bool kExt, bool kOver, typename T>
 __device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nda, int nba, int nca,
-                           const T* __restrict__ A, const T* __restrict__ b, T* __restrict__ x) {
+                           const T* __restrict__ A, T* __restrict__ b, T* __restrict__ x) {
   const T friction = C.friction(), torsion = C.torsion();
   const int o = kExt ? nda : 0;  // the bounds' first position
   const int p_tor = o + nba + nca, p_tan = o + nba + 2 * nca;
+  constexpr int R = CM_SLOTS * CM_LANES;  // the rows in registers
   // Entry (j, i) of A for this lane's row j = lane + CM_LANES m: at ro[m] + i
   // when j <= i, else at (upper_at(na, i, i) - i) + j.
   T xr[CM_SLOTS], y[CM_SLOTS];
@@ -1063,12 +1115,29 @@ __device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nda, 
     const int j = L.lane + CM_LANES * m;
     y[m] = (j < na) ? b[j] - y[m] : T(0);
   }
+  if constexpr (kOver) {  // the rows past the registers: y into b, in the same order
+#pragma unroll 1
+    for (int j = R + L.lane; j < na; j += CM_LANES) {
+      const int rj = upper_at(na, j, j) - j;
+      T s = T(0);
+#pragma unroll 1
+      for (int k = 0; k < na; ++k) s = s + A[j <= k ? rj + k : upper_at(na, k, k) - k + j] * x[k];
+      b[j] = b[j] - s;
+    }
+  }
   L.sync();  // x is read before any lane writes it back
-  // row i's entry of v, from the lane that keeps it
-  auto fetch = [&](const T(&v)[CM_SLOTS], int i) {
+  // row i's entry of v (in registers) or of over (past them), from the lane
+  // that keeps it
+  auto fetch = [&](const T(&v)[CM_SLOTS], const T* over, int i) {
     T mine = v[0];
 #pragma unroll
     for (int m = 1; m < CM_SLOTS; ++m) mine = select_if(i / CM_LANES == m, v[m], mine);
+    if constexpr (kOver) {
+      if (i >= R) {
+        const int j = i - i % CM_LANES + L.lane;  // this lane's row of i's group
+        mine = (j < na) ? over[j] : T(0);
+      }
+    }
     return __shfl_sync(L.mask, mine, i % CM_LANES, CM_LANES);
   };
   // x[i] = xn, from xi: the lane of row i keeps it; y -= A[:, i] (xn - xi)
@@ -1081,6 +1150,13 @@ __device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nda, 
       if (j == i) xr[m] = xn;
       if (j < na) y[m] = y[m] - A[j <= i ? ro[m] + i : di + j] * dx;
     }
+    if constexpr (kOver) {
+#pragma unroll 1
+      for (int j = R + L.lane; j < na; j += CM_LANES) {
+        if (j == i) x[j] = xn;
+        b[j] = b[j] - A[j <= i ? upper_at(na, j, j) - j + i : di + j] * dx;
+      }
+    }
   };
 #pragma unroll 1
   for (int it = 0; it < C.iter_max; ++it) {
@@ -1088,24 +1164,24 @@ __device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nda, 
     if constexpr (kExt) {  // the loop closures and rolling rows: unbounded, unrelaxed
 #pragma unroll 1
       for (int i = 0; i < o; ++i) {
-        const T xi = fetch(xr, i), yi = fetch(y, i), aii = A[upper_at(na, i, i)];
+        const T xi = fetch(xr, x, i), yi = fetch(y, b, i), aii = A[upper_at(na, i, i)];
         set(i, xi, xi + yi / aii);
       }
     }
     // bounds, then the contact normals
 #pragma unroll 1
     for (int i = o; i < p_tor; ++i) {
-      const T xi = fetch(xr, i), yi = fetch(y, i), aii = A[upper_at(na, i, i)];
+      const T xi = fetch(xr, x, i), yi = fetch(y, b, i), aii = A[upper_at(na, i, i)];
       set(i, xi, tmax(xi + w * yi / aii, T(0)));
     }
     // level 1: torsional friction |lam_rz| <= torsion * lam_z
 #pragma unroll 1
     for (int m = 0; m < nca; ++m) {
       const int i = p_tor + m, iz = o + nba + m;
-      const T xi = fetch(xr, i);
+      const T xi = fetch(xr, x, i);
       T xn = T(0);
       if (torsion > T(0)) {
-        const T yi = fetch(y, i), thr = torsion * fetch(xr, iz), aii = A[upper_at(na, i, i)];
+        const T yi = fetch(y, b, i), thr = torsion * fetch(xr, x, iz), aii = A[upper_at(na, i, i)];
         xn = clip(xi + w * yi / aii, -thr, thr);
       }
       set(i, xi, xn);
@@ -1114,12 +1190,12 @@ __device__ void pgs_sweeps(const Lanes& L, const CModel<T>& C, int na, int nda, 
 #pragma unroll 1
     for (int m = 0; m < nca; ++m) {
       const int i0 = p_tan + 2 * m, i1 = i0 + 1, iz = o + nba + m;
-      const T x0_old = fetch(xr, i0), x1_old = fetch(xr, i1);
+      const T x0_old = fetch(xr, x, i0), x1_old = fetch(xr, x, i1);
       T x0 = T(0), x1 = T(0);
       if (friction > T(0)) {
-        const T thr = friction * fetch(xr, iz);
+        const T thr = friction * fetch(xr, x, iz);
         const T a_max = tmax(A[upper_at(na, i0, i0)], A[upper_at(na, i1, i1)]);
-        const T y0 = fetch(y, i0), y1 = fetch(y, i1);
+        const T y0 = fetch(y, b, i0), y1 = fetch(y, b, i1);
         x0 = x0_old + w * y0 / a_max;
         x1 = x1_old + w * y1 / a_max;
         const T norm2 = x0 * x0 + x1 * x1;
@@ -1274,7 +1350,7 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
   }
   L.sync();  // IC, F and FT take the place of RW, PW, VEL and ACC
 #pragma unroll 1
-  for (int k = lane; k < nv * nv; k += G) w.Mm[k] = T(0);
+  for (int k = lane; k < nv * (nv + 1) / 2; k += G) w.Mm[k] = T(0);
 #pragma unroll 1
   for (int k = lane; k < 36 * M.nj; k += G) w.IC[k / 36][k % 36] = M.ia0(k / 36)[k % 36];
   L.sync();
@@ -1301,14 +1377,16 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
   T* Mm = w.Mm;
 #pragma unroll 1
   for (int j = 0; j < nv; ++j) {
-    T dj = Mm[nv * j + j];
-    for (int k = 0; k < j; ++k) dj = dj - Mm[nv * j + k] * Mm[nv * j + k] * w.d[k];
+    const T* lj = Mm + lower_at(j, 0);
+    T dj = lj[j];
+    for (int k = 0; k < j; ++k) dj = dj - lj[k] * lj[k] * w.d[k];
     const T inv = T(1) / dj;
 #pragma unroll 1
     for (int i = j + 1 + lane; i < nv; i += G) {
-      T s = Mm[nv * i + j];
-      for (int k = 0; k < j; ++k) s = s - Mm[nv * i + k] * Mm[nv * j + k] * w.d[k];
-      Mm[nv * i + j] = s * inv;
+      T* li = Mm + lower_at(i, 0);
+      T s = li[j];
+      for (int k = 0; k < j; ++k) s = s - li[k] * lj[k] * w.d[k];
+      li[j] = s * inv;
     }
     if (L.leader()) {  // read from the next column on
       w.d[j] = dj;
@@ -1357,7 +1435,10 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
   }
   L.sync();
   CM_PROFILE_PHASE(L, 5, t_prof);
-  pgs_sweeps<kExt>(L, C, na, nu, nba, nca, w.A, w.b, w.x);
+  if (na > CM_SLOTS * CM_LANES)  // rows past the registers' (the Atlas's)
+    pgs_sweeps<kExt, true>(L, C, na, nu, nba, nca, w.A, w.b, w.x);
+  else
+    pgs_sweeps<kExt, false>(L, C, na, nu, nba, nca, w.A, w.b, w.x);
   CM_PROFILE_PHASE(L, 6, t_prof);
   // qdd = tau_res + sum over the active rows, in row order, of lam_r (M^-1 J^T)_r
 #pragma unroll 1
@@ -1379,92 +1460,115 @@ __device__ __noinline__ void constrained_accel(const Model<T>& M_in, const CMode
   CM_PROFILE_PHASE(L, 7, t_prof);
 }
 
-// One stage: lane 0 publishes (q, v) and the motor torques, the group
-// solves, lane 0 reads the accelerations into qdd.
+// One stage: lane 0 publishes the motor torques of the stage state (w.qs,
+// w.vs, which it wrote), the group solves into w.qdd.
 template <bool kTerrain, bool kExt, typename T>
-__device__ __forceinline__ void solve(const Lanes& L, const Model<T>& M, const CModel<T>& C,
-                                      const Work<T>& w, const T* q, const T* v, const T* cmd,
-                                      int s_in, int s_out, T* qdd) {
-  if (L.leader()) {
-    for (int i = 0; i < M.nq; ++i) w.qs[i] = q[i];
-    for (int i = 0; i < M.nv; ++i) w.vs[i] = v[i];
-    tau_c(M, v, cmd, w.tc);
-  }
+__device__ __forceinline__ void stage(const Lanes& L, const Model<T>& M, const CModel<T>& C,
+                                      const Work<T>& w, int s_in, int s_out) {
+  if (L.leader()) tau_c(M, w.vs, w.cmd, w.tc);
   constrained_accel<kTerrain, kExt>(M, C, s_in, s_out);
-  if (L.leader())
-    for (int i = 0; i < M.nv; ++i) qdd[i] = w.qdd[i];
 }
 
-// One substep (`_ConstrainedCore.substep`), q and v (lane 0's) updated in
-// place, the solver state `s` too when stages are chained (else the stage
-// outputs go to ST_TMP).
+// A solve at the env's state (w.q, w.v): the accelerations into w.qdd.
 template <bool kTerrain, bool kExt, typename T>
-__device__ __noinline__ void substep_cm(const Model<T>& M_in, const CModel<T>& C_in, T* q, T* v,
-                                        const T* cmd, int s, int integrator) {
+__device__ __forceinline__ void solve(const Lanes& L, const Model<T>& M, const CModel<T>& C,
+                                      const Work<T>& w, int s_in, int s_out) {
+  if (L.leader()) {
+    for (int i = 0; i < M.nq; ++i) w.qs[i] = w.q[i];
+    for (int i = 0; i < M.nv; ++i) w.vs[i] = w.v[i];
+  }
+  stage<kTerrain, kExt>(L, M, C, w, s_in, s_out);
+}
+
+// One substep (`_ConstrainedCore.substep`) of the env's state (w.q, w.v, lane
+// 0's) in place, the solver state `s` too when stages are chained (else the
+// stage outputs go to ST_TMP). Lane 0 writes each stage's state into the
+// solve's inputs (w.qs, w.vs) and reads its accelerations from w.qdd; the
+// RK4 sums run in the plain version's order ((k1 + 2 k2) + 2 k3) + k4. The
+// retraction's increment takes w.tc, free between two solves.
+template <bool kTerrain, bool kExt, typename T>
+__device__ __noinline__ void substep_cm(const Model<T>& M_in, const CModel<T>& C_in, int s,
+                                        int integrator) {
   const Lanes L;
   const Model<T> M = M_in;
   const CModel<T> C = C_in;
   const Work<T> w = env_work<kExt>(M, C);
-  T k1[NV_MAX], dq[NV_MAX], qt[NQ_MAX];
   const int out = C.stage_warm ? s : ST_TMP;
   const int nv = M.nv;
   const bool lead = L.leader();
   const T dt = M.dt(), hdt = M.half_dt();
-  solve<kTerrain, kExt>(L, M, C, w, q, v, cmd, s, out, k1);
+  T* q = w.q;
+  T* v = w.v;
+  T* dq = w.tc;
+  T* vt = w.vs;
+  const T* acc = w.qdd;
+  solve<kTerrain, kExt>(L, M, C, w, s, out);
   if (integrator == EULER) {
     if (lead) {
       for (int k = 0; k < nv; ++k) dq[k] = dt * v[k];
-      integrate(M, q, dq, qt);
-      for (int k = 0; k < M.nq; ++k) q[k] = qt[k];
-      for (int k = 0; k < nv; ++k) v[k] = v[k] + dt * k1[k];
+      integrate(M, q, dq, w.qs);
+      for (int k = 0; k < M.nq; ++k) q[k] = w.qs[k];
+      for (int k = 0; k < nv; ++k) v[k] = v[k] + dt * acc[k];
     }
     return;
   }
-  T k2[NV_MAX], k3[NV_MAX], k4[NV_MAX], v2[NV_MAX], v3[NV_MAX], v4[NV_MAX];
   if (lead) {
-    for (int k = 0; k < nv; ++k) dq[k] = hdt * v[k];
-    integrate(M, q, dq, qt);
-    for (int k = 0; k < nv; ++k) v2[k] = v[k] + hdt * k1[k];
+    for (int k = 0; k < nv; ++k) {
+      w.ksum[k] = acc[k];
+      dq[k] = hdt * v[k];
+    }
+    integrate(M, q, dq, w.qs);
+    for (int k = 0; k < nv; ++k) vt[k] = v[k] + hdt * acc[k];
   }
-  solve<kTerrain, kExt>(L, M, C, w, qt, v2, cmd, s, out, k2);
+  stage<kTerrain, kExt>(L, M, C, w, s, out);
   if (lead) {
-    for (int k = 0; k < nv; ++k) dq[k] = hdt * v2[k];
-    integrate(M, q, dq, qt);
-    for (int k = 0; k < nv; ++k) v3[k] = v[k] + hdt * k2[k];
+    for (int k = 0; k < nv; ++k) {
+      w.ksum[k] = w.ksum[k] + T(2) * acc[k];
+      w.vsum[k] = v[k] + T(2) * vt[k];
+      dq[k] = hdt * vt[k];
+    }
+    integrate(M, q, dq, w.qs);
+    for (int k = 0; k < nv; ++k) vt[k] = v[k] + hdt * acc[k];
   }
-  solve<kTerrain, kExt>(L, M, C, w, qt, v3, cmd, s, out, k3);
+  stage<kTerrain, kExt>(L, M, C, w, s, out);
   if (lead) {
-    for (int k = 0; k < nv; ++k) dq[k] = dt * v3[k];
-    integrate(M, q, dq, qt);
-    for (int k = 0; k < nv; ++k) v4[k] = v[k] + dt * k3[k];
+    for (int k = 0; k < nv; ++k) {
+      w.ksum[k] = w.ksum[k] + T(2) * acc[k];
+      w.vsum[k] = w.vsum[k] + T(2) * vt[k];
+      dq[k] = dt * vt[k];
+    }
+    integrate(M, q, dq, w.qs);
+    for (int k = 0; k < nv; ++k) vt[k] = v[k] + dt * acc[k];
   }
-  solve<kTerrain, kExt>(L, M, C, w, qt, v4, cmd, s, out, k4);
+  stage<kTerrain, kExt>(L, M, C, w, s, out);
   if (lead) {
     const T dt6 = M.dt6();
-    for (int k = 0; k < nv; ++k) dq[k] = dt6 * (v[k] + T(2) * v2[k] + T(2) * v3[k] + v4[k]);
-    integrate(M, q, dq, qt);
-    for (int k = 0; k < M.nq; ++k) q[k] = qt[k];
-    for (int k = 0; k < nv; ++k) v[k] = v[k] + dt6 * (k1[k] + T(2) * k2[k] + T(2) * k3[k] + k4[k]);
+    for (int k = 0; k < nv; ++k) dq[k] = dt6 * (w.vsum[k] + vt[k]);
+    integrate(M, q, dq, w.qs);
+    for (int k = 0; k < M.nq; ++k) q[k] = w.qs[k];
+    for (int k = 0; k < nv; ++k) v[k] = v[k] + dt6 * (w.ksum[k] + acc[k]);
   }
 }
 
 // End-of-period outputs `[a | f_world | w_local | depth | imu | lam | cact |
-// bact]` (`_ConstrainedCore.final_outputs`), rows of the (n_extra, B) array,
-// written by lane 0; the solve's state outputs go to solver state `s_out`.
-// The contact block holds the constraint contacts' forces from the
-// multipliers, then with kExt the spring contacts' (one of them is empty).
+// bact]` (`_ConstrainedCore.final_outputs`) of the env's state, rows of the
+// (n_extra, B) array, written by lane 0; the solve's state outputs go to
+// solver state `s_out`. The contact block holds the constraint contacts'
+// forces from the multipliers, then with kExt the spring contacts' (one of
+// them is empty).
 template <bool kTerrain, bool kExt, typename T>
-__device__ __noinline__ void final_outputs_cm(const Model<T>& M_in, const CModel<T>& C_in,
-                                              const T* q, const T* v, const T* cmd, int s,
+__device__ __noinline__ void final_outputs_cm(const Model<T>& M_in, const CModel<T>& C_in, int s,
                                               int s_out, T* eo, int B, int b) {
   const Lanes L;
   const Model<T> M = M_in;
   const CModel<T> C = C_in;
   const Work<T> w = env_work<kExt>(M, C);
   const SolverState<T> out = w.state(s_out);
-  T a[NV_MAX];
-  solve<kTerrain, kExt>(L, M, C, w, q, v, cmd, s, s_out, a);
+  solve<kTerrain, kExt>(L, M, C, w, s, s_out);
   if (!L.leader()) return;
+  const T* q = w.q;
+  const T* v = w.v;
+  const T* a = w.qdd;
   // The tree arrays are free again once the solve is done
   joint_x(M, q, w.R, w.P);
   world_placements(M, w.R, w.P, w.RW, w.PW);
@@ -1576,8 +1680,9 @@ __device__ void copy_solver_state(const CModel<T>& C, const SolverState<T>& src,
 }
 
 // --------------------------------------------------------------------------
-// The two entry kernels: CM_LANES lanes per env, CM_ENVS envs per block,
-// one CmLayout slice of dynamic shared memory per env.
+// The two entry kernels: CM_LANES lanes per env, blockDim.x / CM_LANES envs
+// per block (the launcher's pick, at most CM_ENVS), one CmLayout slice of
+// dynamic shared memory per env.
 // --------------------------------------------------------------------------
 
 // One controller period: cc = [cmd (n_cmd) | dref (nd, kExt) | lam | cact |
@@ -1585,38 +1690,36 @@ __device__ void copy_solver_state(const CModel<T>& C, const SolverState<T>& src,
 // (kTerrain), each with the bound and contact rows or the extended body
 // (kExt).
 template <typename T, bool kTerrain, bool kExt>
-__global__ void cdyn_period_cm_kernel(const int* ci, const T* cf, const int* si, const T* sf,
-                                      const T* __restrict__ q_g, const T* __restrict__ v_g,
-                                      const T* __restrict__ cc_g, T* __restrict__ qo,
-                                      T* __restrict__ vo, T* __restrict__ eo, int B, int n_cmd,
-                                      int n_substeps, int integrator) {
+__global__ void __launch_bounds__(CM_LANES * CM_ENVS, CmPeriodBlocks<T, kExt>::value)
+cdyn_period_cm_kernel(const int* ci, const T* cf, const int* si, const T* sf,
+                      const T* __restrict__ q_g, const T* __restrict__ v_g,
+                      const T* __restrict__ cc_g, T* __restrict__ qo, T* __restrict__ vo,
+                      T* __restrict__ eo, int B, int n_cmd, int n_substeps, int integrator) {
   const Lanes L;
   const int slot = threadIdx.x / CM_LANES;
-  const int b = blockIdx.x * CM_ENVS + slot;
+  const int b = blockIdx.x * (blockDim.x / CM_LANES) + slot;
   if (b >= B) return;  // the whole group
   const Model<T> M(ci, cf);
-  const CModel<T> C(si, sf);
+  const CModel<T> C(si, sf, n_cmd, 0, 0);
   const Work<T> w = env_work<kExt>(M, C);
-  T q[NQ_MAX], v[NV_MAX], cmd[NCMD_MAX];
   if (L.leader()) {
     const int nd = kExt ? C.nd() : 0, nr = kExt ? C.nr() : 0;
     tree_levels(M, w.jorder, w.lstart, w.cnt + 3);
-    for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
-    for (int i = 0; i < M.nv; ++i) v[i] = v_g[(size_t)i * B + b];
-    for (int i = 0; i < n_cmd; ++i) cmd[i] = cc_g[(size_t)i * B + b];
+    for (int i = 0; i < M.nq; ++i) w.q[i] = q_g[(size_t)i * B + b];
+    for (int i = 0; i < M.nv; ++i) w.v[i] = v_g[(size_t)i * B + b];
+    for (int i = 0; i < n_cmd; ++i) w.cmd[i] = cc_g[(size_t)i * B + b];
     for (int k = 0; k < nd; ++k) w.dref[k] = cc_g[(size_t)(n_cmd + k) * B + b];
     load_solver_state(C, cc_g, n_cmd + nd, B, b, w.state(ST_CARRY));
     const int o_r = n_cmd + nd + C.n + C.nc + C.nb;
     for (int k = 0; k < nr; ++k) w.rref[k] = cc_g[(size_t)(o_r + k) * B + b];
   }
 #pragma unroll 1
-  for (int k = 0; k < n_substeps; ++k)
-    substep_cm<kTerrain, kExt>(M, C, q, v, cmd, ST_CARRY, integrator);
+  for (int k = 0; k < n_substeps; ++k) substep_cm<kTerrain, kExt>(M, C, ST_CARRY, integrator);
   if (L.leader()) {
-    for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = q[i];
-    for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = v[i];
+    for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = w.q[i];
+    for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = w.v[i];
   }
-  final_outputs_cm<kTerrain, kExt>(M, C, q, v, cmd, ST_CARRY, ST_TMP, eo, B, b);
+  final_outputs_cm<kTerrain, kExt>(M, C, ST_CARRY, ST_TMP, eo, B, b);
 }
 
 // One env step: action = [env action | dref (nd, kExt) | rref (nr, kExt)],
@@ -1632,60 +1735,55 @@ __global__ void cdyn_rollout_cm_kernel(const int* ci, const T* cf, const int* si
                                        int n_substeps, int integrator) {
   const Lanes L;
   const int slot = threadIdx.x / CM_LANES;
-  const int b = blockIdx.x * CM_ENVS + slot;
+  const int b = blockIdx.x * (blockDim.x / CM_LANES) + slot;
   if (b >= B) return;  // the whole group
   const Model<T> M(ci, cf);
-  const CModel<T> C(si, sf);
+  const CModel<T> C(si, sf, n_cmd, n_action, n_block);
   const Work<T> w = env_work<kExt>(M, C);
   // the carry's solver channels and the command row's (ST_TMP for the stages)
   const SolverState<T> carry = w.state(ST_CARRY), cc = w.state(ST_CC);
   const bool lead = L.leader();
   const int nd = kExt ? C.nd() : 0, nr = kExt ? C.nr() : 0;
-  T q[NQ_MAX], v[NV_MAX], ac[NACT_MAX], bc[NCARRY_MAX], bc_new[NCARRY_MAX], cmd[NCMD_MAX];
   if (lead) {
     tree_levels(M, w.jorder, w.lstart, w.cnt + 3);
     for (int k = 0; k < nd; ++k) w.dref[k] = a_g[(size_t)(n_action - nd - nr + k) * B + b];
     for (int k = 0; k < nr; ++k) w.rref[k] = a_g[(size_t)(n_action - nr + k) * B + b];
-    for (int i = 0; i < M.nq; ++i) q[i] = q_g[(size_t)i * B + b];
-    for (int i = 0; i < M.nv; ++i) v[i] = v_g[(size_t)i * B + b];
-    for (int i = 0; i < n_action; ++i) ac[i] = a_g[(size_t)i * B + b];
-    for (int i = 0; i < n_block; ++i) bc[i] = c_g[(size_t)i * B + b];
+    for (int i = 0; i < M.nq; ++i) w.q[i] = q_g[(size_t)i * B + b];
+    for (int i = 0; i < M.nv; ++i) w.v[i] = v_g[(size_t)i * B + b];
+    for (int i = 0; i < n_action; ++i) w.act[i] = a_g[(size_t)i * B + b];
+    for (int i = 0; i < n_block; ++i) w.blk[i] = c_g[(size_t)i * B + b];
     load_solver_state(C, c_g, n_block, B, b, carry);
-    for (int i = 0; i < n_cmd; ++i) cmd[i] = T(0);
+    for (int i = 0; i < n_cmd; ++i) w.cmd[i] = T(0);
   }
 #pragma unroll 1
   for (int t = 0; t < n_ticks; ++t) {
     if (lead) {
-      if (controller == CONTROLLER_PD) {
-        pd_controller(pi, pf, q, v, bc, ac, cmd, bc_new);
-        for (int i = 0; i < n_block; ++i) bc[i] = bc_new[i];
+      if (controller == CONTROLLER_PD) {  // the block carry updated in place
+        pd_controller(pi, pf, w.q, w.v, w.blk, w.act, w.cmd, w.blk);
       } else {  // zero-order hold of the action, block carry unchanged
-        for (int i = 0; i < n_cmd; ++i) cmd[i] = ac[i];
+        for (int i = 0; i < n_cmd; ++i) w.cmd[i] = w.act[i];
       }
       copy_solver_state(C, carry, cc);
     }
 #pragma unroll 1
-    for (int k = 0; k < n_substeps; ++k)
-      substep_cm<kTerrain, kExt>(M, C, q, v, cmd, ST_CC, integrator);
-    if (t < n_ticks - 1) {  // end-of-tick refresh of the carried warm start
-      T a[NV_MAX];
-      solve<kTerrain, kExt>(L, M, C, w, q, v, cmd, ST_CC, ST_CARRY, a);
-    }
+    for (int k = 0; k < n_substeps; ++k) substep_cm<kTerrain, kExt>(M, C, ST_CC, integrator);
+    if (t < n_ticks - 1)  // end-of-tick refresh of the carried warm start
+      solve<kTerrain, kExt>(L, M, C, w, ST_CC, ST_CARRY);
   }
   if (lead) {
-    for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = q[i];
-    for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = v[i];
+    for (int i = 0; i < M.nq; ++i) qo[(size_t)i * B + b] = w.q[i];
+    for (int i = 0; i < M.nv; ++i) vo[(size_t)i * B + b] = w.v[i];
   }
-  final_outputs_cm<kTerrain, kExt>(M, C, q, v, cmd, ST_CC, ST_TMP, eo, B, b);
+  final_outputs_cm<kTerrain, kExt>(M, C, ST_CC, ST_TMP, eo, B, b);
   if (!lead) return;
   const int nco = C.nc + (kExt ? M.nc : 0);
   const int n_std = M.nv + 10 * nco + 6 * M.ni + C.n + C.nc + C.nb;
   const int n_ccrow = n_cmd + nd + C.n + C.nc + C.nb + nr;
-  for (int i = 0; i < n_cmd; ++i) eo[(size_t)(n_std + i) * B + b] = cmd[i];
+  for (int i = 0; i < n_cmd; ++i) eo[(size_t)(n_std + i) * B + b] = w.cmd[i];
   for (int k = 0; k < nd; ++k) eo[(size_t)(n_std + n_cmd + k) * B + b] = w.dref[k];
   store_solver_state(C, cc, eo, n_std + n_cmd + nd, B, b);
   for (int k = 0; k < nr; ++k) eo[(size_t)(n_std + n_ccrow - nr + k) * B + b] = w.rref[k];
-  for (int i = 0; i < n_block; ++i) eo[(size_t)(n_std + n_ccrow + i) * B + b] = bc[i];
+  for (int i = 0; i < n_block; ++i) eo[(size_t)(n_std + n_ccrow + i) * B + b] = w.blk[i];
   store_solver_state(C, carry, eo, n_std + n_ccrow + n_block, B, b);
 }
 

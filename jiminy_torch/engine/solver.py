@@ -34,16 +34,17 @@ Kernels (`csrc/pgs.cuh`, instantiated in `csrc/cdyn.cu`):
 - `cdyn_rollout_cm` replaces the constrained body of `_pallas_rollout_fn`
   (`thread_cc=True` with the end-of-tick warm-start refresh).
 
-They run a group of lanes per env with the solve's matrices in shared
-memory, solving the active rows alone over each row's support dofs;
-`pack_constraints` packs those supports and `cm_smem_per_env` sizes each
-env's shared memory.
+They run a group of lanes per env with everything an env keeps in a
+shared-memory slice sized from the model, solving the active rows alone
+over each row's support dofs; `pack_constraints` packs those supports,
+`cm_smem_per_env` sizes each env's slice and `cm_geometry` picks the envs a
+block. Any row count and any model size is taken; a launch whose block the
+card refuses raises.
 
-Joint bounds, ground contacts and distance loops are ported, beside
-spring-damper ground contacts and penalty joint bounds, on flat ground or
-on a ground profile (`cd.ground_fn`; the kernels evaluate its packed form,
-`utils.terrain`); rolling rows raise `NotImplementedError` naming
-ROADMAP.md queue 1 item 10, sphere contact primitives item 9.
+Joint bounds, ground contacts (points and spheres), distance loops and
+rolling rows are ported, beside spring-damper ground contacts and penalty
+joint bounds, on flat ground or on a ground profile (`cd.ground_fn`; the
+kernels evaluate its packed form, `utils.terrain`).
 """
 
 from __future__ import annotations
@@ -706,6 +707,12 @@ class _ConstrainedCore:
         dv = [(dt / 6.0) * (k1a[k] + 2.0 * k2a[k] + 2.0 * k3a[k] + k4a[k]) for k in range(nv)]
         return cd.integrate_components(qc, dq), [vc[k] + dv[k] for k in range(nv)], cc
 
+    def _launch_geometry(self, name, device, dtype, n_action=0, n_block=0) -> tuple:
+        packed = self.cd.pack(self.tau_c, self.dt, self.imu_frames, device, dtype)
+        cpk = self.pack(device, dtype)
+        smem = cm_smem_per_env(packed, cpk, dtype, self.n_cmd, n_action, n_block)
+        return (smem,) + cm_geometry(name, packed, cpk, dtype, smem)
+
     def pack(self, device, dtype) -> "PackedConstraints":
         key = (torch.device(device), dtype)
         packed = self._packed.get(key)
@@ -735,6 +742,11 @@ class ConstrainedPeriodIntegrator(_ConstrainedCore):
             qc, vc, ccl = self.substep(qc, vc, ccl)
         extras = self.final_outputs(qc, vc, ccl)
         return cdyn._stack(qc, batch, q), cdyn._stack(vc, batch, q), cdyn._stack(extras, batch, q)
+
+    def launch_geometry(self, device, dtype) -> tuple:
+        """(bytes of shared memory an env, envs a block, envs an SM) of this
+        integrator's `cdyn_period_cm` launches."""
+        return self._launch_geometry("cdyn_period_cm", device, dtype)
 
     def kernel(self, q, v, cc, n_substeps: Optional[int] = None):
         n_substeps = self.n_substeps if n_substeps is None else n_substeps
@@ -801,6 +813,14 @@ class ConstrainedRolloutIntegrator(_ConstrainedCore):
             bc = bc2
         extras = self.final_outputs(qc, vc, cc) + list(cc) + list(bc)
         return cdyn._stack(qc, batch, q), cdyn._stack(vc, batch, q), cdyn._stack(extras, batch, q)
+
+    def launch_geometry(self, device, dtype) -> tuple:
+        """(bytes of shared memory an env, envs a block, envs an SM) of this
+        integrator's `cdyn_rollout_cm` launches on an action row of the
+        controller's command width."""
+        n_action = self.n_cmd + self.cset.n_distance + self.cset.n_rolling
+        n_block = 3 * self.n_cmd if self.controller.kind == cdyn.CONTROLLER_PD else 0
+        return self._launch_geometry("cdyn_rollout_cm", device, dtype, n_action, n_block)
 
     def kernel(self, q, v, action, carry, n_ticks: Optional[int] = None,
                n_substeps: Optional[int] = None):
@@ -926,23 +946,30 @@ def cm_ext(packed, cpk: PackedConstraints) -> int:
                or packed.counts["nc"] > 0 or packed.counts["nb"] > 0)
 
 
-def cm_smem_per_env(packed, cpk: PackedConstraints, dtype) -> int:
-    """Bytes of dynamic shared memory one env of a constrained launch
-    takes; raises for more rows than the kernels take (a block's share past
-    the card's limit fails at the launch)."""
+def cm_smem_per_env(packed, cpk: PackedConstraints, dtype, n_cmd: int, n_action: int = 0,
+                    n_block: int = 0) -> int:
+    """Bytes of dynamic shared memory one env of a constrained launch takes:
+    the model-sized slice of `csrc/pgs.cuh` (`CmLayout`) for its rows and
+    supports, with the launch's command width and, for `cdyn_rollout_cm`,
+    its action and controller-carry widths. Any size is taken here; a
+    block's share past what the card grants fails at the launch."""
     from jiminy_torch.ops import kernels
 
     c, k = packed.counts, cpk.counts
     elt = torch.empty((), dtype=dtype).element_size()
-    per_env = kernels.load().cm_smem_bytes(c["nj"], c["nq"], c["nv"], k["n_rows"], k["nc_rows"],
-                                           k["nb_rows"], k["support_width"], k["nd_rows"],
-                                           c["nc"], k["nr_rows"], elt)
-    if per_env < 0:
-        raise ValueError(
-            f"constrained kernels: {k['n_rows']} rows exceed the compiled cap; kernels sized "
-            "from the model are not ported yet (ROADMAP.md queue 2 item 5)"
-        )
-    return per_env
+    return kernels.load().cm_smem_bytes(c["nj"], c["nq"], c["nv"], k["n_rows"], k["nc_rows"],
+                                        k["nb_rows"], k["support_width"], k["nd_rows"], c["nc"],
+                                        k["nr_rows"], n_cmd, n_action, n_block, elt)
+
+
+def cm_geometry(name: str, packed, cpk: PackedConstraints, dtype, smem: int) -> tuple:
+    """(envs a block, envs an SM) of a constrained launch (`name`, with
+    `smem` bytes an env): the envs a block that keep the most envs resident
+    an SM (`kernels.Library.cm_geometry`)."""
+    from jiminy_torch.ops import kernels
+
+    elt = torch.empty((), dtype=dtype).element_size()
+    return kernels.load().cm_geometry(name, elt, smem, packed.terrain, cm_ext(packed, cpk))
 
 
 def _launch_period_cm(packed, cpk: PackedConstraints, q, v, cc, n_substeps: int,
@@ -950,8 +977,7 @@ def _launch_period_cm(packed, cpk: PackedConstraints, q, v, cc, n_substeps: int,
     cdyn._check_inputs(packed, q, v, cc)
     cdyn._check_inputs(packed, cpk.sf)
     nq, nv, n_cc = packed.counts["nq"], packed.counts["nv"], cc.shape[-1]
-    cdyn._check_caps(packed, n_cmd=n_cmd)
-    smem = cm_smem_per_env(packed, cpk, q.dtype)
+    smem = cm_smem_per_env(packed, cpk, q.dtype, n_cmd)
     if n_cc != n_cmd + cpk.counts["nd_rows"] + _n_solver(cpk) + cpk.counts["nr_rows"]:
         raise ValueError(f"cdyn_period_cm: command row width {n_cc} != {n_cmd} + loop lengths "
                          "+ solver channels + rolling heights")
@@ -967,7 +993,9 @@ def _launch_period_cm(packed, cpk: PackedConstraints, q, v, cc, n_substeps: int,
         cdyn._launch("cdyn_period_cm", q.dtype, packed.ci.data_ptr(), packed.cf.data_ptr(),
                      cpk.si.data_ptr(), cpk.sf.data_ptr(), qs.data_ptr(), vs.data_ptr(),
                      cs.data_ptr(), qo.data_ptr(), vo.data_ptr(), eo.data_ptr(), b, n_cmd,
-                     int(n_substeps), int(integrator), smem, packed.terrain, cm_ext(packed, cpk))
+                     int(n_substeps), int(integrator), smem,
+                     cm_geometry("cdyn_period_cm", packed, cpk, q.dtype, smem)[0], packed.terrain,
+                     cm_ext(packed, cpk))
     return (
         qo.t().reshape(tuple(batch) + (nq,)),
         vo.t().reshape(tuple(batch) + (nv,)),
@@ -983,8 +1011,7 @@ def _launch_rollout_cm(packed, cpk: PackedConstraints, ctrl, kind: int, q, v, ac
     nq, nv = packed.counts["nq"], packed.counts["nv"]
     na, n_carry = action.shape[-1], carry.shape[-1]
     n_block = n_carry - _n_solver(cpk)
-    cdyn._check_caps(packed, n_cmd=n_cmd, n_action=na, n_carry=n_block)
-    smem = cm_smem_per_env(packed, cpk, q.dtype)
+    smem = cm_smem_per_env(packed, cpk, q.dtype, n_cmd, na, n_block)
     if n_block != (3 * n_cmd if kind == cdyn.CONTROLLER_PD else 0):
         raise ValueError(f"cdyn_rollout_cm: carry width {n_carry} does not fit the controller "
                          "and the solver channels")
@@ -1006,8 +1033,9 @@ def _launch_rollout_cm(packed, cpk: PackedConstraints, ctrl, kind: int, q, v, ac
                      cpk.si.data_ptr(), cpk.sf.data_ptr(), pi.data_ptr(), pf.data_ptr(),
                      int(kind), qs.data_ptr(), vs.data_ptr(), as_.data_ptr(), bs.data_ptr(),
                      qo.data_ptr(), vo.data_ptr(), eo.data_ptr(), b, na, n_block, int(n_cmd),
-                     int(n_ticks), int(n_substeps), int(integrator), smem, packed.terrain,
-                     cm_ext(packed, cpk))
+                     int(n_ticks), int(n_substeps), int(integrator), smem,
+                     cm_geometry("cdyn_rollout_cm", packed, cpk, q.dtype, smem)[0],
+                     packed.terrain, cm_ext(packed, cpk))
     return (
         qo.t().reshape(tuple(batch) + (nq,)),
         vo.t().reshape(tuple(batch) + (nv,)),

@@ -1619,22 +1619,6 @@ def _launch(name: str, dtype, *args) -> None:
     KERNELS[name].launches += 1
 
 
-def _check_caps(packed: PackedModel, **extra) -> None:
-    """Hold a constrained launch (`csrc/pgs.cuh`, whose per-thread arrays are
-    sized at compile time) to the caps of `csrc/cdyn.cuh`. The spring
-    launches keep no cap-sized array: they are held only to their
-    model-sized shared-memory slice, which the launch sets and the card
-    refuses past what it grants a block."""
-    from jiminy_torch.ops import kernels
-
-    caps = kernels.load().caps
-    need = dict(packed.counts, **extra)
-    for key, val in need.items():
-        cap = caps.get(key)
-        if cap is not None and val > cap:
-            raise ValueError(f"cdyn kernel: {key}={val} exceeds the compiled cap {cap}")
-
-
 def _rows(x: torch.Tensor, batch, n: int) -> torch.Tensor:
     """(..., n) -> (B, n) contiguous rows (no copy for a contiguous batch)."""
     return x.expand(tuple(batch) + (n,)).reshape(math.prod(batch), n).contiguous()

@@ -150,8 +150,8 @@ def constrained_inputs(env, batch: int, seed: int, device=None, dtype=None, rows
 
     `rows="all"` makes every row active at the first solve (every bounded
     joint just past its upper bound, every foot 1-3 cm deep, all masks 1);
-    `rows="none"` makes none active (the base 2 m up, joints inside their
-    bounds, masks 0); `rows="standing"` is the robot at rest in its nominal
+    `rows="none"` makes none active (the base 2 m up, the joints at the
+    nominal pose, at least 0.01 rad inside their bounds, masks 0); `rows="standing"` is the robot at rest in its nominal
     pose (feet 1 mm deep, no velocity, contact masks 1, bound masks 0, no
     warm start): the contact rows active, the bound rows not."""
     if rows not in ("mixed", "all", "none", "standing"):
@@ -183,6 +183,10 @@ def constrained_inputs(env, batch: int, seed: int, device=None, dtype=None, rows
     elif rows == "none":
         q[:, 2] += 2.0
         q[:, 7:] = np.asarray(env.nominal_q.cpu(), np.float64)[7:]
+        if bounds:  # a nominal joint at a bound (the Atlas's knees, arms) moved inside it
+            lo = np.asarray(model.position_limit_lower)[bounds]
+            hi = np.asarray(model.position_limit_upper)[bounds]
+            q[:, bounds] = np.clip(q[:, bounds], lo + 0.01, hi - 0.01)
         masks[:] = 0.0
     elif rows == "standing":
         q[:] = np.asarray(env.nominal_q.cpu(), np.float64)

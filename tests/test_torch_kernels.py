@@ -8,7 +8,10 @@ on rough ground (`testing.rough_ground`), each env at its own (x, y), their
 terrain instances evaluating the ground per contact; and the constrained
 kernels' extended body (loop closures beside spring-damper contacts and
 penalty bounds) for `digit-pid` and jiminy_tpu's Cassie-shaped four-bar
-with a foot (`testing.fourbar_robot`), each flat and rough.
+with a foot (`testing.fourbar_robot`), each flat and rough; the constrained
+kernels for the Atlas in constraint mode (`atlas-reduced-pid`, 60 rows, and
+`atlas-pid`, 78 rows and nv 36) and for the ant with its joint bounds as
+rows (44 rows).
 
 Marked `cuda`; they skip where no CUDA device is present (the check runs in a
 fixture, never at import). On a machine with a card, run them with:
@@ -76,7 +79,11 @@ def test_kernel_library_builds(cuda_device):
     from jiminy_torch.ops import kernels
 
     lib = kernels.load()
-    assert lib.caps["nj"] >= 13
+    # a small slice takes the most envs a block, a slice past what a block
+    # may hold is refused
+    assert lib.cm_geometry("cdyn_period_cm", 4, 1024)[0] == 4
+    with pytest.raises(RuntimeError, match="no block"):
+        lib.cm_geometry("cdyn_rollout_cm", 4, 300_000)
     for name in ("cdyn_accel", "cdyn_period", "cdyn_rollout", "cdyn_period_cm",
                  "cdyn_rollout_cm"):
         assert name in lib.build.ptxas_log
@@ -435,15 +442,15 @@ def test_constrained_kernels_match_plain_at_the_extremes(cuda_device, dtype, row
 @pytest.mark.cuda
 @pytest.mark.parametrize("too_big", ["rows", "shared memory"])
 def test_constrained_launch_refuses_what_does_not_fit(cuda_device, too_big):
-    """A model with more rows than the kernels take, or whose envs would
-    need more shared memory than a block may use, raises; nothing runs in
-    its place."""
+    """A model whose envs would need more shared memory than a block may
+    use, by its rows or by its supports, raises; nothing runs in its
+    place."""
     env = _cm_env(cuda_device, torch.float32)
     run = env.engine._get_period_run("rk4")
     q, v, cmd, sol = constrained_inputs(env, 4, seed=6)
     packed = run.cd.pack(run.tau_c, run.dt, run.imu_frames, cuda_device, torch.float32)
     cpk = run.pack(cuda_device, torch.float32)
-    grown = {"rows": dict(n_rows=41), "shared memory": dict(support_width=4000)}[too_big]
+    grown = {"rows": dict(n_rows=400), "shared memory": dict(support_width=4000)}[too_big]
     cpk = dataclasses.replace(cpk, counts=dict(cpk.counts, **grown))
     cdyn.reset_launch_counts()
     with pytest.raises((ValueError, RuntimeError), match="constrained kernels|cdyn_period_cm"):
@@ -654,3 +661,93 @@ def test_digit_steps_through_cdyn_rollout_cm(cuda_device):
     assert launches == {"cdyn_accel": 0, "cdyn_period": 0, "cdyn_rollout": 0,
                         "cdyn_period_cm": 0, "cdyn_rollout_cm": 1}
     assert torch.isfinite(st.sim.q).all() and st.sim.distance_ref.shape == (256, 2)
+
+
+def _atlas_cm(device, dtype, name):
+    base = make(name, device=device, dtype=dtype).engine.options
+    return make(name, device=device, dtype=dtype, options=constraint_mode_options(base))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rows,batch", [
+    (torch.float64, "mixed", 67), (torch.float64, "all", 16), (torch.float64, "none", 16),
+    (torch.float64, "mixed", 1), (torch.float32, "mixed", 67), (torch.float32, "all", 16),
+    (torch.float32, "none", 16)])
+@pytest.mark.parametrize("name", ["atlas-reduced-pid", "atlas-pid"])
+def test_atlas_constrained_kernels_match_plain(cuda_device, dtype, name, rows, batch):
+    """The Atlas in constraint mode (60 and 78 rows, nv 18 and 36, the rows
+    past the sweep's registers in the slice): a period of one substep and a
+    rollout of 2 ticks of one substep behind the PD block, every row, no
+    row and some rows active, batches that leave the last block part-filled.
+    Float32 over batches only: its measure is the 90th percentile over envs,
+    and the stiff bound and contact rows carry a one-ulp difference of a
+    single env past TOL's 1e-2 of the column's RMS (measured 0.34 at B = 1)."""
+    env = _atlas_cm(cuda_device, dtype, name)
+    nm, n_rows = env.robot.nmotors, env.engine.cset.total_rows
+    assert n_rows == {"atlas-reduced-pid": 60, "atlas-pid": 78}[name]
+    q, v, cmd, sol = constrained_inputs(env, batch, seed=7, rows=rows)
+    run = env.engine._get_period_run("rk4")
+    cc = torch.cat([cmd, sol], dim=-1)
+    period = run.kernel(q, v, cc, n_substeps=1), run.plain(q, v, cc, n_substeps=1)
+    block = torch.zeros((batch, 3 * nm), dtype=dtype, device=cuda_device)
+    block[:, :nm] = q[:, 7:]
+    carry = torch.cat([block, sol], dim=-1)
+    rrun = env.engine._get_rollout_run("test-pd", env.block.component_controller(env.env), 16)
+    rollout = (rrun.kernel(q, v, cmd * 2.5, carry, n_ticks=2, n_substeps=1),
+               rrun.plain(q, v, cmd * 2.5, carry, n_ticks=2, n_substeps=1))
+    torch.cuda.synchronize()
+    for outs, refs in (period, rollout):
+        for out, ref in zip(outs, refs):
+            assert torch.isfinite(out).all()
+            assert _error(out, ref, dtype) < TOL[dtype][1]
+    channels = period[0][2][:, -sol.shape[1]:]  # [lam | contact active | bound active]
+    lam, nc = channels[:, :n_rows], env.engine.cset.n_contacts
+    active = 4 * channels[:, n_rows:n_rows + nc].sum(-1) + channels[:, n_rows + nc:].sum(-1)
+    if rows == "none":
+        assert bool((lam == 0).all())
+    if rows == "all":  # rows past the registers' in the system
+        assert int(active.min()) > 40 and bool((lam != 0).any(-1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_ant_bounds_as_rows_kernels_match_plain(cuda_device, dtype):
+    """The ant with its joint bounds as rows: 36 sphere rows and 8 bound
+    rows through the extended body."""
+    from jiminy_torch.engine.config import ContactModel
+
+    opts = make("ant", device=cuda_device, dtype=dtype,
+                contact_model=ContactModel.CONSTRAINT).engine.options
+    env = make("ant", device=cuda_device, dtype=dtype,
+               options=opts.replace(joint_bounds_mode="constraint"))
+    assert env.engine.cset.total_rows == 44
+    q, v, cmd, sol = constrained_inputs(env, 129, seed=8)
+    run = env.engine._get_period_run("rk4")
+    cc = torch.cat([cmd, sol], dim=-1)
+    rrun = env.engine._get_rollout_run("test-zoh", cdyn.ZOHPassThrough(env.robot.nmotors), 10)
+    for outs, refs in ((run.kernel(q, v, cc, n_substeps=2), run.plain(q, v, cc, n_substeps=2)),
+                       (rrun.kernel(q, v, cmd * 0.05, sol, n_ticks=2, n_substeps=1),
+                        rrun.plain(q, v, cmd * 0.05, sol, n_ticks=2, n_substeps=1))):
+        torch.cuda.synchronize()
+        for out, ref in zip(outs, refs):
+            assert torch.isfinite(out).all()
+            assert _error(out, ref, dtype) < TOL[dtype][1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["atlas-reduced-pid", "atlas-pid"])
+def test_atlas_steps_through_the_constrained_kernels(cuda_device, name):
+    """make(...) in constraint mode: one cdyn_rollout_cm launch an env step,
+    one cdyn_period_cm a controller period on the per-period path."""
+    env = _atlas_cm(cuda_device, torch.float32, name)
+    st, _ = env.reset(batch_size=64)
+    action = torch.zeros(env.action_size, device=cuda_device)
+    cdyn.reset_launch_counts()
+    st, *_ = env.step(st, action)
+    env.use_fused_rollout = False
+    st, *_ = env.step(st, action)
+    torch.cuda.synchronize()
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    assert launches == {"cdyn_accel": 0, "cdyn_period": 0, "cdyn_rollout": 0,
+                        "cdyn_period_cm": env.n_ctrl_per_step, "cdyn_rollout_cm": 1}
+    assert torch.isfinite(st.sim.q).all() and torch.isfinite(st.sim.lam).all()
