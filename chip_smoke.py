@@ -56,11 +56,12 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    within 5 %, joints within their limits, multipliers inside their boxes
    and friction cones).
 8. The constrained kernels at B=131072: float32 on the main path's states,
-   timed against the plain version at the full tick and substep counts; float64 on the main path's
+   timed over the whole launch and over the checks' cut; float64 on the main path's
    states and float64 and float32 on states with active rows
    (`constrained_inputs`), with every row and with no row active, and at a
    batch one env short (the last block part-filled), at 2 ticks x 2
-   substeps (a plain constrained step is millions of eager launches), per
+   substeps (a plain constrained step is millions of eager launches; the
+   plain version is timed over that cut, `plain_ms` null), per
    column as in phase 3; and witnesses that the check fails for a zeroed
    multiplier column and for a solver stopped after one sweep. Ops are
    counted on the plain version per scalar element at B=1 on a main-path
@@ -82,9 +83,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 11. The three spring kernels on atlas-pid's path states, as in phase 6 at
    B=131072, each rollout held to its plain version over ATLAS_CHECK_TICKS
    controller ticks (one-ulp differences grow tenfold a tick on the standing
-   humanoid); a whole plain step is not run: the rollout's record has
-   `plain_ms` null, and the kernel and the plain version timed over those
-   ticks. Their records join the kernel line with `"model": "atlas-pid"`.
+   humanoid) and each period over ATLAS_CHECK_SUBSTEPS substeps; a whole
+   plain launch is not run: those records have `plain_ms` null, and the
+   kernel and the plain version timed over the cut. Their records join the
+   kernel line with `"model": "atlas-pid"`.
 12. Toy golden rows: make("cartpole"), "acrobot" and "pendulum" at float64,
    B=1, on the card, every row of tests/goldens/<toy>.csv from jiminy_tpu's
    initial states (tests/goldens_torch/toy_initial_states.json) with the
@@ -242,7 +244,21 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    bytes an env, envs a block and an SM; records join the kernels line with
    `"model": "... (constraint mode ...)"`.
 
-The op and call counts (phases 5, 6, 8, 11, 18, 19, 22, 23 and 25) and phase
+26. The flexible ANYmal (`make("anymal-pid", flexible=True)`: a spherical
+   flexibility joint before each knee, nq 35, nv 30), stage by stage: every
+   RK4 stage one launch of cdyn_accel's SPHERICAL instance, a tick a CUDA
+   graph. float32, B=131072: the reset (1 launch), a warm-up step and
+   N_STEPS_FLEX steps (168 launches a step, nothing else), env-steps/s and
+   cdyn_accel's share of a step; RK4 at 1 ms diverges on the flexibility's
+   damped mode as in jiminy_tpu (reported, not held); with
+   `testing.resolving_options` N_PERIODS_FLEX_RESOLVED periods stand and
+   bend the flexibility joints. cdyn_accel against its plain version at
+   float64 within 1e-9 on the reset states, the resolved run's and
+   `flexible_states` (random and near-identity quaternions), one env short
+   too; float32 by TOL's rule; its record with `"model": "anymal-pid
+   (flexible)"`.
+
+The op and call counts (phases 5, 6, 8, 11, 18, 19, 22, 23, 25 and 26) and phase
 17's CPU train_steps run on the CPU in three worker processes beside the
 card's phases (those that need no main path's state from the start). Every
 process the script starts ends before it exits. The plain versions of the
@@ -277,6 +293,7 @@ GOLDEN_REACH = 5.0  # atlas golden rows: times the one-ulp witnesses' spread
 ATLAS_GOLDEN_ROWS = 10
 N_STEPS_ATLAS = 3  # atlas-pid main path
 ATLAS_CHECK_TICKS = 1  # atlas rollouts held to their plain version: controller ticks
+ATLAS_CHECK_SUBSTEPS = 1  # atlas periods held to their plain version: substeps (of 5)
 N_STEPS_CM = 10  # constrained main path (the robot settles within some 10 steps)
 N_STEPS_DOPRI = 2  # DOPRI main path
 B_DOPRI_F64 = 256  # DOPRI kernel-vs-plain periods
@@ -1006,7 +1023,7 @@ def _spring_geometry(eng, nm, n_carry):
 
 
 def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, dopri=None,
-                         counts=None):
+                         counts=None, check_substeps=None):
     """The three spring kernels at the main path's shapes (B = B_MAIN) for
     `model` (the env id of `env`, float32 on the card), `launches` each
     kernel's count in its main path's run.
@@ -1035,8 +1052,9 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
     that many controller ticks (a humanoid's 16 ticks carry a one-ulp
     difference far); a whole plain step is not run, so the record's
     `plain_ms` is null and the kernel and the plain version are timed over
-    those ticks (`ms_part`, `plain_ms_part`). `counts` is a future of `spring_op_counts(model)`
-    (counted here without it).
+    those ticks (`ms_part`, `plain_ms_part`); with `check_substeps`, the
+    period alike over that many substeps. `counts` is a future of
+    `spring_op_counts(model)` (counted here without it).
     """
     import torch
 
@@ -1064,7 +1082,8 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
             return eng._cdyn.accel_kernel, eng._cdyn.accel_plain
         if name == "cdyn_period":
             run = eng._get_period_run("rk4")
-            return run.kernel, replayed(run.plain)
+            return (lambda *xs: run.kernel(*xs, n_substeps=ticks),
+                    lambda *xs: replayed(run.plain)(*xs, n_substeps=ticks))
         run = eng._get_rollout_run(block, ctrl if dtype == torch.float32 else ctrl64, n_ticks)
         return (lambda *xs: run.kernel(*xs, n_ticks=ticks),
                 lambda *xs: replayed(run.plain)(*xs, n_ticks=ticks))
@@ -1122,8 +1141,10 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
         integrated = name != "cdyn_accel"
         tol64 = TOL["float64"][integrated]
         tol32 = TOL["float32"][integrated]
-        ticks = check_ticks if name == "cdyn_rollout" else None
-        span = f" ({ticks} ticks)" if ticks else ""
+        ticks = {"cdyn_rollout": check_ticks, "cdyn_period": check_substeps}.get(name)
+        unit, of = (("ticks", n_ticks) if name == "cdyn_rollout" else
+                    ("substeps", engines[torch.float32].n_substeps))
+        span = f" ({ticks} {unit})" if ticks else ""
 
         # float32, main path states: timing and distance
         xs = main_inputs[name]
@@ -1138,8 +1159,8 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
         plain_basis, ms_part, plain_part = "measured", None, None
         if ticks:  # a whole plain step is not run: both timed over the ticks held
             ms_part, plain_part, plain_ms = _time_cuda(lambda: kern_c(*xs), 1), plain_ms, None
-            plain_basis = (f"not measured: the plain version's whole step was not run; over "
-                           f"{ticks} of {n_ticks} ticks it took plain_ms_part, the kernel ms_part")
+            plain_basis = (f"not measured: the plain version's whole launch was not run; over "
+                           f"{ticks} of {of} {unit} it took plain_ms_part, the kernel ms_part")
         e_abs = abs_err(outs, refs)
         e32_path, at32_path = output_error(outs, refs, "float32")
         nudged = (torch.nextafter(xs[0], torch.full_like(xs[0], math.inf)),) + xs[1:]
@@ -1214,7 +1235,8 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
             "model": model,
-            "check_ticks": ticks,
+            "check_ticks": ticks if name == "cdyn_rollout" else None,
+            "check_substeps": ticks if name == "cdyn_period" else None,
             "plain_ms_basis": plain_basis,
             "ms_part": ms_part,
             "plain_ms_part": plain_part,
@@ -1237,7 +1259,7 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
         }
         stage_note = f" ({ms_stage:.4f} ms on DOPRI stage states)" if ms_stage else ""
         plain_txt = (f"plain {plain_ms:.1f} ms (host clock, measured)" if not ticks else
-                     f"plain not timed over the whole step; over {ticks} ticks the kernel "
+                     f"plain not timed over the whole launch; over {ticks} {unit} the kernel "
                      f"{ms_part:.3f} ms (CUDA events), the plain version {plain_part:.1f} ms "
                      f"(host clock)")
         log(f"[kernel] {model} {name} B={B_MAIN} float32: {ms:.4f} ms{stage_note} (CUDA events), "
@@ -1607,7 +1629,9 @@ def cm_op_counts(st):
 def phase_constrained_records(env, launches, period_launches, smi, st, st2, counters=None):
     """The two constrained kernels at B = B_MAIN, records for the kernels
     line; the ops counted on the CPU meanwhile, by `counters` (an executor)
-    where given."""
+    where given. Each kernel is timed over its whole launch and, beside its
+    plain version, over the reduced counts every check runs (`plain_ms`
+    null, `ms_part` and `plain_ms_part` over `cut_compared`)."""
     import dataclasses
     import torch
 
@@ -1683,16 +1707,19 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
     tol64, tol32 = TOL["float64"][1], TOL["float32"][1]
     records = []
     for name in ("cdyn_period_cm", "cdyn_rollout_cm"):
-        # float32, main path states, full tick and substep counts: timing
+        # float32, main path states: the whole launch timed; beside the plain
+        # version, over the reduced counts
         run32 = run_of(name, engines[torch.float32])
         xs = main_inputs[name]
+        cut = reduced(name)
         ms = _time_cuda(lambda: run32.kernel(*xs), n_time[name])
-        outs = run32.kernel(*xs)
+        ms_part = _time_cuda(lambda: run32.kernel(*xs, **cut), n_time[name])
+        outs = run32.kernel(*xs, **cut)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        refs = replayed(run32.plain)(*xs)
+        refs = replayed(run32.plain)(*xs, **cut)
         torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        plain_part = (time.perf_counter() - t0) * 1e3
         e_abs = abs_err(outs, refs)
         del outs, refs
 
@@ -1803,11 +1830,16 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
             "launches": n_launch[name],
             "max_abs_err": e_abs,
             "ms": ms,
-            "plain_ms": plain_ms,
+            "plain_ms": None,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None,
             "model": "anymal-pid",
+            "plain_ms_basis": (f"not measured: the plain version's whole launch was not run; over "
+                               f"{cut} it took plain_ms_part, the kernel ms_part"),
+            "cut_compared": cut,
+            "ms_part": ms_part,
+            "plain_ms_part": plain_part,
             "ops_per_env": ops[name],
             "ops_per_env_generic": ops_generic[name],
             "bound_ms_generic": max(t_ops_generic, t_bytes),
@@ -1824,8 +1856,9 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
             **_cm_geometry_record(lib, device, run32, run_of(name, engines[torch.float64]), name,
                                   False, False),
         }
-        log(f"[kernel] {name} B={B_MAIN} float32: {ms:.3f} ms (CUDA events), plain {plain_ms:.1f} ms "
-            f"(host clock), bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; every element op "
+        log(f"[kernel] {name} B={B_MAIN} float32: {ms:.3f} ms (CUDA events); over {cut} the kernel "
+            f"{ms_part:.3f} ms (CUDA events), the plain version {plain_part:.1f} ms (host clock); "
+            f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; every element op "
             f"{rec['bound_ms_generic']:.4f} ms); {_geometry_text(rec)}; |kernel-plain| on the "
             f"main path's states {e_abs:.3e} on {smi}")
         records.append(rec)
@@ -4063,6 +4096,232 @@ def phase_cm_wide(device, smi, models, counters=None):
     return records, rates
 
 
+# --------------------------------------------------------------------------- #
+# The flexible ANYmal: cdyn_accel's SPHERICAL instance, stage by stage
+# --------------------------------------------------------------------------- #
+
+N_STEPS_FLEX = 3  # the flexible ANYmal's main path, after a warm-up step
+N_PERIODS_FLEX_RESOLVED = 50  # periods of 1e-4 s with substeps that resolve the flexibility
+FLEX_DEFLECTION_MIN = 1e-6  # [rad] the flexibility joints bend under the motors' reaction
+
+
+def flex_op_counts():
+    """Ops per env of one `cdyn_accel` evaluation of the flexible ANYmal
+    (its plain version, `flexible_states`, B=1, on the CPU), structural
+    zeros folded away and not: (ops, ops_generic)."""
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.testing import flexible_states
+
+    env = make("anymal-pid", flexible=True, device="cpu", dtype=torch.float64)
+    q, v, tau = flexible_states(env, 1, seed=9)
+    cd = env.engine._cdyn
+    return tuple(count_ops(lambda: cd.accel_plain(q, v, tau), fold) for fold in (True, False))
+
+
+def phase_flexible(device, smi, counts=None):
+    """26. The flexible ANYmal (`make("anymal-pid", flexible=True)`: the
+    procedural look-alike with a spherical flexibility joint before each
+    knee, nq 35, nv 30, 4 SPHERICAL joints), jiminy_tpu's per-stage path:
+    every RK4 stage one `cdyn_accel` launch of its SPHERICAL instance, on
+    the card a controller tick replayed from a CUDA graph.
+
+    - Main path, float32, B=B_MAIN: launch counts to 0, the reset (one
+      launch), counts read; a warm-up step (its first tick captures the
+      graph), counts to 0, N_STEPS_FLEX steps of zero actions (8 ticks x (5 x
+      4 + 1) = 168 launches a step, nothing else), counts read: env-steps/s,
+      the step's time, cdyn_accel's share of it (CUDA events on the reset
+      states x 168 over the host-clocked step). As configured (RK4 at 1 ms)
+      the state turns non-finite within two ticks, in jiminy_tpu as here
+      (`testing.resolving_options`): the finite share is reported, not held.
+    - The same robot with `resolving_options` (substeps of 2.5e-5 s,
+      periods of 1e-4 s): N_PERIODS_FLEX_RESOLVED periods through
+      `Engine.step` under random motor commands from the reset: all finite,
+      every env standing, the flexibility joints bent.
+    - cdyn_accel against its plain version at float64, every column within
+      1e-9: on the main path's reset states, on the resolved run's states,
+      on `flexible_states` (random unit quaternions at the flexibility
+      joints in half the envs, within 1e-4 to 1e-2 rad of the identity in
+      the other half), and at B_MAIN - 1 on those; at float32 on the
+      perturbed states by TOL's rule, and printed on the reset states beside
+      a one-ulp witness. A zeroed output is refused.
+    - Its record: ms on the resolved states (CUDA events), the plain
+      version's on them (host clock), ops counted on the plain version
+      (`flex_op_counts`), bytes (q, v, tau read, qdd written), registers,
+      shared memory and envs an SM of the SPHERICAL instance."""
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.ops import cdyn, kernels
+    from jiminy_torch.testing import flexible_states, resolving_options
+
+    env = make("anymal-pid", flexible=True, device=device)
+    eng = env.engine
+    m = env.robot.model
+    n_ticks = env.env.n_ctrl_per_step
+    per_step = n_ticks * (4 * eng.n_substeps + 1)
+    log(f"[flexible] nq {m.nq}, nv {m.nv}, {m.njoints} joints "
+        f"({sum(t == 4 for t in m.joint_types)} SPHERICAL), {env.robot.nmotors} motors; "
+        f"{n_ticks} ticks x ({eng.n_substeps} RK4 substeps x 4 + 1) = {per_step} cdyn_accel "
+        f"launches a step")
+    check(eng._stagewise and not eng.supports_fused_rollout and per_step == 168,
+          "the flexible ANYmal does not take the per-stage path")
+    action = torch.zeros(env.action_size, device=device)
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    st, _ = env.reset(batch_size=B_MAIN)
+    torch.cuda.synchronize()
+    reset_ms = (time.perf_counter() - t0) * 1e3
+    reset_launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    check(reset_launches == {k: int(k == "cdyn_accel") for k in reset_launches},
+          f"flexible reset: launches {reset_launches}")
+    check(bool(torch.isfinite(st.sim.a).all()), "flexible reset: non-finite accelerations")
+    q0, v0 = st.sim.q.contiguous(), st.sim.v.contiguous()
+    tau0 = eng._joint_torques(st.sim.command, q0, v0)[1].contiguous()
+    t0 = time.perf_counter()
+    st, *_ = env.step(st, action)  # warm-up (its first tick captures the graph)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    cdyn.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(N_STEPS_FLEX):
+        st, *_ = env.step(st, action)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+    log(f"[flexible] float32 B={B_MAIN}: reset {reset_ms:.1f} ms (launches {reset_launches}), "
+        f"warm-up step {warm_s:.2f} s (the graph's capture), {N_STEPS_FLEX} steps: launches "
+        f"{launches}")
+    check(launches == {k: (per_step * N_STEPS_FLEX if k == "cdyn_accel" else 0)
+                       for k in launches},
+          "flexible main path: cdyn_accel not 168 times a step (and nothing else)")
+    step_ms = elapsed / N_STEPS_FLEX * 1e3
+    steps_per_s = B_MAIN * N_STEPS_FLEX / elapsed
+    finite_share = float(torch.isfinite(st.sim.q).all(-1).float().mean())
+    kern32 = eng._cdyn.accel_kernel
+    ms_reset = _time_cuda(lambda: kern32(q0, v0, tau0), 20)
+    share = per_step * ms_reset / step_ms
+    log(f"[flexible] env-steps/s {steps_per_s:.1f} ({step_ms:.1f} ms a step, host clock); "
+        f"cdyn_accel {ms_reset:.4f} ms on the reset states (CUDA events) x {per_step} = "
+        f"{share:.1%} of the step; share of envs still finite {finite_share:.4f} (RK4 at 1 ms "
+        f"diverges on the flexibility's damped mode, as in jiminy_tpu) on {smi}")
+    del st
+
+    # The same robot with substeps that resolve the flexibility
+    res = make("anymal-pid", flexible=True, device=device,
+               options=resolving_options(eng.options))
+    rst, _ = res.reset(batch_size=B_MAIN)
+    sim = rst.sim
+    cmd = _commands(B_MAIN, 12, torch.float32, device, seed=5, scale=0.5)
+    t0 = time.perf_counter()
+    for _ in range(N_PERIODS_FLEX_RESOLVED):
+        sim = res.engine.step(sim, cmd)
+    torch.cuda.synchronize()
+    res_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(sim.q).all()) and bool(torch.isfinite(sim.a).all()),
+          "flexible, resolved substeps: non-finite state")
+    bend = max(float(sim.q[:, m.q_slice(j)][:, :3].abs().max())
+               for j in env.robot.flexibility.joint_indices)
+    log(f"[flexible] resolved substeps ({res.engine.n_substeps} of "
+        f"{res.engine.tick_period / res.engine.n_substeps:.1e} s a period): "
+        f"{N_PERIODS_FLEX_RESOLVED} periods in {res_s:.2f} s, base height "
+        f"{float(sim.q[:, 2].min()):.4f}-{float(sim.q[:, 2].max()):.4f} m, largest flexibility "
+        f"quaternion component {bend:.3e}")
+    check(bend > FLEX_DEFLECTION_MIN, f"flexible: the flexibility joints do not bend ({bend})")
+    check(float(sim.q[:, 2].min()) > env.env.base_height_min, "flexible: a robot fell")
+    q1, v1 = sim.q.contiguous(), sim.v.contiguous()
+    tau1 = res.engine._joint_torques(cmd, q1, v1)[1].contiguous()
+    del res, rst, sim
+
+    # The kernel against its plain version
+    env64 = make("anymal-pid", flexible=True, device=device, dtype=torch.float64)
+    cd64, cd32 = env64.engine._cdyn, eng._cdyn
+    pert = flexible_states(env64, B_MAIN, seed=0)
+    states = {"the main path's reset": (q0, v0, tau0), "the resolved run's": (q1, v1, tau1),
+              "perturbed": pert}
+    errs = {}
+    for label, xs in states.items():
+        xs = tuple(x.double() for x in xs)
+        out, ref = cd64.accel_kernel(*xs), cd64.accel_plain(*xs)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(out).all()), f"flexible cdyn_accel: non-finite on {label} states")
+        errs[label], at = output_error((out,), (ref,), "float64")
+        log(f"[check] flexible cdyn_accel float64 B={B_MAIN}, {label} states: column max rel err "
+            f"{errs[label]:.3e} at {at} (tol {TOL['float64'][0]:g})")
+        check(errs[label] < TOL["float64"][0], f"flexible cdyn_accel float64 disagrees on {label} "
+              f"states: {errs[label]}")
+        if label == "perturbed":
+            e_zero, _ = output_error((torch.zeros_like(out),), (ref,), "float64")
+            check(e_zero > TOL["float64"][0], "flexible cdyn_accel: the check passes a zeroed output")
+            b_rag = B_MAIN - 1
+            out_rag = cd64.accel_kernel(*(x[:b_rag] for x in xs))
+            errs["ragged"], _ = output_error((out_rag,), (ref[:b_rag],), "float64")
+            log(f"[check] flexible cdyn_accel float64 B={b_rag} (ragged), perturbed states: column "
+                f"max rel err {errs['ragged']:.3e}")
+            check(errs["ragged"] < TOL["float64"][0], "flexible cdyn_accel disagrees one env short")
+        del out, ref
+    p32 = tuple(x.float() for x in pert)
+    out, ref = kern32(*p32), cd32.accel_plain(*p32)
+    e32_pert, at32 = output_error((out,), (ref,), "float32")
+    log(f"[check] flexible cdyn_accel float32 B={B_MAIN}, perturbed states: column q90 err / rms "
+        f"{e32_pert:.3e} at {at32} (tol {TOL['float32'][0]:g})")
+    check(e32_pert < TOL["float32"][0], f"flexible cdyn_accel float32 disagrees: {e32_pert}")
+    out = kern32(q0, v0, tau0)
+    e32_main, _ = output_error((out,), (cd32.accel_plain(q0, v0, tau0),), "float32")
+    nudged = torch.nextafter(q0, torch.full_like(q0, math.inf))
+    e32_ulp, _ = output_error((kern32(nudged, v0, tau0),), (out,), "float32")
+    log(f"[check] flexible cdyn_accel float32, the reset states (printed, not held): column q90 "
+        f"err / rms {e32_main:.3e}; the kernel against itself with q moved one ulp {e32_ulp:.3e}")
+    del out, ref, pert, p32, env64
+
+    # Its record, timed on the resolved run's states
+    ms = _time_cuda(lambda: kern32(q1, v1, tau1), 20)
+    plain = cd32.accel_plain
+    plain(q1, v1, tau1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = plain(q1, v1, tau1)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    e_abs = abs_err((kern32(q1, v1, tau1),), (ref,))
+    ops, ops_generic = counts.result() if counts is not None else flex_op_counts()
+    nbytes = (m.nq + 3 * m.nv) * 4
+    t_ops = ops * B_MAIN / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes * B_MAIN / PEAK_BYTES * 1e3
+    lib = kernels.load()
+    packed = cd32.pack(None, 0.0, (), device, torch.float32)
+    c = packed.counts
+    per_env = {elt: lib.accel_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt, c["nsph"])[0]
+               for elt in (4, 8)}
+    per_sm = {elt: lib.sp_envs_per_sm("cdyn_accel", elt, per_env[elt], sph=True) for elt in (4, 8)}
+    regs = _cm_registers(lib.build.ptxas_log, "cdyn_accel", "f", False, True)
+    rec = {
+        "name": "cdyn_accel", "route": "cuda", "source": "jiminy_torch/csrc/spring.cuh",
+        "replaces": cdyn.KERNELS["cdyn_accel"].replaces.split()[0],
+        "launches": 1 + per_step * N_STEPS_FLEX, "max_abs_err": e_abs, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+        "model": "anymal-pid (flexible)", "instance": "SPHERICAL (kSph)",
+        "ms_main_path_reset_states": ms_reset, "env_steps_per_s": steps_per_s,
+        "step_ms": step_ms, "accel_share_of_step": share, "finite_share_after_steps": finite_share,
+        "ops_per_env": ops, "ops_per_env_generic": ops_generic, "bytes_per_env": nbytes,
+        "f64_err_main": errs["the main path's reset"], "f64_err_resolved": errs["the resolved run's"],
+        "f64_err_perturbed": errs["perturbed"], "f64_err_ragged": errs["ragged"],
+        "f32_q90_err_perturbed": e32_pert, "f32_q90_err_main": e32_main,
+        "f32_q90_err_main_one_ulp": e32_ulp, "registers": regs,
+        "smem_per_env": per_env[4], "smem_per_env_f64": per_env[8],
+        "envs_per_sm": per_sm[4], "envs_per_sm_f64": per_sm[8],
+    }
+    log(f"[kernel] anymal-pid (flexible) cdyn_accel B={B_MAIN} float32: {ms:.4f} ms (CUDA events, "
+        f"the resolved run's states), plain {plain_ms:.1f} ms (host clock), bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}; {ops} ops, {ops_generic} generic, "
+        f"{nbytes} B an env), {rec['bound_ms'] / ms:.2%} of it; {regs} registers, "
+        f"{per_env[4]} / {per_env[8]} B an env, {per_sm[4]} / {per_sm[8]} envs an SM (float32 / "
+        f"float64); launches {rec['launches']} on {smi}")
+    return [rec], steps_per_s
+
+
 def main():
     import concurrent.futures
     import multiprocessing
@@ -4118,6 +4377,7 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
     counts = {m: counters.submit(spring_op_counts, m) for m in ("anymal-pid", "atlas-pid", "ant")}
     counts["terrain"] = counters.submit(rough_terrain_ops)
     counts["dopri"] = counters.submit(dopri_glue_calls)
+    counts["flexible"] = counters.submit(flex_op_counts)
     ppo_cpu = {env_id: counters.submit(ppo_cpu_step, env_id, horizon, sizes)
                for env_id, horizon, sizes, _ in PPO_CASES}
     cartpole = card_lane.submit(phase_ppo_cartpole, device, smi)
@@ -4157,6 +4417,7 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
                 "cdyn_rollout": at_launches["cdyn_rollout"]}
     records += timed("atlas-pid kernel records", phase_kernel_records, "atlas-pid", at_env,
                      launches, smi, at_st, at_st2, check_ticks=ATLAS_CHECK_TICKS,
+                     check_substeps=ATLAS_CHECK_SUBSTEPS,
                      counts=counts["atlas-pid"])
     del at_env, at_st, at_st2
     atlas_cm, wide_rates = timed("atlas in constraint mode", phase_cm_wide, device, smi,
@@ -4191,6 +4452,9 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
     wide_rates.update(ant_bounds_rates)
     ball_records, ball_rates = timed("rolling ball", phase_ball, device, smi)
     records += ball_records
+    flex_records, flex_sps = timed("flexible ANYmal", phase_flexible, device, smi,
+                                   counts["flexible"])
+    records += flex_records
     cassie_sps = timed("cassie", phase_cassie, device, smi, cassie_rows)
     t_ppo = time.perf_counter()
     ppo_anymal = timed("PPO anymal-pid", phase_ppo_anymal, device, smi)
@@ -4204,6 +4468,7 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
         + "".join(f"{m} constraint mode at B={B_CM_WIDE} {r[0]:.1f} (reset {r[1]:.1f} ms), "
                   for m, r in wide_rates.items()) +
         f"rolling ball sphere {ball_rates['sphere']:.1f} and wheel {ball_rates['wheel']:.1f}, "
+        f"flexible anymal-pid {flex_sps:.1f} (per-stage path), "
         f"cassie-pid {cassie_sps:.1f} (generic path), toys {toy_rates}, PPO training "
         f"(anymal-pid, 4096 envs) {ppo_anymal['steps_per_s']:.1f} on {smi}")
     log(smi)

@@ -68,7 +68,7 @@ def main(argv):
                     lie.mv, lie.mm = mv, mm
                     env = make(env_id, device=dev)
                     if not graphs:  # every tick's ops launched eagerly
-                        env.engine._replay_generic_period = env.engine._generic_period
+                        env.engine._replay = lambda name, fn, inputs: fn(*inputs)
                     action = torch.zeros(env.action_size, device=dev)
                     st, _ = env.reset(batch_size=batch,
                                       generator=torch.Generator(dev).manual_seed(0))

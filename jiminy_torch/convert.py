@@ -1,6 +1,7 @@
 """Carry a simulator's "weights" across: the model arrays (every joint type:
 free-flyer, revolute, continuous, prismatic, spherical), the motor bank, a
-motorized robot assembled from both, the PD block constants, a trained
+motorized robot assembled from both (with its flexibility joints, backlash
+joints and theoretical model), the PD block constants, a trained
 policy's parameters and a simulation state (with its solver carry: the
 warm-start multipliers, active sets, loop lengths and rolling heights),
 given as plain numpy dictionaries.
@@ -17,7 +18,7 @@ import numpy as np
 import torch
 
 from jiminy_torch.engine.hardware import MOTOR_ARRAY_FIELDS, MotorBank
-from jiminy_torch.engine.robot import Robot
+from jiminy_torch.engine.robot import FlexibilityConfig, Robot
 from jiminy_torch.engine.state import SimState, StepperState
 from jiminy_torch.models.model import ARRAY_FIELDS, META_FIELDS, RobotModel
 from jiminy_torch.ops.cdyn import PDComponents
@@ -58,7 +59,8 @@ def motor_bank_from_arrays(arrays: dict) -> MotorBank:
 
 
 def robot_from_arrays(model_arrays: dict, motor_arrays=None, name=None, contact_frames=(),
-                      loop_pairs=(), contact_radii=None, rolling_specs=()) -> Robot:
+                      loop_pairs=(), contact_radii=None, rolling_specs=(), flexibility=None,
+                      backlash_joint_indices=(), theoretical_arrays=None) -> Robot:
     """A sensor-free Robot from a motorized model's arrays and its motor
     bank's (a robot built with `Robot.build(model, motors=...)`, as the toys
     build theirs), with its contact frames (indices or names: a Cassie's or
@@ -66,12 +68,24 @@ def robot_from_arrays(model_arrays: dict, motor_arrays=None, name=None, contact_
     default; an ant's spheres), its loop closures ((frame_a, frame_b) pairs)
     and its rolling constraints ((frame, radius, axis or None), jiminy_tpu's
     `rolling_specs`). The model's arrays already hold the motors' armature,
-    so nothing is folded again."""
+    so nothing is folded again. An extended model (a robot with flexibility
+    or backlash joints) comes with its `flexibility` ({"joint_indices",
+    "stiffness", "damping", "inertia"}: jiminy_tpu's FlexibilityConfig as
+    numbers), its `backlash_joint_indices` and the `theoretical_arrays` of
+    the model before the extension (None: the model itself)."""
     model = model_from_arrays(model_arrays)
     bank = motor_bank_from_arrays(motor_arrays) if motor_arrays is not None else None
     contacts = tuple(model.frame_index(f) if isinstance(f, str) else int(f) for f in contact_frames)
     radii = (0.0,) * len(contacts) if contact_radii is None else tuple(map(float, contact_radii))
-    return Robot(name=name or model.name, model=model, motors=bank,
+    flex = None
+    if flexibility is not None:
+        flex = FlexibilityConfig(
+            joint_indices=tuple(int(j) for j in flexibility["joint_indices"]),
+            **{f: np.array(flexibility[f], dtype=np.float64).reshape(-1, 3)
+               for f in ("stiffness", "damping", "inertia")})
+    theoretical = model_from_arrays(theoretical_arrays) if theoretical_arrays is not None else None
+    return Robot(name=name or model.name, model=model, theoretical_model=theoretical, motors=bank,
+                 flexibility=flex, backlash_joint_indices=tuple(map(int, backlash_joint_indices)),
                  contact_frame_indices=contacts, contact_radii=radii,
                  loop_pairs=tuple(tuple(p) for p in loop_pairs),
                  rolling_specs=tuple((f, float(r), None if a is None else tuple(map(float, a)))

@@ -637,12 +637,12 @@ int prepare_sp(K kernel, int smem_per_env) {
                                                smem_per_env * ENVS));
 }
 
-template <typename T, bool kTerrain>
+template <typename T, bool kTerrain, bool kSph = false>
 int launch_accel(const void* ci, const void* cf, const void* q, const void* v, const void* tau,
                  void* out, int B, int smem_per_env, void* stream) {
-  const int rc = prepare_sp<SPA_ENVS>(cdyn_accel_kernel<T, kTerrain>, smem_per_env);
+  const int rc = prepare_sp<SPA_ENVS>(cdyn_accel_kernel<T, kTerrain, kSph>, smem_per_env);
   if (rc != 0) return rc;
-  cdyn_accel_kernel<T, kTerrain><<<(B + SPA_ENVS - 1) / SPA_ENVS, SP_LANES * SPA_ENVS,
+  cdyn_accel_kernel<T, kTerrain, kSph><<<(B + SPA_ENVS - 1) / SPA_ENVS, SP_LANES * SPA_ENVS,
                          (size_t)smem_per_env * SPA_ENVS, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(ci), static_cast<const T*>(cf), static_cast<const T*>(q),
       static_cast<const T*>(v), static_cast<const T*>(tau), static_cast<T*>(out), B);
@@ -738,7 +738,8 @@ int launch_rollout_cm(const void* ci, const void* cf, const void* si, const void
 // holds the host helpers and the occupancy queries' dispatch; parts 1 and 2
 // the spring kernels at float and double; parts 3 and 4 cdyn_period_cm,
 // parts 5 and 6 cdyn_rollout_cm, at float and double, each with its terrain
-// and extended-body instances.
+// and extended-body instances; part 7 cdyn_accel's SPHERICAL instances
+// (kSph) at both.
 
 #ifdef CDYN_PART
 #ifdef CDYN_CM_PROFILE
@@ -751,6 +752,18 @@ int launch_rollout_cm(const void* ci, const void* cf, const void* si, const void
 
 namespace cdyn {
 
+// Blocks of kernel k with `threads` threads and `smem` bytes of dynamic
+// shared memory a block that the runtime would keep on one SM, its limit
+// raised to that share first; a negative CUDA error code on failure.
+template <typename K>
+int blocks_per_sm(K k, int threads, int smem) {
+  int blocks = 0;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
+  cudaGetLastError();
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
+}
+
 // Blocks of a spring kernel (0 cdyn_accel, 1 cdyn_period, 2 cdyn_rollout;
 // its terrain instance with `terrain`) at float type T that the runtime
 // would keep on one SM (`cdyn_sp_blocks_per_sm`).
@@ -758,13 +771,7 @@ template <typename T>
 int sp_blocks_per_sm(int kernel, int smem_per_env, int terrain) {
   const int threads = SP_LANES * (kernel == 0 ? SPA_ENVS : SP_ENVS);
   const int smem = smem_per_env * (kernel == 0 ? SPA_ENVS : SP_ENVS);
-  auto occupancy = [&](auto k) {
-    int blocks = 0;
-    cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k, threads, smem);
-    cudaGetLastError();
-    return e == cudaSuccess ? blocks : -static_cast<int>(e);
-  };
+  auto occupancy = [&](auto k) { return blocks_per_sm(k, threads, smem); };
   auto of_ground = [&](auto flag) {
     constexpr bool kTerrain = decltype(flag)::value;
     return kernel == 0 ? occupancy(cdyn_accel_kernel<T, kTerrain>)
@@ -825,6 +832,15 @@ int cdyn_period_cm_geometry_f32(int smem_per_env, int terrain, int ext, int* out
 int cdyn_period_cm_geometry_f64(int smem_per_env, int terrain, int ext, int* out);
 int cdyn_rollout_cm_geometry_f32(int smem_per_env, int terrain, int ext, int* out);
 int cdyn_rollout_cm_geometry_f64(int smem_per_env, int terrain, int ext, int* out);
+// cdyn_accel's SPHERICAL instances (part 7)
+int cdyn_accel_sph_f32(const void* ci, const void* cf, const void* q, const void* v,
+                       const void* tau, void* out, int B, int smem_per_env, int terrain,
+                       void* stream);
+int cdyn_accel_sph_f64(const void* ci, const void* cf, const void* q, const void* v,
+                       const void* tau, void* out, int B, int smem_per_env, int terrain,
+                       void* stream);
+int cdyn_accel_sph_blocks_per_sm_f32(int smem_per_env, int terrain);
+int cdyn_accel_sph_blocks_per_sm_f64(int smem_per_env, int terrain);
 
 #if CDYN_IN_PART(0)
 
@@ -854,21 +870,26 @@ int cdyn_sp_smem_bytes(int nj, int nq, int nv, int nc, int n_cmd, int n_act, int
 
 // Bytes of dynamic shared memory one env of cdyn_accel takes (its slice and
 // the padding to the next one) for a model of nj joints, nq and nv
-// coordinates and nc contacts, at elt bytes a float; then the lanes per env
-// and the envs per block of this build into geometry[0..1].
-int cdyn_accel_smem_bytes(int nj, int nq, int nv, int nc, int elt, int* geometry) {
+// coordinates, nc contacts and nsph SPHERICAL joints, at elt bytes a float;
+// then the lanes per env and the envs per block of this build into
+// geometry[0..1].
+int cdyn_accel_smem_bytes(int nj, int nq, int nv, int nc, int elt, int nsph, int* geometry) {
   geometry[0] = cdyn::SP_LANES;
   geometry[1] = cdyn::SPA_ENVS;
-  return cdyn::sp_env_stride(cdyn::SpAccelLayout(nj, nq, nv, nc).elems, elt);
+  return cdyn::sp_env_stride(cdyn::SpAccelLayout(nj, nq, nv, nc, nsph).elems, elt);
 }
 
-// Blocks of a spring kernel (0 cdyn_accel, 1 cdyn_period, 2 cdyn_rollout;
-// its terrain instance with `terrain`) the runtime would keep on one SM with
+// Blocks of a spring kernel (0 cdyn_accel, 1 cdyn_period, 2 cdyn_rollout, 3
+// cdyn_accel's SPHERICAL instance; its terrain instance with `terrain`) the
+// runtime would keep on one SM with
 // smem_per_env bytes of dynamic shared memory an env, at elt bytes a float,
 // the kernel's shared-memory limit raised to that block's share first, as a
 // launch raises it; a negative CUDA error code on failure (a block past what
 // the card grants).
 int cdyn_sp_blocks_per_sm(int kernel, int elt, int smem_per_env, int terrain) {
+  if (kernel == 3)
+    return elt == 4 ? cdyn_accel_sph_blocks_per_sm_f32(smem_per_env, terrain)
+                    : cdyn_accel_sph_blocks_per_sm_f64(smem_per_env, terrain);
   return elt == 4 ? cdyn_sp_blocks_per_sm_f32(kernel, smem_per_env, terrain)
                   : cdyn_sp_blocks_per_sm_f64(kernel, smem_per_env, terrain);
 }
@@ -919,10 +940,13 @@ const char* cdyn_error_string(int code) {
                   : cdyn::NAME<T, false, true>(__VA_ARGS__))                            \
        : (terrain ? cdyn::NAME<T, true, false>(__VA_ARGS__)                             \
                   : cdyn::NAME<T, false, false>(__VA_ARGS__)))
+// cdyn_accel also takes `sph`: the instance that takes SPHERICAL joints (part 7).
 #define CDYN_SP_ENTRIES(SUFFIX, T)                                                               \
   int cdyn_accel_##SUFFIX(const void* ci, const void* cf, const void* q, const void* v,          \
                           const void* tau, void* out, int B, int smem_per_env, int terrain,      \
-                          void* stream) {                                                        \
+                          int sph, void* stream) {                                               \
+    if (sph)                                                                                     \
+      return cdyn_accel_sph_##SUFFIX(ci, cf, q, v, tau, out, B, smem_per_env, terrain, stream);  \
     return CDYN_LAUNCH(launch_accel, T, ci, cf, q, v, tau, out, B, smem_per_env, stream);        \
   }                                                                                              \
   int cdyn_period_##SUFFIX(const void* ci, const void* cf, const void* q, const void* v,         \
@@ -970,6 +994,21 @@ const char* cdyn_error_string(int code) {
     return cdyn::cm_geometry<true, T>(smem_per_env, terrain, ext, out);                          \
   }
 
+#define CDYN_SPH_ENTRIES(SUFFIX, T)                                                              \
+  int cdyn_accel_sph_##SUFFIX(const void* ci, const void* cf, const void* q, const void* v,      \
+                              const void* tau, void* out, int B, int smem_per_env, int terrain,  \
+                              void* stream) {                                                    \
+    return terrain ? cdyn::launch_accel<T, true, true>(ci, cf, q, v, tau, out, B, smem_per_env,  \
+                                                       stream)                                   \
+                   : cdyn::launch_accel<T, false, true>(ci, cf, q, v, tau, out, B, smem_per_env, \
+                                                        stream);                                 \
+  }                                                                                              \
+  int cdyn_accel_sph_blocks_per_sm_##SUFFIX(int smem_per_env, int terrain) {                     \
+    const int threads = cdyn::SP_LANES * cdyn::SPA_ENVS, smem = smem_per_env * cdyn::SPA_ENVS;   \
+    return terrain ? cdyn::blocks_per_sm(cdyn::cdyn_accel_kernel<T, true, true>, threads, smem)  \
+                   : cdyn::blocks_per_sm(cdyn::cdyn_accel_kernel<T, false, true>, threads, smem); \
+  }
+
 #if CDYN_IN_PART(1)
 CDYN_SP_ENTRIES(f32, float)
 #endif
@@ -988,11 +1027,16 @@ CDYN_ROLLOUT_CM_ENTRIES(f32, float)
 #if CDYN_IN_PART(6)
 CDYN_ROLLOUT_CM_ENTRIES(f64, double)
 #endif
+#if CDYN_IN_PART(7)
+CDYN_SPH_ENTRIES(f32, float)
+CDYN_SPH_ENTRIES(f64, double)
+#endif
 
 #undef CDYN_LAUNCH
 #undef CDYN_LAUNCH_CM
 #undef CDYN_SP_ENTRIES
 #undef CDYN_PERIOD_CM_ENTRIES
 #undef CDYN_ROLLOUT_CM_ENTRIES
+#undef CDYN_SPH_ENTRIES
 
 }  // extern "C"

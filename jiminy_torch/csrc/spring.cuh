@@ -46,6 +46,14 @@
 //    its motion subspace: exp(axis q), S v, U = I S, S^T U, S^T p and
 //    S a read one component, column or row instead of three or six. This is
 //    exact: the dropped terms are x * 0 added to y, equal to y for finite x.
+//  - cdyn_accel has an instance for models with SPHERICAL joints (kSph; the
+//    flexibility joints, so only the per-stage path meets them, as in
+//    jiminy_tpu): such a joint stays on one lane of its depth, its rotation
+//    rebuilt from its quaternion, its motion subspace the angular 3x6 block.
+//    Pass 2 keeps U = IA[:, 0:3], the LDL^T factor of D = IA[0:3, 0:3] +
+//    armature in `solve_sym3`'s order and u in a block of its own at the end
+//    of the slice (`SPH_REC` values a SPHERICAL joint), so the other
+//    instances keep their record, slice and registers.
 // Group barriers are __syncwarp on the group's mask. Every expression
 // otherwise mirrors the plain PyTorch version (ComponentDynamics in
 // jiminy_torch/ops/cdyn.py) in the same association order; float64 runs
@@ -160,10 +168,15 @@ struct SpLanes {
   __device__ void sync() const { __syncwarp(mask); }
 };
 
-// Views of one env's slice.
+// A SPHERICAL joint's block of the accel slice (kSph): U = IA[:, 0:3] (18,
+// row-major 6x3), the LDL^T factor of D (l10 l20 l21, d0 d1 d2) and u (3).
+constexpr int SPH_U = 0, SPH_L = 18, SPH_D = 21, SPH_URHS = 24, SPH_REC = 27;
+
+// Views of one env's slice (`sph`: the SPHERICAL joints' blocks, kSph only).
 template <typename T>
 struct SpWork {
   T *J, *root, *q, *qs, *v, *vs, *qdd, *ksum, *vsum, *tc, *fext, *cc, *bc, *ac;
+  T* sph = nullptr;
   __device__ T* rec(int s) const { return J + JREC * s; }
 };
 
@@ -338,8 +351,59 @@ __device__ __forceinline__ void place_1dof(const Model<T>& M, int j, T qj, T c, 
   }
 }
 
+// The motion class of a SPHERICAL joint in the passes (kSph instances).
+constexpr int S_SPH = 7;
+
+// The placement (R, P) of a SPHERICAL joint in its parent (`_joint_x`): the
+// tree placement times the rotation of its quaternion q[qi .. qi + 3].
+template <typename T>
+__device__ __forceinline__ void place_sph(const Model<T>& M, int j, const T* q, T* R, T* P) {
+  const int qi = M.iq(j);
+  T rj[9];
+  quat_to_m(q[qi], q[qi + 1], q[qi + 2], q[qi + 3], rj);
+  mm3(M.jrot(j), rj, R);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) P[k] = M.jpos(j)[k];
+}
+
+// The ordinal of slot s among the SPHERICAL slots: its block in the slice.
+template <typename T>
+__device__ __forceinline__ int sph_ordinal(const Model<T>& M, const SpTree& tr, int s) {
+  int n = 0;
+#pragma unroll 1
+  for (int k = 0; k < s; ++k) n += M.type(tr.joint(k)) == SPHERICAL;
+  return n;
+}
+
+// `solve_sym3`'s LDL^T of the symmetric 3x3 D (its upper triangle d00 d01
+// d02 d11 d12 d22): l = (l10, l20, l21), d = (d0, d1, d2).
+template <typename T>
+__device__ __forceinline__ void sym3_factor(T d00, T d01, T d02, T d11, T d12, T d22, T* l,
+                                            T* d) {
+  d[0] = d00;
+  const T inv0 = T(1) / d[0];
+  l[0] = d01 * inv0;
+  l[1] = d02 * inv0;
+  d[1] = d11 - l[0] * l[0] * d[0];
+  const T inv1 = T(1) / d[1];
+  l[2] = (d12 - l[1] * l[0] * d[0]) * inv1;
+  d[2] = d22 - l[1] * l[1] * d[0] - l[2] * l[2] * d[1];
+}
+
+// y = D^-1 y in place from the factor, in `solve_sym3`'s order.
+template <typename T>
+__device__ __forceinline__ void sym3_solve(const T* l, const T* d, T* y) {
+  y[1] = y[1] - l[0] * y[0];
+  y[2] = y[2] - l[1] * y[0] - l[2] * y[1];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) y[i] = y[i] / d[i];
+  y[1] = y[1] - l[2] * y[2];
+  y[0] = y[0] - l[0] * y[1] - l[1] * y[2];
+}
+
 // The placement of slot s (joint j) from what pass 1 kept: the root's
-// block, a revolute joint's (cos, sin), a prismatic joint's q.
+// block, a revolute joint's (cos, sin), a prismatic joint's q, a SPHERICAL
+// joint's quaternion.
 template <int S, typename T>
 __device__ __forceinline__ void joint_place(const Model<T>& M, const SpWork<T>& w, int s, int j,
                                             T* R, T* P) {
@@ -348,6 +412,8 @@ __device__ __forceinline__ void joint_place(const Model<T>& M, const SpWork<T>& 
     for (int k = 0; k < 9; ++k) R[k] = w.root[k];
 #pragma unroll
     for (int k = 0; k < 3; ++k) P[k] = w.root[9 + k];
+  } else if constexpr (S == S_SPH) {
+    place_sph(M, j, w.qs, R, P);
   } else {
     const T* r = w.rec(s);
     place_1dof<S>(M, j, w.qs[M.iq(j)], r[J_CS], r[J_CS + 1], R, P);
@@ -362,6 +428,9 @@ __device__ __forceinline__ void add_joint_vel(const Model<T>& M, int j, const T*
   if constexpr (S < 0) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) { w_i[k] = w_i[k] + v[vi + 3 + k]; v_i[k] = v_i[k] + v[vi + k]; }
+  } else if constexpr (S == S_SPH) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) w_i[k] = w_i[k] + v[vi + k];
   } else if constexpr (S < 3) {
     w_i[S] = w_i[S] + M.axis(j)[S] * v[vi];
   } else if constexpr (S < 6) {
@@ -392,6 +461,10 @@ __device__ __forceinline__ void joint_bias(const Model<T>& M, int j, const T* v,
     cross3(v_i, vj_ang, c2);
 #pragma unroll
     for (int k = 0; k < 3; ++k) bias[3 + k] = c1[k] + c2[k];
+  } else if constexpr (S == S_SPH) {
+    const T vj_ang[3] = {v[vi], v[vi + 1], v[vi + 2]};
+    cross3(w_i, vj_ang, bias);      // w x vj_ang
+    cross3(v_i, vj_ang, bias + 3);  // w x 0 + v x vj_ang
   } else if constexpr (S < 3) {
     const T c = M.axis(j)[S] * v[vi];
     cross_axis<S>(w_i, c, bias);      // w x vj_ang
@@ -449,6 +522,8 @@ __device__ __forceinline__ void sp_pass1(const Model<T>& M, const SpTree& tr, co
     for (int k = 0; k < 9; ++k) w.root[k] = R[k];
 #pragma unroll
     for (int k = 0; k < 3; ++k) w.root[9 + k] = P[k];
+  } else if constexpr (S == S_SPH) {
+    place_sph(M, j, q, R, P);
   } else {
     T c = T(1), sn = T(0);
     if (M.type(j) == REVOLUTE) {
@@ -573,6 +648,61 @@ __device__ __forceinline__ void sp_pass2(const Model<T>& M, const SpTree& tr, co
 #pragma unroll
     for (int k = 0; k < 6; ++k) r[J_PA + k] = pa[k];
     return;
+  } else if constexpr (S == S_SPH) {  // 3 dofs: U = IA[:, 0:3], D = IA[0:3, 0:3] + armature
+    const int vi = M.iv(j);
+    T* sb = w.sph + SPH_REC * sph_ordinal(M, tr, s);
+    T u[18], l[3], dd[3], u_r[3];
+#pragma unroll
+    for (int a = 0; a < 6; ++a)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) u[3 * a + k] = ia[s21(a, k)];
+    sym3_factor(ia[s21(0, 0)] + M.armature(vi), ia[s21(0, 1)], ia[s21(0, 2)],
+                ia[s21(1, 1)] + M.armature(vi + 1), ia[s21(1, 2)],
+                ia[s21(2, 2)] + M.armature(vi + 2), l, dd);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) u_r[k] = damped_tc(M, w, vi + k) - pa[k];
+#pragma unroll
+    for (int k = 0; k < 18; ++k) sb[SPH_U + k] = u[k];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      sb[SPH_L + k] = l[k];
+      sb[SPH_D + k] = dd[k];
+      sb[SPH_URHS + k] = u_r[k];
+    }
+    if (ps < 0) return;
+    T R[9], P[3], bias[6];
+    joint_frame<S>(M, w, s, j, R, P, bias);
+    // Ia = IA - U D^-1 U^T, a column of D^-1 U^T a solve
+    T x[18], ia_a[21], iab[6], pa_n[6], ia_p[21];
+#pragma unroll
+    for (int b = 0; b < 6; ++b) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) x[3 * b + k] = u[3 * b + k];
+      sym3_solve(l, dd, x + 3 * b);
+    }
+#pragma unroll
+    for (int a = 0; a < 6; ++a)
+#pragma unroll
+      for (int b = a; b < 6; ++b)
+        ia_a[s21(a, b)] = ia[s21(a, b)] - (u[3 * a] * x[3 * b] + u[3 * a + 1] * x[3 * b + 1] +
+                                           u[3 * a + 2] * x[3 * b + 2]);
+    sym21_mv(ia_a, bias, bias + 3, iab);
+    sym3_solve(l, dd, u_r);  // D^-1 u
+#pragma unroll
+    for (int k = 0; k < 6; ++k)
+      pa_n[k] = pa[k] + iab[k] + (u[3 * k] * u_r[0] + u[3 * k + 1] * u_r[1] + u[3 * k + 2] * u_r[2]);
+    transform_sym21(ia_a, R, P, ia_p);
+#pragma unroll
+    for (int k = 0; k < 21; ++k) r[J_IAP + k] = ia_p[k];
+    T f_a[3], n_a[3], tmp[3];
+    mv3(R, pa_n + 3, f_a);
+    mv3(R, pa_n, n_a);
+    cross3(P, f_a, tmp);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      r[J_PAP + k] = n_a[k] + tmp[k];
+      r[J_PAP + 3 + k] = f_a[k];
+    }
   } else {
     const int vi = M.iv(j);
     T u[6], d, spa;
@@ -676,6 +806,24 @@ __device__ __forceinline__ void sp_pass3(const Model<T>& M, const SpTree& tr, co
       r[J_ACC + k] = am[k] + y[3 + k];
       r[J_ACC + 3 + k] = am[3 + k] + y[k];
     }
+  } else if constexpr (S == S_SPH) {  // qdd = D^-1 (u - U^T a')
+    const T* sb = w.sph + SPH_REC * sph_ordinal(M, tr, s);
+    T y[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      T sum = sb[SPH_U + k] * am[0];
+#pragma unroll
+      for (int a = 1; a < 6; ++a) sum = sum + sb[SPH_U + 3 * a + k] * am[a];
+      y[k] = sb[SPH_URHS + k] - sum;
+    }
+    sym3_solve(sb + SPH_L, sb + SPH_D, y);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      w.qdd[vi + k] = y[k];
+      am[k] = am[k] + y[k];
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) r[J_ACC + k] = am[k];
   } else {
     const T* u = r + J_U;
     T sum = u[0] * am[0];
@@ -736,6 +884,9 @@ __device__ __forceinline__ void sp_fk(const Model<T>& M, const SpTree& tr, const
   if constexpr (S < 0) {
 #pragma unroll
     for (int k = 0; k < 3; ++k) { aj_lin[k] = w.qdd[vi + k]; aj_ang[k] = w.qdd[vi + 3 + k]; }
+  } else if constexpr (S == S_SPH) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) { aj_ang[k] = w.qdd[vi + k]; aj_lin[k] = T(0); }
   } else {
     T s6[6];
     motion6(M, j, s6);
@@ -750,8 +901,8 @@ __device__ __forceinline__ void sp_fk(const Model<T>& M, const SpTree& tr, const
 }
 
 // Pass `PASS` (1, 2, 3, or 4 for the outputs' accelerations) for slot s, by
-// the joint's motion class.
-template <int PASS, typename T>
+// the joint's motion class (with kSph, SPHERICAL joints first).
+template <int PASS, bool kSph = false, typename T>
 __device__ __forceinline__ void sp_pass(const Model<T>& M, const SpTree& tr, const SpWork<T>& w,
                                         int s) {
   const int j = tr.joint(s);
@@ -765,6 +916,12 @@ __device__ __forceinline__ void sp_pass(const Model<T>& M, const SpTree& tr, con
   if (M.type(j) == FREE) {
     CDYN_SP_PASS(-1);
     return;
+  }
+  if constexpr (kSph) {
+    if (M.type(j) == SPHERICAL) {
+      CDYN_SP_PASS(S_SPH);
+      return;
+    }
   }
   switch (motion_class(M, tr, j)) {
     case 0: CDYN_SP_PASS(0); break;
@@ -781,15 +938,16 @@ __device__ __forceinline__ void sp_pass(const Model<T>& M, const SpTree& tr, con
 // One evaluation of `_accel_core` by the group, at (w.qs, w.vs): the joint
 // accelerations into w.qdd. With MOTORS the motor efforts under the command
 // w.cc first become the torques w.tc; without, w.tc holds the torques. With
-// kTerrain the contacts meet the model's terrain, else flat ground.
-template <bool kTerrain, bool MOTORS = true, typename T>
+// kTerrain the contacts meet the model's terrain, else flat ground; with
+// kSph SPHERICAL joints take their 3-dof passes.
+template <bool kTerrain, bool MOTORS = true, bool kSph = false, typename T>
 __device__ __forceinline__ void sp_evaluate(const SpLanes& L, const Model<T>& M, const SpTree& tr,
                                             const SpWork<T>& w) {
   const int lane = L.lane, G = SP_LANES, nlev = tr.nlev;
 #pragma unroll 1
   for (int d = 0; d < nlev; ++d) {
 #pragma unroll 1
-    for (int s = tr.lstart(d) + lane; s < tr.lstart(d + 1); s += G) sp_pass<1>(M, tr, w, s);
+    for (int s = tr.lstart(d) + lane; s < tr.lstart(d + 1); s += G) sp_pass<1, kSph>(M, tr, w, s);
     L.sync();
   }
   // Contacts, then motors (one task for all when two share a dof)
@@ -822,13 +980,13 @@ __device__ __forceinline__ void sp_evaluate(const SpLanes& L, const Model<T>& M,
 #pragma unroll 1
   for (int d = nlev - 1; d >= 0; --d) {
 #pragma unroll 1
-    for (int s = tr.lstart(d) + lane; s < tr.lstart(d + 1); s += G) sp_pass<2>(M, tr, w, s);
+    for (int s = tr.lstart(d) + lane; s < tr.lstart(d + 1); s += G) sp_pass<2, kSph>(M, tr, w, s);
     L.sync();
   }
 #pragma unroll 1
   for (int d = 0; d < nlev; ++d) {
 #pragma unroll 1
-    for (int s = tr.lstart(d) + lane; s < tr.lstart(d + 1); s += G) sp_pass<3>(M, tr, w, s);
+    for (int s = tr.lstart(d) + lane; s < tr.lstart(d + 1); s += G) sp_pass<3, kSph>(M, tr, w, s);
     L.sync();
   }
 }
@@ -1097,33 +1255,42 @@ __global__ void __launch_bounds__(SP_LANES * SP_ENVS)
 constexpr int SPA_ENVS = CDYN_ACCEL_ENVS;
 static_assert(SP_LANES * SPA_ENVS <= 1024, "SP_LANES * SPA_ENVS threads a block");
 
-// Element offsets of one env's accel slice (the same on host and device).
+// Element offsets of one env's accel slice (the same on host and device),
+// with `nsph` SPHERICAL joints' blocks at its end (kSph).
 struct SpAccelLayout {
-  int rec, root, q, v, fext, elems;
-  __host__ __device__ SpAccelLayout(int nj, int nq, int nv, int nc) {
+  int rec, root, q, v, fext, sph, elems;
+  __host__ __device__ SpAccelLayout(int nj, int nq, int nv, int nc, int nsph = 0) {
     rec = 0;
     root = JREC * nj;
     q = root + 12;
     v = q + nq;
     fext = v + nv;
-    elems = fext + 6 * nc;
+    sph = fext + 6 * nc;
+    elems = sph + SPH_REC * nsph;
   }
 };
 
 // This thread's env accel slice, built from the shared-memory symbol, with
-// the env's torque row (read only) and acceleration row in global memory.
-template <typename T>
+// the env's torque row (read only) and acceleration row in global memory;
+// with kSph the SPHERICAL joints' blocks too.
+template <bool kSph, typename T>
 __device__ __forceinline__ SpWork<T> sp_accel_work(const Model<T>& M, const T* tau, T* qdd) {
-  const SpAccelLayout lo(M.nj, M.nq, M.nv, M.nc);
+  int nsph = 0;
+  if constexpr (kSph) {
+#pragma unroll 1
+    for (int j = 0; j < M.nj; ++j) nsph += M.type(j) == SPHERICAL;
+  }
+  const SpAccelLayout lo(M.nj, M.nq, M.nv, M.nc, nsph);
   const int slot = threadIdx.x / SP_LANES;
   T* b = reinterpret_cast<T*>(dynamic_smem() +
                               (size_t)slot * sp_env_stride(lo.elems, static_cast<int>(sizeof(T))));
   T* tc = const_cast<T*>(tau);  // only read: no motor task runs
   return {b + lo.rec, b + lo.root, b + lo.q, b + lo.q, b + lo.v, b + lo.v, qdd,
-          nullptr,    nullptr,     tc,       b + lo.fext, nullptr, nullptr, nullptr};
+          nullptr,    nullptr,     tc,       b + lo.fext, nullptr, nullptr, nullptr,
+          kSph ? b + lo.sph : nullptr};
 }
 
-template <typename T, bool kTerrain>
+template <typename T, bool kTerrain, bool kSph = false>
 __global__ void __launch_bounds__(SP_LANES * SPA_ENVS)
     cdyn_accel_kernel(const int* ci, const T* cf, const T* __restrict__ q_g,
                       const T* __restrict__ v_g, const T* __restrict__ tau_g, T* __restrict__ out,
@@ -1133,7 +1300,7 @@ __global__ void __launch_bounds__(SP_LANES * SPA_ENVS)
   if (b >= B) return;  // the whole group
   const Model<T> M(ci, cf);
   const SpTree tr(ci);
-  const SpWork<T> w = sp_accel_work(M, tau_g + (size_t)b * M.nv, out + (size_t)b * M.nv);
+  const SpWork<T> w = sp_accel_work<kSph>(M, tau_g + (size_t)b * M.nv, out + (size_t)b * M.nv);
   const T* q = q_g + (size_t)b * M.nq;
   const T* v = v_g + (size_t)b * M.nv;
 #pragma unroll 1
@@ -1141,7 +1308,7 @@ __global__ void __launch_bounds__(SP_LANES * SPA_ENVS)
 #pragma unroll 1
   for (int i = L.lane; i < M.nv; i += SP_LANES) w.vs[i] = v[i];
   L.sync();
-  sp_evaluate<kTerrain, false>(L, M, tr, w);
+  sp_evaluate<kTerrain, false, kSph>(L, M, tr, w);
 }
 
 }  // namespace cdyn

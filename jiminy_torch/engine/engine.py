@@ -14,15 +14,20 @@ dynamics path.
   core (Euler, RK4), under adaptive DOPRI 5(4) through trials of six
   dynamics evaluations each in masked lock-step over the batch
   (`engine/steppers.py`), and on the generic path stage by stage, every
-  stage one `dynamics_full`.
+  stage one `dynamics_full`. A robot with flexibility joints (SPHERICAL
+  joints) steps stage by stage on the core, every stage one `cdyn_accel`,
+  as jiminy_tpu turns its fused period and rollout off for it; on the card
+  its tick replays from a CUDA graph.
 - `Engine.step_rollout_fused(...)` advances a whole env step, the controller
   re-evaluated at every period, through `cdyn_rollout` or `cdyn_rollout_cm`
   (the core only).
 
 The path follows jiminy_tpu's rule, on every device: the component core when
-`cdyn.supports_model` holds (a free-flyer or fixed root with revolute and
-prismatic joints), no external force is registered and `use_fast_dynamics`
-is not False; otherwise the generic path (`dynamics_full`: generic forward
+`cdyn.supports_model` holds (a free-flyer or fixed root with revolute,
+prismatic and spherical joints), no external force is registered and
+`use_fast_dynamics` is not False (with PGS rows, a model without spherical
+joints: the constrained kernels take 1-dof joints only); otherwise the
+generic path (`dynamics_full`: generic forward
 kinematics, spring-damper contact forces, penalty bounds, then ABA or the
 array-form PGS solve), plain torch on every device, as jiminy_tpu runs it in
 XLA. Unlike jiminy_tpu, which takes its component core only off the CPU, the
@@ -42,6 +47,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from jiminy_torch import pytree
 from jiminy_torch.devices import resolve_device, resolve_dtype
 from jiminy_torch.engine import solver, steppers
 from jiminy_torch.engine.config import ContactModel, EngineOptions, IntegratorType
@@ -52,6 +58,7 @@ from jiminy_torch.engine.constraints import (
 )
 from jiminy_torch.engine.contact import compute_contact_forces
 from jiminy_torch.engine.hardware import ImuSensorGroup
+from jiminy_torch.engine.internal import flexibility_torque
 from jiminy_torch.engine.robot import Robot
 from jiminy_torch.engine.state import SimState, StepperState
 from jiminy_torch.models import joints as jt
@@ -160,7 +167,8 @@ class Engine:
         gravity = tuple(float(g) for g in opts.world.gravity)
         self._cdyn = self._cdyn_cm = None
         core = opts.use_fast_dynamics is not False and cdyn.supports_model(robot.model)
-        if core and self.has_constraints:
+        spherical = cdyn.has_spherical(robot.model)
+        if core and self.has_constraints and not spherical:
             # Component CRBA/NLE for the PGS path; out of constraint contact
             # mode with the spring-damper contacts and the penalty bounds
             # beside the rows (jiminy_tpu hands its integrators no bound
@@ -175,7 +183,7 @@ class Engine:
                 bound_gains=self._bound_gains if spring else {},
                 ground_fn=self.ground_fn,
             )
-        elif core and not self.constraint_mode:
+        elif core and not self.has_constraints and not self.constraint_mode:
             self._cdyn = cdyn.ComponentDynamics(
                 robot.model,
                 gravity,
@@ -185,7 +193,12 @@ class Engine:
                 bound_gains=self._bound_gains,
                 ground_fn=self.ground_fn,
             )
-        # (constraint contact mode with no row builds no core, as in jiminy_tpu)
+        # (constraint contact mode with no row builds no core, as in
+        # jiminy_tpu; PGS rows beside SPHERICAL joints take the generic path,
+        # as jiminy_tpu runs them in XLA outside its kernels.) SPHERICAL
+        # joints (flexibility) turn the fused period and rollout off: the
+        # core steps stage by stage, every stage one cdyn_accel
+        self._stagewise = self._cdyn is not None and spherical
         self._tau_c = self._build_tau_c()
         self._period_runs = {}
         # The generic path's substep, and its ticks' CUDA graphs by input shape
@@ -198,6 +211,7 @@ class Engine:
         apparent joint inertia at the neutral pose."""
         model = self.robot.model
         candidates = list(self.robot.motors.joint_indices) if self.robot.motors else []
+        candidates += list(self.robot.backlash_joint_indices)
         if not candidates:
             return {}
         q0 = torch.as_tensor(model.neutral(), dtype=torch.float64)
@@ -234,6 +248,15 @@ class Engine:
         if motors is None or not motors.nmotors:
             return self._zeros(v.shape[:-1] + (0,)), torch.zeros_like(v)
         return motors.compute_efforts(command, v)
+
+    def _joint_torques(self, command, q, v):
+        """(u_motor, u): the motor efforts under `command` and the joint
+        torques, the motors' plus the flexibility joints' spring-dampers
+        (`internal.flexibility_torque`), on every path."""
+        u_motor, u = self._compute_efforts(command, v)
+        if self.robot.has_flexibility:
+            u = u + flexibility_torque(self.robot, q, v)
+        return u_motor, u
 
     # ------------------------------------------------------------------ #
     def _get_period_run(self, kind: str):
@@ -309,7 +332,7 @@ class Engine:
         reset. On the generic path: `dynamics_full` from `carry`."""
         if not self._use_core():
             return self.dynamics_full(t, q, v, command, carry)
-        u_motor, u = self._compute_efforts(command, v)
+        u_motor, u = self._joint_torques(command, q, v)
         if self._cdyn_cm is not None:
             if carry is None:
                 carry = self._zero_carry(torch.broadcast_shapes(q.shape[:-1], v.shape[:-1]))
@@ -428,7 +451,7 @@ class Engine:
             # velocity-bias terms of the constraint drifts
             kin = forward_kinematics(model, q, v, q.new_zeros(batch + (model.nv,)))
         fext_user = self.external_force_fn(t, q, v) if self.external_force_fn is not None else None
-        u_motor, u = self._compute_efforts(command, v)
+        u_motor, u = self._joint_torques(command, q, v)
         if self._has_joint_damping:
             u = u - model.tensor("damping", q.device, q.dtype) * v
 
@@ -504,12 +527,15 @@ class Engine:
         input shape as a CUDA graph and replayed: the same kernels, without
         their launch overhead."""
         carry = self._carry_of(state)
-        args = (state.t, state.q, state.v, command,
-                [carry[k] for k in _PGS_KEYS + _REF_KEYS])
+        args = [state.t, state.q, state.v, command] + [carry[k] for k in _PGS_KEYS + _REF_KEYS]
+
+        def run(t, q, v, command, *carry_list):
+            return self._generic_period(kind, t, q, v, command, list(carry_list))
+
         if self.device.type == "cuda" and self.external_force_fn is None:
-            q, v, a, aux = self._replay_generic_period(kind, *args)
+            q, v, a, aux = self._replay(("generic", kind), run, args)
         else:
-            q, v, a, aux = self._generic_period(kind, *args)
+            q, v, a, aux = run(*args)
         stepper = state.stepper.replace(iterations=state.stepper.iterations + self.n_substeps)
         return state.replace(q=q, v=v), a, aux, stepper
 
@@ -541,37 +567,67 @@ class Engine:
         a, aux = self.dynamics_full(t, q, v, command, {**carry, **refs})
         return integ.normalize(model, q), v, a, aux
 
-    def _replay_generic_period(self, kind: str, t, q, v, command, carry_list):
-        """`_generic_period` through a CUDA graph captured for these input
+    def _integrate_period_stages(self, state: SimState, command, kind: str):
+        """One tick of fixed-step Euler or RK4 on the spring-damper core,
+        stage by stage (jiminy_tpu's per-stage path, which flexibility
+        takes): every stage one `_accel_fn` (`cdyn_accel` on the card), then
+        `_final_eval` at the tick's end. On the card the tick replays from a
+        CUDA graph per input shape, as the generic tick does."""
+        model = self.robot.model
+        step = steppers.euler_step if kind == "euler" else steppers.rk4_step
+        dt = self._dt_tick
+
+        def run(t, q, v, command):
+            f = self._accel_fn(command)
+            for _ in range(self.n_substeps):
+                q, v, _ = step(model, f, t, q, v, dt)
+                t = t + dt
+            a, aux = self._final_eval(t, q, v, command)
+            return integ.normalize(model, q), v, a, aux
+
+        args = [state.t, state.q, state.v, command.expand(state.q.shape[:-1] + command.shape[-1:])]
+        if self.device.type == "cuda":
+            q, v, a, aux = self._replay(("stages", kind), run, args)
+        else:
+            q, v, a, aux = run(*args)
+        stepper = state.stepper.replace(iterations=state.stepper.iterations + self.n_substeps)
+        return state.replace(q=q, v=v), a, aux, stepper
+
+    def _replay(self, name, fn, inputs):
+        """`fn(*inputs)` through a CUDA graph captured for these input
         shapes: the inputs are copied into the graph's own, the graph
-        replayed, and its outputs copied out (the next replay overwrites
-        them)."""
-        inputs = [t, q, v, command] + list(carry_list)
-        key = (kind,) + tuple((tuple(x.shape), x.dtype) for x in inputs)
+        replayed, and its outputs `(q, v, a, aux)` copied out (the next
+        replay overwrites them). A kernel launched inside the tick is
+        launched by every replay: its count (`cdyn.KERNELS`) grows by the
+        captured launches at each replay, not at the capture, which
+        launches nothing."""
+        key = (name,) + tuple((tuple(x.shape), x.dtype) for x in inputs)
         entry = self._graphs.get(key)
         if entry is None:
             static = [x.clone() for x in inputs]
-
-            def run():
-                return self._generic_period(kind, *static[:4], static[4:])
-
             # Warm up on a side stream (lazy inits stay out of the capture)
             stream = torch.cuda.current_stream(self.device)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(stream)
             with torch.cuda.stream(side):
                 for _ in range(2):
-                    run()
+                    fn(*static)
             stream.wait_stream(side)
+            before = {n: k.launches for n, k in cdyn.KERNELS.items()}
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
-                out = run()
-            entry = self._graphs[key] = (graph, static, out)
-        graph, static, (q2, v2, a, aux) = entry
+                out = fn(*static)
+            captured = {}
+            for n, k in cdyn.KERNELS.items():
+                captured[n], k.launches = k.launches - before[n], before[n]
+            entry = self._graphs[key] = (graph, static, out, captured)
+        graph, static, (q2, v2, a, aux), captured = entry
         for dst, src in zip(static, inputs):
             dst.copy_(src)
         graph.replay()
-        return q2.clone(), v2.clone(), a.clone(), {k: x.clone() for k, x in aux.items()}
+        for n, count in captured.items():
+            cdyn.KERNELS[n].launches += count
+        return q2.clone(), v2.clone(), a.clone(), pytree.map(torch.clone, aux)
 
     def _constrained_eval(self, q, v, u, u_motor, distance_ref, rolling_ref):
         """The constrained dynamics at one state from a cold start, plain
@@ -700,6 +756,7 @@ class Engine:
             kin = forward_kinematics(robot.model, state.q, state.v, a)
         contact_f = {
             "gravity": self.gravity,
+            "contact_forces_local": aux["contact_w_local"][..., 3:6],
             "contact_wrench_local": aux["contact_w_local"],
             "contact_frame_indices": robot.contact_frame_indices,
         }
@@ -726,6 +783,8 @@ class Engine:
             return self._integrate_period_dopri(state, command)
         if not self._use_core():
             return self._integrate_period_generic(state, command, kind)
+        if self._stagewise:
+            return self._integrate_period_stages(state, command, kind)
         cc = command
         if self._cdyn_cm is not None:
             # The loops' lengths, warm-start multipliers, active sets and
@@ -749,7 +808,7 @@ class Engine:
         cd = self._cdyn
 
         def f(t, q, v):
-            return cd.accel(q, v, self._compute_efforts(command, v)[1])
+            return cd.accel(q, v, self._joint_torques(command, q, v)[1])
 
         return f
 
@@ -807,11 +866,12 @@ class Engine:
         """True when `step_rollout_fused` can replace per-period `step` calls:
         fixed-step integration (Euler, RK4) and one sensor tick per controller
         period (clean sensors are all this port accepts), on the spring-damper
-        core or the constrained one. Under DOPRI, and on the generic path, the
-        gym layer steps period by period."""
+        core or the constrained one. Under DOPRI, on the generic path and with
+        SPHERICAL (flexibility) joints, the gym layer steps period by period."""
         return (self.options.stepper.integrator in _FIXED_STEP
                 and self.n_sensor_periods == 1
-                and self._use_core())
+                and self._use_core()
+                and not self._stagewise)
 
     def _get_rollout_run(self, cache_key: str, controller, n_periods: int):
         key = ("rollout", cache_key, n_periods)

@@ -3,8 +3,8 @@
 
 Each family is a struct of host float64 arrays whose update is one batched
 torch op across all instances and all environments. This slice ports the
-delay-free, noise-free read-outs (`compute_raw`) of the encoder, effort, IMU
-and force groups; sensor delay lines, jitter, noise and bias wait for
+delay-free, noise-free read-outs (`compute_raw`) of the encoder, effort, IMU,
+contact and force groups; sensor delay lines, jitter, noise and bias wait for
 ROADMAP.md queue 1 item 11, and the engine refuses a robot that declares them.
 """
 
@@ -278,6 +278,24 @@ class ImuSensorGroup(_GroupBase):
 
 
 @dataclasses.dataclass(eq=False)
+class ContactSensorGroup(_GroupBase):
+    """The linear force at a declared contact frame, in its LOCAL frame
+    (reference ContactSensor)."""
+
+    fieldnames = ("FX", "FY", "FZ")
+    names: tuple
+    contact_slots: tuple  # per sensor: its index in the robot's contact list
+    noise_std: np.ndarray
+    bias: np.ndarray
+    delay: np.ndarray
+    jitter: np.ndarray
+
+    def compute_raw(self, model, kin, q, v, a, u_motor, contact_f) -> torch.Tensor:
+        f = contact_f["contact_forces_local"]  # (..., nc, 3)
+        return torch.index_select(f, -2, self.tensor("contact_slots", f.device, torch.long))
+
+
+@dataclasses.dataclass(eq=False)
 class ForceSensorGroup(_GroupBase):
     """6D wrench at a frame = sum of the contact wrenches on the same parent
     joint, transported to the sensor frame (reference `basic_sensors.cc:368-387`)."""
@@ -320,10 +338,11 @@ class SensorSuite:
     encoder: Optional[EncoderSensorGroup] = None
     effort: Optional[EffortSensorGroup] = None
     imu: Optional[ImuSensorGroup] = None
+    contact: Optional[ContactSensorGroup] = None
     force: Optional[ForceSensorGroup] = None
 
     def groups(self):
-        for name in ("encoder", "effort", "imu", "force"):
+        for name in ("encoder", "effort", "imu", "contact", "force"):
             g = getattr(self, name)
             if g is not None and g.nsensors > 0:
                 yield name, g

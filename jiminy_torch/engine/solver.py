@@ -623,6 +623,8 @@ class _ConstrainedCore:
                  n_substeps: int, integrator: str, n_cmd: int, imu_frames: tuple):
         if integrator not in cdyn._INTEGRATORS:
             raise ValueError(f"unknown fixed-step integrator {integrator!r}")
+        cdyn.refuse_spherical(cd.model, "cdyn_period_cm and cdyn_rollout_cm (and their plain "
+                              "versions)")
         self.cd, self.tau_c, self.cset, self.opts = cd, tau_c, cset, opts
         self.dt, self.n_substeps, self.integrator = float(dt), int(n_substeps), integrator
         self.n_cmd, self.imu_frames = int(n_cmd), tuple(imu_frames)

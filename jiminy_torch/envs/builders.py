@@ -1,10 +1,12 @@
 """Procedural robot builders and nominal poses of the packaged robots (port
-of `jiminy_tpu.envs.builders`: the toys and `anymal_standing_pose`).
+of `jiminy_tpu.envs.builders`: the toys, the ANYmal and
+`anymal_standing_pose`).
 
-The toy builders re-create the classic-control robots parametrically (no
-asset file), handy for randomizing link geometry; the toy envs take them
-with `procedural=True`. The other procedural look-alikes are not ported yet
-(ROADMAP.md queue 1 item 10).
+The builders re-create the robots parametrically (no asset file), handy for
+randomizing link geometry; the toy envs take them with `procedural=True`,
+the ANYmal env with `procedural=True` or `flexible=True`. The ant's and the
+bipeds' procedural look-alikes are not ported yet (ROADMAP.md queue 1 item
+10).
 """
 
 from __future__ import annotations
@@ -29,6 +31,83 @@ def anymal_standing_pose(model) -> np.ndarray:
         for jname, val in ((f"{leg}_HAA", 0.0), (f"{leg}_HFE", sx * 0.4), (f"{leg}_KFE", -sx * 0.8)):
             q[model.idx_q[model.joint_index(jname)]] = val
     return q
+
+
+def build_anymal(flexible: bool = False) -> Robot:
+    """An ANYmal-class 12-dof quadruped: a free-flyer base and per leg HAA
+    (hip abduction, x), HFE (hip flexion, y) and KFE (knee flexion, y); the
+    IMU on the base, contact points, contact and force sensors at the feet;
+    gear ratio 50, rotor armature, 40 N m / 7.5 rad/s actuators. With
+    `flexible`, a spherical flexibility joint (stiffness 1e4, damping 1e2,
+    inertia 1e-3) before each KFE."""
+    base_m = 16.0
+    base_dims = (0.53, 0.30, 0.24)
+    hip_m, thigh_m, shank_m = 1.4, 1.1, 0.3
+    thigh_l, shank_l = 0.25, 0.33
+    x_off, y_off = 0.36, 0.21
+
+    joint_specs = [{"name": "root_joint", "type": JointType.FREE, "parent": -1, "mass": base_m,
+                    "com": np.zeros(3), "inertia": _box_inertia(base_m, *base_dims)}]
+    frame_specs = [{"name": "base", "parent": 0, "placement": (np.eye(3), np.zeros(3))}]
+    contact_frames = []
+    limits = dict(effort_limit=40.0, velocity_limit=7.5)
+    for leg in ANYMAL_LEGS:
+        sx = 1.0 if leg[1] == "F" else -1.0
+        sy = 1.0 if leg[0] == "L" else -1.0
+        haa_idx = len(joint_specs)
+        joint_specs.append({
+            "name": f"{leg}_HAA", "type": JointType.REVOLUTE, "parent": 0,
+            "placement": (np.eye(3), np.array([sx * x_off, sy * y_off, 0.0])),
+            "axis": np.array([1.0, 0.0, 0.0]), "mass": hip_m,
+            "com": np.array([0.0, sy * 0.04, 0.0]), "inertia": np.eye(3) * 2e-3,
+            "position_limit": (np.array([-0.72]), np.array([0.72])), **limits,
+        })
+        hfe_idx = len(joint_specs)
+        joint_specs.append({
+            "name": f"{leg}_HFE", "type": JointType.REVOLUTE, "parent": haa_idx,
+            "placement": (np.eye(3), np.array([0.0, sy * 0.08, 0.0])),
+            "axis": np.array([0.0, 1.0, 0.0]), "mass": thigh_m,
+            "com": np.array([0.0, 0.0, -thigh_l / 2]), "inertia": _rod_inertia(thigh_m, thigh_l),
+            "position_limit": (np.array([-3.0]), np.array([3.0])), **limits,
+        })
+        kfe_idx = len(joint_specs)
+        joint_specs.append({
+            "name": f"{leg}_KFE", "type": JointType.REVOLUTE, "parent": hfe_idx,
+            "placement": (np.eye(3), np.array([0.0, 0.0, -thigh_l])),
+            "axis": np.array([0.0, 1.0, 0.0]), "mass": shank_m,
+            "com": np.array([0.0, 0.0, -shank_l / 2]), "inertia": _rod_inertia(shank_m, shank_l),
+            "position_limit": (np.array([-3.0]), np.array([3.0])), **limits,
+        })
+        foot = f"{leg}_FOOT"
+        frame_specs.append({"name": foot, "parent": kfe_idx,
+                            "placement": (np.eye(3), np.array([0.0, 0.0, -shank_l]))})
+        contact_frames.append(foot)
+
+    model = build_model("anymal", joint_specs, frame_specs)
+    motor_names = [f"{leg}_{j}" for leg in ANYMAL_LEGS for j in ("HAA", "HFE", "KFE")]
+    motors = [
+        {"joint_name": n, "mechanical_reduction": 50.0,
+         "armature": 1.0e-4,  # rotor inertia; joint side 1e-4 * 50^2 = 0.25
+         "effort_limit": 40.0 / 50.0, "velocity_limit": 7.5 * 50.0}
+        for n in motor_names
+    ]
+    flexibility = [
+        {"joint_name": f"{leg}_KFE", "stiffness": 1.0e4, "damping": 1.0e2, "inertia": 1.0e-3}
+        for leg in ANYMAL_LEGS
+    ] if flexible else []
+    return Robot.build(
+        model,
+        motors=motors,
+        sensors={
+            "encoder": [{"motor_name": n} for n in motor_names],
+            "effort": [{"motor_name": n} for n in motor_names],
+            "imu": [{"frame_name": "base"}],
+            "force": [{"frame_name": f"{leg}_FOOT"} for leg in ANYMAL_LEGS],
+            "contact": [{"frame_name": f"{leg}_FOOT"} for leg in ANYMAL_LEGS],
+        },
+        contact_frames=contact_frames,
+        flexibility=flexibility,
+    )
 
 
 def _box_inertia(m, lx, ly, lz):

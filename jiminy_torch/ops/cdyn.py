@@ -5,16 +5,18 @@ kernels.
 Plain versions. Every scalar component of every spatial quantity is its own
 (B,) tensor, and the model's constants are Python floats. `ComponentDynamics`
 mirrors `_accel_core` (ABA with armature, joint damping, penalty bounds and
-spring-damper contact), `_aux_components`, `integrate_components`, the
-substep and final-output builders and the bodies of the period and rollout
-integrators, op for op. They are the CPU path and the reference that the
+spring-damper contact; SPHERICAL joints with their 3-dof block),
+`_aux_components`, `integrate_components`, the substep and final-output
+builders and the bodies of the period and rollout integrators (1-dof
+joints), op for op. They are the CPU path and the reference that the
 kernels are held against on the card.
 
 Kernels (`csrc/spring.cuh`, CUDA C++ for sm_90a, built with `csrc/cdyn.cu` by
 `ops/kernels.py`):
 
 - `cdyn_accel` replaces `jiminy_tpu/ops/cdyn.py::_pallas_accel_fn` (one
-  dynamics evaluation per env);
+  dynamics evaluation per env), with an instance for SPHERICAL joints (the
+  flexibility joints, which only the per-stage path meets);
 - `cdyn_period` replaces `_pallas_period_fn` (one controller period:
   n_substeps RK4/Euler substeps, then the end-of-period extras);
 - `cdyn_rollout` replaces `_pallas_rollout_fn` (one whole env step: n_ticks
@@ -195,6 +197,35 @@ def solve_sym6(m6, rhs):
     return y
 
 
+def solve_sym3(m3, rhs):
+    """Solve a symmetric positive definite 3x3 system by unrolled LDL^T
+    (jiminy_tpu's `solve_sym3`, the same order)."""
+    n = 3
+    l = [[0.0] * n for _ in range(n)]
+    d = [0.0] * n
+    for j in range(n):
+        dj = m3[j][j]
+        for k in range(j):
+            dj = dj - l[j][k] * l[j][k] * d[k]
+        d[j] = dj
+        inv_dj = 1.0 / dj
+        for i in range(j + 1, n):
+            s = m3[i][j]
+            for k in range(j):
+                s = s - l[i][k] * l[j][k] * d[k]
+            l[i][j] = s * inv_dj
+    y = list(rhs)
+    for i in range(n):
+        for k in range(i):
+            y[i] = y[i] - l[i][k] * y[k]
+    for i in range(n):
+        y[i] = y[i] / d[i]
+    for i in reversed(range(n)):
+        for k in range(i + 1, n):
+            y[i] = y[i] - l[k][i] * y[k]
+    return y
+
+
 def _transform_sym6(ia6, rot, pos):
     """I_parent = X_F I X_M^{-1} for the placement (rot, pos) of the child in
     its parent, (ang, lin) block layout, blockwise as in jiminy_tpu."""
@@ -245,22 +276,14 @@ def _clip(x, lo, hi):
     return torch.clamp(torch.clamp(x, min=lo), max=hi)
 
 
-def _unsupported_joint(i: int, t: jt.JointType) -> Exception:
-    if t == jt.JointType.SPHERICAL:
-        return NotImplementedError(
-            f"joint {i}: SPHERICAL joints in the component core are not ported yet "
-            "(ROADMAP.md queue 2)"
-        )
-    return NotImplementedError(
-        f"joint {i}: {t.name} is outside the component core (free-flyer root plus "
-        "REVOLUTE/PRISMATIC joints); its generic path is ROADMAP.md queue 1 item 2"
-    )
+_CORE_JOINTS = (jt.JointType.REVOLUTE, jt.JointType.PRISMATIC, jt.JointType.SPHERICAL)
 
 
 def supports_model(model: RobotModel) -> bool:
-    """True when the component core and its kernels take `model`: a FREE or
-    fixed root and REVOLUTE / PRISMATIC joints. jiminy_tpu's core also takes
-    SPHERICAL joints; the port's does not yet (ROADMAP.md queue 2)."""
+    """True when the component core takes `model`: a FREE or fixed root and
+    REVOLUTE, PRISMATIC and SPHERICAL joints (jiminy_tpu's rule). Only
+    `cdyn_accel` takes SPHERICAL joints: the period and rollout integrators
+    refuse them (`refuse_spherical`), as jiminy_tpu never sends them one."""
     try:
         check_model(model)
     except NotImplementedError:
@@ -274,8 +297,30 @@ def check_model(model: RobotModel) -> None:
         t = jt.JointType(t)
         if i == 0 and t == jt.JointType.FREE:
             continue
-        if t not in (jt.JointType.REVOLUTE, jt.JointType.PRISMATIC):
-            raise _unsupported_joint(i, t)
+        if t not in _CORE_JOINTS:
+            raise NotImplementedError(
+                f"joint {i}: {t.name} is outside the component core (free-flyer root plus "
+                "REVOLUTE/PRISMATIC/SPHERICAL joints); the generic path takes it"
+            )
+
+
+def has_spherical(model: RobotModel) -> bool:
+    return any(jt.JointType(t) == jt.JointType.SPHERICAL for t in model.joint_types)
+
+
+def refuse_spherical(model: RobotModel, what: str) -> None:
+    """Raise for a model with SPHERICAL joints: `what` (a period or rollout
+    integrator, plain or kernel, or the constrained core) integrates a
+    configuration or assembles rows for 1-dof joints only. A model with
+    SPHERICAL joints comes from flexibility, which turns jiminy_tpu's fused
+    period and rollout off (`jiminy_tpu/engine/engine.py:1006-1043`,
+    `:1285-1288`): the engine steps it stage by stage through `cdyn_accel`,
+    and in constraint contact mode on the generic path."""
+    if has_spherical(model):
+        raise NotImplementedError(
+            f"{what} takes no SPHERICAL joint: a flexible model's fused period and rollout are "
+            "off, as in jiminy_tpu; the engine steps it stage by stage through cdyn_accel"
+        )
 
 
 class _Consts:
@@ -372,6 +417,9 @@ class ComponentDynamics:
                 pos_j = [qc[qi], qc[qi + 1], qc[qi + 2]]
                 rot = m_mm(tree_r, rot_j)
                 pos = v_add(m_mv(tree_r, pos_j), tree_p)
+            elif c.types[i] == jt.JointType.SPHERICAL:
+                rot = m_mm(tree_r, quat_to_m(qc[qi], qc[qi + 1], qc[qi + 2], qc[qi + 3]))
+                pos = tree_p
             elif c.types[i] == jt.JointType.REVOLUTE:
                 rot = m_mm(tree_r, rodrigues(c.axis[i], qc[qi]))
                 pos = tree_p
@@ -486,6 +534,9 @@ class ComponentDynamics:
             if c.types[i] == jt.JointType.FREE:
                 vj_lin = [vc[vi], vc[vi + 1], vc[vi + 2]]
                 vj_ang = [vc[vi + 3], vc[vi + 4], vc[vi + 5]]
+            elif c.types[i] == jt.JointType.SPHERICAL:
+                vj_ang = [vc[vi], vc[vi + 1], vc[vi + 2]]
+                vj_lin = v3()
             else:
                 ax = c.axis[i]
                 if c.types[i] == jt.JointType.REVOLUTE:
@@ -538,6 +589,33 @@ class ComponentDynamics:
                 continue
             vi = c.idx_v[i]
             pa6 = [*pa[i][0], *pa[i][1]]
+            if c.types[i] == jt.JointType.SPHERICAL:
+                # 3-dof angular subspace: U = IA[:, 0:3], D = IA[0:3, 0:3] + armature
+                u63 = [[ia[i][r][k] for k in range(3)] for r in range(6)]
+                dmat = [[ia[i][r][k] for k in range(3)] for r in range(3)]
+                for k in range(3):
+                    dmat[k][k] = dmat[k][k] + c.armature[vi + k]
+                u_r3 = [tc[vi + k] + tau_extra.get(vi + k, 0.0) - pa[i][0][k] for k in range(3)]
+                u_of[i], d_inv[i], u_rhs[i] = u63, dmat, u_r3
+                if p >= 0:
+                    # Ia = IA - U D^-1 U^T, a column of D^-1 U^T a solve
+                    xcols = [solve_sym3(dmat, list(u63[c6])) for c6 in range(6)]
+                    ia_a = [[ia[i][r][c6] - sum(u63[r][k] * xcols[c6][k] for k in range(3))
+                             for c6 in range(6)] for r in range(6)]
+                    iab_a, iab_l = sym6_mv(ia_a, *bias[i])
+                    iab = [*iab_a, *iab_l]
+                    coef3 = solve_sym3(dmat, u_r3)
+                    pa_n = [pa6[k6] + iab[k6] + sum(u63[k6][k] * coef3[k] for k in range(3))
+                            for k6 in range(6)]
+                    ia_p = _transform_sym6(ia_a, rot_i, pos_i)
+                    for r in range(6):
+                        for col in range(6):
+                            ia[p][r][col] = ia[p][r][col] + ia_p[r][col]
+                    f_a = m_mv(rot_i, pa_n[3:])
+                    n_a = v_add(m_mv(rot_i, pa_n[:3]), v_cross(pos_i, f_a))
+                    pp_a, pp_l = pa[p]
+                    pa[p] = (v_add(pp_a, n_a), v_add(pp_l, f_a))
+                continue
             ax_a, ax_l = svec[i]
             s6 = [*ax_a, *ax_l]
             ua, ul = sym6_mv(ia[i], list(ax_a), list(ax_l))
@@ -592,6 +670,15 @@ class ComponentDynamics:
                 for k in range(6):
                     qdd_parts[vi + k] = qdd6[k]
                 acc[i] = (v_add(am_a, qdd6[3:6]), v_add(am_l, qdd6[0:3]))
+            elif c.types[i] == jt.JointType.SPHERICAL:
+                u63 = u_of[i]
+                am6 = [*am_a, *am_l]
+                rhs3 = [u_rhs[i][k] - sum(u63[k6][k] * am6[k6] for k6 in range(6))
+                        for k in range(3)]
+                qdd3 = solve_sym3(d_inv[i], rhs3)
+                for k in range(3):
+                    qdd_parts[vi + k] = qdd3[k]
+                acc[i] = (v_add(am_a, qdd3), list(am_l))
             else:
                 u6 = u_of[i]
                 am6 = [*am_a, *am_l]
@@ -626,6 +713,9 @@ class ComponentDynamics:
                 vj_ang = [vc[vi + 3], vc[vi + 4], vc[vi + 5]]
                 aj_lin = [ac[vi], ac[vi + 1], ac[vi + 2]]
                 aj_ang = [ac[vi + 3], ac[vi + 4], ac[vi + 5]]
+            elif c.types[i] == jt.JointType.SPHERICAL:
+                vj_ang, vj_lin = [vc[vi], vc[vi + 1], vc[vi + 2]], v3()
+                aj_ang, aj_lin = [ac[vi], ac[vi + 1], ac[vi + 2]], v3()
             elif c.types[i] == jt.JointType.REVOLUTE:
                 vj_ang, vj_lin = v_scale(c.axis[i], vc[vi]), v3()
                 aj_ang, aj_lin = v_scale(c.axis[i], ac[vi]), v3()
@@ -1148,6 +1238,7 @@ class PeriodIntegrator:
     def __init__(self, cd, tau_c, dt, n_substeps, integrator, imu_frames):
         if integrator not in _INTEGRATORS:
             raise ValueError(f"unknown fixed-step integrator {integrator!r}")
+        refuse_spherical(cd.model, "cdyn_period (and its plain version)")
         self.cd, self.tau_c, self.dt = cd, tau_c, float(dt)
         self.n_substeps, self.integrator, self.imu_frames = int(n_substeps), integrator, imu_frames
         self.substep = cd._build_substep(tau_c, self.dt, integrator)
@@ -1185,6 +1276,7 @@ class RolloutIntegrator:
     def __init__(self, cd, tau_c, dt, n_substeps, n_ticks, controller, integrator, imu_frames):
         if integrator not in _INTEGRATORS:
             raise ValueError(f"unknown fixed-step integrator {integrator!r}")
+        refuse_spherical(cd.model, "cdyn_rollout (and its plain version)")
         self.cd, self.tau_c, self.dt = cd, tau_c, float(dt)
         self.n_substeps, self.n_ticks = int(n_substeps), int(n_ticks)
         self.controller, self.integrator, self.imu_frames = controller, integrator, imu_frames
@@ -1439,7 +1531,8 @@ CI_SPRING = 9  # header slot: where the spring section (`spring_section`) starts
 # header slots: where the terrain section (`utils.terrain.pack_ground`) starts
 # in ci and in cf; 0 on flat ground
 CI_TERRAIN = 10
-AX_X, AX_Y, AX_Z, AX_GENERAL = 0, 1, 2, 3  # axis classes of a 1-dof joint (-1 FREE)
+# Axis classes: a 1-dof joint's (-1 FREE), and SPHERICAL's own
+AX_X, AX_Y, AX_Z, AX_GENERAL, AX_SPHERICAL = 0, 1, 2, 3, 4
 CF_HEADER = 16  # g(3) stiffness damping friction v_trans eps_trans dt dt/2 dt/6
 CI_JOINT, CI_CONTACT, CI_IMU, CI_MOTOR, CI_BOUND = 4, 2, 1, 3, 2
 CF_JOINT, CF_CONTACT, CF_IMU, CF_MOTOR, CF_BOUND = 57, 13, 12, 9, 4
@@ -1449,16 +1542,19 @@ CF_JOINT, CF_CONTACT, CF_IMU, CF_MOTOR, CF_BOUND = 57, 13, 12, 9, 4
 class PackedModel:
     ci: torch.Tensor  # int32
     cf: torch.Tensor  # the run's float dtype
-    counts: dict  # nj, nq, nv, nc, ni, nm, nb
+    counts: dict  # nj, nq, nv, nc, ni, nm, nb, nsph (SPHERICAL joints)
     terrain: int = 0  # 1: the ground's program is packed (the kernels' terrain instance)
 
 
 def axis_class(joint_type, axis) -> int:
     """AX_X, AX_Y or AX_Z for a 1-dof joint whose axis has exactly one
     non-zero component (the coordinate axis it lies on, either sign, as
-    Pinocchio's RX/RY/RZ joints), AX_GENERAL otherwise; -1 for FREE."""
+    Pinocchio's RX/RY/RZ joints), AX_GENERAL otherwise; -1 for FREE,
+    AX_SPHERICAL for SPHERICAL (its motion subspace the angular block)."""
     if jt.JointType(joint_type) == jt.JointType.FREE:
         return -1
+    if jt.JointType(joint_type) == jt.JointType.SPHERICAL:
+        return AX_SPHERICAL
     nonzero = [k for k in range(3) if float(axis[k]) != 0.0]
     return nonzero[0] if len(nonzero) == 1 else AX_GENERAL
 
@@ -1549,7 +1645,7 @@ def pack_model(cd: ComponentDynamics, tau_c: Optional[MotorTransmission], dt: fl
         ci += ti.tolist()
         cf += tf.tolist()
     counts = dict(nj=model.njoints, nq=model.nq, nv=model.nv, nc=nc, ni=ni, nm=nm,
-                  nb=len(bounds))
+                  nb=len(bounds), nsph=sum(t == jt.JointType.SPHERICAL for t in c.types))
     return PackedModel(
         ci=torch.tensor(ci, dtype=torch.int32, device=device),
         cf=torch.tensor(cf, dtype=torch.float64).to(device=device, dtype=dtype),
@@ -1625,13 +1721,15 @@ def _rows(x: torch.Tensor, batch, n: int) -> torch.Tensor:
 
 
 def accel_smem_per_env(packed: PackedModel, dtype) -> int:
-    """Bytes of dynamic shared memory one env of cdyn_accel takes; a block's
-    share past what the card grants fails at the launch."""
+    """Bytes of dynamic shared memory one env of cdyn_accel takes (with the
+    SPHERICAL joints' blocks); a block's share past what the card grants
+    fails at the launch."""
     from jiminy_torch.ops import kernels
 
     c = packed.counts
     elt = torch.empty((), dtype=dtype).element_size()
-    return kernels.load().accel_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt)[0]
+    return kernels.load().accel_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt,
+                                           c["nsph"])[0]
 
 
 def _launch_accel(packed: PackedModel, q, v, tau):
@@ -1644,7 +1742,8 @@ def _launch_accel(packed: PackedModel, q, v, tau):
     out = torch.empty((b, nv), dtype=q.dtype, device=q.device)
     if b:
         _launch("cdyn_accel", q.dtype, packed.ci.data_ptr(), packed.cf.data_ptr(), qs.data_ptr(),
-                vs.data_ptr(), ts.data_ptr(), out.data_ptr(), b, smem, packed.terrain)
+                vs.data_ptr(), ts.data_ptr(), out.data_ptr(), b, smem, packed.terrain,
+                int(packed.counts["nsph"] > 0))
     return out.reshape(tuple(batch) + (nv,))
 
 

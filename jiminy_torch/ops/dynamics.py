@@ -9,9 +9,9 @@ forces `fext` are per-joint spatial wrenches at the joint origin in LOCAL
 joint coordinates, (..., nj, 6).
 
 These are the generic path's dynamics (`Engine` with `use_fast_dynamics=False`,
-or a model the component core refuses: `continuous` and spherical joints),
-plain torch on every device, as jiminy_tpu runs them in XLA outside its
-kernels. CRBA also gives the penalty joint-bound gains at the neutral pose.
+a model the component core refuses: `continuous` joints, or PGS rows beside
+spherical joints), plain torch on every device, as jiminy_tpu runs them in
+XLA outside its kernels. CRBA also gives the penalty joint-bound gains at the neutral pose.
 """
 
 from __future__ import annotations

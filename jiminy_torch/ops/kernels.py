@@ -35,8 +35,8 @@ NVCC_FLAGS = (
 )
 # The parts of cdyn.cu (CDYN_PART 0 to N_PARTS - 1): the host helpers, the
 # spring kernels at float and double, cdyn_period_cm and cdyn_rollout_cm at
-# float and double
-N_PARTS = 7
+# float and double, cdyn_accel's SPHERICAL instances at both
+N_PARTS = 8
 CM_PHASES = 8  # phases of a constrained solve timed by a CDYN_CM_PROFILE build
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -44,9 +44,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # (`Library.cm_geometry`), the terrain flag (the instance that evaluates the
 # model's terrain section), for the constrained kernels the ext flag (the
 # instance of the extended body: loop closures, spring-damper contacts and
-# penalty bounds beside the rows), and the stream.
+# penalty bounds beside the rows), for cdyn_accel the sph flag (the instance
+# that takes SPHERICAL joints), and the stream.
 _SIGNATURES = {
-    "cdyn_accel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "cdyn_accel": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "cdyn_period": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "cdyn_rollout": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                      _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -167,7 +168,7 @@ class Library:
         self._sp_smem.argtypes = [_I] * 8 + [ctypes.POINTER(ctypes.c_int)]
         self._sp_smem.restype = ctypes.c_int
         self._accel_smem = self._dll.cdyn_accel_smem_bytes
-        self._accel_smem.argtypes = [_I] * 5 + [ctypes.POINTER(ctypes.c_int)]
+        self._accel_smem.argtypes = [_I] * 6 + [ctypes.POINTER(ctypes.c_int)]
         self._accel_smem.restype = ctypes.c_int
         self._sp_blocks = self._dll.cdyn_sp_blocks_per_sm
         self._sp_blocks.argtypes = [_I] * 4
@@ -208,25 +209,30 @@ class Library:
         per_env = self._sp_smem(nj, nq, nv, nc, n_cmd, n_action, n_carry, elt, geometry)
         return int(per_env), int(geometry[0]), int(geometry[1])
 
-    def accel_smem_bytes(self, nj, nq, nv, nc, elt) -> tuple:
-        """(bytes of dynamic shared memory one env of cdyn_accel takes, lanes
-        per env, envs per block) of this build (`SpAccelLayout` in
-        csrc/spring.cuh)."""
+    def accel_smem_bytes(self, nj, nq, nv, nc, elt, nsph=0) -> tuple:
+        """(bytes of dynamic shared memory one env of cdyn_accel takes with
+        `nsph` SPHERICAL joints, lanes per env, envs per block) of this build
+        (`SpAccelLayout` in csrc/spring.cuh)."""
         geometry = (ctypes.c_int * 2)()
-        per_env = self._accel_smem(nj, nq, nv, nc, elt, geometry)
+        per_env = self._accel_smem(nj, nq, nv, nc, elt, nsph, geometry)
         return int(per_env), int(geometry[0]), int(geometry[1])
 
-    def sp_envs_per_sm(self, kernel: str, elt: int, smem_per_env: int, terrain=False) -> int:
+    def sp_envs_per_sm(self, kernel: str, elt: int, smem_per_env: int, terrain=False,
+                       sph=False) -> int:
         """Envs of a spring kernel ("cdyn_accel", "cdyn_period" or
-        "cdyn_rollout"; its terrain instance with `terrain`) that the runtime
-        keeps on one SM (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` x
-        envs a block)."""
+        "cdyn_rollout"; its terrain instance with `terrain`, cdyn_accel's
+        SPHERICAL instance with `sph`) that the runtime keeps on one SM
+        (`cudaOccupancyMaxActiveBlocksPerMultiprocessor` x envs a block)."""
         which = ("cdyn_accel", "cdyn_period", "cdyn_rollout").index(kernel)
+        if sph:
+            if which != 0:
+                raise ValueError(f"{kernel} has no SPHERICAL instance")
+            which = 3
         blocks = self._sp_blocks(which, elt, smem_per_env, int(terrain))
         if blocks < 0:
             raise RuntimeError(f"cdyn_sp_blocks_per_sm: CUDA error {-blocks} "
                                f"({self.error_string(-blocks)})")
-        geometry = (self.accel_smem_bytes(1, 1, 1, 0, elt) if which == 0 else
+        geometry = (self.accel_smem_bytes(1, 1, 1, 0, elt) if which in (0, 3) else
                     self.sp_smem_bytes(1, 1, 1, 0, 0, 0, 0, elt))
         return blocks * geometry[2]
 

@@ -173,6 +173,24 @@ def log3_mat(r: torch.Tensor) -> torch.Tensor:
     return log3_quat(mat_to_quat(r))
 
 
+def jlog3(w: torch.Tensor) -> torch.Tensor:
+    """The right Jacobian inverse of log3 at the rotation exp3(w): d/dt
+    log3(R(t)) = jlog3(w) @ omega_local (Pinocchio's `Jlog3`), with a Taylor
+    branch below `_SMALL_ANGLE`. (..., 3) -> (..., 3, 3)."""
+    eps = _eps(w.dtype)
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(torch.clamp_min(theta2, eps**2))
+    small = theta2 < _SMALL_ANGLE**2
+    # 1/theta^2 (1 - theta sin(theta) / (2 (1 - cos(theta))))
+    st, ct = torch.sin(theta), torch.cos(theta)
+    denom = torch.clamp_min(2.0 * (1.0 - ct), eps)
+    coef = torch.where(small, 1.0 / 12.0 + theta2 / 720.0,
+                       (1.0 - theta * st / denom) / torch.clamp_min(theta2, eps**2))
+    s = skew(w)
+    eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(s.shape)
+    return eye + 0.5 * s + coef[..., None, None] * mm(s, s)
+
+
 # --------------------------------------------------------------------------- #
 # SE(3) placements and spatial vectors
 # --------------------------------------------------------------------------- #

@@ -3,7 +3,9 @@
 `perturbed_states` draws (q, v, tau) around an env's nominal pose from a numpy
 seed: the base lowered so that some feet penetrate the ground, random joint
 offsets with some joints pushed past their bounds, a tilted base, random
-velocities and torques. `constrained_inputs` draws the same kind of states
+velocities and torques; `flexible_states` the same for a robot with
+flexibility joints, their quaternions random or near the identity.
+`constrained_inputs` draws the same kind of states
 for the constrained (PGS) path, with every foot 0-3 cm into the ground and
 the solver channels (warm-start multipliers, active sets) that ride the
 command row and the carry, or with every row, no row or the contact rows of
@@ -14,7 +16,8 @@ hold a kernel's outputs against its plain version column by column. The
 card tests and `chip_smoke.py` use them. `constraint_mode_options` turns an
 env's engine options into constraint contact mode, as `bench.py` does with
 `BENCH_CONTACT=constraint`; `dopri_options` turns them to adaptive DOPRI
-5(4), every other option kept. `rough_ground` is the terrain cell's ground
+5(4), every other option kept; `resolving_options` cuts the substep to one
+that resolves the flexibility joints' damped mode. `rough_ground` is the terrain cell's ground
 (`ground_options` sets a ground); `spread_on_ground` and `place_on_ground`
 put states on it at distinct (x, y). `fourbar_robot` builds jiminy_tpu's two
 Cassie-shaped test models (a four-bar linkage closed by a distance loop,
@@ -57,6 +60,26 @@ def perturbed_states(env, batch: int, seed: int, device=None, dtype=None):
         return torch.as_tensor(x, dtype=dtype, device=device)
 
     return t(q), t(v), t(tau)
+
+
+def flexible_states(env, batch: int, seed: int, device=None, dtype=None):
+    """`perturbed_states` of a robot with flexibility joints, each joint's
+    quaternion unit: random in the first half of the envs, within 1e-4 to
+    1e-2 rad of the identity in the second (both sides of the 1e-3 rad
+    small-angle branches of log3 and jlog3)."""
+    q, v, tau = perturbed_states(env, batch, seed, device=device, dtype=torch.float64)
+    model, rng = env.robot.model, np.random.default_rng(seed + 1)
+    q = q.cpu().numpy()
+    half = batch // 2
+    for j in env.robot.flexibility.joint_indices:
+        quat = rng.normal(size=(batch, 4))
+        axis = rng.normal(size=(batch - half, 3))
+        axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+        angle = 10.0 ** rng.uniform(-4.0, -2.0, size=(batch - half, 1))
+        quat[half:] = np.concatenate([axis * np.sin(angle / 2), np.cos(angle / 2)], axis=1)
+        q[:, model.q_slice(j)] = quat / np.linalg.norm(quat, axis=1, keepdims=True)
+    dtype = env.dtype if dtype is None else dtype
+    return torch.as_tensor(q, device=v.device).to(dtype), v.to(dtype), tau.to(dtype)
 
 
 def rough_ground():
@@ -129,6 +152,20 @@ def dopri_options(options):
     return options.replace(
         stepper=dataclasses.replace(options.stepper, integrator=IntegratorType.RUNGE_KUTTA_DOPRI)
     )
+
+
+def resolving_options(options, dt_max: float = 2.5e-5, period: float = 1.0e-4):
+    """The options with an RK4 substep of `dt_max` and controller and sensor
+    periods of `period`. jiminy_tpu's flexible ANYmal (`make("anymal-pid",
+    flexible=True)`) integrates its flexibility joints' damped mode about the
+    shank (damping 1e2 over an inertia of about 1e-3: an eigenvalue near
+    -1e5 1/s) with RK4 at 1 ms, 100 times outside RK4's stability interval
+    (|lambda dt| < 2.79): rounding noise grows some 4e6-fold a substep and the
+    state is non-finite within two controller periods, in jiminy_tpu and in
+    the port alike. A substep of 2.5e-5 s resolves that mode."""
+    return options.replace(
+        stepper=dataclasses.replace(options.stepper, dt_max=dt_max),
+        controller_update_period=period, sensor_update_period=period)
 
 
 def constraint_mode_options(options):

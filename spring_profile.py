@@ -209,7 +209,8 @@ def ptxas_lines(log, kernels=("cdyn_rollout", "cdyn_period", "cdyn_accel")):
     """{kernel (float32): registers / stack line} from a build's ptxas log:
     the flat-ground instance under the kernel's name (a build before the
     terrain instances has only that one), the terrain instance under
-    "<kernel> (terrain)"."""
+    "<kernel> (terrain)", cdyn_accel's SPHERICAL instances with " (spherical)"
+    after either."""
     lines, out = log.splitlines(), {}
     for i, line in enumerate(lines):
         if "Compiling entry function" not in line:
@@ -221,6 +222,8 @@ def ptxas_lines(log, kernels=("cdyn_rollout", "cdyn_period", "cdyn_accel")):
         if name is None or "_cm" in line:
             continue
         name = name + " (terrain)" if terrain else name
+        if re.search(r"_kernelI[fd]Lb[01]ELb1E", line):  # cdyn_accel's SPHERICAL instance
+            name += " (spherical)"
         for nxt in lines[i + 1:i + 6]:
             if "registers" in nxt or "stack frame" in nxt:
                 out.setdefault(name, []).append(nxt.split("info    :")[-1].strip())

@@ -1,10 +1,11 @@
 """Write the toys' golden initial states (`toy_initial_states.json`), the
-ant's first env step (`ant_first_step.json`) and jiminy_tpu's constraint-mode
-Atlas and ant with its bounds as rows (`atlas_cm_first_step.json`).
+ant's first env step (`ant_first_step.json`), jiminy_tpu's constraint-mode
+Atlas and ant with its bounds as rows (`atlas_cm_first_step.json`) and its
+flexible ANYmal (`flexible_anymal.json`).
 
-    python tests/goldens_torch/generate.py [toys] [ant] [atlas_cm]
+    python tests/goldens_torch/generate.py [toys] [ant] [atlas_cm] [flexible]
 
-(no argument: all three; the last takes some 40 minutes on one CPU.)
+(no argument: all four; `atlas_cm` takes some 40 minutes on one CPU.)
 
 For each toy env id of `tests/golden_configs.py` (cartpole; acrobot and
 pendulum), jiminy_tpu's `env.reset(jax.random.PRNGKey(seed + 1000 * i))`
@@ -209,6 +210,73 @@ def atlas_cm() -> dict:
     return out
 
 
+FLEX_PATH = os.path.join(HERE, "flexible_anymal.json")
+FLEX_FIELDS = ("q", "v", "a", "contact_forces")
+FLEX_COMMAND = np.random.default_rng(14).uniform(-0.5, 0.5, size=12)  # motor torques
+
+
+def flexible_anymal() -> dict:
+    """jiminy_tpu's `make("anymal-pid", flexible=True)` at float64 on the CPU
+    (its default engine: the generic path), reset with PRNGKey(0):
+    - "step": its first env step with zero actions, as configured (RK4 at 1
+      ms): which entries of the state are finite (none: the flexibility's
+      damped mode diverges, `testing.resolving_options`), and "periods" the
+      same after two controller periods through `Engine.step` with
+      `FLEX_COMMAND`;
+    - "period" and "period_constraint": with the port's
+      `testing.resolving_options` (substeps of 2.5e-5 s, a controller period
+      of 1e-4 s), one controller period through `Engine.step` with
+      `FLEX_COMMAND`, in spring-damper and in constraint contact mode
+      (ground contacts and joint bounds as PGS rows)."""
+    jax.config.update("jax_enable_x64", True)
+    import jax.numpy as jnp
+    import torch
+
+    from jiminy_torch.envs import make as t_make
+    from jiminy_torch.testing import constraint_mode_options, resolving_options
+    from jiminy_tpu.envs import make
+
+    def finite(sim):
+        return {f: [bool(x) for x in np.isfinite(np.asarray(getattr(sim, f))).ravel()]
+                for f in FLEX_FIELDS}
+
+    out = {"command": _hex(FLEX_COMMAND)}
+    env = make("anymal-pid", flexible=True)
+    st, _ = env.reset(jax.random.PRNGKey(0))
+    step = jax.jit(env.env.engine.step)
+    out["periods"] = finite(step(step(st.sim, jnp.asarray(FLEX_COMMAND)), jnp.asarray(FLEX_COMMAND)))
+    st, _, reward, _, _, _ = jax.jit(env.step)(st, jnp.zeros(env.action_size))
+    out["step"] = finite(st.sim)
+    out["step"]["reward"] = bool(np.isfinite(np.asarray(reward)))
+    base = t_make("anymal-pid", flexible=True, device="cpu", dtype=torch.float64).engine.options
+    for key, opts in (("period", resolving_options(base)),
+                      ("period_constraint", resolving_options(constraint_mode_options(base)))):
+        j_opts = make("anymal-pid", flexible=True).env.engine.options
+        j_opts = _j_options_like(j_opts, opts)
+        env = make("anymal-pid", flexible=True, options=j_opts)
+        st, _ = env.reset(jax.random.PRNGKey(0))
+        sim = jax.jit(env.env.engine.step)(st.sim, jnp.asarray(FLEX_COMMAND))
+        out[key] = {f: _hex(np.asarray(getattr(sim, f)).ravel()) for f in FLEX_FIELDS}
+        print(f"flexible {key}: done", flush=True)
+    return out
+
+
+def _j_options_like(j_opts, t_opts):
+    """jiminy_tpu's options with the port's stepper substep, periods, contact
+    model and joint bounds mode."""
+    import dataclasses
+
+    from jiminy_tpu.engine.config import ContactModel
+
+    model = ContactModel(t_opts.contacts.model.value)
+    return j_opts.replace(
+        stepper=dataclasses.replace(j_opts.stepper, dt_max=t_opts.stepper.dt_max),
+        contacts=dataclasses.replace(j_opts.contacts, model=model),
+        controller_update_period=t_opts.controller_update_period,
+        sensor_update_period=t_opts.sensor_update_period,
+        joint_bounds_mode=t_opts.joint_bounds_mode)
+
+
 def _write(path, data):
     with open(path, "w") as f:
         json.dump(data, f, indent=1)
@@ -218,11 +286,13 @@ def _write(path, data):
 
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    which = sys.argv[1:] or ["toys", "ant", "atlas_cm"]
+    which = sys.argv[1:] or ["toys", "ant", "atlas_cm", "flexible"]
     if "toys" in which:
         _write(PATH, initial_states())
     if "ant" in which:
         _write(ANT_PATH, ant_first_step())
+    sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
     if "atlas_cm" in which:
-        sys.path.insert(0, os.path.dirname(os.path.dirname(HERE)))
         _write(ATLAS_CM_PATH, atlas_cm())
+    if "flexible" in which:
+        _write(FLEX_PATH, flexible_anymal())

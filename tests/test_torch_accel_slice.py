@@ -3,7 +3,8 @@ and `sp_env_stride`), derived here from its layout on the CPU: what one
 evaluation keeps in it, how large it is for the ANYmal and for a model with
 general, prismatic and negative axes, that the groups of a warp start in
 distinct banks, and that it is smaller than the period and rollout kernels'
-slices (`SpLayout`), so more envs fit an SM. The card test
+slices (`SpLayout`), so more envs fit an SM; with SPHERICAL joints (the
+flexible ANYmal) a block of `SPH_REC` values each at its end. The card test
 `test_accel_slice_size_matches_its_layout` holds the library to these sizes.
 """
 
@@ -13,15 +14,18 @@ import torch
 from jiminy_torch.envs import make
 
 JREC = 43  # elements of a joint's record (spring.cuh, `JREC`)
+SPH_REC = 27  # a SPHERICAL joint's block: U (18), its D's factor (6), u (3)
 ROOT = 12  # the FREE root's placement (R 9, P 3)
 SP_LANES, SP_ENVS, SPA_ENVS = 4, 8, 16  # the default build's geometry
 SMEM_PER_SM, SMEM_PER_BLOCK_RESERVED = 228 * 1024, 1024  # H100: an SM's shared memory
 
 
-def accel_slice_fields(nj, nq, nv, nc):
+def accel_slice_fields(nj, nq, nv, nc, nsph=0):
     """Element offsets of one env's accel slice: the joint records, the
-    root's placement, q, v and the contact wrenches, in that order."""
-    sizes = {"rec": JREC * nj, "root": ROOT, "q": nq, "v": nv, "fext": 6 * nc}
+    root's placement, q, v, the contact wrenches and the SPHERICAL joints'
+    blocks, in that order."""
+    sizes = {"rec": JREC * nj, "root": ROOT, "q": nq, "v": nv, "fext": 6 * nc,
+             "sph": SPH_REC * nsph}
     out, off = {}, 0
     for name, n in sizes.items():
         out[name] = (off, n)
@@ -38,8 +42,8 @@ def env_stride(elems, elt, lanes=SP_LANES):
     return 4 * (words + (want - words % 32 + 32) % 32)
 
 
-def accel_slice_bytes(nj, nq, nv, nc, elt, lanes=SP_LANES):
-    return env_stride(accel_slice_fields(nj, nq, nv, nc)[1], elt, lanes)
+def accel_slice_bytes(nj, nq, nv, nc, elt, lanes=SP_LANES, nsph=0):
+    return env_stride(accel_slice_fields(nj, nq, nv, nc, nsph)[1], elt, lanes)
 
 
 def spring_slice_bytes(nj, nq, nv, nc, n_cmd, n_act, n_carry, elt):
@@ -67,7 +71,7 @@ def anymal_counts():
 def test_accel_slice_holds_one_evaluation(anymal_counts):
     c = anymal_counts
     fields, elems = accel_slice_fields(c["nj"], c["nq"], c["nv"], c["nc"])
-    assert list(fields) == ["rec", "root", "q", "v", "fext"]
+    assert list(fields) == ["rec", "root", "q", "v", "fext", "sph"]
     ends = [off + n for off, n in fields.values()]
     assert [off for off, _ in fields.values()] == [0] + ends[:-1]  # packed, no overlap
     assert elems == 43 * 13 + 12 + 19 + 18 + 24
@@ -109,3 +113,15 @@ def test_accel_slice_follows_the_model():
     fields, elems = accel_slice_fields(c["nj"], c["nq"], c["nv"], c["nc"])
     assert fields["fext"][1] == 0 and elems == 43 * c["nj"] + 12 + c["nq"] + c["nv"]
     assert accel_slice_bytes(c["nj"], c["nq"], c["nv"], c["nc"], 4) == env_stride(elems, 4)
+
+
+@pytest.mark.parametrize("elt, want, per_sm", [(4, 3856, 48), (8, 7584, 16)])
+def test_accel_slice_of_the_flexible_anymal(elt, want, per_sm):
+    """Four SPHERICAL joints: their blocks at the slice's end, the records
+    and the other fields as the rigid instance lays them out."""
+    c = _counts(make("anymal-pid", flexible=True, device="cpu", dtype=torch.float64).engine._cdyn)
+    assert (c["nj"], c["nq"], c["nv"], c["nc"], c["nsph"]) == (17, 35, 30, 4, 4)
+    fields, elems = accel_slice_fields(c["nj"], c["nq"], c["nv"], c["nc"], c["nsph"])
+    assert fields["sph"] == (43 * 17 + 12 + 35 + 30 + 24, 27 * 4)
+    per_env = accel_slice_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt, nsph=c["nsph"])
+    assert per_env == want and envs_per_sm(per_env, SPA_ENVS) == per_sm

@@ -51,6 +51,7 @@ def test_port_imports_neither_jax_nor_jiminy_tpu():
     assert "jiminy_torch.engine.contact" in mods and "jiminy_torch.envs.toys" in mods
     assert "jiminy_torch.models.urdf" in mods and "jiminy_torch.envs.assets" in mods
     assert "jiminy_torch.envs.ant" in mods and "jiminy_torch.engine.robot" in mods
+    assert "jiminy_torch.engine.internal" in mods and "jiminy_torch.envs.builders" in mods
     for m in ("rl.ppo", "rl.evaluate", "rl.checkpoint", "rl.networks", "gym.wrappers",
               "telemetry.trajectory", "utils", "utils.terrain"):
         assert f"jiminy_torch.{m}" in mods, m
@@ -202,7 +203,7 @@ def test_packed_constants_match_model(env):
     assert tuple(motors[:, 0]) == env.robot.motors.v_indices
     assert set(motors[:, 1]) == {cdyn.MOTOR_ENVELOPE}
     assert packed.counts == dict(nj=nj, nq=model.nq, nv=nv, nc=nc, ni=ni, nm=nm,
-                                 nb=len(eng._bound_gains))
+                                 nb=len(eng._bound_gains), nsph=0)
 
 
 def test_packed_terrain_section_matches_pack_ground(env):

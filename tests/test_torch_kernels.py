@@ -11,7 +11,9 @@ penalty bounds) for `digit-pid` and jiminy_tpu's Cassie-shaped four-bar
 with a foot (`testing.fourbar_robot`), each flat and rough; the constrained
 kernels for the Atlas in constraint mode (`atlas-reduced-pid`, 60 rows, and
 `atlas-pid`, 78 rows and nv 36) and for the ant with its joint bounds as
-rows (44 rows).
+rows (44 rows); `cdyn_accel`'s SPHERICAL instance for the flexible ANYmal
+(`make("anymal-pid", flexible=True)`: random and near-identity
+flexibility quaternions, `testing.flexible_states`).
 
 Marked `cuda`; they skip where no CUDA device is present (the check runs in a
 fixture, never at import). On a machine with a card, run them with:
@@ -49,6 +51,7 @@ from jiminy_torch.testing import (
     column_quantile_errors,
     constrained_inputs,
     constraint_mode_options,
+    flexible_states,
     ground_options,
     perturbed_states,
     rough_ground,
@@ -134,6 +137,33 @@ def test_accel_slice_size_matches_its_layout(cuda_device):
         per_env, lanes, envs = lib.accel_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt)
         assert per_env == accel_slice_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt, lanes)
         assert per_env < lib.sp_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], 12, 0, 0, elt)[0]
+    c = make("anymal-pid", flexible=True, device=cuda_device).engine._cdyn.pack(
+        None, 0.0, (), cuda_device, torch.float32).counts
+    for elt in (4, 8):
+        per_env, lanes, _ = lib.accel_smem_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt,
+                                                 c["nsph"])
+        assert per_env == accel_slice_bytes(c["nj"], c["nq"], c["nv"], c["nc"], elt, lanes,
+                                            c["nsph"])
+        assert lib.sp_envs_per_sm("cdyn_accel", elt, per_env, sph=True) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [512, 131071])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_spherical_accel_kernel_matches_plain(cuda_device, dtype, batch):
+    """cdyn_accel's SPHERICAL instance on the flexible ANYmal (four
+    flexibility joints), the last block part-filled at 131071; the period
+    and rollout integrators refuse the model."""
+    env = make("anymal-pid", flexible=True, device=cuda_device, dtype=dtype)
+    cd = env.engine._cdyn
+    q, v, tau = flexible_states(env, batch, seed=3)
+    out = cd.accel_kernel(q, v, tau)
+    ref = cd.accel_plain(q, v, tau)
+    torch.cuda.synchronize()
+    assert out.shape == (batch, 30) and torch.isfinite(out).all()
+    assert _error(out, ref, dtype) < TOL[dtype][0]
+    with pytest.raises(NotImplementedError, match="SPHERICAL"):
+        cd.make_period_integrator(env.engine._tau_c, 1e-3, 5)
 
 
 @pytest.mark.cuda
