@@ -97,10 +97,10 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 13. Toy main path: each toy at float32, B=131072 (initial states from a
    seeded torch.Generator), a warm-up step, launch counts to 0,
    N_STEPS_TOYS steps of zero actions, counts read: env-steps/s, all
-   finite, none terminated; the pendulum also its per-period path. Then one
-   step of anymal-pid on the generic path (use_fast_dynamics=False) at
-   float64 on B_GENERIC_F64 envs against the kernel path from the same
-   states, every column within GENERIC_TOL.
+   finite, none terminated; the pendulum also its per-period path. Beside
+   phase 16: one step of anymal-pid on the generic path
+   (use_fast_dynamics=False) at float64 on B_GENERIC_F64 envs against the
+   kernel path from the same states, every column within GENERIC_TOL.
 14. The pendulum's constrained kernels at B=131072 at their full tick and
    substep counts: float32 on the main path's states, timed (CUDA events)
    beside the plain version; float64 on the main path's states, perturbed
@@ -167,25 +167,28 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    pushrod within PUSHROD_TOL of its length, all finite, no standing env
    below base_height_min; then one step of the per-period path (one
    cdyn_period_cm a period). The two kernels on the main path's states
-   (`phase_cm_records`, as every constrained model of phases 23 and 25):
+   (`phase_cm_records`, as every constrained model of phases 23 and 25;
+   after phase 23, the op count running in a worker meanwhile):
    float32 timed (CUDA events) beside the plain version (host clock; the
-   period whole, the rollout over DIGIT_PLAIN_TICKS tick and its record's
-   `plain_ms` null: a whole plain step is minutes of eager launches), their
-   distance printed beside a one-ulp witness and, where float64 runs the
-   same launch, the float32 kernel's and plain version's distances to the
-   float64 plain version; the whole period at float64 one env short, every
-   column within 1e-9, zeroed multipliers and one PGS sweep refused; ops
+   period over one substep, the rollout over DIGIT_PLAIN_TICKS tick, their
+   records' `plain_ms` null: a whole plain step is minutes of eager
+   launches), their distance printed beside a one-ulp witness and, where
+   float64 runs the same launch, the float32 kernel's and plain version's
+   distances to the float64 plain version; the period's substep at float64
+   one env short, every column within 1e-9, zeroed multipliers and one PGS
+   sweep refused (phase 20 holds the whole period at float64); ops
    counted on the plain version (in a worker process), bytes, bound,
    registers, shared memory and envs an SM; records join the kernels line
    with `"model": "digit-pid"`.
-20. The constrained kernels at B_LOOP_CHECK on `testing.loop_inputs`
-   states: digit-pid and jiminy_tpu's Cassie-shaped four-bar with a foot
+20. Beside phase 16, in a card-lane process: the constrained kernels at
+   B_LOOP_CHECK on `testing.loop_inputs` states: digit-pid and jiminy_tpu's Cassie-shaped four-bar with a foot
    and a bound, each on flat and rough ground (both instances), both
-   kernels; float64 within 1e-9, the four-bar over a whole period and
-   LOOP_TICKS whole ticks, the flat Digit's rollout over LOOP_TICKS whole
-   ticks (zeroed loop multipliers and one PGS sweep refused), the rest at
+   kernels; float64 within 1e-9, the four-bar and the flat Digit over a
+   whole period and LOOP_TICKS whole ticks (the Digit's zeroed loop
+   multipliers and one PGS sweep refused), the rest at
    LOOP_TICKS x LOOP_SUBSTEPS (on rough ground the flat plain outputs must
-   differ); float32 within TOL at LOOP_TICKS x LOOP_SUBSTEPS.
+   differ); float32 within TOL at LOOP_TICKS x LOOP_SUBSTEPS. The
+   procedural Cassie (phase 27) on flat ground as the rest, at float64.
 21. Cassie: every row of tests/goldens/cassie-pid.csv at float64, B=1, on
    the generic path (continuous ankles; a CUDA graph a tick, no kernel)
    within CASSIE_GOLDEN_ATOL (run from the start by a process of its own on
@@ -217,13 +220,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    radius 0.2 m with a sphere or a wheel rolling constraint, 3 rows): B=131072
    at float32, N_STEPS_BALL steps of 1 ms through cdyn_period_cm (one launch
    a step, nothing else), no slip within 1e-4 m/s, the height within 1 mm,
-   the ball travelled; cdyn_period_cm and its plain version at float64 over
-   N_STEPS_BALL_CHECK periods at B=B_BALL_CHECK, q, v and the multipliers
-   within 1e-9.
+   the ball travelled; beside phase 16, cdyn_period_cm and its plain
+   version at float64 over N_STEPS_BALL_CHECK periods at B=B_BALL_CHECK, q,
+   v and the multipliers within 1e-9.
 25. The Atlas in constraint mode (`testing.constraint_mode_options`: ground
    contacts and joint bounds as PGS rows): atlas-pid (78 rows, nv 36) and
-   atlas-reduced-pid (60 rows), run after phase 11, and the ant with its
-   bounds as rows (44 rows), run in phase 23; each at float32, B=B_CM_WIDE
+   atlas-reduced-pid (60 rows), their main paths run after phase 11 and
+   their records after phase 23 (their op counts, minutes on the CPU, run
+   in a worker meanwhile), and the ant with its bounds as rows (44 rows),
+   its main path before phase 22, its records after the Atlas's; each at
+   float32, B=B_CM_WIDE
    (the models' full width, the batch cut so that the phase fits): launch
    counts to 0, the reset (the plain constrained solve, timed), a warm-up
    step and N_STEPS_CM_WIDE steps of zero actions through make(...).step,
@@ -258,14 +264,52 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    too; float32 by TOL's rule; its record with `"model": "anymal-pid
    (flexible)"`.
 
-The op and call counts (phases 5, 6, 8, 11, 18, 19, 22, 23, 25 and 26) and phase
-17's CPU train_steps run on the CPU in three worker processes beside the
-card's phases (those that need no main path's state from the start). Every
-process the script starts ends before it exits. The plain versions of the
-period and rollout integrators run with their substeps replayed from CUDA
-graphs captured at each call (`replayed`): the same torch kernels on the
-same inputs, bit for bit, without the host's launch overhead; `plain_ms`
-is such a call's host-clocked time, the capture included.
+27. The procedural look-alikes (`procedural=True`). make("cassie-pid",
+   procedural=True) (nq 19, nv 18, 10 motors: no continuous joint, so its
+   2 pushrod loop rows, 4 spring-damper toes and 10 penalty bounds take the
+   constrained kernels' extended body, where the URDF Cassie takes the
+   generic path) as the Digit in phase 19: float32, B=131072, reset, a
+   warm-up, N_STEPS_DIGIT steps (one cdyn_rollout_cm a step, nothing else),
+   env-steps/s, the pushrods within PUSHROD_TOL, finite (the stance
+   reported); one per-period step; the two kernels through
+   `phase_cm_records` over CM_WIDE_CUT (the rollout at float64 on the main
+   path's states within 1e-9), its perturbed `loop_inputs` states
+   in phase 20's loop checks. Beside phase 16 (card lane): the procedural atlas-pid,
+   digit-pid and ant at float64, B=B_PROC_CHECK, a reset and a step through
+   their main path (launch counts read), each kernel of the path against
+   its plain version on the step's states over PROC_CUT within 1e-9.
+28. The forest (`MultiRobotEngine`, no coupling: the ANYmal, its FREE root
+   joint 0, and the acrobot; two joints at depth 0) in each contact mode
+   (anymal-pid's options: cdyn_period; constraint mode: cdyn_period_cm),
+   float32, B=131072: reset, N_PERIODS_FOREST periods (the kernel once a
+   period, nothing else), the kernel timed beside its plain version; beside
+   phase 16 (card lane), at float64, B=B_FOREST_CHECK, the forest against
+   the two robots each stepped by an engine of its own within FOREST_TOL of
+   each column's scale and the kernel against its plain version over one
+   substep within 1e-9 on the states they reached; records with
+   `"model": "forest: ..."`.
+29. Beside phase 16 (card lane; its times on the host clock there):
+   couplings and pairs on the generic path: two ANYmals with a
+   viscoelastic coupling between their bases and a foot-foot collision
+   pair, B=B_COUPLED, N_PERIODS_COUPLED periods (eager, no kernel), the net
+   world force of each coupling (and the pair's net torque) zero within
+   COUPLING_TOL of its scale at float64; atlas-reduced-pid with a box-box
+   pair between its feet, B=B_COUPLED, two ticks (the CUDA graph's capture, then
+   a replay), ms a tick, no kernel, the feet apart.
+
+The op and call counts (phases 5, 6, 8, 11, 18, 19, 22, 23, 24, 25, 26, 27
+and 28) and phase 17's CPU train_steps run on the CPU in three worker
+processes beside the card's phases (those that need no main path's state
+from the start). Two processes on the card run phase 16 and, beside it, the
+Cassie golden and then `phase_lane_checks` (phases 20, 27 and 28's checks
+and phase 29); the main process's checks that time nothing run beside
+them, its timed phases after them, alone on the card. Every process the
+script starts ends before it exits. The plain versions of the period and
+rollout integrators run with their substeps replayed from CUDA graphs
+(`replayed`: a substep's first call of an input shape eager, the second
+captured, later ones replayed): the same torch kernels on the same inputs,
+bit for bit, without the host's launch overhead; `plain_ms` is such a
+call's host-clocked time, the capture included.
 The last two lines are the `{"kernels": [...]}` record and the device line.
 """
 
@@ -315,6 +359,16 @@ def check(cond, msg):
 
 def log(*args):
     print(*args, flush=True)
+
+
+def waited(fut, what):
+    """`fut`'s result (a worker's count), logged with the time the phase
+    waited on it where that was over half a second."""
+    t0 = time.perf_counter()
+    out = fut.result()
+    if time.perf_counter() - t0 > 0.5:
+        log(f"[wait] {time.perf_counter() - t0:.1f} s for {what}")
+    return out
 
 
 def abs_err(outs, refs):
@@ -834,7 +888,7 @@ def phase_dopri(device, smi, glue=None):
     stage_inputs = tuple(x.contiguous() for x in stage[len(stage) // 2])
     launch_ms = _time_cuda(lambda: cd.accel(*stage_inputs), 20)
     kernel_ms = len(events) * launch_ms
-    per_trial, per_period = glue.result() if glue is not None else dopri_glue_calls()
+    per_trial, per_period = waited(glue, "DOPRI's glue count") if glue is not None else dopri_glue_calls()
     n_periods = env.env.n_ctrl_per_step
     calls = per_period * n_periods + per_trial * (len(events) - 2 * n_periods) / 6
     log(f"[dopri] glue: {per_trial:.0f} torch calls a trial and {per_period:.0f} a period outside "
@@ -886,14 +940,15 @@ def phase_dopri(device, smi, glue=None):
 class _ReplayedSubstep:
     """A plain version's substep `fn(*groups)` (component lists in, component
     lists out) replayed from a CUDA graph: its first call for an input shape
-    and dtype runs eagerly and then captures the same call on copies of its
-    inputs; later calls copy their inputs in, replay, and return clones of
-    the outputs. The same torch kernels on the same inputs, bit for bit,
-    without the host's launch overhead (a plain substep is some 10^4-10^5
-    elementwise launches, host-bound when eager)."""
+    and dtype runs eagerly (the capture's warm-up); the second captures the
+    same call on copies of its inputs and replays it, as do later calls:
+    they copy their inputs in, replay, and return clones of the outputs. The
+    same torch kernels on the same inputs, bit for bit, without the host's
+    launch overhead (a plain substep is some 10^4-10^5 elementwise launches,
+    host-bound when eager); a shape called once pays no capture."""
 
     def __init__(self, fn):
-        self.fn, self.graphs = fn, {}
+        self.fn, self.graphs, self.seen = fn, {}, set()
 
     def __call__(self, *groups):
         import torch
@@ -904,16 +959,17 @@ class _ReplayedSubstep:
         batch = torch.broadcast_shapes(*(x.shape for x in tensors))
         ins = [cdyn._stack(list(g), batch, tensors[0]) for g in groups]
         key = tuple((tuple(x.shape), x.dtype) for x in ins)
+        if key not in self.seen:
+            self.seen.add(key)
+            return self.fn(*groups)
         entry = self.graphs.get(key)
         if entry is None:
-            out = self.fn(*groups)
             static = [x.clone() for x in ins]
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph):
                 res = self.fn(*([x[..., i] for i in range(x.shape[-1])] for x in static))
                 res = [cdyn._stack(list(r), batch, tensors[0]) for r in res]
-            self.graphs[key] = (graph, static, res)
-            return out
+            self.graphs[key] = entry = (graph, static, res)
         graph, static, res = entry
         for dst, src in zip(static, ins):
             dst.copy_(src)
@@ -1069,7 +1125,8 @@ def phase_kernel_records(model, env, launches, smi, st, st2, check_ticks=None, d
     engines = {torch.float32: base.engine, torch.float64: base64.engine}
     elt = 4
     nq, nv, nm = env.robot.nq, env.robot.nv, env.robot.nmotors
-    ops, ops_generic = counts.result() if counts is not None else spring_op_counts(model)
+    ops, ops_generic = (waited(counts, f"{model}'s op counts") if counts is not None else
+                        spring_op_counts(model))
     log(f"[ops] {model} plain-version ops per env, structural zeros folded away: {ops}")
     log(f"[ops] {model} plain-version ops per env, generic formulation (what the kernels run): "
         f"{ops_generic}")
@@ -1815,7 +1872,8 @@ def phase_constrained_records(env, launches, period_launches, smi, st, st2, coun
             extreme_errs[rows] = (e64x, share_x, e32x)
 
         if ops is None:
-            ops, ops_generic = counting.result() if counting else cm_op_counts(slim)
+            ops, ops_generic = (waited(counting, "the constrained op counts") if counting else
+                                cm_op_counts(slim))
             log(f"[cm-ops] plain-version scalar ops per env at the main path's state, zero "
                 f"operands folded away: {ops}")
             log(f"[cm-ops] the same, every element op: {ops_generic}")
@@ -1954,9 +2012,7 @@ def phase_toy_main_path(device, smi):
     """Each toy at float32 on the card, B = B_MAIN: batched reset (the
     initial states drawn by a seeded torch.Generator), a warm-up step, launch
     counts to 0, N_STEPS_TOYS steps of zero actions, counts read; the
-    pendulum also one step of its per-period path. Then one step of
-    anymal-pid on the generic path (use_fast_dynamics=False) at float64 on
-    B_GENERIC_F64 envs against the kernel path on the same states."""
+    pendulum also one step of its per-period path."""
     import torch
 
     from jiminy_torch.envs import make
@@ -2016,7 +2072,6 @@ def phase_toy_main_path(device, smi):
         else:
             check(sum(launches.values()) == 0, f"{env_id} launched a kernel on the generic path")
         out[env_id] = rec
-    out["generic_anymal"] = _generic_anymal_check(device)
     log(f"[toy main] phase {time.perf_counter() - t_phase:.1f} s")
     return out
 
@@ -2535,8 +2590,9 @@ def phase_ppo_card_vs_cpu(device, smi, cpu_steps=None):
     f32_eps = float(torch.finfo(torch.float32).eps)
     for env_id, horizon, sizes, n_launch in PPO_CASES:
         gpu_env, cfg, params, q0, v0, draws = _ppo_case(env_id, horizon, sizes, device)
-        c_new, c_met, c_traj, cpu_s = (cpu_steps[env_id].result() if cpu_steps else
-                                       ppo_cpu_step(env_id, horizon, sizes))
+        c_new, c_met, c_traj, cpu_s = (
+            waited(cpu_steps[env_id], f"{env_id}'s CPU step") if cpu_steps else
+            ppo_cpu_step(env_id, horizon, sizes))
         g_new, g_met, g_traj, launches = _ppo_step_on(gpu_env, cfg, params, q0, v0, draws)
         torch.cuda.synchronize()
         want = {"cdyn_rollout": n_launch, "cdyn_accel": n_launch} if n_launch else {}
@@ -2876,7 +2932,7 @@ def phase_terrain(device, smi, records, checks, counts=None):
     # branch's, counted on the plain version, for every contact evaluation
     nc = len(env.robot.contact_frame_indices)
     terrain_ops, n_hash, hash_emulated, hash_device = (
-        counts.result() if counts is not None else rough_terrain_ops())
+        waited(counts, "the terrain op counts") if counts is not None else rough_terrain_ops())
     n_sub = prun.n_substeps
     evals = {"cdyn_accel": 1, "cdyn_period": 4 * n_sub + 1,
              "cdyn_rollout": n_ticks * 4 * n_sub + 1,
@@ -3056,17 +3112,19 @@ def _geometry_text(rec):
             f"{rec['envs_per_sm_f64']} at float64)")
 
 
-def phase_digit_main_path(device, smi):
-    """digit-pid at float32, B_MAIN: reset, a warm-up step, launch counts to
-    0, N_STEPS_DIGIT steps of zero actions, counts read; the pushrods, the
-    finite state and the standing envs' base height; then one step of the
-    per-period path."""
+def phase_digit_main_path(device, smi, model="digit-pid"):
+    """digit-pid (or another loop robot of `_cm_env`: the procedural Cassie)
+    at float32, B_MAIN: reset, a warm-up step, launch counts to 0,
+    N_STEPS_DIGIT steps of zero actions, counts read; the pushrods, the
+    finite state and (the Digit's) standing envs' base height; then one step
+    of the per-period path."""
     import torch
 
     from jiminy_torch.ops import cdyn
     from jiminy_torch.pytree import leaves
 
-    env = _digit_make(device, torch.float32)
+    tag = "[digit]" if model == "digit-pid" else f"[{model}]"
+    env = _cm_env(device, torch.float32, model)
     action = torch.zeros(env.action_size, device=device)
     t0 = time.perf_counter()
     st, _ = env.reset(batch_size=B_MAIN)
@@ -3082,25 +3140,26 @@ def phase_digit_main_path(device, smi):
     elapsed = time.perf_counter() - t0
     launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
     steps_per_s = B_MAIN * N_STEPS_DIGIT / elapsed
-    log(f"[digit] digit-pid float32 B={B_MAIN}: reset {reset_ms:.1f} ms, {N_STEPS_DIGIT} steps "
+    log(f"{tag} {model} float32 B={B_MAIN}: reset {reset_ms:.1f} ms, {N_STEPS_DIGIT} steps "
         f"after a warm-up: {steps_per_s:.1f} env-steps/s ({elapsed / N_STEPS_DIGIT * 1e3:.1f} ms a "
         f"step, host clock), launches {launches} on {smi}")
     check(launches["cdyn_rollout_cm"] == N_STEPS_DIGIT and sum(launches.values()) == N_STEPS_DIGIT,
-          "digit-pid did not run cdyn_rollout_cm once a step (and nothing else)")
+          f"{model} did not run cdyn_rollout_cm once a step (and nothing else)")
     sim = st.sim
     for name, x in (("q", sim.q), ("v", sim.v), ("reward", reward), ("lam", sim.lam),
                     ("contact_forces", sim.contact_forces), *enumerate(leaves(obs))):
-        check(bool(torch.isfinite(x).all()), f"digit-pid: non-finite {name} on its main path")
+        check(bool(torch.isfinite(x).all()), f"{model}: non-finite {name} on its main path")
     rod = _pushrod_error(env, sim)
     fell = term.bool()
     low = (sim.q[:, 2] <= env.env.base_height_min) & ~fell
-    log(f"[digit] pushrods: max |d - d_ref| {float(rod.max()):.3e} m (tol {PUSHROD_TOL:g}); "
+    log(f"{tag} pushrods: max |d - d_ref| {float(rod.max()):.3e} m (tol {PUSHROD_TOL:g}); "
         f"terminated share {float(fell.float().mean()):.4f}; standing envs below base_height_min "
         f"{int(low.sum())}; base height {float(sim.q[:, 2].min()):.4f} .. "
         f"{float(sim.q[:, 2].max()):.4f} m; loop multipliers |lam| <= "
         f"{float(sim.lam.abs().max()):.3e}")
-    check(float(rod.max()) < PUSHROD_TOL, "a Digit pushrod drifted from its length")
-    check(not bool(low.any()), "a standing Digit env is below base_height_min")
+    check(float(rod.max()) < PUSHROD_TOL, f"a {model} pushrod drifted from its length")
+    if model == "digit-pid":  # the procedural Cassie's stance is reported, not held
+        check(not bool(low.any()), "a standing Digit env is below base_height_min")
 
     env.use_fused_rollout = False
     cdyn.reset_launch_counts()
@@ -3110,11 +3169,11 @@ def phase_digit_main_path(device, smi):
     pp_ms = (time.perf_counter() - t0) * 1e3
     period_launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
     n_periods = env.env.n_ctrl_per_step
-    log(f"[digit] per-period path, 1 step from the main path's state: {B_MAIN / pp_ms * 1e3:.1f} "
+    log(f"{tag} per-period path, 1 step from the main path's state: {B_MAIN / pp_ms * 1e3:.1f} "
         f"env-steps/s, launches {period_launches}")
     check(period_launches["cdyn_period_cm"] == n_periods and sum(period_launches.values()) == n_periods,
-          "digit-pid's per-period path did not run cdyn_period_cm once a period")
-    check(bool(torch.isfinite(st2.sim.q).all()), "non-finite q on digit-pid's per-period path")
+          f"{model}'s per-period path did not run cdyn_period_cm once a period")
+    check(bool(torch.isfinite(st2.sim.q).all()), f"non-finite q on {model}'s per-period path")
     check(float(_pushrod_error(env, st2.sim).max()) < PUSHROD_TOL, "a pushrod drifted (per period)")
     env.use_fused_rollout = True
     return env, launches, period_launches, steps_per_s, reset_ms, st, st2
@@ -3151,20 +3210,20 @@ def loop_op_counts(env_cpu, q, v, cc, bc, fold_zeros):
     }
 
 
-def phase_loop_checks(device, envs):
+def phase_loop_checks(device, envs, procedural=None):
     """The constrained kernels against their plain versions at B_LOOP_CHECK
     on states from `testing.loop_inputs` (bases lowered 0-3 cm, joints and
     loop lengths perturbed, random warm starts and masks): digit-pid and
     jiminy_tpu's Cassie-shaped four-bar with a spring-damper foot and a
     penalty bound, each on flat and on rough ground (the flat and the
     terrain instances), both kernels. Float64 every column within 1e-9: the
-    four-bar over a whole period and LOOP_TICKS whole ticks, the flat
-    Digit's rollout over LOOP_TICKS whole ticks (its whole period is held in
-    phase 19), with zeroed loop multipliers and one PGS sweep refused, the
+    four-bar and the flat Digit over a whole period and LOOP_TICKS whole
+    ticks, the Digit's zeroed loop multipliers and one PGS sweep refused, the
     rest at LOOP_TICKS x LOOP_SUBSTEPS; float32 within TOL at LOOP_TICKS x
     LOOP_SUBSTEPS; at float64 the rough cases' plain outputs
     must differ from the flat ones'. `envs` maps a dtype to its flat
-    digit-pid env."""
+    digit-pid env, `procedural` float64 to its procedural `cassie-pid` env,
+    held as the rest at float64 (phase 27's perturbed states)."""
     import dataclasses
 
     import torch
@@ -3188,6 +3247,10 @@ def phase_loop_checks(device, envs):
                                                               rough_ground()))):
             eng = Engine(fourbar_robot(True), opts, device=device, dtype=dtype)
             cases.append((label, dtype, eng, None, [0.4, -0.3, 0.2]))
+        if procedural is not None and dtype == torch.float64:
+            env = procedural[dtype]
+            cases.append(("cassie procedural", dtype, env.engine, env,
+                          env.env.nominal_q.cpu().numpy()))
     errs, plain_refs = {}, {}
     for label, dtype, eng, env, q0 in cases:
         dname = "float64" if dtype == torch.float64 else "float32"
@@ -3196,10 +3259,8 @@ def phase_loop_checks(device, envs):
         n_solver = eng.cset.total_rows + eng.cset.n_contacts + eng.cset.n_bounds
         for name in ("cdyn_period_cm", "cdyn_rollout_cm"):
             before = cdyn.KERNELS[name].launches
-            # float64: the four-bar and the flat Digit's rollout whole (the
-            # Digit's whole period is held in phase 19), the rest at the cut
-            whole = dtype == torch.float64 and (env is None or (label == "digit flat" and
-                                                                name == "cdyn_rollout_cm"))
+            # float64: the four-bar and the flat Digit whole, the rest at the cut
+            whole = dtype == torch.float64 and (env is None or label == "digit flat")
             if name == "cdyn_period_cm":
                 run = eng._get_period_run("rk4")
                 args = (q, v, torch.cat([cmd, tail], -1))
@@ -3207,8 +3268,8 @@ def phase_loop_checks(device, envs):
             else:
                 if env is not None:
                     ctrl = env.block.component_controller(env.env)
-                    block = torch.cat([q[:, 7:], torch.zeros((B_LOOP_CHECK, 2 * nm), dtype=dtype,
-                                                             device=device)], -1)
+                    block = torch.cat([q[:, 7:7 + nm], torch.zeros((B_LOOP_CHECK, 2 * nm),
+                                                                   dtype=dtype, device=device)], -1)
                 else:
                     ctrl = cdyn.ZOHPassThrough(nm)
                     block = torch.zeros((B_LOOP_CHECK, 0), dtype=dtype, device=device)
@@ -3561,17 +3622,57 @@ def _ball_periods(eng, st, n, route):
     return q, v, lam
 
 
-def phase_ball(device, smi):
+def phase_ball_checks(device):
+    """Phase 24's float64 check for each spec: cdyn_period_cm and its plain
+    version over N_STEPS_BALL_CHECK periods each way from B_BALL_CHECK
+    tilted balls with random velocities and reference heights, q, v and the
+    multipliers within 1e-9 of their columns, zeroed multipliers refused.
+    Returns kind -> (error, where, the zeroed multipliers' error)."""
+    import torch
+
+    from jiminy_torch.ops import cdyn
+
+    out = {}
+    for kind in ("sphere", "wheel"):
+        eng64 = _ball_engine(device, torch.float64, kind)
+        gen = torch.Generator(device=device).manual_seed(8)
+        qb = torch.zeros((B_BALL_CHECK, 7), dtype=torch.float64, device=device)
+        w = torch.randn((B_BALL_CHECK, 3), generator=gen, device=device, dtype=torch.float64) * 0.5
+        th = torch.linalg.norm(w, dim=1, keepdim=True)
+        qb[:, 3:6], qb[:, 6:] = w / th * torch.sin(th / 2), torch.cos(th / 2)
+        qb[:, :3] = torch.randn((B_BALL_CHECK, 3), generator=gen, device=device,
+                                dtype=torch.float64) * 0.01
+        qb[:, 2] += BALL_RADIUS
+        vb = torch.randn((B_BALL_CHECK, 6), generator=gen, device=device, dtype=torch.float64)
+        stb = eng64.reset(qb, vb)
+        stb = stb.replace(rolling_ref=stb.rolling_ref + 0.003 * torch.randn(
+            (B_BALL_CHECK, 1), generator=gen, device=device, dtype=torch.float64))
+        before = cdyn.KERNELS["cdyn_period_cm"].launches
+        got = _ball_periods(eng64, stb, N_STEPS_BALL_CHECK, "kernel")
+        want = _ball_periods(eng64, stb, N_STEPS_BALL_CHECK, "plain")
+        torch.cuda.synchronize()
+        check(cdyn.KERNELS["cdyn_period_cm"].launches == before + N_STEPS_BALL_CHECK,
+              f"ball {kind}: the float64 check did not launch once a period")
+        e64, at64 = output_error(got, want, "float64")
+        e_zero, _ = output_error((got[0], got[1], torch.zeros_like(got[2])), want, "float64")
+        log(f"[ball] {kind} cdyn_period_cm float64 B={B_BALL_CHECK}, {N_STEPS_BALL_CHECK} periods "
+            f"each way: q, v, lam column max rel err {e64:.3e} at {at64} (tol "
+            f"{TOL['float64'][1]:g}); zeroed multipliers {e_zero:.3e}")
+        check(e64 < TOL["float64"][1], f"ball {kind}: float64 kernel and plain trajectories part")
+        check(e_zero > TOL["float64"][1], f"ball {kind}: the check passes zeroed multipliers")
+        out[kind] = (e64, at64, e_zero)
+    return out
+
+
+def phase_ball(device, smi, checks, counts=None):
     """The rolling ball through cdyn_period_cm (a sphere spec and a wheel
     spec): B_MAIN balls at float32, spun about y at 2-3 rad/s (a seeded
     torch.Generator), launch counts to 0, N_STEPS_BALL steps of 1 ms (one
     launch a step, nothing else), counts read; checked as jiminy_tpu's
     tests/test_rolling.py:31-61 checks one ball: no slip, the height kept,
     the speed of the momentum kept about the contact point, the ball
-    travelled. Then cdyn_period_cm against its plain version at float64 on
-    B_BALL_CHECK tilted balls with random velocities and reference heights,
-    N_STEPS_BALL_CHECK periods each way, q, v and the multipliers within
-    1e-9 of their columns. Records for the kernels line."""
+    travelled. `checks` are `phase_ball_checks`'s float64 numbers, `counts`
+    futures of `_ball_ops`. Records for the kernels line."""
     import torch
 
     from jiminy_torch.ops import cdyn, lie
@@ -3633,35 +3734,8 @@ def phase_ball(device, smi):
         e_abs = abs_err(outs, refs)
         e32, at32 = output_error(outs, refs, "float32")
 
-        # float64: the kernel's and the plain version's trajectories
-        eng64 = _ball_engine(device, torch.float64, kind)
-        gen = torch.Generator(device=device).manual_seed(8)
-        qb = torch.zeros((B_BALL_CHECK, 7), dtype=torch.float64, device=device)
-        w = torch.randn((B_BALL_CHECK, 3), generator=gen, device=device, dtype=torch.float64) * 0.5
-        th = torch.linalg.norm(w, dim=1, keepdim=True)
-        qb[:, 3:6], qb[:, 6:] = w / th * torch.sin(th / 2), torch.cos(th / 2)
-        qb[:, :3] = torch.randn((B_BALL_CHECK, 3), generator=gen, device=device,
-                                dtype=torch.float64) * 0.01
-        qb[:, 2] += BALL_RADIUS
-        vb = torch.randn((B_BALL_CHECK, 6), generator=gen, device=device, dtype=torch.float64)
-        stb = eng64.reset(qb, vb)
-        stb = stb.replace(rolling_ref=stb.rolling_ref + 0.003 * torch.randn(
-            (B_BALL_CHECK, 1), generator=gen, device=device, dtype=torch.float64))
-        before = cdyn.KERNELS["cdyn_period_cm"].launches
-        got = _ball_periods(eng64, stb, N_STEPS_BALL_CHECK, "kernel")
-        want = _ball_periods(eng64, stb, N_STEPS_BALL_CHECK, "plain")
-        torch.cuda.synchronize()
-        check(cdyn.KERNELS["cdyn_period_cm"].launches == before + N_STEPS_BALL_CHECK,
-              f"ball {kind}: the float64 check did not launch once a period")
-        e64, at64 = output_error(got, want, "float64")
-        e_zero, _ = output_error((got[0], got[1], torch.zeros_like(got[2])), want, "float64")
-        log(f"[ball] {kind} cdyn_period_cm float64 B={B_BALL_CHECK}, {N_STEPS_BALL_CHECK} periods "
-            f"each way: q, v, lam column max rel err {e64:.3e} at {at64} (tol "
-            f"{TOL['float64'][1]:g}); zeroed multipliers {e_zero:.3e}")
-        check(e64 < TOL["float64"][1], f"ball {kind}: float64 kernel and plain trajectories part")
-        check(e_zero > TOL["float64"][1], f"ball {kind}: the check passes zeroed multipliers")
-
-        ops = _ball_ops(kind)
+        e64 = checks[kind][0]
+        ops = waited(counts[kind], f"the {kind} ball's op counts") if counts else _ball_ops(kind)
         nq, nv, n = 7, 6, 3
         io = 2 * nq + 2 * nv + (n + 1) + (nv + n)  # q v in and out, cc row, extras
         t_ops = ops * B_MAIN / PEAK_F32_FLOPS * 1e3
@@ -3706,7 +3780,7 @@ def _ball_ops(kind):
 # --------------------------------------------------------------------------- #
 
 B_CM_WIDE = 8192  # their main path's batch, cut so that the phase fits (the models' full width)
-N_STEPS_CM_WIDE = 2  # timed steps, after a warm-up step
+N_STEPS_CM_WIDE = 1  # timed steps, after a warm-up step (cut from 2 so that the run fits)
 # their kernels held and timed against the plain version over one substep of
 # the period and one tick of one substep of the rollout (a plain atlas-pid
 # solve is some 1 s of replayed launches)
@@ -3717,8 +3791,9 @@ CM_WIDE_MODELS = ("atlas-pid", "atlas-reduced-pid", "ant-bounds")
 
 
 def _cm_env(device, dtype, model):
-    """A constrained model of phases 19, 23 and 25 (CM_CASES): digit-pid,
-    the ant in constraint contact mode ("ant"; "ant-bounds" with its joint
+    """A constrained model of phases 19, 23, 25 and 27 (CM_CASES): digit-pid,
+    the procedural Cassie ("cassie-procedural", `cassie-pid` with
+    `procedural=True`), the ant in constraint contact mode ("ant"; "ant-bounds" with its joint
     bounds as rows too), or an Atlas env id in constraint mode
     (`testing.constraint_mode_options`: ground contacts and joint bounds as
     PGS rows)."""
@@ -3727,6 +3802,8 @@ def _cm_env(device, dtype, model):
 
     if model == "digit-pid":
         return _digit_make(device, dtype)
+    if model == "cassie-procedural":
+        return make("cassie-pid", device=device, dtype=dtype, procedural=True)
     if model in ("ant", "ant-bounds"):
         return _ant_make(device, dtype, constraint=True,
                          bounds="constraint" if model == "ant-bounds" else None)
@@ -3757,10 +3834,13 @@ class CmCase:
 CM_KERNELS = ("cdyn_period_cm", "cdyn_rollout_cm")
 CM_ROW_STATES = ("mixed", "all", "none")  # a quarter past a bound; every row active; none
 CM_CASES = {
-    # phase 20 holds the Digit's rollout at float64 over whole ticks
-    "digit-pid": CmCase("digit-pid", {"cdyn_period_cm": {},
+    # phase 20 holds the Digit's whole period and whole ticks at float64
+    "digit-pid": CmCase("digit-pid", {"cdyn_period_cm": dict(n_substeps=1),
                                       "cdyn_rollout_cm": dict(n_ticks=DIGIT_PLAIN_TICKS)},
                         (5, 1, 5), ("cdyn_period_cm",), True),
+    # the procedural Cassie's perturbed states are held in phase 20's loop checks
+    "cassie-procedural": CmCase("cassie-pid (procedural)", CM_WIDE_CUT, (3, 1, 3),
+                                ("cdyn_rollout_cm",), True),
     "ant": CmCase("ant (constraint mode)", {"cdyn_period_cm": {},
                                             "cdyn_rollout_cm": dict(n_ticks=ANT_CM_TICKS)},
                   (5, 1, 3), CM_KERNELS, True),
@@ -3773,8 +3853,20 @@ CM_CASES = {
 }
 
 
+def cm_count_args(model, env, st):
+    """`cm_model_op_counts`'s arguments for `model` at its main path's state
+    `st` (the rollout's): env 0's q, v, command row and carry row, float64
+    on the CPU."""
+    import torch
+
+    B, nm = st.sim.q.shape[0], env.robot.nmotors
+    carry = torch.cat([_step_controller(env)[3](st), _cm_solver_row(st.sim, torch.float32)], -1)
+    cc = torch.cat([st.sim.command.expand(B, nm), _loop_row(st.sim, torch.float32)], -1)
+    return tuple([model] + [x[:1].double().cpu() for x in (st.sim.q, st.sim.v, cc, carry)])
+
+
 def phase_cm_records(model, env, launches, period_launches, smi, st, st2, counters=None,
-                     env64=None):
+                     env64=None, counting=None):
     """The two constrained kernels of `model` (CM_CASES) on its main path's
     states `st` (the rollout's) and `st2` (the period's), float32, B their
     batch. Each kernel timed (CUDA events) over its whole launch and, beside
@@ -3788,9 +3880,10 @@ def phase_cm_records(model, env, launches, period_launches, smi, st, st2, counte
     `case.f64`): the main path's envs one short (the last block
     part-filled), then the other row states, every column within 1e-9,
     zeroed multipliers and one PGS sweep refused, every row active and none
-    active as their states say. Ops counted on the plain version (in a worker
-    of `counters`, or here), bytes, bound, registers, shared memory, envs a
-    block and an SM; a record each for the kernels line."""
+    active as their states say. Ops counted on the plain version (`counting`,
+    a worker's count started earlier; else in a worker of `counters`, or
+    here), bytes, bound, registers, shared memory, envs a block and an SM; a
+    record each for the kernels line."""
     import torch
 
     from jiminy_torch.engine import solver
@@ -3832,12 +3925,9 @@ def phase_cm_records(model, env, launches, period_launches, smi, st, st2, counte
                             torch.cat([carry_of(st), _cm_solver_row(st.sim, torch.float32)], -1)),
     }
     xs = main_inputs["cdyn_rollout_cm"]
-    q1, v1 = xs[0][:1].double().cpu(), xs[1][:1].double().cpu()
-    cc1 = torch.cat([st.sim.command.expand(B, nm)[:1], _loop_row(st.sim, torch.float32)[:1]],
-                    -1).double().cpu()
-    bc1 = xs[3][:1].double().cpu()
-    args = (model, q1, v1, cc1, bc1)
-    counting = counters.submit(cm_model_op_counts, *args) if counters else None
+    args = cm_count_args(model, env, st)
+    if counting is None and counters:
+        counting = counters.submit(cm_model_op_counts, *args)
     n_block = xs[3].shape[-1] - cset.total_rows - cset.n_contacts - cset.n_bounds
     extra, n_extra = {}, {}  # rows -> kernel -> float64 inputs
     for rows in case.extra_rows:
@@ -3959,7 +4049,7 @@ def phase_cm_records(model, env, launches, period_launches, smi, st, st2, counte
         del outs32, refs32
 
         if ops is None:
-            ops = counting.result() if counting else cm_model_op_counts(*args)
+            ops = waited(counting, f"{model}'s op counts") if counting else cm_model_op_counts(*args)
             log(f"[{model}-cm-ops] plain-version scalar ops per env at the main path's state, zero "
                 f"operands folded away: {ops}")
         packed = run32.cd.pack(run32.tau_c, run32.dt, run32.imu_frames, device, torch.float32)
@@ -4082,14 +4172,28 @@ def _cm_wide_main_path(device, smi, model):
     return env, launches, period_launches, steps_per_s, reset_ms, st, st2
 
 
-def phase_cm_wide(device, smi, models, counters=None):
-    """Phase 25 for each of `models` (of CM_WIDE_MODELS): the main path, then
-    `phase_cm_records`."""
-    records, rates = [], {}
+def cm_wide_main_paths(device, smi, models, counters=None):
+    """Phase 25's main path for each of `models` (of CM_WIDE_MODELS), each
+    model's op count started in a worker of `counters` at once (an Atlas's
+    takes longer than its records on the CPU): what `cm_wide_records`
+    takes, some phases later."""
+    paths = []
     for model in models:
         env, launches, period_launches, sps, reset_ms, st, st2 = _cm_wide_main_path(
             device, smi, model)
-        records += phase_cm_records(model, env, launches, period_launches, smi, st, st2, counters)
+        counting = (counters.submit(cm_model_op_counts, *cm_count_args(model, env, st))
+                    if counters else None)
+        paths.append((model, env, launches, period_launches, sps, reset_ms, st, st2, counting))
+    return paths
+
+
+def cm_wide_records(paths, smi):
+    """`phase_cm_records` on each of `cm_wide_main_paths`'s runs."""
+    records, rates = [], {}
+    while paths:
+        model, env, launches, period_launches, sps, reset_ms, st, st2, counting = paths.pop(0)
+        records += phase_cm_records(model, env, launches, period_launches, smi, st, st2,
+                                    counting=counting)
         rates[model] = (sps, reset_ms)
         del env, st, st2
         free_replays()
@@ -4285,7 +4389,7 @@ def phase_flexible(device, smi, counts=None):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     e_abs = abs_err((kern32(q1, v1, tau1),), (ref,))
-    ops, ops_generic = counts.result() if counts is not None else flex_op_counts()
+    ops, ops_generic = waited(counts, "the flexible op counts") if counts is not None else flex_op_counts()
     nbytes = (m.nq + 3 * m.nv) * 4
     t_ops = ops * B_MAIN / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes * B_MAIN / PEAK_BYTES * 1e3
@@ -4320,6 +4424,481 @@ def phase_flexible(device, smi, counts=None):
         f"{per_env[4]} / {per_env[8]} B an env, {per_sm[4]} / {per_sm[8]} envs an SM (float32 / "
         f"float64); launches {rec['launches']} on {smi}")
     return [rec], steps_per_s
+
+
+B_PROC_CHECK = 1024  # the procedural Atlas, Digit and ant: their kernels at float64
+PROC_IDS = ("atlas-pid", "digit-pid", "ant")
+# their plain versions over one substep of a period and one tick of one
+# substep of a rollout (cdyn_accel whole)
+PROC_CUT = {"cdyn_accel": {}, "cdyn_period": dict(n_substeps=1),
+            "cdyn_rollout": dict(n_ticks=1, n_substeps=1), "cdyn_period_cm": dict(n_substeps=1),
+            "cdyn_rollout_cm": dict(n_ticks=1, n_substeps=1)}
+N_PERIODS_FOREST = 10  # the forest's main path: periods in each contact mode
+B_FOREST_CHECK = 4096  # the forest at float64: kernels against plain, against single engines
+FOREST_TOL = 1e-12  # the forest against single engines, of each column's scale
+B_COUPLED = 8192  # the coupled ANYmals and the self-colliding Atlas (the generic path)
+N_PERIODS_COUPLED = 2
+COUPLING_TOL = 1e-9  # the couplings' net world force, of its scale
+
+
+def phase_procedural_checks(device):
+    """The procedural atlas-pid, digit-pid and ant (`procedural=True`) at
+    float64, B=B_PROC_CHECK: a reset and one step of zero actions through
+    the main path (launch counts read: the spring envs one cdyn_accel at the
+    reset and one cdyn_rollout, the Digit one cdyn_rollout_cm, nothing
+    else), then each kernel of the path against its plain version on the
+    step's states over PROC_CUT, every column within 1e-9 (cdyn_accel on
+    `perturbed_states`)."""
+    import torch
+
+    from jiminy_torch.envs import make
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.testing import perturbed_states
+
+    t_phase = time.perf_counter()
+    errs = {}
+    for env_id in PROC_IDS:
+        env = make(env_id, device=device, dtype=torch.float64, procedural=True)
+        eng = env.engine
+        B = B_PROC_CHECK
+        cdyn.reset_launch_counts()
+        st, _ = env.reset(batch_size=B)
+        st, *_ = env.step(st, torch.zeros(env.action_size, device=device, dtype=torch.float64))
+        torch.cuda.synchronize()
+        launches = {k: c.launches for k, c in cdyn.KERNELS.items() if c.launches}
+        loops = eng._cdyn_cm is not None
+        want = {"cdyn_rollout_cm": 1} if loops else {"cdyn_accel": 1, "cdyn_rollout": 1}
+        check(launches == want, f"procedural {env_id}: launches {launches}, expected {want}")
+        sim = st.sim
+        check(bool(torch.isfinite(sim.q).all() and torch.isfinite(sim.v).all()),
+              f"procedural {env_id}: non-finite state after a step")
+        base, key, ctrl, carry_of = _step_controller(env)
+        nm = env.robot.nmotors
+        if loops:
+            names = ("cdyn_period_cm", "cdyn_rollout_cm")
+            inputs = {
+                "cdyn_period_cm": (sim.q, sim.v, torch.cat([sim.command.expand(B, nm),
+                                                           _loop_row(sim, torch.float64)], -1)),
+                "cdyn_rollout_cm": (sim.q, sim.v, torch.cat([sim.command.new_zeros((B, nm)),
+                                                            sim.distance_ref], -1),
+                                    torch.cat([carry_of(st), _cm_solver_row(sim, torch.float64)],
+                                              -1)),
+            }
+        else:
+            names = ("cdyn_accel", "cdyn_period", "cdyn_rollout")
+            q, v, tau = perturbed_states(env.env if hasattr(env, "env") else env, B, seed=27,
+                                         device=device, dtype=torch.float64)
+            inputs = {"cdyn_accel": (q, v, tau),
+                      "cdyn_period": (sim.q, sim.v, sim.command.expand(B, nm)),
+                      "cdyn_rollout": (sim.q, sim.v, sim.command.new_zeros((B, env.action_size)),
+                                       carry_of(st))}
+        for name in names:
+            if name == "cdyn_accel":
+                kernel, plain = eng._cdyn.accel_kernel, eng._cdyn.accel_plain
+            elif name in ("cdyn_period", "cdyn_period_cm"):
+                run = eng._get_period_run("rk4")
+                kernel, plain = run.kernel, run.plain
+            else:
+                run = eng._get_rollout_run(key, ctrl, base.n_ctrl_per_step)
+                kernel, plain = run.kernel, run.plain
+            xs, cut = inputs[name], PROC_CUT[name]
+            outs, refs = kernel(*xs, **cut), plain(*xs, **cut)
+            outs = outs if isinstance(outs, tuple) else (outs,)
+            refs = refs if isinstance(refs, tuple) else (refs,)
+            torch.cuda.synchronize()
+            e, at = output_error(outs, refs, "float64")
+            log(f"[procedural-check] {env_id} {name} float64 B={B} ({cut or 'whole'}): "
+                f"{ERR_NAME['float64']} {e:.3e} at {at} (tol {TOL['float64'][1]:g}); max abs err "
+                f"{abs_err(outs, refs):.3e}")
+            check(all(bool(torch.isfinite(o).all()) for o in outs),
+                  f"procedural {env_id} {name}: non-finite")
+            check(e < TOL["float64"][1], f"procedural {env_id} {name} disagrees with its plain "
+                  f"version: {e}")
+            errs[(env_id, name)] = e
+    log(f"[procedural-check] launches of the steps read; phase {time.perf_counter() - t_phase:.1f} s")
+    return errs
+
+
+def forest_op_counts(mode):
+    """Scalar ops per env of one period of the ANYmal + acrobot forest in
+    `mode` ("spring" or "constraint"), counted on the plain version at B=1
+    on the CPU at a reset state, zero operands folded away."""
+    import torch
+
+    from jiminy_torch.engine.multi import MultiRobotEngine
+    from jiminy_torch.envs import make
+    from jiminy_torch.testing import constraint_mode_options, forest_robots, forest_states
+
+    base = make("anymal-pid", device="cpu", dtype=torch.float64)
+    opts = base.engine.options if mode == "spring" else constraint_mode_options(base.engine.options)
+    multi = MultiRobotEngine(forest_robots(), opts, device="cpu", dtype=torch.float64)
+    q0, v0 = forest_states(multi, base.env.nominal_q, 1, seed=28)
+    sim = multi.merge_states(multi.reset(q0, v0))
+    xs = _forest_inputs(multi, sim, torch.float64)
+    run = multi.engine._get_period_run("rk4")
+    if mode == "spring":
+        return count_elem_ops(lambda: run.plain(*xs), fold_zeros=True)
+    qc, vc, ccl = ([x[..., i] for i in range(x.shape[-1])] for x in xs)
+    sub = count_elem_ops(lambda: run.substep(qc, vc, ccl), True)
+    fin = count_elem_ops(lambda: run.final_outputs(qc, vc, ccl), True)
+    return run.n_substeps * sub + fin
+
+
+def _forest_inputs(multi, sim, dtype):
+    """(q, v, command row) of one period of the merged engine at `sim`: on
+    the constrained core the loops' lengths, the solver carry and the
+    rolling heights ride the command row (`Engine._integrate_period`)."""
+    import torch
+
+    eng = multi.engine
+    B = sim.q.shape[0]
+    cmd = sim.command.expand(B, eng.robot.nmotors).to(dtype)
+    if eng._cdyn_cm is None:
+        return sim.q.to(dtype), sim.v.to(dtype), cmd
+    return sim.q.to(dtype), sim.v.to(dtype), torch.cat(
+        [cmd, sim.distance_ref.to(dtype), _cm_solver_row(sim, dtype), sim.rolling_ref.to(dtype)], -1)
+
+
+def phase_forest_checks(device):
+    """Phase 28's float64 checks, in each contact mode, at B=B_FOREST_CHECK
+    (`testing.forest_states`, seed 28): the forest N_PERIODS_FOREST periods
+    of zero commands through `MultiRobotEngine.step` against the ANYmal and
+    the acrobot each stepped by an engine of its own (its own kernel; the
+    acrobot in constraint mode has no row: the generic path) within
+    FOREST_TOL of each column's scale; then the forest's kernel against its
+    plain version over one substep (eager) on the states the forest reached,
+    within 1e-9. Returns mode -> the numbers phase 28's records carry."""
+    import torch
+
+    from jiminy_torch.engine.engine import Engine
+    from jiminy_torch.engine.multi import MultiRobotEngine
+    from jiminy_torch.envs import make
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.testing import (column_errors, constraint_mode_options, forest_robots,
+                                      forest_states)
+
+    base = make("anymal-pid", device=device, dtype=torch.float64)
+    out = {}
+    for mode in ("spring", "constraint"):
+        opts = (base.engine.options if mode == "spring"
+                else constraint_mode_options(base.engine.options))
+        name = "cdyn_period" if mode == "spring" else "cdyn_period_cm"
+        Bc = B_FOREST_CHECK
+        multi = MultiRobotEngine(forest_robots(), opts, device=device, dtype=torch.float64)
+        q0, v0 = forest_states(multi, base.env.nominal_q, Bc, seed=28, device=device,
+                               dtype=torch.float64)
+        cmd = {n: torch.zeros((Bc, r.nmotors), dtype=torch.float64, device=device)
+               for n, r in multi.robots.items()}
+        cdyn.reset_launch_counts()
+        forest = multi.reset(q0, v0)
+        for _ in range(N_PERIODS_FOREST):
+            forest = multi.step(forest, cmd)
+        forest_launches = cdyn.KERNELS[name].launches
+        check(forest_launches == N_PERIODS_FOREST,
+              f"the float64 forest in {mode} mode did not run {name} once a period")
+        single_launches, worst = {}, 0.0
+        for rname, robot in multi.robots.items():
+            single = Engine(robot, opts, device=device, dtype=torch.float64)
+            cdyn.reset_launch_counts()
+            st = single.reset(q0[rname], v0[rname])
+            for _ in range(N_PERIODS_FOREST):
+                st = single.step(st, cmd[rname])
+            single_launches[rname] = {k: c.launches for k, c in cdyn.KERNELS.items() if c.launches}
+            for f in ("q", "v", "a"):
+                e = float(column_errors(getattr(forest[rname], f), getattr(st, f)).max())
+                worst = max(worst, e)
+                check(e <= FOREST_TOL, f"the forest's {rname} {f} is {e} off its single engine")
+        run = multi.engine._get_period_run("rk4")
+        xs = _forest_inputs(multi, multi.merge_states(forest), torch.float64)
+        cut = dict(n_substeps=1)  # the plain version eager: one substep of five
+        outs, refs = run.kernel(*xs, **cut), run.plain(*xs, **cut)
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(o).all()) for o in outs),
+              f"the forest's {name}: non-finite float64 output")
+        e64, at64 = output_error(outs, refs, "float64")
+        check(e64 < TOL["float64"][1], f"the forest's {name} disagrees at float64: {e64}")
+        out[mode] = {"e64": e64, "at64": at64, "cut": cut, "worst": worst,
+                     "forest_launches": forest_launches, "single_launches": single_launches}
+        del multi, forest, outs, refs
+    return out
+
+
+def phase_forest(device, smi, checks, counts=None):
+    """The multi-robot engine's forest: the ANYmal (FREE root, joint 0) and
+    the acrobot merged (`MultiRobotEngine`, no coupling: the component
+    core), two joints at depth 0. In each contact mode (anymal-pid's options:
+    spring-damper, cdyn_period; `constraint_mode_options`, cdyn_period_cm) at
+    float32, B=B_MAIN (`testing.forest_states`, seed 28): reset, launch
+    counts to 0, N_PERIODS_FOREST periods of zero commands through
+    `MultiRobotEngine.step`, counts read (the period kernel once a period,
+    nothing else), finite. The kernel timed (CUDA events) on the run's
+    states beside its plain version (host clock; the constrained one over
+    one substep, `plain_ms` null). `checks` are `phase_forest_checks`'s
+    float64 numbers. Records with `"model": "forest ..."`."""
+    import torch
+
+    from jiminy_torch.engine.multi import MultiRobotEngine
+    from jiminy_torch.engine import solver
+    from jiminy_torch.envs import make
+    from jiminy_torch.ops import cdyn, kernels
+    from jiminy_torch.testing import constraint_mode_options, forest_robots, forest_states
+
+    base_env = make("anymal-pid", device=device, dtype=torch.float32)
+    nominal = base_env.env.nominal_q
+    lib = kernels.load()
+    records, rates = [], {}
+    for mode in ("spring", "constraint"):
+        t_mode = time.perf_counter()
+        opts = (base_env.engine.options if mode == "spring"
+                else constraint_mode_options(base_env.engine.options))
+        name = "cdyn_period" if mode == "spring" else "cdyn_period_cm"
+        tag = f"[forest-{mode}]"
+        multi = MultiRobotEngine(forest_robots(), opts, device=device, dtype=torch.float32)
+        eng = multi.engine
+        check((eng._cdyn if mode == "spring" else eng._cdyn_cm) is not None,
+              f"the forest did not take the component core in {mode} mode")
+        B = B_MAIN
+        q0, v0 = forest_states(multi, nominal, B, seed=28, device=device, dtype=torch.float32)
+        t0 = time.perf_counter()
+        states = multi.reset(q0, v0)
+        torch.cuda.synchronize()
+        reset_ms = (time.perf_counter() - t0) * 1e3
+        cmd = {n: torch.zeros((B, r.nmotors), device=device) for n, r in multi.robots.items()}
+        states = multi.step(states, cmd)  # warm-up
+        torch.cuda.synchronize()
+        cdyn.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(N_PERIODS_FOREST):
+            states = multi.step(states, cmd)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = {k: c.launches for k, c in cdyn.KERNELS.items()}
+        check(launches[name] == N_PERIODS_FOREST and sum(launches.values()) == N_PERIODS_FOREST,
+              f"the forest in {mode} mode did not run {name} once a period: {launches}")
+        for rname, st in states.items():
+            check(bool(torch.isfinite(st.q).all() and torch.isfinite(st.v).all()),
+                  f"the forest's {rname}: non-finite state")
+        rates[mode] = B * N_PERIODS_FOREST / elapsed
+        log(f"{tag} ANYmal + acrobot forest float32 B={B}: reset {reset_ms:.1f} ms, "
+            f"{N_PERIODS_FOREST} periods {elapsed / N_PERIODS_FOREST * 1e3:.3f} ms a period "
+            f"(host clock, {rates[mode]:.1f} env-periods/s), launches {launches} on {smi}")
+
+        # the kernel alone on the run's states, beside its plain version
+        sim = multi.merge_states(states)
+        run = eng._get_period_run("rk4")
+        xs = _forest_inputs(multi, sim, torch.float32)
+        cut = {} if mode == "spring" else dict(n_substeps=1)
+        ms = _time_cuda(lambda: run.kernel(*xs), 5)
+        ms_part = _time_cuda(lambda: run.kernel(*xs, **cut), 5) if cut else ms
+        outs = run.kernel(*xs, **cut)
+        plain = replayed(run.plain)
+        if not cut:
+            plain(*xs)  # the capture; the timed call below replays
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        refs = plain(*xs, **cut)
+        torch.cuda.synchronize()
+        plain_part_ms = (time.perf_counter() - t0) * 1e3
+        e_abs = abs_err(outs, refs)
+        e32, at32 = output_error(outs, refs, "float32")
+        io_cols = sum(x.shape[-1] for x in xs) + sum(o.shape[-1] for o in outs)
+        del outs, refs
+
+        chk = checks[mode]
+        log(f"{tag} float64 B={B_FOREST_CHECK} (held beside phase 16): {name} against its plain "
+            f"version ({chk['cut']}) {ERR_NAME['float64']} {chk['e64']:.3e} at {chk['at64']}; the "
+            f"forest over {N_PERIODS_FOREST} periods ({chk['forest_launches']} {name} launches) "
+            f"against single engines (launches {chk['single_launches']}): q, v, a within "
+            f"{chk['worst']:.3e} of each column's scale (tol {FOREST_TOL:g})")
+
+        ops = waited(counts[mode], f"the {mode} forest's op counts") if counts else forest_op_counts(mode)
+        t_ops = ops * B / PEAK_F32_FLOPS * 1e3
+        t_bytes = io_cols * 4 * B / PEAK_BYTES * 1e3
+        rec = {
+            "name": name,
+            "route": "cuda",
+            "source": "jiminy_torch/csrc/" + ("spring.cuh" if mode == "spring" else "pgs.cuh"),
+            "replaces": cdyn.KERNELS[name].replaces.split()[0],
+            "launches": launches[name],
+            "max_abs_err": e_abs,
+            "ms": ms,
+            "plain_ms": None if cut else plain_part_ms,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None,
+            "model": f"forest: anymal-pid + acrobot ({'spring-damper' if mode == 'spring' else 'constraint'} mode)",
+            "batch": B,
+            "cut_compared": cut or None,
+            "ms_part": ms_part if cut else None,
+            "plain_ms_part": plain_part_ms if cut else None,
+            "ops_per_env": ops,
+            "bytes_per_env": io_cols * 4,
+            "f32_q90_err_main": e32,
+            "f64_err": chk["e64"],
+            "f64_cut": chk["cut"],
+            "forest_vs_singles_f64": chk["worst"],
+        }
+        if mode == "constraint":
+            packed = run.cd.pack(run.tau_c, run.dt, run.imu_frames, device, torch.float32)
+            ext = bool(solver.cm_ext(packed, run.pack(device, torch.float32)))
+            rec.update(_cm_geometry_record(lib, device, run, run, name, False, ext))
+        plain_txt = (f"plain {plain_part_ms:.1f} ms (host clock, replayed)" if not cut else
+                     f"over {cut} the kernel {ms_part:.3f} ms and the plain version "
+                     f"{plain_part_ms:.1f} ms (host clock, eager)")
+        log(f"[kernel] {rec['model']} {name} B={B} float32: {ms:.4f} ms (CUDA events), "
+            f"{plain_txt}, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; {ops} ops and "
+            f"{rec['bytes_per_env']} B an env), {rec['bound_ms'] / ms:.2%} of it; |kernel-plain| "
+            f"{e_abs:.3e} ({ERR_NAME['float32']} {e32:.3e} at {at32}, printed); launches "
+            f"{rec['launches']} on {smi}")
+        records.append(rec)
+        del multi, states, sim
+        log(f"{tag} {time.perf_counter() - t_mode:.1f} s")
+    return records, rates
+
+
+def _net_world_wrench(model, kin, fext):
+    """(net force, net torque about the world origin) of LOCAL joint
+    wrenches (..., nj, 6), world axes."""
+    import torch
+
+    from jiminy_torch.ops import lie
+
+    f_w = lie.mv(kin.rot, fext[..., 3:6])
+    n_w = lie.mv(kin.rot, fext[..., 0:3]) + lie.cross(kin.pos, f_w)
+    return f_w.sum(-2), n_w.sum(-2)
+
+
+def phase_coupled(device, smi):
+    """Couplings and collision pairs on the generic path. (a) Two ANYmals
+    (`MultiRobotEngine`, anymal-pid's options) with a viscoelastic coupling
+    between their bases (rest length 0.5 m) and a robot-robot collision pair
+    between a's right front foot and b's left front foot (spheres of 5 cm,
+    overlapping by 5 mm at the reset), float32, B=B_COUPLED: reset, launch counts to
+    0, N_PERIODS_COUPLED periods (eager: a registered force turns the
+    tick's CUDA graph off), counts read (no kernel), finite; at float64 on
+    the reset's and the end's states each coupling's net world force (action and reaction)
+    within COUPLING_TOL of its scale, and the collision pair's net torque
+    too (both forces at one point). (b) The Atlas (atlas-reduced-pid's robot
+    and options: the legs, whose tick's eager capture costs less than the
+    whole humanoid's) with a collision pair between its feet (`testing.with_link_pairs`:
+    box-box SAT), float32, B=B_COUPLED, the generic path: 2 ticks (the first
+    captures the tick's CUDA graph, the second replays it), ms a tick, no
+    kernel, finite, the pair's depth positive (the feet apart). It runs in
+    a card-lane process beside phase 16 (`phase_lane_checks`), so its
+    host-clocked times are taken there."""
+    import numpy as np
+    import torch
+
+    from jiminy_torch.engine.engine import Engine
+    from jiminy_torch.engine.multi import MultiRobotEngine
+    from jiminy_torch.envs import assets, make
+    from jiminy_torch.ops import cdyn
+    from jiminy_torch.ops.kinematics import forward_kinematics
+    from jiminy_torch.testing import with_link_pairs
+
+    out = {}
+    base = make("anymal-pid", device=device, dtype=torch.float32)
+    nominal = base.env.nominal_q.double().cpu().numpy()
+    rng = np.random.default_rng(29)
+    B = B_COUPLED
+    q_a = np.tile(nominal, (B, 1))
+    q_a[:, 7:] += rng.normal(size=(B, nominal.size - 7)) * 0.02
+    # b beside a, its left front foot 9.5 cm to the right of a's right front
+    # foot: the feet's spheres (5 cm) overlap by 5 mm at the reset
+    anymal = base.robot.model
+    kin0 = forward_kinematics(anymal, torch.as_tensor(nominal))
+    from jiminy_torch.ops.kinematics import frame_placement
+
+    y_rf = float(frame_placement(anymal, kin0, anymal.frame_index("RF_FOOT"))[1][1])
+    y_lf = float(frame_placement(anymal, kin0, anymal.frame_index("LF_FOOT"))[1][1])
+    q_b = q_a.copy()
+    q_b[:, 1] += y_rf - y_lf - 0.095
+    feet = ({"frame_name": "RF_FOOT", "geometry": "sphere", "radius": 0.05},
+            {"frame_name": "LF_FOOT", "geometry": "sphere", "radius": 0.05})
+
+    def coupled(dtype):
+        robots = {"a": assets.load_robot("anymal"), "b": assets.load_robot("anymal")}
+        multi = MultiRobotEngine(robots, base.engine.options, device=device, dtype=dtype)
+        multi.register_viscoelastic_coupling_force("a", "base", "b", "base", 200.0, 5.0,
+                                                   rest_length=0.5)
+        multi.register_collision_pair("a", feet[0], "b", feet[1])
+        return multi
+
+    multi = coupled(torch.float32)
+    check(not multi.engine._use_core(), "the coupled ANYmals took the component core")
+    q0 = {"a": torch.as_tensor(q_a, dtype=torch.float32, device=device),
+          "b": torch.as_tensor(q_b, dtype=torch.float32, device=device)}
+    cdyn.reset_launch_counts()
+    states0 = states = multi.reset(q0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_PERIODS_COUPLED):
+        states = multi.step(states)
+    torch.cuda.synchronize()
+    period_ms = (time.perf_counter() - t0) * 1e3 / N_PERIODS_COUPLED
+    launches = sum(c.launches for c in cdyn.KERNELS.values())
+    check(launches == 0, f"the coupled ANYmals launched kernels: {launches}")
+    for rname, st in states.items():
+        check(bool(torch.isfinite(st.q).all() and torch.isfinite(st.v).all()),
+              f"the coupled ANYmals: {rname} non-finite")
+    multi64 = coupled(torch.float64)
+    model = multi64.merged_robot.model
+    worst = {}
+    for when, sts in (("reset", states0), ("end", states)):
+        sim = multi64.merge_states({n: st.replace(q=st.q.double(), v=st.v.double())
+                                    for n, st in sts.items()})
+        kin = forward_kinematics(model, sim.q, sim.v)
+        for (_, _, force_fn), label in zip(multi64.engine._registered_forces,
+                                           ("viscoelastic", "collision")):
+            fext = force_fn(sim.q.new_zeros(B), sim.q, sim.v, kin)
+            f_net, n_net = _net_world_wrench(model, kin, fext)
+            scale = float(fext.abs().max())
+            e = worst[f"{label} at the {when}"] = (float(f_net.abs().max()),
+                                                    float(n_net.abs().max()), scale)
+            check(e[0] <= COUPLING_TOL * max(scale, 1.0),
+                  f"the {label} coupling's net force is not zero at the {when}: {e}")
+            if label == "collision":  # both forces at one point: no net torque either
+                check(e[1] <= COUPLING_TOL * max(scale, 1.0),
+                      f"the collision pair's net torque is not zero at the {when}: {e}")
+    check(worst["collision at the reset"][2] > 1.0, "the feet's collision pair pushes nothing")
+    log(f"[coupled] two ANYmals, a viscoelastic coupling and a foot-foot collision pair, float32 "
+        f"B={B}: {period_ms:.1f} ms a period (eager, host clock, in a process beside phase 16; "
+        f"{N_PERIODS_COUPLED} periods), no "
+        f"kernel; float64 net world force / torque about the origin / largest joint wrench: "
+        + ", ".join(f"{k} {f:.3e} / {n:.3e} / {s:.3e}" for k, (f, n, s) in worst.items())
+        + f" on {smi}")
+    out["coupled_period_ms"] = period_ms
+    del multi, multi64, states, states0, sim
+
+    atlas = make("atlas-reduced-pid", device=device, dtype=torch.float32)
+    robot = with_link_pairs(atlas.robot, assets.urdf_path("atlas"), [("l_foot", "r_foot")])
+    eng = Engine(robot, atlas.engine.options, device=device, dtype=torch.float32)
+    check(eng._cdyn is None and not eng._use_core(), "the Atlas with pairs took the core")
+    q = atlas.env.nominal_q.expand(B, -1)
+    cdyn.reset_launch_counts()
+    st = eng.reset(q)
+    tick_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = eng.step(st)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = sum(c.launches for c in cdyn.KERNELS.values())
+    check(launches == 0, f"the Atlas with pairs launched kernels: {launches}")
+    check(bool(torch.isfinite(st.q).all() and torch.isfinite(st.v).all()),
+          "the Atlas with pairs: non-finite state")
+    _, aux = eng.dynamics_full(st.t, st.q, st.v, st.command, eng._carry_of(st))
+    depth = aux["pair_depth"]
+    check(bool(torch.isfinite(depth).all() and (depth > 0).all()),
+          "the Atlas's feet pair: depth not finite or not positive standing")
+    log(f"[coupled] atlas-reduced-pid with a box-box collision pair between its feet ({len(robot.collision_pairs_geom)} "
+        f"geometry pairs), float32 B={B}, the generic path: the first tick {tick_ms[0]:.1f} ms "
+        f"(eager, the CUDA graph captured), the second {tick_ms[1]:.1f} ms (replayed), host "
+        f"clock, in a process beside phase 16; no kernel; pair depth {float(depth.min()):.4f} .. {float(depth.max()):.4f} m on "
+        f"{smi}")
+    out["atlas_pairs_tick_ms"] = tick_ms
+    return out
 
 
 def main():
@@ -4357,7 +4936,9 @@ def main():
         initializer=counting_worker)
     # Two more processes on the card run phase 16 (the cartpole's training)
     # and the Cassie golden, which launch no kernel and time nothing the
-    # kernels line reads, beside the build and the phases that time nothing
+    # kernels line reads, beside the build and the phases that time nothing;
+    # once the Cassie golden is done, its process takes the checks of
+    # `phase_lane_checks`
     card_lane = concurrent.futures.ProcessPoolExecutor(
         max_workers=2, mp_context=multiprocessing.get_context("spawn"))
     try:
@@ -4365,6 +4946,34 @@ def main():
     finally:
         card_lane.shutdown(wait=True, cancel_futures=True)
         counters.shutdown(wait=True, cancel_futures=True)
+
+
+def phase_lane_checks(device, smi):
+    """Checks that time nothing the kernels line reads, run in a card-lane
+    process once the build is done (beside phase 16 and the main process's
+    checks): phase 20's loop checks (the procedural Cassie's with them),
+    phase 27's procedural look-alikes, phase 28's float64 forest and phase
+    29 (its host-clocked times taken beside phase 16). Returns
+    `phase_forest_checks`'s numbers and `phase_coupled`'s."""
+    import torch
+
+    from jiminy_torch.ops import kernels
+
+    kernels.load()
+
+    def timed_here(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        free_replays()
+        log(f"[phase] {name} (card lane): {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed_here("loop kernels vs plain", phase_loop_checks, device,
+               {dt: _digit_make(device, dt) for dt in (torch.float64, torch.float32)},
+               {torch.float64: _cm_env(device, torch.float64, "cassie-procedural")})
+    timed_here("procedural look-alikes vs plain", phase_procedural_checks, device)
+    forest = timed_here("forest float64 checks", phase_forest_checks, device)
+    return forest, timed_here("couplings and pairs", phase_coupled, device, smi)
 
 
 def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
@@ -4378,6 +4987,8 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
     counts["terrain"] = counters.submit(rough_terrain_ops)
     counts["dopri"] = counters.submit(dopri_glue_calls)
     counts["flexible"] = counters.submit(flex_op_counts)
+    counts["forest"] = {m: counters.submit(forest_op_counts, m) for m in ("spring", "constraint")}
+    counts["ball"] = {k: counters.submit(_ball_ops, k) for k in ("sphere", "wheel")}
     ppo_cpu = {env_id: counters.submit(ppo_cpu_step, env_id, horizon, sizes)
                for env_id, horizon, sizes, _ in PPO_CASES}
     cartpole = card_lane.submit(phase_ppo_cartpole, device, smi)
@@ -4386,14 +4997,17 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
     # phases that only hold kernels against plain versions or goldens run;
     # every timed phase follows, alone on the card
     timed("build", phase_build)
+    lane_checks = card_lane.submit(phase_lane_checks, device, smi)
     timed("kernels vs plain", phase_kernels_vs_plain, device)
     timed("atlas golden", phase_atlas_golden, device)
     timed("toy golden", phase_toy_golden, device)
     rough_checks = timed("terrain checks", phase_terrain_checks, device)
-    timed("loop kernels vs plain", phase_loop_checks, device,
-          {dt: _digit_make(device, dt) for dt in (torch.float64, torch.float32)})
     timed("ant on rough ground", phase_ant_rough_check, device)
+    timed("generic path against the kernels", _generic_anymal_check, device)
+    ball_checks = timed("ball float64 checks", phase_ball_checks, device)
     timed("PPO cartpole learns (its process's rest)", cartpole.result)
+    forest_checks, coupled = timed("card lane's checks (their process's rest)",
+                                   lane_checks.result)
     env, fused_launches, period_launches, steps_per_s, st, st2 = timed(
         "main path", phase_main_path, device, smi)
     dopri = timed("DOPRI", phase_dopri, device, smi, counts["dopri"])
@@ -4420,19 +5034,27 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
                      check_substeps=ATLAS_CHECK_SUBSTEPS,
                      counts=counts["atlas-pid"])
     del at_env, at_st, at_st2
-    atlas_cm, wide_rates = timed("atlas in constraint mode", phase_cm_wide, device, smi,
-                                 ("atlas-pid", "atlas-reduced-pid"), counters)
-    records += atlas_cm
+    # their op counts take minutes on the CPU: their records come later
+    atlas_paths = timed("atlas in constraint mode: main paths", cm_wide_main_paths, device, smi,
+                        ("atlas-pid", "atlas-reduced-pid"), counters)
     toys = timed("toy main path", phase_toy_main_path, device, smi)
     records += timed("pendulum kernel records", phase_pendulum_records, toys, smi)
     toy_rates = ", ".join(f"{k} {toys[k]['steps_per_s']:.1f}" for k in TOYS)
     del toys
+    # The loop robots' and the 44-row ant's main paths first, their records
+    # after the ant's phases: their op counts (some 20-40 s on the CPU) run
+    # in workers meanwhile
     digit = timed("digit main path", phase_digit_main_path, device, smi)
     dg_env, dg_launches, dg_period_launches, dg_steps_per_s, dg_reset_ms, dg_st, dg_st2 = digit
-    dg_env64 = _digit_make(device, torch.float64)
-    records += timed("digit-pid kernel records", phase_cm_records, "digit-pid", dg_env,
-                     dg_launches, dg_period_launches, smi, dg_st, dg_st2, counters, dg_env64)
-    del dg_st, dg_st2, dg_env, dg_env64
+    dg_count = counters.submit(cm_model_op_counts, *cm_count_args("digit-pid", dg_env, dg_st))
+    proc = timed("procedural cassie main path", phase_digit_main_path, device, smi,
+                 "cassie-procedural")
+    pc_env, pc_launches, pc_period_launches, pc_steps_per_s, pc_reset_ms, pc_st, pc_st2 = proc
+    pc_count = counters.submit(cm_model_op_counts,
+                               *cm_count_args("cassie-procedural", pc_env, pc_st))
+    ab_paths = timed("ant with its bounds as rows: main path", cm_wide_main_paths, device, smi,
+                     ("ant-bounds",), counters)
+    del digit, proc
     ant = timed("ant main path", phase_ant_main_path, device, smi, False)
     an_env, an_launches, an_period_launches, an_sps, _, _, an_st, an_st2 = ant
     launches = {"cdyn_accel": an_launches["cdyn_accel"],
@@ -4446,15 +5068,31 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
     records += timed("ant constraint-mode kernel records", phase_cm_records, "ant", ac_env,
                      ac_launches, ac_period_launches, smi, ac_st, ac_st2, counters)
     del ant_cm, ac_env, ac_st, ac_st2
-    ant_bounds, ant_bounds_rates = timed("ant with its bounds as rows", phase_cm_wide, device, smi,
-                                         ("ant-bounds",), counters)
+    dg_env64 = _digit_make(device, torch.float64)
+    records += timed("digit-pid kernel records", phase_cm_records, "digit-pid", dg_env,
+                     dg_launches, dg_period_launches, smi, dg_st, dg_st2, env64=dg_env64,
+                     counting=dg_count)
+    del dg_st, dg_st2, dg_env, dg_env64
+    records += timed("procedural cassie kernel records", phase_cm_records, "cassie-procedural",
+                     pc_env, pc_launches, pc_period_launches, smi, pc_st, pc_st2,
+                     counting=pc_count)
+    del pc_env, pc_st, pc_st2
+    atlas_cm, wide_rates = timed("atlas in constraint mode: kernel records", cm_wide_records,
+                                 atlas_paths, smi)
+    records += atlas_cm
+    ant_bounds, ant_bounds_rates = timed("ant with its bounds as rows: kernel records",
+                                         cm_wide_records, ab_paths, smi)
     records += ant_bounds
     wide_rates.update(ant_bounds_rates)
-    ball_records, ball_rates = timed("rolling ball", phase_ball, device, smi)
+    ball_records, ball_rates = timed("rolling ball", phase_ball, device, smi, ball_checks,
+                                     counts["ball"])
     records += ball_records
     flex_records, flex_sps = timed("flexible ANYmal", phase_flexible, device, smi,
                                    counts["flexible"])
     records += flex_records
+    forest_records, forest_rates = timed("forest", phase_forest, device, smi, forest_checks,
+                                         counts["forest"])
+    records += forest_records
     cassie_sps = timed("cassie", phase_cassie, device, smi, cassie_rows)
     t_ppo = time.perf_counter()
     ppo_anymal = timed("PPO anymal-pid", phase_ppo_anymal, device, smi)
@@ -4468,7 +5106,11 @@ def run_phases(device, smi, kind, t_start, timed, counters, card_lane):
         + "".join(f"{m} constraint mode at B={B_CM_WIDE} {r[0]:.1f} (reset {r[1]:.1f} ms), "
                   for m, r in wide_rates.items()) +
         f"rolling ball sphere {ball_rates['sphere']:.1f} and wheel {ball_rates['wheel']:.1f}, "
-        f"flexible anymal-pid {flex_sps:.1f} (per-stage path), "
+        f"flexible anymal-pid {flex_sps:.1f} (per-stage path), procedural cassie-pid "
+        f"{pc_steps_per_s:.1f} (reset {pc_reset_ms:.1f} ms), the ANYmal + acrobot forest "
+        f"{forest_rates['spring']:.1f} and {forest_rates['constraint']:.1f} env-periods/s, two "
+        f"coupled ANYmals {coupled['coupled_period_ms']:.1f} ms a period (eager) and the Atlas "
+        f"with foot pairs {coupled['atlas_pairs_tick_ms'][1]:.1f} ms a tick (replayed), "
         f"cassie-pid {cassie_sps:.1f} (generic path), toys {toy_rates}, PPO training "
         f"(anymal-pid, 4096 envs) {ppo_anymal['steps_per_s']:.1f} on {smi}")
     log(smi)

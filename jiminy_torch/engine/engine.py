@@ -24,9 +24,10 @@ dynamics path.
 
 The path follows jiminy_tpu's rule, on every device: the component core when
 `cdyn.supports_model` holds (a free-flyer or fixed root with revolute,
-prismatic and spherical joints), no external force is registered and
-`use_fast_dynamics` is not False (with PGS rows, a model without spherical
-joints: the constrained kernels take 1-dof joints only); otherwise the
+prismatic and spherical joints), no external force is registered, the
+robot has no collision pair and `use_fast_dynamics` is not False (with PGS
+rows, a model without spherical joints: the constrained kernels take 1-dof
+joints only); otherwise the
 generic path (`dynamics_full`: generic forward
 kinematics, spring-damper contact forces, penalty bounds, then ABA or the
 array-form PGS solve), plain torch on every device, as jiminy_tpu runs it in
@@ -56,7 +57,7 @@ from jiminy_torch.engine.constraints import (
     compute_constraint_system,
     compute_distance_refs,
 )
-from jiminy_torch.engine.contact import compute_contact_forces
+from jiminy_torch.engine.contact import compute_contact_forces, compute_pair_forces
 from jiminy_torch.engine.hardware import ImuSensorGroup
 from jiminy_torch.engine.internal import flexibility_torque
 from jiminy_torch.engine.robot import Robot
@@ -163,10 +164,16 @@ class Engine:
                     "ported yet: its stage-warm-started trial, jiminy_tpu's "
                     "dopri_trial_stateful (ROADMAP.md queue 1 item 11)"
                 )
-            self._solver_opts = solver.solver_options(opts)
+        # (constraint contact mode with no row solves an empty system on the
+        # generic path)
+        self._solver_opts = solver.solver_options(opts)
         gravity = tuple(float(g) for g in opts.world.gravity)
         self._cdyn = self._cdyn_cm = None
-        core = opts.use_fast_dynamics is not False and cdyn.supports_model(robot.model)
+        # Collision pairs run on the generic path in both contact modes, as
+        # jiminy_tpu turns its fused paths off for them
+        self._has_pairs = bool(robot.collision_pairs_geom)
+        core = (opts.use_fast_dynamics is not False and not self._has_pairs
+                and cdyn.supports_model(robot.model))
         spherical = cdyn.has_spherical(robot.model)
         if core and self.has_constraints and not spherical:
             # Component CRBA/NLE for the PGS path; out of constraint contact
@@ -438,19 +445,29 @@ class Engine:
         """One generic dynamics evaluation (reference
         `Engine::computeRobotsDynamics`), plain torch on every device: forward
         kinematics at zero acceleration, the spring-damper contact forces,
-        the external forces, penalty bounds, then ABA, or the array-form PGS
-        solve over the constraint rows (warm-started and hysteresis-masked
-        from `carry`; None: all inactive). Returns (a, aux)."""
+        the external forces and the collision pairs' forces, penalty bounds,
+        then ABA, or the array-form PGS solve over the constraint rows
+        (warm-started and hysteresis-masked from `carry`; None: all
+        inactive). Returns (a, aux); with collision pairs aux holds
+        `pair_f_world` (..., np, 3) and `pair_depth` (..., np)."""
         robot = self.robot
         model = robot.model
         batch = torch.broadcast_shapes(q.shape[:-1], v.shape[:-1])
         nc = len(robot.contact_frame_indices)
         kin = None
-        if nc or self.has_constraints or self.constraint_mode:
+        if nc or self.has_constraints or self.constraint_mode or self._has_pairs:
             # The accelerations of FK at zero acceleration are the
             # velocity-bias terms of the constraint drifts
             kin = forward_kinematics(model, q, v, q.new_zeros(batch + (model.nv,)))
         fext_user = self.external_force_fn(t, q, v) if self.external_force_fn is not None else None
+        aux_pairs = {}
+        if self._has_pairs:
+            # Body-to-body spring-damper forces in both contact modes, as
+            # joint wrenches beside the external forces
+            fext_pairs, pair_f, pair_depth = compute_pair_forces(
+                model, self.options.contacts, kin, robot.collision_pairs_geom)
+            fext_user = fext_pairs if fext_user is None else fext_user + fext_pairs
+            aux_pairs = {"pair_f_world": pair_f, "pair_depth": pair_depth}
         u_motor, u = self._joint_torques(command, q, v)
         if self._has_joint_damping:
             u = u - model.tensor("damping", q.device, q.dtype) * v
@@ -477,7 +494,7 @@ class Engine:
             else:
                 a = dyn.aba(model, self.gravity, q, v, u, fext)
             return a, {"u_motor": u_motor, "contact_f_world": f_world,
-                       "contact_w_local": w_local, "contact_depth": depth, **aux_c}
+                       "contact_w_local": w_local, "contact_depth": depth, **aux_pairs, **aux_c}
 
         # Constraint contact mode: the contact forces are the multipliers,
         # written back in the normal basis (reference `engine.cc:3770-3857`)
@@ -499,7 +516,7 @@ class Engine:
             f_world = self._zeros(batch + (0, 3))
             w_local = self._zeros(batch + (0, 6))
         return a, {"u_motor": u_motor, "contact_f_world": f_world, "contact_w_local": w_local,
-                   "contact_depth": csys.contact_depth, "lam": lam,
+                   "contact_depth": csys.contact_depth, **aux_pairs, "lam": lam,
                    "contact_active": csys.contact_active, "bound_active": csys.bound_active}
 
     def _constrained_accel(self, q, v, u, fext, kin, carry):

@@ -11,13 +11,16 @@ extended model of the reference (`model.cc`, `robot.cc`): spherical
 flexibility joints inserted before the named joints, and a passive revolute
 backlash joint after each motor joint that declares play. The
 `theoretical_model` is the model before that surgery; the state maps carry
-positions and velocities between the two. Collision pairs are refused with
-the ROADMAP.md item that will port them.
+positions and velocities between the two. Collision pairs (body-to-body
+contact, `collision_pairs_geom`) resolve each named link to narrowphase
+geometries in its parent joint's frame: capsules (a sphere is one of zero
+length) and oriented boxes (a mesh's oriented bounding box).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -36,7 +39,11 @@ from jiminy_torch.engine.hardware import (
 )
 from jiminy_torch.models import joints as jt
 from jiminy_torch.models.model import RobotModel, build_model
-from jiminy_torch.models.urdf import build_model_from_urdf, parse_collision_geometries
+from jiminy_torch.models.urdf import (
+    build_model_from_urdf,
+    oriented_bounding_box,
+    parse_collision_geometries,
+)
 
 
 @dataclasses.dataclass(eq=False)
@@ -70,6 +77,10 @@ class Robot:
     # Rolling constraints: ((frame_name, radius, axis or None), ...); None is
     # a sphere, an axis (in the frame) a wheel
     rolling_specs: tuple = ()
+    # Body-to-body narrowphase pairs ((ga, gb), ...), each geometry
+    # (parent, "capsule", r, p0, p1) or (parent, "box", rot9, c, half) in its
+    # parent joint's frame (`_pair_geometries`, `contact.compute_pair_forces`)
+    collision_pairs_geom: tuple = ()
 
     def __post_init__(self):
         if self.theoretical_model is None:
@@ -167,11 +178,10 @@ class Robot:
         `flexibility`: [{joint_name (or frame_name), stiffness, damping,
         inertia}] (each a float or 3 floats), a spherical joint inserted
         before each named joint; a motor spec's `backlash` > 0 inserts a
-        backlash joint of that play after its joint."""
-        if collision_pairs:
-            raise NotImplementedError(
-                "collision pairs are not ported yet (ROADMAP.md queue 1 item 10)"
-            )
+        backlash joint of that play after its joint. `collision_pairs`:
+        [(link_a, link_b)], each name a collision body's frame or a contact
+        frame; a pair expands to every geometry of one side against every
+        geometry of the other (`contact.compute_pair_forces`)."""
         if isinstance(model_or_urdf, RobotModel):
             theoretical = model_or_urdf
         else:
@@ -215,6 +225,7 @@ class Robot:
             model, extra_idx, extra_radii = _expand_collision_bodies(model, collision_bodies)
             contact_idx = contact_idx + extra_idx
             radii += extra_radii
+        pair_geoms = _resolve_pairs(model, collision_bodies, contact_idx, collision_pairs)
         suite = _build_sensor_suite(model, bank, sensors or {}, contact_idx)
         return Robot(
             name=name,
@@ -231,7 +242,114 @@ class Robot:
                 (r["frame_name"], float(r["radius"]), tuple(r["axis"]) if "axis" in r else None)
                 for r in rolling_constraints
             ),
+            collision_pairs_geom=pair_geoms,
         )
+
+
+def _resolve_pairs(model: RobotModel, collision_bodies, contact_idx, collision_pairs) -> tuple:
+    """The geometry pairs of `collision_pairs`, with a warning for a pair
+    whose two sides are zero-radius points only (it can never push)."""
+    if not collision_pairs:
+        return ()
+    geoms_by_name = _pair_geometries(model, collision_bodies, contact_idx)
+
+    def geoms_of(nm: str) -> list:
+        gs = geoms_by_name.get(nm)
+        if not gs:
+            raise ValueError(f"collision pair link '{nm}' has no contact frame or collision body")
+        return gs
+
+    def nondegenerate(g) -> bool:
+        return g[1] == "box" or float(g[2]) > 0.0
+
+    pairs: list = []
+    for nm_a, nm_b in collision_pairs:
+        degenerate = True
+        for ga in geoms_of(nm_a):
+            for gb in geoms_of(nm_b):
+                pairs.append((ga, gb))
+                degenerate = degenerate and not (nondegenerate(ga) or nondegenerate(gb))
+        if degenerate:
+            warnings.warn(
+                f"collision pair ({nm_a!r}, {nm_b!r}) resolves to zero-radius geometries on "
+                "both sides: contact depth can never go negative, so the pair will never "
+                "generate force. Attach a sphere/capsule/box/cylinder/mesh collision body to at "
+                "least one side.",
+                stacklevel=3,
+            )
+    return tuple(pairs)
+
+
+def _compose_origin(model: RobotModel, spec) -> tuple:
+    """(rot0, pos0): a geometry's placement in its PARENT JOINT's frame, the
+    frame's placement composed with the spec's optional `origin`."""
+    fidx = model.frame_index(spec["frame_name"])
+    rot0 = np.asarray(model.fplacement_rot[fidx], np.float64)
+    pos0 = np.asarray(model.fplacement_pos[fidx], np.float64)
+    o_rot, o_pos = spec.get("origin", (np.eye(3), np.zeros(3)))
+    return rot0 @ np.asarray(o_rot, float), pos0 + rot0 @ np.asarray(o_pos, float)
+
+
+def _pair_geometries(model: RobotModel, specs, contact_idx) -> dict:
+    """Each link or frame name -> its narrowphase geometries for body-to-body
+    pairs, tagged tuples in the parent joint's frame:
+
+    - ``(parent, "capsule", radius, p0, p1)``: a sphere-swept segment (a
+      sphere of zero length; a cylinder its axis with its radius, a
+      round-capped overapproximation);
+    - ``(parent, "box", rot9, center3, half3)``: an oriented box, exact for
+      a box, a mesh's oriented bounding box (a flat or degenerate cloud
+      falls back to its points as zero-radius spheres).
+
+    A bare contact frame is a zero-radius point."""
+    out: dict = {}
+
+    def add(nm, parent, r, p0, p1):
+        out.setdefault(nm, []).append(
+            (int(parent), "capsule", float(r), tuple(map(float, p0)), tuple(map(float, p1))))
+
+    def add_box(nm, parent, rot, center, half):
+        out.setdefault(nm, []).append(
+            (int(parent), "box", tuple(float(x) for x in np.asarray(rot, float).ravel()),
+             tuple(map(float, center)), tuple(map(float, half))))
+
+    for spec in specs:
+        if not isinstance(spec, dict):
+            continue
+        nm = spec["frame_name"]
+        parent = model.frame_parents[model.frame_index(nm)]
+        rot0, pos0 = _compose_origin(model, spec)
+        geom = spec["geometry"]
+        if geom == "sphere":
+            add(nm, parent, spec["radius"], pos0, pos0)
+        elif geom in ("capsule", "cylinder"):
+            axis = _unit(spec.get("axis", (0.0, 0.0, 1.0)))
+            half = 0.5 * float(spec["length"])
+            add(nm, parent, spec["radius"], pos0 - rot0 @ (axis * half),
+                pos0 + rot0 @ (axis * half))
+        elif geom == "box":
+            add_box(nm, parent, rot0, pos0, [0.5 * float(s) for s in spec["size"]])
+        else:  # mesh or points: their oriented bounding box
+            pts = np.asarray([o for o, _ in _geometry_points(spec)], float)
+            if len(pts) >= 4 and np.linalg.matrix_rank(pts - pts.mean(0)) == 3:
+                corners = oriented_bounding_box(pts)
+                center = corners.mean(axis=0)
+                ax_x = 0.5 * (corners[4] - corners[0])
+                ax_y = 0.5 * (corners[2] - corners[0])
+                ax_z = 0.5 * (corners[1] - corners[0])
+                half = [np.linalg.norm(ax_x), np.linalg.norm(ax_y), np.linalg.norm(ax_z)]
+                rot = np.stack([ax_x / max(half[0], 1e-12), ax_y / max(half[1], 1e-12),
+                                ax_z / max(half[2], 1e-12)], axis=1)
+                add_box(nm, parent, rot0 @ rot, pos0 + rot0 @ center, half)
+            else:
+                for off in pts:
+                    add(nm, parent, 0.0, pos0 + rot0 @ off, pos0 + rot0 @ off)
+    for fi in contact_idx:  # plain contact frames, by their exact name
+        nm = model.frame_names[fi]
+        if nm not in out:
+            p = np.asarray(model.fplacement_pos[fi])
+            add(nm, model.frame_parents[fi], 0.0, p, p)
+    return out
 
 
 def _hull_downsample(points: np.ndarray, max_points: int) -> np.ndarray:

@@ -37,15 +37,8 @@ _REGISTRY = {
     "digit-pid": DigitPDControlEnv,
 }
 
-# jiminy_tpu's other ids and the ROADMAP.md queue 1 item that ports them
-_NOT_PORTED: dict = {}
-
 
 def make(name: str, device=None, dtype=None, **kwargs):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"env '{name}' is not ported yet (ROADMAP.md queue 1 item {_NOT_PORTED[name]})"
-        )
     try:
         ctor = _REGISTRY[name]
     except KeyError:

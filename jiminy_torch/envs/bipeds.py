@@ -4,8 +4,8 @@ Digit with the passive shin joints locked and the pushrod loop closures as
 distance constraints, the toe meshes' lowest box corners as contact points;
 Atlas with the foot boxes' corner contact points pruned to the support hull,
 and its reduced variant with every non-leg joint locked at the posed
-configuration. The procedural builders are not ported yet (ROADMAP.md queue
-1 item 10).
+configuration. `procedural=True` takes the parametric look-alikes
+(`envs/builders_bipeds.py`) instead.
 """
 
 from __future__ import annotations
@@ -19,48 +19,55 @@ from jiminy_torch.gym.blocks import PDController
 from jiminy_torch.gym.pipeline import ControlledEnv
 
 
-def _refuse_procedural(procedural: bool, name: str) -> None:
-    if procedural:
-        raise NotImplementedError(
-            f"the procedural {name} builder is not ported yet (ROADMAP.md queue 1 item 10)"
-        )
-
-
 class CassieEnv(WalkerEnv):
     """Cassie biped with the pushrod loop closures (reference
-    `CassieJiminyEnv`, `cassie.py:67-140`)."""
+    `CassieJiminyEnv`, `cassie.py:67-140`); `procedural`: the look-alike
+    of `builders_bipeds.build_cassie`."""
 
     def __init__(self, step_dt: float = 0.04, horizon: int = 500, procedural: bool = False,
                  **kw):
-        _refuse_procedural(procedural, "Cassie")
-        robot = assets.load_robot("cassie")
+        if procedural:
+            robot = bb.build_cassie()
+            q0 = bb.cassie_standing_pose(robot.model)
+        else:
+            robot = assets.load_robot("cassie")
+            q0 = assets.nominal_pose("cassie", robot.model)
         kw.setdefault("base_height_min", 0.5)
         kw.setdefault("simulation_dt", 5.0e-4)
-        super().__init__(robot, assets.nominal_pose("cassie", robot.model), step_dt=step_dt,
-                         horizon=horizon, **kw)
+        super().__init__(robot, q0, step_dt=step_dt, horizon=horizon, **kw)
 
 
 class DigitEnv(WalkerEnv):
-    """Digit biped (reference `DigitJiminyEnv`, `digit.py:85`)."""
+    """Digit biped (reference `DigitJiminyEnv`, `digit.py:85`); `procedural`:
+    the look-alike of `builders_bipeds.build_digit`."""
 
     def __init__(self, step_dt: float = 0.04, horizon: int = 500, procedural: bool = False,
                  **kw):
-        _refuse_procedural(procedural, "Digit")
-        robot = assets.load_robot("digit")
+        if procedural:
+            robot = bb.build_digit()
+            q0 = bb.cassie_standing_pose(robot.model)
+            q0[2] = 1.0
+        else:
+            robot = assets.load_robot("digit")
+            q0 = assets.nominal_pose("digit", robot.model)
         kw.setdefault("base_height_min", 0.55)
         kw.setdefault("simulation_dt", 5.0e-4)
-        super().__init__(robot, assets.nominal_pose("digit", robot.model), step_dt=step_dt,
-                         horizon=horizon, **kw)
+        super().__init__(robot, q0, step_dt=step_dt, horizon=horizon, **kw)
 
 
 class AtlasEnv(WalkerEnv):
-    """Atlas humanoid (reference `AtlasJiminyEnv`, `atlas.py:113`)."""
+    """Atlas humanoid (reference `AtlasJiminyEnv`, `atlas.py:113`);
+    `procedural`: the look-alike of `builders_bipeds.build_atlas`."""
 
     def __init__(self, step_dt: float = 0.04, horizon: int = 500,
                  reduced: bool = False, procedural: bool = False, **kw):
-        _refuse_procedural(procedural, "Atlas")
-        robot = assets.load_robot("atlas", lock_joints=_atlas_lock_angles() if reduced else ())
-        q0 = assets.nominal_pose("atlas", robot.model)
+        if procedural:
+            robot = bb.build_atlas(reduced=reduced)
+            q0 = bb.atlas_standing_pose(robot.model)
+        else:
+            robot = assets.load_robot("atlas",
+                                      lock_joints=_atlas_lock_angles() if reduced else ())
+            q0 = assets.nominal_pose("atlas", robot.model)
         kw.setdefault("base_height_min", 0.55)
         kw.setdefault("simulation_dt", 5.0e-4)
         super().__init__(robot, q0, step_dt=step_dt, horizon=horizon, **kw)

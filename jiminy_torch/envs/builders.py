@@ -1,12 +1,11 @@
 """Procedural robot builders and nominal poses of the packaged robots (port
-of `jiminy_tpu.envs.builders`: the toys, the ANYmal and
+of `jiminy_tpu.envs.builders`: the toys, the ant, the ANYmal and
 `anymal_standing_pose`).
 
 The builders re-create the robots parametrically (no asset file), handy for
 randomizing link geometry; the toy envs take them with `procedural=True`,
-the ANYmal env with `procedural=True` or `flexible=True`. The ant's and the
-bipeds' procedural look-alikes are not ported yet (ROADMAP.md queue 1 item
-10).
+the ant env with `procedural=True`, the ANYmal env with `procedural=True` or
+`flexible=True`; the bipeds' look-alikes are in `builders_bipeds`.
 """
 
 from __future__ import annotations
@@ -121,6 +120,97 @@ def _rod_inertia(m, length, axis=2):
     diag = [i, i, i]
     diag[axis] = 1e-6 * m
     return np.diag(diag)
+
+
+def build_ant() -> Robot:
+    """A MuJoCo-style ant: a free-flyer torso and 4 legs of a hip (z) and a
+    knee (horizontal, across the leg), 8 actuated dofs, point contacts at
+    the 4 feet (reference `ant.py`)."""
+    torso_m = 10.0
+    hip_r = 0.2
+    thigh_l, shank_l = 0.2, 0.4
+    leg_m = 1.0
+    joint_specs = [
+        {
+            "name": "root_joint",
+            "type": JointType.FREE,
+            "parent": -1,
+            "mass": torso_m,
+            "com": np.zeros(3),
+            "inertia": np.eye(3) * torso_m * 0.02,
+        }
+    ]
+    frame_specs = []
+    dirs = {
+        "fl": np.array([1.0, 1.0, 0.0]) / np.sqrt(2),
+        "fr": np.array([1.0, -1.0, 0.0]) / np.sqrt(2),
+        "bl": np.array([-1.0, 1.0, 0.0]) / np.sqrt(2),
+        "br": np.array([-1.0, -1.0, 0.0]) / np.sqrt(2),
+    }
+    contact_frames = []
+    for leg, d in dirs.items():
+        hip_pos = hip_r * d
+        # Hip: rotate about z
+        hip_idx = len(joint_specs)
+        joint_specs.append(
+            {
+                "name": f"hip_{leg}",
+                "type": JointType.REVOLUTE,
+                "parent": 0,
+                "placement": (np.eye(3), hip_pos),
+                "axis": np.array([0.0, 0.0, 1.0]),
+                "mass": leg_m / 2,
+                "com": d * thigh_l / 2,
+                "inertia": np.eye(3) * 1e-3,
+                "position_limit": (np.array([-0.6]), np.array([0.6])),
+                "effort_limit": 30.0,
+                "velocity_limit": 30.0,
+            }
+        )
+        # Knee: rotate about the horizontal axis orthogonal to the leg direction
+        axis_knee = np.cross(np.array([0.0, 0.0, 1.0]), d)
+        knee_idx = len(joint_specs)
+        joint_specs.append(
+            {
+                "name": f"knee_{leg}",
+                "type": JointType.REVOLUTE,
+                "parent": hip_idx,
+                "placement": (np.eye(3), d * thigh_l),
+                "axis": axis_knee,
+                "mass": leg_m / 2,
+                "com": d * shank_l / 2 - np.array([0, 0, 0.1]),
+                "inertia": np.eye(3) * 1e-3,
+                "position_limit": (np.array([0.5]), np.array([1.4])),
+                "effort_limit": 30.0,
+                "velocity_limit": 30.0,
+            }
+        )
+        foot = f"foot_{leg}"
+        frame_specs.append(
+            {
+                "name": foot,
+                "parent": knee_idx,
+                "placement": (np.eye(3), d * shank_l - np.array([0, 0, 0.2])),
+            }
+        )
+        contact_frames.append(foot)
+    frame_specs.append({"name": "torso", "parent": 0, "placement": (np.eye(3), np.zeros(3))})
+    model = build_model("ant", joint_specs, frame_specs)
+    motors = [
+        {"joint_name": f"{j}_{leg}", "effort_limit": 30.0}
+        for leg in dirs
+        for j in ("hip", "knee")
+    ]
+    return Robot.build(
+        model,
+        motors=motors,
+        sensors={
+            "encoder": [{"motor_name": f"{j}_{leg}"} for leg in dirs for j in ("hip", "knee")],
+            "imu": [{"frame_name": "torso"}],
+            "contact": [{"frame_name": f"foot_{leg}"} for leg in dirs],
+        },
+        contact_frames=contact_frames,
+    )
 
 
 def build_cartpole(cart_mass=1.0, pole_mass=0.1, pole_length=0.5, force_max=10.0) -> Robot:

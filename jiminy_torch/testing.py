@@ -23,7 +23,11 @@ put states on it at distinct (x, y). `fourbar_robot` builds jiminy_tpu's two
 Cassie-shaped test models (a four-bar linkage closed by a distance loop,
 with a spring-damper foot and a bounded joint in the second);
 `loop_inputs` draws states and command rows for a robot with loop closures
-beside its spring-damper contacts (Digit, the four-bars).
+beside its spring-damper contacts (Digit, the four-bars). `forest_robots`
+are the ANYmal and the acrobot, merged by the multi-robot engine into a
+forest (two joints at depth 0), `forest_states` seeded states of it;
+`with_link_pairs` gives a packaged robot collision pairs between URDF
+links (the Atlas's feet: box-box).
 """
 
 from __future__ import annotations
@@ -418,3 +422,46 @@ def loop_inputs(eng, q0, batch: int, seed: int, device=None, dtype=None, drop: f
         return torch.as_tensor(x, dtype=dtype, device=device)
 
     return t(q), t(v), t(cmd), t(np.concatenate([dref, lam, masks], axis=1))
+
+
+def forest_robots() -> dict:
+    """{"anymal": the ANYmal (FREE root, 12 motors, 4 feet), "acrobot": the
+    acrobot look-alike}: merged in this order, the ANYmal's FREE root is
+    joint 0 and the acrobot's shoulder a second root."""
+    from jiminy_torch.envs import assets, builders
+
+    return {"anymal": assets.load_robot("anymal"), "acrobot": builders.build_acrobot()}
+
+
+def forest_states(multi, nominal_q, batch: int, seed: int, device=None, dtype=None) -> dict:
+    """Per-robot initial (q, v) of the ANYmal + acrobot forest from a numpy
+    seed: the ANYmal at `nominal_q` (its env's standing pose) with joint
+    offsets of 0.05 rad and velocities of 0.1, the acrobot at random angles
+    and velocities of 1 rad/s."""
+    rng = np.random.default_rng(seed)
+    nominal_q = np.asarray(torch.as_tensor(nominal_q).cpu(), np.float64)
+    q_an = np.tile(nominal_q, (batch, 1))
+    q_an[:, 7:] += rng.normal(size=(batch, nominal_q.size - 7)) * 0.05
+    v_an = rng.normal(size=(batch, multi.robots["anymal"].nv)) * 0.1
+    q_ac = rng.uniform(-np.pi, np.pi, size=(batch, 2))
+    v_ac = rng.normal(size=(batch, 2))
+
+    def t(x):
+        return torch.as_tensor(x, dtype=dtype or torch.float64, device=device)
+
+    return {"anymal": t(q_an), "acrobot": t(q_ac)}, {"anymal": t(v_an), "acrobot": t(v_ac)}
+
+
+def with_link_pairs(robot, urdf: str, pairs) -> "object":
+    """`robot` (built from `urdf`, e.g. `envs.assets.load_robot`) with
+    collision pairs between links, each side the link's `<collision>`
+    geometries from the URDF (boxes, spheres, capsules, cylinders, meshes'
+    oriented boxes) on the link's frame of the robot's model."""
+    from jiminy_torch.engine.robot import _pair_geometries
+    from jiminy_torch.models.urdf import parse_collision_geometries
+
+    geoms = parse_collision_geometries(urdf)
+    links = sorted({n for pair in pairs for n in pair})
+    by_name = _pair_geometries(robot.model, [g for n in links for g in geoms[n]], ())
+    geom_pairs = tuple((ga, gb) for a, b in pairs for ga in by_name[a] for gb in by_name[b])
+    return dataclasses.replace(robot, collision_pairs_geom=geom_pairs)

@@ -213,18 +213,17 @@ def test_atlas_spring_section_has_wide_depths(envs):
 
 
 def test_atlas_entry_points_refuse_what_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        t_make("atlas-pid", device="cpu", procedural=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        t_make("ant", device="cpu", procedural=True)
-    for name in ("cassie-pid", "digit"):  # ported: their procedural builders are not
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-            t_make(name, device="cpu", procedural=True)
+    # The procedural look-alikes are ported: each env builds jiminy_tpu's robot
+    for name in ("atlas-pid", "ant", "cassie-pid", "digit"):
+        t_model = t_make(name, device="cpu", procedural=True).robot.model
+        j_model = j_make(name, procedural=True).robot.model
+        assert t_model.joint_names == tuple(j_model.joint_names), name
+        np.testing.assert_array_equal(t_model.mass, np.asarray(j_model.mass))
     # The toys are ported (ROADMAP.md queue 1 item 8, first half)
     assert t_make("cartpole", device="cpu").action_size == 1
     # The other collision primitives are ported (the hands' spheres, the
-    # arms' cylinders: radius-r and rim points as jiminy_tpu builds them);
-    # collision pairs are not
+    # arms' cylinders: radius-r and rim points as jiminy_tpu builds them),
+    # and so are collision pairs (the feet's boxes, box-box SAT)
     urdf = t_assets.urdf_path("atlas")
     for link in ("l_hand", "l_ufarm"):
         tr = TRobot.build(urdf, has_freeflyer=True, collision_bodies=[link])
@@ -232,8 +231,11 @@ def test_atlas_entry_points_refuse_what_is_not_ported(monkeypatch):
         assert tr.contact_radii == tuple(jr.contact_radii) and tr.contact_radii
         assert tr.contact_frame_indices == tuple(jr.contact_frame_indices)
         _assert_same_model(tr.model, jr.model)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        TRobot.build(urdf, has_freeflyer=True, collision_pairs=[("l_foot", "r_foot")])
+    pairs = dict(collision_bodies=["l_foot", "r_foot"], collision_pairs=[("l_foot", "r_foot")])
+    tr = TRobot.build(urdf, has_freeflyer=True, **pairs)
+    jr = JRobot.build(urdf, has_freeflyer=True, **pairs)
+    assert tr.collision_pairs_geom == tuple(jr.collision_pairs_geom)
+    assert {g[1] for pair in tr.collision_pairs_geom for g in pair} == {"box"}
     # No device and no card: the entry point runs on the card or raises
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -405,12 +405,20 @@ def test_biped_env_ids_build_and_reset(name, action):
 
 
 def test_unported_biped_options_raise_not_implemented():
-    """The procedural builders are not ported (the ant's neither); rolling
+    """The procedural builders are ported (the ant's too): each env builds
+    the robot jiminy_tpu builds, the procedural Cassie the constrained core
+    where the URDF one takes the generic path (no continuous joint); rolling
     rows beside a four-bar's loop pack for the kernels' extended body, the
     rolling block after the loop's."""
     for name in ("ant", "cassie-pid", "digit"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-            t_make(name, device="cpu", procedural=True)
+        t_env = t_make(name, device="cpu", procedural=True)
+        j_env = j_make(name, procedural=True)
+        t_model, j_model = t_env.robot.model, j_env.robot.model
+        assert t_model.joint_names == tuple(j_model.joint_names)
+        np.testing.assert_array_equal(t_model.jplacement_pos, np.asarray(j_model.jplacement_pos))
+        assert t_env.robot.loop_pairs == tuple(j_env.robot.loop_pairs)
+        engine = t_env.env.engine if hasattr(t_env, "env") else t_env.engine
+        assert (engine._cdyn_cm is not None) == (name != "ant")
     eng = TEngine(fourbar_robot(True), fourbar_options(True), device="cpu", dtype=torch.float64)
     for cset, wheel in (
         (dataclasses.replace(eng.cset, sphere_specs=((2, 0.02),)), 0),

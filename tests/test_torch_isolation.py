@@ -52,6 +52,7 @@ def test_port_imports_neither_jax_nor_jiminy_tpu():
     assert "jiminy_torch.models.urdf" in mods and "jiminy_torch.envs.assets" in mods
     assert "jiminy_torch.envs.ant" in mods and "jiminy_torch.engine.robot" in mods
     assert "jiminy_torch.engine.internal" in mods and "jiminy_torch.envs.builders" in mods
+    assert "jiminy_torch.engine.merge" in mods and "jiminy_torch.engine.multi" in mods
     for m in ("rl.ppo", "rl.evaluate", "rl.checkpoint", "rl.networks", "gym.wrappers",
               "telemetry.trajectory", "utils", "utils.terrain"):
         assert f"jiminy_torch.{m}" in mods, m
@@ -87,7 +88,7 @@ def env():
 def test_make_without_device_raises_without_a_card(monkeypatch):
     from jiminy_torch import envs
 
-    assert not envs._NOT_PORTED and "ant" in envs._REGISTRY
+    assert not hasattr(envs, "_NOT_PORTED") and "ant" in envs._REGISTRY
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for name in ("anymal-pid", "ant"):
         with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -95,6 +96,33 @@ def test_make_without_device_raises_without_a_card(monkeypatch):
     monkeypatch.setattr(kernels, "_LIBRARY", None)
     with pytest.raises(RuntimeError, match="CUDA device"):
         kernels.load()
+
+
+def test_multi_simulator_is_refused_naming_its_item():
+    """The multi-robot engine is ported; the simulator facade over it is
+    not (ROADMAP.md queue 1 item 14)."""
+    from jiminy_torch.engine.multi import MultiRobotEngine, MultiSimulator
+
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 14"):
+        MultiSimulator({})
+    assert callable(MultiRobotEngine.register_collision_pair)
+
+
+def test_new_modules_import_neither_jax_nor_jiminy_tpu():
+    """The collision pairs, the multi-robot engine and the look-alike
+    builders, imported alone, load neither JAX nor jiminy_tpu."""
+    mods = ["jiminy_torch.engine.merge", "jiminy_torch.engine.multi",
+            "jiminy_torch.engine.contact", "jiminy_torch.envs.builders_bipeds",
+            "jiminy_torch.envs.builders"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'jaxlib', 'jiminy_tpu'))\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT), timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_unported_training_options_raise_not_implemented():
@@ -426,3 +454,87 @@ def test_loop_closure_entry_points_run_on_the_card_and_never_fall_back(monkeypat
             make(name)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Engine(fourbar_robot(False), fourbar_options(False))
+
+
+def test_forest_spring_section_has_two_roots():
+    """The ANYmal + acrobot forest of the multi-robot engine: the spring
+    kernels' tree (`spring_section`) has two slots at depth 0, the ANYmal's
+    FREE root (joint 0) and the acrobot's shoulder, both with parent slot
+    -1; the constrained kernels read the same roots from the packed
+    parents (-1)."""
+    from jiminy_torch.engine.multi import MultiRobotEngine
+    from jiminy_torch.testing import forest_robots
+
+    base = make("anymal-pid", device="cpu", dtype=torch.float64).engine.options
+    for opts in (base, constraint_mode_options(base)):
+        eng = MultiRobotEngine(forest_robots(), opts, device="cpu").engine
+        cd = eng._cdyn if eng._cdyn is not None else eng._cdyn_cm
+        model = eng.robot.model
+        roots = [j for j, p in enumerate(model.parents) if p < 0]
+        assert roots == [0, 13] and model.joint_types[0] == 0  # FREE first
+        sec = cdyn.spring_section(cd, eng._tau_c)
+        nlev, nj = sec[0], model.njoints
+        lstart = sec[2:3 + nlev]
+        jorder = sec[3 + nlev:3 + nlev + nj]
+        pslot = sec[3 + nlev + 2 * nj:3 + nlev + 3 * nj]
+        assert lstart[1] - lstart[0] == 2 and jorder[:2] == roots
+        assert pslot[:2] == [-1, -1] and all(p >= 0 for p in pslot[2:])
+        packed = cd.pack(eng._tau_c, 1e-3, eng._imu_frames, "cpu", torch.float64)
+        joints = packed.ci.numpy()[cdyn.CI_HEADER:cdyn.CI_HEADER + cdyn.CI_JOINT * nj]
+        assert [int(j) for j in range(nj) if joints[cdyn.CI_JOINT * j] < 0] == roots
+
+
+def _cm_layout_bytes(nj, nq, nv, n, nc, nb, ns, nd, ncs, nr, n_cmd, n_act, n_blk, elt):
+    """`CmLayout(...).bytes` padded by `cm_env_stride` (csrc/pgs.cuh, at
+    CM_LANES = 8): one env's slice of the constrained kernels."""
+    off = 0
+
+    def take(count, size):
+        nonlocal off
+        off += (count * size + 15) // 16 * 16
+
+    take(max(72 * nj, n * nv + n * (n + 1) // 2), elt)  # tree passes / W and A
+    for count in (n * ns, nv * (nv + 1) // 2, nv, nv, nv, nv, nq, nv, nv, n, n, n, nc, 3 * n):
+        take(count, elt)
+    for count in (n, n, n, n, 4, nc, nj, nj + 1):
+        take(count, 4)
+    take(3 * (nc + nb), 1)
+    for count in (nd, 6 * ncs, nr, nq, nv, nv, nv, n_cmd, n_act, n_blk):
+        take(count, elt)
+    words = off // 4
+    want = (8 * elt // 4) % 32
+    return 4 * (words + (want - words % 32 + 32) % 32)
+
+
+def test_procedural_cassie_constrained_slice_follows_its_rows(monkeypatch):
+    """The procedural Cassie (no continuous joint) takes the constrained
+    kernels' extended body: 2 loop rows and nothing else as rows, its 4 toe
+    contacts as spring-damper forces and its 10 penalty bounds in the core;
+    the slice `cm_smem_per_env` asks the library for is the one those counts
+    give (`CmLayout`)."""
+    env = make("cassie-pid", device="cpu", dtype=torch.float64, procedural=True)
+    eng = env.env.engine
+    cset = eng.cset
+    assert (cset.total_rows, cset.n_distance, cset.n_contacts, cset.n_bounds) == (2, 2, 0, 0)
+    run = eng._get_period_run("rk4")
+    asked = []
+
+    class Lib:
+        def cm_smem_bytes(self, *args):
+            asked.append(args)
+            return _cm_layout_bytes(*args)
+
+    monkeypatch.setattr(kernels, "load", lambda *a, **k: Lib())
+    for dtype, elt in ((torch.float32, 4), (torch.float64, 8)):
+        packed = eng._cdyn_cm.pack(eng._tau_c, run.dt, eng._imu_frames, "cpu", dtype)
+        cpk = solver.pack_constraints(eng._cdyn_cm, cset, eng._solver_opts, "cpu", dtype)
+        k, c = cpk.counts, packed.counts
+        assert (k["n_rows"], k["nd_rows"], k["nc_rows"], k["nb_rows"], k["nr_rows"]) == (
+            2, 2, 0, 0, 0)
+        assert (c["nc"], c["nb"], c["nm"]) == (4, len(eng._bound_gains), 10) and c["nb"] == 10
+        assert solver.cm_ext(packed, cpk) == 1
+        smem = solver.cm_smem_per_env(packed, cpk, dtype, run.n_cmd)
+        model = eng.robot.model
+        want = (model.njoints, model.nq, model.nv, 2, 0, 0, k["support_width"], 2, 4, 0,
+                run.n_cmd, 0, 0, elt)
+        assert asked[-1] == want and smem == _cm_layout_bytes(*want)
